@@ -1,0 +1,119 @@
+"""Synthetic non-IID CTR data, the port of ``repro.data.synthetic``'s CTR
+generator.
+
+K workers, each with its own data distribution D^(k) (Section 3.1): sparse
+categorical fields with a planted factorization-machine teacher, so AUC is
+meaningful. :func:`make_ctr_task` is numpy and equal to the JAX package's;
+the batches are drawn from a ``torch.Generator`` on the target device with
+the same non-IID skew formula, so they are not the JAX package's bits.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class CTRTask:
+    """A planted DeepFM-style teacher over sparse categorical fields."""
+    n_features: int
+    n_fields: int
+    embed_dim: int
+    teacher_embed: np.ndarray   # (n_features, embed_dim)
+    teacher_linear: np.ndarray  # (n_features,)
+    field_offsets: np.ndarray   # (n_fields,) feature-id range starts
+    field_sizes: np.ndarray
+
+
+def make_ctr_task(seed: int, n_fields: int = 13,
+                  features_per_field: int = 100,
+                  embed_dim: int = 10) -> CTRTask:
+    rng = np.random.default_rng(seed)
+    n_features = n_fields * features_per_field
+    return CTRTask(
+        n_features=n_features,
+        n_fields=n_fields,
+        embed_dim=embed_dim,
+        teacher_embed=rng.normal(0, 0.3, (n_features, embed_dim)),
+        teacher_linear=rng.normal(0, 0.3, (n_features,)),
+        field_offsets=np.arange(n_fields) * features_per_field,
+        field_sizes=np.full(n_fields, features_per_field),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class CTRTeacher:
+    """A task's teacher as f32 tensors on one device, copied there once."""
+    n_fields: int
+    embed: torch.Tensor
+    linear: torch.Tensor
+    offsets: torch.Tensor
+    sizes: torch.Tensor
+
+
+def ctr_teacher(task: CTRTask, device: "str | torch.device" = "cuda"
+                ) -> CTRTeacher:
+    dev = resolve_device(device)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    return CTRTeacher(
+        n_fields=task.n_fields, embed=f32(task.teacher_embed),
+        linear=f32(task.teacher_linear),
+        offsets=torch.as_tensor(task.field_offsets, dtype=torch.int32,
+                                device=dev),
+        sizes=f32(task.field_sizes))
+
+
+def _draw(teacher: CTRTeacher, gen: torch.Generator, batch: int,
+          centers: Optional[torch.Tensor], n_rows: int, skew: float
+          ) -> Dict[str, torch.Tensor]:
+    """``n_rows`` workers' batches; ``centers`` (n_rows,) are the workers'
+    preferred positions in each field's range (None: IID)."""
+    dev = teacher.embed.device
+    shape = (n_rows, batch, teacher.n_fields)
+    u = torch.rand(shape, generator=gen, device=dev)
+    if centers is not None:
+        noise = torch.randn(shape, generator=gen, device=dev)
+        # workers concentrate on different parts of each field's range
+        u = (1 - skew) * u + skew * torch.clamp(
+            centers.view(-1, 1, 1) + 0.15 * noise, 0, 0.999)
+    ids = teacher.offsets + (u * teacher.sizes).to(torch.int32)
+    # teacher logit: FM(ids)
+    emb = teacher.embed[ids.long()]
+    lin = torch.sum(teacher.linear[ids.long()], dim=-1)
+    s = torch.sum(emb, dim=2)
+    s2 = torch.sum(emb * emb, dim=2)
+    logit = lin + 0.5 * torch.sum(s * s - s2, dim=-1)
+    label = torch.bernoulli(torch.sigmoid(logit), generator=gen)
+    return {"feat_ids": ids, "label": label.to(torch.int32)}
+
+
+def ctr_batch(teacher: CTRTeacher, gen: torch.Generator, batch: int,
+              worker: int = 0, n_workers: int = 1, skew: float = 0.5
+              ) -> Dict[str, torch.Tensor]:
+    """{'feat_ids': (B, F) int32, 'label': (B,) int32}. Non-IID: each
+    worker draws field values near its own slice of every field's range."""
+    centers = None
+    if n_workers > 1 and skew > 0:
+        centers = torch.tensor([(worker + 0.5) / n_workers],
+                               device=teacher.embed.device)
+    out = _draw(teacher, gen, batch, centers, 1, skew)
+    return {k: x[0] for k, x in out.items()}
+
+
+def ctr_batch_stacked(teacher: CTRTeacher, gen: torch.Generator, K: int,
+                      per_worker: int, skew: float = 0.5
+                      ) -> Dict[str, torch.Tensor]:
+    """All K workers' batches at once: (K, per_worker, F) ids and
+    (K, per_worker) labels."""
+    centers = None
+    if K > 1 and skew > 0:
+        centers = (torch.arange(K, device=teacher.embed.device) + 0.5) / K
+    return _draw(teacher, gen, per_worker, centers, K, skew)

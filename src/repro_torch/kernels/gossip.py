@@ -1,0 +1,213 @@
+"""Gossip over the resident packed state: CUDA kernel wrappers and plain
+versions.
+
+``gossip_mix`` replaces ``src/repro/kernels/gossip.py:gossip_mix``
+(``_mix_kernel``, ``pallas_call`` at line 124)::
+
+    out[k] = w_self * x[k] + sum_j w_j * x[src_j(k)]
+
+accumulated in f32, the self term first, then the offsets in order.
+
+``gossip_adam_mix`` replaces ``src/repro/kernels/gossip.py:gossip_adam_mix``
+(``_gossip_adam_kernel``, ``pallas_call`` at line 258): the Adam half-step
+of worker k and of each source worker, each rounded to p's dtype, mixed as
+above; returns (mixed p, worker k's own m, v). It agrees with the two-pass
+``fused_adam`` -> ``gossip_mix`` sequence within f32 rounding; it is not
+held to be bit for bit equal.
+
+Both are bound by bytes on the H100; ``csrc/gossip.cu`` says what the
+design reads against the least it must. ``src_j(k)`` comes from a
+``(deg, K)`` int32 table built once per topology from
+:func:`~repro_torch.core.topology.offset_perm`, so ring offsets and torus
+``GridShift`` offsets take one path. ``kernels.ops`` picks the kernel for
+CUDA tensors and the plain version for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.topology import GridShift, offset_perm
+from repro_torch.kernels import _build
+from repro_torch.kernels.fused_adam import (adam_consts, adam_half_step_plain,
+                                            check_f32_cuda, f32)
+from repro_torch.kernels.pack import LANE
+
+# the shared-memory source table of gossip_mix holds this many offsets;
+# denser graphs take the einsum in core.dadam.gossip_packed
+MAX_FUSED_DEGREE = 32
+# gossip_adam_mix reads 4 * (deg + 1) operand buffers per output; denser
+# graphs take the two-pass sequence
+MAX_GOSSIP_ADAM_DEGREE = 8
+
+Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _check_buf(x: torch.Tensor) -> int:
+    if x.dim() != 3 or x.shape[-1] != LANE:
+        raise ValueError(f"expected a stacked (K, rows, {LANE}) packed "
+                         f"buffer; got shape {tuple(x.shape)}")
+    return x.shape[0]
+
+
+def _offsets(offsets, offset_weights) -> Tuple[tuple, Tuple[float, ...]]:
+    offs = tuple(s if isinstance(s, GridShift) else int(s) for s in offsets)
+    weights = tuple(float(w) for w in offset_weights)
+    if len(offs) != len(weights):
+        raise ValueError("offsets and offset_weights must align")
+    return offs, weights
+
+
+@functools.lru_cache(maxsize=64)
+def mix_table(offsets: tuple, offset_weights: Tuple[float, ...],
+              self_weight: float, K: int, device: torch.device
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(src, weights)`` on ``device``: ``src[j, k]`` is the worker whose
+    value worker k reads under offset j (int32, ``(deg, K)``);
+    ``weights`` is ``(self_weight, *offset_weights)`` in f32. Built once
+    per topology and device."""
+    src = np.stack([offset_perm(s, K) for s in offsets]) if offsets \
+        else np.zeros((0, K))
+    w = np.asarray((self_weight,) + tuple(offset_weights), np.float32)
+    return (torch.as_tensor(src.astype(np.int32), device=device),
+            torch.as_tensor(w, device=device))
+
+
+def gossip_mix_plain(x: torch.Tensor, offsets: Sequence,
+                     offset_weights: Sequence[float],
+                     self_weight: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gossip_mix`, op by op."""
+    K = _check_buf(x)
+    offs, weights = _offsets(offsets, offset_weights)
+    if not offs:
+        return x
+    src, _ = mix_table(offs, weights, float(self_weight), K, x.device)
+    acc = f32(self_weight) * x.to(torch.float32)
+    for j, w in enumerate(weights):
+        acc = acc + f32(w) * x.index_select(0, src[j]).to(torch.float32)
+    return acc.to(x.dtype)
+
+
+def gossip_adam_mix_plain(p, g, m, v, offsets: Sequence,
+                          offset_weights: Sequence[float],
+                          self_weight: float, *, eta: float,
+                          beta1: float = 0.9, beta2: float = 0.999,
+                          tau: float = 1e-6,
+                          weight_decay: float = 0.0) -> Tensors3:
+    """Plain PyTorch version of :func:`gossip_adam_mix`, op by op: every
+    worker's half-step, rounded to p's dtype, then the mix in f32."""
+    K = _check_gossip_adam(p, g, m, v, offsets, offset_weights)
+    offs, weights = _offsets(offsets, offset_weights)
+    src, _ = mix_table(offs, weights, float(self_weight), K, p.device)
+    po, mo, vo = adam_half_step_plain(p, g, m, v, eta=eta, beta1=beta1,
+                                      beta2=beta2, tau=tau,
+                                      weight_decay=weight_decay)
+    half = po.to(p.dtype).to(torch.float32)
+    acc = f32(self_weight) * half
+    for j, w in enumerate(weights):
+        acc = acc + f32(w) * half.index_select(0, src[j])
+    return acc.to(p.dtype), mo.to(m.dtype), vo.to(v.dtype)
+
+
+def _check_gossip_adam(p, g, m, v, offsets, offset_weights) -> int:
+    K = _check_buf(p)
+    for name, b in (("g", g), ("m", m), ("v", v)):
+        if b.shape != p.shape:
+            raise ValueError(f"{name} shape {tuple(b.shape)} != p "
+                             f"{tuple(p.shape)}")
+    deg = len(tuple(offsets))
+    if deg == 0:
+        raise ValueError("gossip_adam_mix needs at least one offset; "
+                         "offset-free topologies have no mix to fuse "
+                         "(use fused_adam)")
+    if deg > MAX_GOSSIP_ADAM_DEGREE:
+        raise ValueError(
+            f"degree {deg} > MAX_GOSSIP_ADAM_DEGREE="
+            f"{MAX_GOSSIP_ADAM_DEGREE}; the dispatcher should take the "
+            "two-pass sequence for denser graphs")
+    if len(tuple(offset_weights)) != deg:
+        raise ValueError("offsets and offset_weights must align")
+    return K
+
+
+def _check_aligned(*ts: torch.Tensor) -> None:
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("the gossip kernels load 16 bytes at a time and "
+                         "need 16-byte aligned buffers")
+
+
+@functools.lru_cache(maxsize=None)
+def _entries():
+    lib = _build.load("gossip")
+    mix = lib.gossip_mix_f32
+    mix.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                    + [ctypes.c_longlong, ctypes.c_void_p])
+    mix.restype = ctypes.c_int
+    gam = lib.gossip_adam_mix_f32
+    gam.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+                    + [ctypes.c_longlong] + [ctypes.c_float] * 7
+                    + [ctypes.c_void_p])
+    gam.restype = ctypes.c_int
+    return mix, gam
+
+
+def gossip_mix(x: torch.Tensor, offsets: Sequence,
+               offset_weights: Sequence[float],
+               self_weight: float) -> torch.Tensor:
+    """Launch the CUDA mix on a contiguous f32 ``(K, rows, 128)`` CUDA
+    buffer; the output is a new tensor."""
+    K = _check_buf(x)
+    offs, weights = _offsets(offsets, offset_weights)
+    if not offs:
+        return x
+    if len(offs) > MAX_FUSED_DEGREE:
+        raise ValueError(f"degree {len(offs)} > MAX_FUSED_DEGREE="
+                         f"{MAX_FUSED_DEGREE}; take the einsum")
+    check_f32_cuda(x)
+    src, w = mix_table(offs, weights, float(self_weight), K, x.device)
+    out = torch.empty_like(x)
+    _check_aligned(x, out)
+    mix, _ = _entries()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = mix(x.data_ptr(), out.data_ptr(), src.data_ptr(),
+                     w.data_ptr(), K, len(offs), x[0].numel(), stream)
+    _build.check(status, "gossip_mix")
+    gossip_mix.launches += 1
+    return out
+
+
+def gossip_adam_mix(p, g, m, v, offsets: Sequence,
+                    offset_weights: Sequence[float], self_weight: float, *,
+                    eta: float, beta1: float = 0.9, beta2: float = 0.999,
+                    tau: float = 1e-6, weight_decay: float = 0.0
+                    ) -> Tensors3:
+    """Launch the fused Adam half-step + mix on contiguous f32
+    ``(K, rows, 128)`` CUDA buffers; the outputs are new tensors."""
+    K = _check_gossip_adam(p, g, m, v, offsets, offset_weights)
+    offs, weights = _offsets(offsets, offset_weights)
+    check_f32_cuda(p, g, m, v)
+    src, w = mix_table(offs, weights, float(self_weight), K, p.device)
+    po, mo, vo = (torch.empty_like(p), torch.empty_like(m),
+                  torch.empty_like(v))
+    _check_aligned(p, g, m, v, po, mo, vo)
+    _, gam = _entries()
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = gam(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+                     po.data_ptr(), mo.data_ptr(), vo.data_ptr(),
+                     src.data_ptr(), w.data_ptr(), K, len(offs),
+                     p[0].numel(),
+                     *adam_consts(eta, beta1, beta2, tau, weight_decay),
+                     stream)
+    _build.check(status, "gossip_adam_mix")
+    gossip_adam_mix.launches += 1
+    return po, mo, vo
+
+
+gossip_mix.launches = 0
+gossip_adam_mix.launches = 0

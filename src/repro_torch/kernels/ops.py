@@ -1,0 +1,55 @@
+"""Kernel dispatch by the operand's device.
+
+A CPU tensor gets the plain PyTorch version; a CUDA tensor gets the CUDA
+kernel, built at first use, or an error. There is no fallback from the
+kernel to the plain version and no switch that selects it on the card.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import fused_adam as _adam
+from repro_torch.kernels import gossip as _gossip
+
+KERNELS = (_adam.fused_adam, _gossip.gossip_mix, _gossip.gossip_adam_mix)
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def fused_adam(p, g, m, v, *, eta, beta1=0.9, beta2=0.999, tau=1e-6,
+               weight_decay=0.0):
+    fn = _adam.fused_adam_plain if _on_cpu(p) else _adam.fused_adam
+    return fn(p, g, m, v, eta=eta, beta1=beta1, beta2=beta2, tau=tau,
+              weight_decay=weight_decay)
+
+
+def gossip_mix(x, offsets, offset_weights, self_weight):
+    fn = _gossip.gossip_mix_plain if _on_cpu(x) else _gossip.gossip_mix
+    return fn(x, offsets, offset_weights, self_weight)
+
+
+def gossip_adam_mix(p, g, m, v, offsets, offset_weights, self_weight, *,
+                    eta, beta1=0.9, beta2=0.999, tau=1e-6,
+                    weight_decay=0.0):
+    fn = (_gossip.gossip_adam_mix_plain if _on_cpu(p)
+          else _gossip.gossip_adam_mix)
+    return fn(p, g, m, v, offsets, offset_weights, self_weight, eta=eta,
+              beta1=beta1, beta2=beta2, tau=tau, weight_decay=weight_decay)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launches`."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0

@@ -1,0 +1,162 @@
+"""Tree <-> lane-aligned buffer packing: the port of ``repro.kernels.pack``.
+
+The D-Adam kernels work on one ``(rows, 128)`` (flat) or ``(K, rows, 128)``
+(stacked) buffer; parameters are ragged trees. A :class:`PackSpec` records
+the leaf layout once, and :func:`pack` / :func:`unpack` move congruent
+trees in and out of the buffer. The layouts, offsets and padding are equal
+element for element to the JAX package's, so buffers cross between the two
+packages as plain copies:
+
+* **flat** (``make_spec(tree)``): every element of every leaf, in leaf
+  order, in one buffer padded to whole ``(block_rows, 128)`` tiles;
+* **stacked** (``stacked=True``): the leading worker dim K is kept, and
+  row k of the buffer holds exactly worker k's elements;
+* **stacked + leaf-aligned** (``leaf_align=True``): every leaf segment is
+  padded to whole tiles, so each leaf owns a tile-aligned row range
+  (:func:`leaf_row_ranges`). This is the resident layout of the packed
+  optimizer state.
+
+Padding is zero, and the optimizer kernels map zeros to zeros, so a
+resident buffer's padding stays zero across steps. Mixed-dtype trees pack
+in the widest float dtype and cast back per leaf. Integer leaves are
+rejected. The row-sharded 2D layout (``row_shards > 1``) is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch._tree import TreeDef, tree_flatten, tree_leaves, tree_unflatten
+
+PyTree = Any
+
+LANE = 128
+# the tile quantum of the resident layout, equal to the JAX package's so
+# that offsets and padding agree element for element
+BLOCK_ROWS = 256
+
+
+class PackSpec(NamedTuple):
+    treedef: TreeDef
+    shapes: Tuple[Tuple[int, ...], ...]   # full leaf shapes (incl. K if stacked)
+    dtypes: Tuple[torch.dtype, ...]
+    sizes: Tuple[int, ...]                # per-(worker-)leaf element counts
+    offsets: Tuple[int, ...]              # per-leaf start in the padded
+    #                                       per-worker flat buffer
+    n: int                                # true elements per worker
+    rows: int                             # padded rows: rows * LANE >= n
+    k: Optional[int]                      # worker count; None in flat mode
+
+    @property
+    def stacked(self) -> bool:
+        return self.k is not None
+
+    @property
+    def padded(self) -> int:
+        return self.rows * LANE
+
+    @property
+    def leaf_aligned(self) -> bool:
+        """True when every leaf segment starts on a LANE boundary."""
+        return all(o % LANE == 0 for o in self.offsets) and \
+            self.padded % LANE == 0
+
+    def buf_shape(self) -> Tuple[int, ...]:
+        return ((self.k, self.rows, LANE) if self.stacked
+                else (self.rows, LANE))
+
+
+def _require_float(dtypes, what: str) -> None:
+    for dt in dtypes:
+        if not dt.is_floating_point:
+            raise ValueError(
+                f"{what} requires float leaves; got dtype {dt} — packing "
+                "integer data through the float buffer would corrupt it in "
+                "the kernels' sqrt/sign math (cast it explicitly first, or "
+                "keep it out of the packed tree)")
+
+
+def make_spec(tree: PyTree, *, stacked: bool = False,
+              block_rows: int = 1, leaf_align: bool = False,
+              row_shards: int = 1) -> PackSpec:
+    """Record the layout of ``tree``, padded to whole ``(block_rows, LANE)``
+    tiles (every leaf segment, with ``leaf_align``)."""
+    if row_shards < 1:
+        raise ValueError(f"row_shards must be >= 1, got {row_shards}")
+    if row_shards > 1:
+        raise NotImplementedError(
+            "the row-sharded 2D layout (row_shards > 1) is not ported yet "
+            "(ROADMAP queue 1, item 10: multi-GPU comm)")
+    leaves, treedef = tree_flatten(tree)
+    if not leaves:
+        raise ValueError("cannot pack an empty pytree")
+    shapes = tuple(tuple(l.shape) for l in leaves)
+    dtypes = tuple(l.dtype for l in leaves)
+    _require_float(dtypes, "pack()")
+    k: Optional[int] = None
+    if stacked:
+        ks = {s[0] if s else None for s in shapes}
+        if len(ks) != 1 or None in ks:
+            raise ValueError(
+                f"stacked pack needs a shared leading worker dim; got {shapes}")
+        (k,) = ks
+        sizes = tuple(math.prod(s[1:]) for s in shapes)
+    else:
+        sizes = tuple(math.prod(s) for s in shapes)
+    per_tile = block_rows * LANE
+    if leaf_align:
+        seg = tuple(sz + (-sz) % per_tile for sz in sizes)
+        padded = sum(seg)
+    else:
+        seg = sizes
+        n_true = sum(sizes)
+        padded = n_true + (-n_true) % per_tile
+    offsets = tuple(sum(seg[:i]) for i in range(len(seg)))
+    return PackSpec(treedef=treedef, shapes=shapes, dtypes=dtypes,
+                    sizes=sizes, offsets=offsets, n=sum(sizes),
+                    rows=padded // LANE, k=k)
+
+
+def leaf_row_ranges(spec: PackSpec) -> Tuple[Tuple[int, int], ...]:
+    """Per-leaf (row_start, row_end) within the buffer; needs the
+    leaf-aligned layout."""
+    if not spec.leaf_aligned:
+        raise ValueError("leaf_row_ranges needs a leaf_align=True spec")
+    ends = spec.offsets[1:] + (spec.padded,)
+    return tuple((o // LANE, e // LANE)
+                 for o, e in zip(spec.offsets, ends))
+
+
+def pack(tree: PyTree, spec: PackSpec,
+         dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Copy ``tree`` into a fresh zero-filled ``spec.buf_shape()`` buffer,
+    on the device of its first leaf. ``dtype`` defaults to the widest
+    dtype among the leaves."""
+    leaves = tree_leaves(tree)
+    got = tuple(tuple(l.shape) for l in leaves)
+    if got != spec.shapes:
+        raise ValueError(f"tree does not match spec: {got} vs {spec.shapes}")
+    _require_float([l.dtype for l in leaves], "pack()")
+    dt = dtype
+    if dt is None:
+        dt = leaves[0].dtype
+        for l in leaves[1:]:
+            dt = torch.promote_types(dt, l.dtype)
+    buf = torch.zeros(spec.buf_shape(), dtype=dt, device=leaves[0].device)
+    flat = buf.view(spec.k, -1) if spec.stacked else buf.view(-1)
+    for l, o, sz in zip(leaves, spec.offsets, spec.sizes):
+        flat[..., o:o + sz] = l.reshape(flat.shape[:-1] + (sz,))
+    return buf
+
+
+def unpack(buf: torch.Tensor, spec: PackSpec) -> PyTree:
+    """Inverse of :func:`pack`. Every leaf whose dtype is the buffer's is
+    a VIEW of ``buf``: the packed grad pipeline differentiates a loss
+    through these views, so the gradient arrives packed in ``buf.grad``."""
+    flat = buf.reshape(spec.k, -1) if spec.stacked else buf.reshape(-1)
+    leaves = [flat[..., o:o + sz].reshape(shape).to(dt)
+              for o, sz, dt, shape in zip(spec.offsets, spec.sizes,
+                                          spec.dtypes, spec.shapes)]
+    return tree_unflatten(spec.treedef, leaves)

@@ -1,0 +1,19 @@
+"""Plain-torch oracles: the simplest correct form of each kernel's math."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def fused_adam_ref(p, g, m, v, *, eta: float, beta1: float, beta2: float,
+                   tau: float, weight_decay: float = 0.0
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The paper's Alg. 1 lines 4-6 (no bias correction)."""
+    g = g.to(m.dtype)
+    if weight_decay:
+        g = g + weight_decay * p.to(m.dtype)
+    m_new = beta1 * m + (1.0 - beta1) * g
+    v_new = beta2 * v + (1.0 - beta2) * g * g
+    p_new = p - (eta * m_new / (torch.sqrt(v_new) + tau)).to(p.dtype)
+    return p_new, m_new, v_new

@@ -1,0 +1,175 @@
+"""Decentralized training loop, the port of ``repro.train.loop``.
+
+Couples a per-worker loss to a DecentralizedOptimizer: stacks K parameter
+replicas, computes the per-worker gradients through the grad pipeline,
+steps the optimizer and tracks loss, consensus and communication cost.
+Runs eagerly; the only host syncs are at log points.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Iterator, List, Optional, Tuple
+
+import torch
+
+from repro_torch._tree import tree_map
+from repro_torch.core.api import DecentralizedOptimizer
+from repro_torch.core.dadam import consensus_error, mean_params
+from repro_torch.train.grad import make_grad_pipeline
+
+PyTree = Any
+
+
+def stack_params(params: PyTree, K: int, *, same_init: bool = True,
+                 init_fn: Optional[Callable[[int], PyTree]] = None
+                 ) -> PyTree:
+    """Replicate ``params`` across a leading worker dim, or, with
+    ``same_init=False``, stack ``init_fn(k)`` for k in range(K) (the
+    caller's init callable holds its own randomness)."""
+    if same_init or init_fn is None:
+        return tree_map(
+            lambda x: x.unsqueeze(0).expand((K,) + tuple(x.shape)).clone(),
+            params)
+    per = [init_fn(k) for k in range(K)]
+    return tree_map(lambda *xs: torch.stack(xs), *per)
+
+
+@dataclasses.dataclass
+class TrainLog:
+    """Training log. The list fields are one entry per log point; the
+    ``*_total`` scalars are cumulative counters carried ACROSS ``fit``
+    calls (pass the same log back in to continue it)."""
+
+    step: List[int] = dataclasses.field(default_factory=list)
+    loss: List[float] = dataclasses.field(default_factory=list)
+    consensus: List[float] = dataclasses.field(default_factory=list)
+    comm_mb: List[float] = dataclasses.field(default_factory=list)
+    wall_s: List[float] = dataclasses.field(default_factory=list)
+    # cumulative worker-chunk gradient evaluations
+    grad_evals: List[int] = dataclasses.field(default_factory=list)
+    steps_total: int = 0
+    comm_rounds_total: int = 0
+    comm_mb_total: float = 0.0
+    wall_s_total: float = 0.0
+    grad_evals_total: int = 0
+
+
+class DecentralizedTrainer:
+    """Stacked-K decentralized trainer.
+
+    ``loss_fn(params_stacked, batch_stacked) -> (K,)`` per-worker losses;
+    every batch leaf carries a leading K dim. Gradients come from the grad
+    pipeline: stacked trees for reference states, packed buffers for
+    packed states (``train.grad``). ``microbatch`` > 1 turns on gradient
+    accumulation.
+
+    ``sharded_loss``, ``plan``, ``recompile_limit`` and ``damping`` are
+    not ported yet and raise ``NotImplementedError`` when given.
+    """
+
+    def __init__(self, loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
+                 opt: DecentralizedOptimizer, *, microbatch: int = 1,
+                 sharded_loss: Optional[Callable] = None, plan: Any = None,
+                 recompile_limit: Optional[int] = None, damping: Any = None):
+        if sharded_loss is not None or plan is not None:
+            raise NotImplementedError(
+                "sharded_loss / plan belong to the 2D worker x model mesh, "
+                "not ported yet (ROADMAP queue 1, item 10: multi-GPU comm)")
+        if recompile_limit is not None:
+            raise NotImplementedError(
+                "recompile_limit guards jit recompiles, which the eager port "
+                "does not have yet (ROADMAP queue 1, item 12)")
+        if damping is not None:
+            raise NotImplementedError(
+                "adaptive batch damping is not ported yet (ROADMAP queue 1, "
+                "item 8: damping and online training)")
+        self.loss_fn = loss_fn
+        self._microbatch = microbatch
+        self._build(opt)
+
+    def _build(self, opt: DecentralizedOptimizer) -> None:
+        """(Re)bind the trainer to an optimizer and its grad pipeline."""
+        self.opt = opt
+        self.pipeline = make_grad_pipeline(self.loss_fn, opt,
+                                           microbatch=self._microbatch)
+        self._mb_rounds: Optional[List[float]] = None
+
+    def init(self, params: PyTree) -> Any:
+        """Stack one worker's ``params`` K times and build the optimizer
+        state on the optimizer's device."""
+        return self.opt.init(stack_params(params, self.opt.K))
+
+    def resize(self, state: Any, new_opt: DecentralizedOptimizer, *,
+               strategy: str = "clone") -> Any:
+        raise NotImplementedError(
+            "elastic resize is not ported yet (ROADMAP queue 1, item 7: "
+            "async runtime)")
+
+    def comm_mb_per_round(self, state) -> float:
+        return self.opt.comm_bytes_per_round(
+            self.opt.params_of(state)) / 1e6
+
+    def _round_mb(self, state, round_index: int) -> float:
+        if self._mb_rounds is None:
+            params = self.opt.params_of(state)
+            self._mb_rounds = [
+                b / 1e6 for b in self.opt.comm_bytes_round_list(params)]
+        return self._mb_rounds[round_index % len(self._mb_rounds)]
+
+    def _place_batch(self, batch: PyTree) -> PyTree:
+        return tree_map(lambda x: x.to(self.opt.device), batch)
+
+    def step(self, state, batch) -> Tuple[Any, torch.Tensor]:
+        """One optimizer step; returns the new state and the mean loss
+        over workers (a device scalar, not synced)."""
+        losses, grads = self.pipeline.value_and_grad(state, batch)
+        return self.opt.step(state, grads), torch.mean(losses)
+
+    def fit(self, state, batch_iter: Iterator[PyTree], steps: int, *,
+            log_every: int = 50, log: Optional[TrainLog] = None,
+            hook: Optional[Callable[[int, Any], None]] = None,
+            hook_every: int = 0) -> Tuple[Any, TrainLog]:
+        """Run ``steps`` optimizer steps, logging every ``log_every``.
+
+        Pass the previous call's ``log`` back in to continue its
+        cumulative counters. ``hook(global_step, state)`` runs every
+        ``hook_every`` steps on the host, between steps. Communication MB
+        are counted on the host at every step whose cumulative number is a
+        multiple of the period; only log points read device values."""
+        log = log or TrainLog()
+        comm_rounds = log.comm_rounds_total
+        comm_mb = log.comm_mb_total
+        step0 = log.steps_total
+        evals_per_step = self.opt.K * self.pipeline.microbatch
+        t0 = time.perf_counter()
+        for t in range(steps):
+            state, loss = self.step(state,
+                                    self._place_batch(next(batch_iter)))
+            # the optimizer communicates when its cumulative step count
+            # is a multiple of the period, also across resumed fits
+            if (step0 + t + 1) % self.opt.cfg.period == 0:
+                comm_mb += self._round_mb(state, comm_rounds)
+                comm_rounds += 1
+            if hook is not None and hook_every > 0 \
+                    and (t + 1) % hook_every == 0:
+                hook(step0 + t + 1, state)
+            if (t + 1) % log_every == 0 or t == steps - 1:
+                log.step.append(step0 + t + 1)
+                log.loss.append(float(loss))
+                log.consensus.append(
+                    float(consensus_error(self.opt.params_of(state))))
+                log.comm_mb.append(comm_mb)
+                log.wall_s.append(log.wall_s_total
+                                  + time.perf_counter() - t0)
+                log.grad_evals.append(log.grad_evals_total
+                                      + (t + 1) * evals_per_step)
+        log.steps_total = step0 + steps
+        log.comm_rounds_total = comm_rounds
+        log.comm_mb_total = comm_mb
+        log.wall_s_total += time.perf_counter() - t0
+        log.grad_evals_total += steps * evals_per_step
+        return state, log
+
+    def averaged_params(self, state) -> PyTree:
+        return mean_params(self.opt.params_of(state))
