@@ -7,13 +7,14 @@ element for element, so a packed state crosses as a plain copy.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
+from repro_torch.core.cdadam import PackedCDAdamState
 from repro_torch.core.dadam import PackedDAdamState
 from repro_torch.kernels import pack as packing
 from repro_torch.kernels.pack import BLOCK_ROWS
@@ -54,27 +55,64 @@ def params_to_numpy(tree: PyTree) -> PyTree:
     return tree_map(one, tree)
 
 
+def _resident_buffers(named, params_like: PyTree, device):
+    """``(spec, tensors)``: the numpy buffers on ``device``, each checked
+    against the port's leaf-aligned layout of ``params_like``."""
+    spec = packing.make_spec(params_like, stacked=True,
+                             block_rows=BLOCK_ROWS, leaf_align=True)
+    bufs = []
+    for name, x in named:
+        b = tensor_from_numpy(x, device)
+        if tuple(b.shape) != spec.buf_shape():
+            raise ValueError(f"{name} has shape {tuple(b.shape)}; the port's "
+                             f"layout of these params is {spec.buf_shape()}")
+        bufs.append(b)
+    return spec, bufs
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
 def dadam_state_from_numpy(buf, m, v, count, params_like: PyTree,
                            device: "str | torch.device" = "cuda"
                            ) -> PackedDAdamState:
     """A JAX ``PackedDAdamState``'s buffers become the port's.
     ``params_like`` is the port's stacked params tree (any values); the
     buffers must have the shape of the port's own layout for it."""
-    spec = packing.make_spec(params_like, stacked=True,
-                             block_rows=BLOCK_ROWS, leaf_align=True)
-    bufs = [tensor_from_numpy(x, device) for x in (buf, m, v)]
-    for name, b in zip(("buf", "m", "v"), bufs):
-        if tuple(b.shape) != spec.buf_shape():
-            raise ValueError(f"{name} has shape {tuple(b.shape)}; the port's "
-                             f"layout of these params is {spec.buf_shape()}")
+    spec, bufs = _resident_buffers(zip(("buf", "m", "v"), (buf, m, v)),
+                                   params_like, device)
     return PackedDAdamState(*bufs, int(count), spec, spec)
 
 
 def dadam_state_to_numpy(state: PackedDAdamState) -> Dict[str, Any]:
     """The reverse: ``{'buf', 'm', 'v'}`` as numpy arrays and ``count``
     as an int."""
-    out: Dict[str, Any] = {
-        k: getattr(state, k).detach().cpu().numpy()
-        for k in ("buf", "m", "v")}
+    out: Dict[str, Any] = {k: _to_numpy(getattr(state, k))
+                           for k in ("buf", "m", "v")}
     out["count"] = int(state.count)
+    return out
+
+
+def cdadam_state_from_numpy(buf, m, v, count, hat_buf,
+                            hat_nbr_bufs: Sequence[Any], params_like: PyTree,
+                            device: "str | torch.device" = "cuda"
+                            ) -> PackedCDAdamState:
+    """A JAX ``PackedCDAdamState``'s buffers become the port's, one
+    ``hat_nbr_bufs`` entry per topology offset, in the topology's order."""
+    hat_nbr_bufs = tuple(hat_nbr_bufs)
+    names = ("buf", "m", "v", "hat_buf") + tuple(
+        f"hat_nbr_bufs[{i}]" for i in range(len(hat_nbr_bufs)))
+    spec, bufs = _resident_buffers(
+        zip(names, (buf, m, v, hat_buf) + hat_nbr_bufs), params_like, device)
+    return PackedCDAdamState(*bufs[:3], int(count), bufs[3], tuple(bufs[4:]),
+                             spec, spec)
+
+
+def cdadam_state_to_numpy(state: PackedCDAdamState) -> Dict[str, Any]:
+    """The reverse: ``{'buf', 'm', 'v', 'hat_buf'}`` as numpy arrays,
+    ``hat_nbr_bufs`` as a tuple of them and ``count`` as an int."""
+    out = dadam_state_to_numpy(state)
+    out["hat_buf"] = _to_numpy(state.hat_buf)
+    out["hat_nbr_bufs"] = tuple(_to_numpy(h) for h in state.hat_nbr_bufs)
     return out

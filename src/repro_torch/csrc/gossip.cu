@@ -11,6 +11,14 @@
 // (p, g, m, v), each rounded to p's dtype (f32 here), then mixed as above;
 // it writes the mixed p and worker k's own m and v.
 //
+// consensus_mix replaces src/repro/kernels/gossip.py:consensus_mix
+// (_consensus_kernel, pallas_call at line 307), CD-Adam's line 8:
+//     out = x + gamma * sum_s w_s * (hat_nbr_s - hat_self)
+// with acc = 0 and the offsets added in order, the TPU kernel's order. The
+// neighbour copies are aligned to the destination worker already, so all
+// operands are read at one index; their pointers and weights come by value
+// in the kernel's parameter block (at most kMaxConsensusDegree of them).
+//
 // The source table src is a (deg, K) int32 device array built once per
 // topology from topology.offset_perm, so ring offsets and torus GridShifts
 // take one code path; the weights are a (1 + deg,) f32 device array, self
@@ -23,6 +31,9 @@
 // v once and write p, m, v once (7 buffers); this design reads 4 * (1 + deg)
 // operand buffers, 15 buffers on the ring. The least traffic needs one block
 // to serve all K workers of a row tile; that is left for a later change.
+// consensus_mix must read x, hat_self and the deg neighbour copies once and
+// write out once, and this design does exactly that: (3 + deg) buffers, 5 on
+// the ring, with 2 + 3 deg f32 operations per element.
 // Loads and stores are 16 bytes (float4); the wrappers check the alignment.
 #include <cuda_runtime.h>
 
@@ -33,6 +44,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxMixDegree = 32;        // kernels.gossip.MAX_FUSED_DEGREE
 constexpr int kMaxGossipAdamDegree = 8;  // kernels.gossip.MAX_GOSSIP_ADAM_DEGREE
+constexpr int kMaxConsensusDegree = 32;  // kernels.gossip.MAX_CONSENSUS_DEGREE
+
+struct ConsensusNbrs {
+  const float4* hat[kMaxConsensusDegree];
+  float w[kMaxConsensusDegree];
+};
 
 __device__ __forceinline__ float4 scale4(float w, float4 a) {
   return make_float4(w * a.x, w * a.y, w * a.z, w * a.w);
@@ -63,6 +80,27 @@ __global__ void gossip_mix_kernel(const float4* __restrict__ x,
       acc = add4(acc, scale4(s_w[j + 1], x[(long long)s_src[j] * per_worker + i]));
     }
     ok[i] = acc;
+  }
+}
+
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+
+__global__ void consensus_mix_kernel(const float4* __restrict__ x,
+                                     const float4* __restrict__ hat_self,
+                                     float4* __restrict__ out,
+                                     ConsensusNbrs nbrs, int deg,
+                                     long long n4, float gamma) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n4; i += stride) {
+    const float4 hs = hat_self[i];
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < deg; ++j) {
+      acc = add4(acc, scale4(nbrs.w[j], sub4(nbrs.hat[j][i], hs)));
+    }
+    out[i] = add4(x[i], scale4(gamma, acc));
   }
 }
 
@@ -168,5 +206,34 @@ extern "C" int gossip_adam_mix_f32(const float* p, const float* g,
       reinterpret_cast<const float4*>(m), reinterpret_cast<const float4*>(v),
       reinterpret_cast<float4*>(po), reinterpret_cast<float4*>(mo),
       reinterpret_cast<float4*>(vo), src, weights, K, deg, per_worker, c);
+  return (int)cudaGetLastError();
+}
+
+// n is the element count of each (K, rows, 128) buffer, a multiple of 4;
+// nbr_ptrs and weights are HOST arrays of deg entries, copied by value into
+// the launch. Returns cudaGetLastError() after the launch; 1 marks a degree
+// outside the kernel's table (cudaErrorInvalidValue).
+extern "C" int consensus_mix_f32(const float* x, const float* hat_self,
+                                 float* out, const void* const* nbr_ptrs,
+                                 const float* weights, int deg, long long n,
+                                 float gamma, void* stream) {
+  if (deg < 1 || deg > kMaxConsensusDegree || n % 4 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long n4 = n / 4;
+  if (n4 == 0) return 0;
+  ConsensusNbrs nbrs{};
+  for (int j = 0; j < deg; ++j) {
+    nbrs.hat[j] = static_cast<const float4*>(nbr_ptrs[j]);
+    nbrs.w[j] = weights[j];
+  }
+  long long blocks = (n4 + kThreads - 1) / kThreads;
+  const long long cap = (long long)sm_count() * 16;
+  if (blocks > cap) blocks = cap;
+  consensus_mix_kernel<<<(unsigned)blocks, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(x),
+      reinterpret_cast<const float4*>(hat_self), reinterpret_cast<float4*>(out),
+      nbrs, deg, n4, gamma);
   return (int)cudaGetLastError();
 }

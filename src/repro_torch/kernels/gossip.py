@@ -15,8 +15,17 @@ above; returns (mixed p, worker k's own m, v). It agrees with the two-pass
 ``fused_adam`` -> ``gossip_mix`` sequence within f32 rounding; it is not
 held to be bit for bit equal.
 
-Both are bound by bytes on the H100; ``csrc/gossip.cu`` says what the
-design reads against the least it must. ``src_j(k)`` comes from a
+``consensus_mix`` replaces ``src/repro/kernels/gossip.py:consensus_mix``
+(``_consensus_kernel``, ``pallas_call`` at line 307), CD-Adam's line 8::
+
+    out = x + gamma * sum_s w_s * (hat_nbr_s - hat_self)
+
+with ``acc = 0`` and the offsets added in order, as the TPU kernel does.
+The neighbour copies are already aligned to the destination worker, so
+every operand is read at the same index.
+
+All three are bound by bytes on the H100; ``csrc/gossip.cu`` says what
+the design reads against the least it must. ``src_j(k)`` comes from a
 ``(deg, K)`` int32 table built once per topology from
 :func:`~repro_torch.core.topology.offset_perm`, so ring offsets and torus
 ``GridShift`` offsets take one path. ``kernels.ops`` picks the kernel for
@@ -43,6 +52,9 @@ MAX_FUSED_DEGREE = 32
 # gossip_adam_mix reads 4 * (deg + 1) operand buffers per output; denser
 # graphs take the two-pass sequence
 MAX_GOSSIP_ADAM_DEGREE = 8
+# consensus_mix takes its neighbour-copy pointers by value in a table of
+# this many entries
+MAX_CONSENSUS_DEGREE = 32
 
 Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -113,6 +125,36 @@ def gossip_adam_mix_plain(p, g, m, v, offsets: Sequence,
     return acc.to(p.dtype), mo.to(m.dtype), vo.to(v.dtype)
 
 
+def _check_consensus(x, hat_self, hat_nbrs, offset_weights
+                     ) -> Tuple[tuple, Tuple[float, ...]]:
+    _check_buf(x)
+    hat_nbrs = tuple(hat_nbrs)
+    weights = tuple(float(w) for w in offset_weights)
+    if len(hat_nbrs) != len(weights):
+        raise ValueError("hat_nbrs and offset_weights must align")
+    for h in (hat_self,) + hat_nbrs:
+        if h.shape != x.shape:
+            raise ValueError(f"hat buffer shape {tuple(h.shape)} != x "
+                             f"{tuple(x.shape)}")
+    return hat_nbrs, weights
+
+
+def consensus_mix_plain(x: torch.Tensor, hat_self: torch.Tensor,
+                        hat_nbrs: Sequence[torch.Tensor],
+                        offset_weights: Sequence[float],
+                        gamma: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`consensus_mix`, op by op."""
+    hat_nbrs, weights = _check_consensus(x, hat_self, hat_nbrs,
+                                         offset_weights)
+    if not hat_nbrs:
+        return x
+    hs = hat_self.to(torch.float32)
+    acc = torch.zeros_like(hs)
+    for w, hn in zip(weights, hat_nbrs):
+        acc = acc + f32(w) * (hn.to(torch.float32) - hs)
+    return (x.to(torch.float32) + f32(gamma) * acc).to(x.dtype)
+
+
 def _check_gossip_adam(p, g, m, v, offsets, offset_weights) -> int:
     K = _check_buf(p)
     for name, b in (("g", g), ("m", m), ("v", v)):
@@ -152,7 +194,11 @@ def _entries():
                     + [ctypes.c_longlong] + [ctypes.c_float] * 7
                     + [ctypes.c_void_p])
     gam.restype = ctypes.c_int
-    return mix, gam
+    con = lib.consensus_mix_f32
+    con.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
+                                             ctypes.c_float, ctypes.c_void_p])
+    con.restype = ctypes.c_int
+    return mix, gam, con
 
 
 def gossip_mix(x: torch.Tensor, offsets: Sequence,
@@ -171,7 +217,7 @@ def gossip_mix(x: torch.Tensor, offsets: Sequence,
     src, w = mix_table(offs, weights, float(self_weight), K, x.device)
     out = torch.empty_like(x)
     _check_aligned(x, out)
-    mix, _ = _entries()
+    mix, _, _ = _entries()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = mix(x.data_ptr(), out.data_ptr(), src.data_ptr(),
@@ -195,7 +241,7 @@ def gossip_adam_mix(p, g, m, v, offsets: Sequence,
     po, mo, vo = (torch.empty_like(p), torch.empty_like(m),
                   torch.empty_like(v))
     _check_aligned(p, g, m, v, po, mo, vo)
-    _, gam = _entries()
+    _, gam, _ = _entries()
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = gam(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
@@ -209,5 +255,38 @@ def gossip_adam_mix(p, g, m, v, offsets: Sequence,
     return po, mo, vo
 
 
+def consensus_mix(x: torch.Tensor, hat_self: torch.Tensor,
+                  hat_nbrs: Sequence[torch.Tensor],
+                  offset_weights: Sequence[float],
+                  gamma: float) -> torch.Tensor:
+    """Launch the CUDA consensus update on contiguous f32
+    ``(K, rows, 128)`` CUDA buffers; the output is a new tensor."""
+    hat_nbrs, weights = _check_consensus(x, hat_self, hat_nbrs,
+                                         offset_weights)
+    if not hat_nbrs:
+        return x
+    if len(hat_nbrs) > MAX_CONSENSUS_DEGREE:
+        raise ValueError(f"degree {len(hat_nbrs)} > MAX_CONSENSUS_DEGREE="
+                         f"{MAX_CONSENSUS_DEGREE}")
+    check_f32_cuda(x, hat_self, *hat_nbrs)
+    out = torch.empty_like(x)
+    _check_aligned(x, hat_self, out, *hat_nbrs)
+    deg = len(hat_nbrs)
+    # the neighbour pointers and weights go by value, in a host array the
+    # C entry copies into the kernel's parameter block
+    ptrs = (ctypes.c_void_p * deg)(*(h.data_ptr() for h in hat_nbrs))
+    w = (ctypes.c_float * deg)(*(f32(v) for v in weights))
+    _, _, con = _entries()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = con(x.data_ptr(), hat_self.data_ptr(), out.data_ptr(),
+                     ctypes.addressof(ptrs), ctypes.addressof(w), deg,
+                     x.numel(), f32(gamma), stream)
+    _build.check(status, "consensus_mix")
+    consensus_mix.launches += 1
+    return out
+
+
 gossip_mix.launches = 0
 gossip_adam_mix.launches = 0
+consensus_mix.launches = 0

@@ -12,8 +12,11 @@ import torch
 
 from repro_torch.kernels import fused_adam as _adam
 from repro_torch.kernels import gossip as _gossip
+from repro_torch.kernels import sign_compress as _sc
 
-KERNELS = (_adam.fused_adam, _gossip.gossip_mix, _gossip.gossip_adam_mix)
+KERNELS = (_adam.fused_adam, _gossip.gossip_mix, _gossip.gossip_adam_mix,
+           _gossip.consensus_mix, _sc.sign_compress_stacked,
+           _sc.sign_compress)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -43,6 +46,25 @@ def gossip_adam_mix(p, g, m, v, offsets, offset_weights, self_weight, *,
           else _gossip.gossip_adam_mix)
     return fn(p, g, m, v, offsets, offset_weights, self_weight, eta=eta,
               beta1=beta1, beta2=beta2, tau=tau, weight_decay=weight_decay)
+
+
+def consensus_mix(x, hat_self, hat_nbrs, offset_weights, gamma):
+    fn = (_gossip.consensus_mix_plain if _on_cpu(x)
+          else _gossip.consensus_mix)
+    return fn(x, hat_self, hat_nbrs, offset_weights, gamma)
+
+
+def sign_compress_stacked(x, hat, *, n_true=None, row_ranges=None,
+                          reduce_axis=None):
+    fn = (_sc.sign_compress_stacked_plain if _on_cpu(x)
+          else _sc.sign_compress_stacked)
+    return fn(x, hat, n_true=n_true, row_ranges=row_ranges,
+              reduce_axis=reduce_axis)
+
+
+def sign_compress(x, hat):
+    fn = _sc.sign_compress_plain if _on_cpu(x) else _sc.sign_compress
+    return fn(x, hat)
 
 
 def launch_counts() -> Dict[str, int]:

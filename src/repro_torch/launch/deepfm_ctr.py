@@ -1,12 +1,13 @@
 """The paper's experiment on the port: DeepFM / Wide&Deep CTR training with
-D-Adam, reporting train loss, test AUC and communication MB (the quantities
-of Figs. 1-6). The counterpart of ``examples/deepfm_ctr.py``'s D-Adam rows
-(vanilla p=1, p=4, p=16) on a K=8 ring.
+D-Adam vs CD-Adam vs D-Adam-vanilla vs D-PSGD, reporting train loss, test
+AUC and communication MB (the quantities of Figs. 1-6). The counterpart of
+``examples/deepfm_ctr.py``'s rows on a K=8 ring: D-Adam vanilla p=1, p=4
+and p=16, CD-Adam p=16 with the sign compressor (gamma 0.4), and D-PSGD.
 
     PYTHONPATH=src python -m repro_torch.launch.deepfm_ctr [--steps 200]
 
-Runs the packed backend on ``cuda`` unless ``--device cpu`` is given. The
-CD-Adam and D-PSGD rows of the example are not ported yet.
+Runs the packed backend on ``cuda`` unless ``--device cpu`` is given;
+D-PSGD has no kernel backend and runs the reference one.
 """
 from __future__ import annotations
 
@@ -115,6 +116,10 @@ def main(argv=None) -> None:
     for p in (4, 16):
         run(f"d-adam p={p}", args.model, "d-adam", args.steps, period=p,
             **kw)
+    run("cd-adam p=16 + sign", args.model, "cd-adam", args.steps,
+        period=16, gamma=0.4, compressor="sign", **kw)
+    run("d-psgd (non-adaptive)", args.model, "d-psgd", args.steps,
+        **{**kw, "backend": "reference"})
 
 
 if __name__ == "__main__":

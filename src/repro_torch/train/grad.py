@@ -87,7 +87,7 @@ def make_grad_pipeline(loss: Callable[[PyTree, PyTree], torch.Tensor],
     """
     if microbatch < 1:
         raise ValueError(f"microbatch must be >= 1, got {microbatch}")
-    if opt.cfg.backend == "packed":
+    if getattr(opt.cfg, "backend", "reference") == "packed":
         return GradPipeline("packed", _packed_vag(loss, microbatch),
                             microbatch)
 

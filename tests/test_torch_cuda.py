@@ -13,6 +13,7 @@ import torch
 from repro_torch.core.topology import make_topology
 from repro_torch.kernels import fused_adam as tfa
 from repro_torch.kernels import gossip as tgossip
+from repro_torch.kernels import sign_compress as tsc
 
 torch.set_num_threads(2)
 
@@ -42,6 +43,10 @@ def close(got, want, **tol):
 # order, and the kernels are built without FMA contraction, so they agree
 # to the last bit except where rsqrtf's approximation (tau = 0) enters.
 CARD_TOL = dict(rtol=1e-6, atol=1e-6)
+# The sign-compression scale is a sum taken in another order by the kernel
+# (tiles, then a fixed tree) and by torch.sum; hat moves by scale * sign,
+# so it inherits that error.
+SCALE_TOL = dict(rtol=1e-5, atol=0)
 
 
 @pytest.fixture
@@ -81,6 +86,57 @@ def test_cuda_gossip_kernels_match_plain(cuda, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", GRAPHS)
+def test_cuda_consensus_mix_matches_plain(cuda, name):
+    topo = make_topology(name, K)
+    deg = len(topo.offsets)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x, hs, *hns = torch.randn((2 + deg, K, ROWS, 128), generator=gen,
+                              device="cuda")
+    got = tgossip.consensus_mix(x, hs, hns, topo.offset_weights, 0.4)
+    want = tgossip.consensus_mix_plain(x, hs, hns, topo.offset_weights, 0.4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def compressed_close(got, want):
+    q, scale, hat = got
+    assert torch.equal(q, want[0])
+    close([scale], [want[1]], **SCALE_TOL)
+    tol = float(scale.abs().max()) * SCALE_TOL["rtol"]
+    close([hat], [want[2]], rtol=CARD_TOL["rtol"], atol=CARD_TOL["atol"] + tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["whole", "n_true", "table", "flat_odd",
+                                  "unaligned"])
+def test_cuda_sign_compress_matches_plain(cuda, case):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((K, 3 * 256 + 8, 128), generator=gen, device="cuda")
+    hat = torch.randn(x.shape, generator=gen, device="cuda")
+    if case == "whole":
+        kw = {}
+    elif case == "n_true":
+        x.reshape(K, -1)[:, 70_000:] = 0
+        hat.reshape(K, -1)[:, 70_000:] = 0
+        kw = dict(n_true=70_000)
+    elif case == "table":
+        kw = dict(row_ranges=((0, 256), (256, 768), (768, 768), (768, 776)),
+                  n_true=(32768, 40_000, 0, 5))
+    if case in ("whole", "n_true", "table"):
+        got = tsc.sign_compress_stacked(x, hat, **kw)
+        want = tsc.sign_compress_stacked_plain(x, hat, **kw)
+    else:   # the scalar path: an odd element count or a shifted pointer
+        n = 100_001 if case == "flat_odd" else 40_000
+        sl = slice(0, n) if case == "flat_odd" else slice(1, n + 1)
+        xs, hs = x.reshape(-1)[sl], hat.reshape(-1)[sl]
+        got = tsc.sign_compress(xs, hs)
+        want = tsc.sign_compress_plain(xs, hs)
+    torch.cuda.synchronize()
+    compressed_close(got, want)
+
+
+@pytest.mark.gpu
 def test_cuda_wrappers_count_launches_and_reject_bad_operands(cuda):
     from repro_torch.kernels import ops
 
@@ -91,8 +147,12 @@ def test_cuda_wrappers_count_launches_and_reject_bad_operands(cuda):
     ops.gossip_mix(p, topo.offsets, topo.offset_weights, topo.self_weight)
     ops.gossip_adam_mix(p, g, m, v, topo.offsets, topo.offset_weights,
                         topo.self_weight, eta=1e-3)
-    assert ops.launch_counts() == {"fused_adam": 1, "gossip_mix": 1,
-                                   "gossip_adam_mix": 1}
+    ops.consensus_mix(p, g, (m, v), topo.offset_weights, 0.4)
+    ops.sign_compress_stacked(p, g, row_ranges=((0, 4), (4, ROWS)))
+    ops.sign_compress(p, g)
+    assert ops.launch_counts() == {
+        "fused_adam": 1, "gossip_mix": 1, "gossip_adam_mix": 1,
+        "consensus_mix": 1, "sign_compress_stacked": 1, "sign_compress": 1}
     with pytest.raises(ValueError, match="f32"):
         ops.fused_adam(p.double(), g.double(), m.double(), v.double(),
                        eta=1e-3)

@@ -5,6 +5,10 @@ plain PyTorch version; these tests hold that version against the TPU
 kernel run in interpret mode (``block_rows=8, interpret=True``), at the
 repo's f32 tolerance (``tests/test_kernels.py``: rtol = atol = 2e-5).
 
+``sign_compress_stacked`` and ``sign_compress``: the int8 payload ``q`` must
+be equal; the scale and the new ``hat`` agree at the f32 tolerance (the
+scale is a sum, taken in another order by each package).
+
 ``gossip_adam_mix`` is held against the two-pass ``fused_adam`` ->
 ``gossip_mix`` sequence within that tolerance, not bit for bit: the JAX
 kernels themselves differ by about 1 ulp on jax 0.9.0.
@@ -20,9 +24,12 @@ import torch
 from repro.core.topology import make_topology as jax_topology
 from repro.kernels import fused_adam as jfa
 from repro.kernels import gossip as jgossip
+from repro.kernels import ref as jref
+from repro.kernels import sign_compress as jsc
 from repro_torch.core.topology import make_topology, offsets_matrix
 from repro_torch.kernels import fused_adam as tfa
 from repro_torch.kernels import gossip as tgossip
+from repro_torch.kernels import sign_compress as tsc
 from repro_torch.kernels import ops, ref
 
 torch.set_num_threads(2)
@@ -166,8 +173,12 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     ops.gossip_mix(p, topo.offsets, topo.offset_weights, topo.self_weight)
     ops.gossip_adam_mix(p, g, m, v, topo.offsets, topo.offset_weights,
                         topo.self_weight, eta=1e-3)
-    assert ops.launch_counts() == {"fused_adam": 0, "gossip_mix": 0,
-                                   "gossip_adam_mix": 0}
+    ops.consensus_mix(p, g, (m, v), topo.offset_weights, 0.4)
+    ops.sign_compress_stacked(p, g, row_ranges=((0, 4), (4, ROWS)))
+    ops.sign_compress(p, g)
+    assert ops.launch_counts() == {
+        "fused_adam": 0, "gossip_mix": 0, "gossip_adam_mix": 0,
+        "consensus_mix": 0, "sign_compress_stacked": 0, "sign_compress": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -180,3 +191,129 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tgossip.gossip_adam_mix(p, g, m, v, (1, 7), (1 / 3, 1 / 3), 1 / 3,
                                 eta=1e-3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgossip.consensus_mix(p, g, (m, v), (1 / 3, 1 / 3), 0.4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsc.sign_compress_stacked(p, g)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsc.sign_compress(p, g)
+
+
+# ------------------------------ CD-Adam kernels ----------------------------
+
+
+def assert_compressed_equal(got, want):
+    """q exact; scale and hat at the f32 tolerance."""
+    q, scale, hat = got
+    np.testing.assert_array_equal(q.numpy(), np.asarray(want[0]))
+    assert q.dtype == torch.int8
+    close([scale, hat], want[1:])
+
+
+@pytest.mark.parametrize("name", GRAPHS)
+def test_consensus_mix_plain_matches_jax_kernel(name):
+    topo = make_topology(name, K)
+    deg = len(topo.offsets)
+    x, hs, *hns = np.random.default_rng(5).standard_normal(
+        (2 + deg, K, ROWS, 128)).astype(np.float32)
+    want = jgossip.consensus_mix(
+        jnp.asarray(x), jnp.asarray(hs), [jnp.asarray(h) for h in hns],
+        topo.offset_weights, 0.4, block_rows=ROWS, interpret=True)
+    got = ops.consensus_mix(*to_t(x, hs), to_t(*hns), topo.offset_weights,
+                            0.4)
+    close([got], [want])
+    x0 = torch.from_numpy(x)
+    assert ops.consensus_mix(x0, x0, (), (), 0.4) is x0
+
+
+def residual_inputs(shape, seed=0):
+    """x and hat whose differences lie far from 0 (no sign within rounding
+    of a tie), with zero padding where the shape says so."""
+    rng = np.random.default_rng(seed)
+    hat = rng.standard_normal(shape).astype(np.float32)
+    d = rng.uniform(0.01, 1.0, shape) * rng.choice([-1.0, 1.0], shape)
+    return (hat + d).astype(np.float32), hat
+
+
+@pytest.mark.parametrize("n_true", [None, 8 * 128 - 37])
+def test_sign_compress_stacked_plain_matches_jax_kernel(n_true):
+    x, hat = residual_inputs((K, ROWS, 128), seed=6)
+    if n_true is not None:   # zero padding past the true count
+        x.reshape(K, -1)[:, n_true:] = 0.0
+        hat.reshape(K, -1)[:, n_true:] = 0.0
+    want = jsc.sign_compress_stacked(jnp.asarray(x), jnp.asarray(hat),
+                                     n_true=n_true, block_rows=ROWS,
+                                     interpret=True)
+    got = ops.sign_compress_stacked(*to_t(x, hat), n_true=n_true)
+    assert tuple(got[1].shape) == (K,)
+    assert_compressed_equal(got, want)
+    if n_true is not None:   # the padding stays zero
+        assert not got[0].reshape(K, -1)[:, n_true:].any()
+        assert not got[2].reshape(K, -1)[:, n_true:].any()
+
+
+def test_sign_compress_stacked_table_equals_jax_per_leaf_loop():
+    """One call over several leaf segments (``row_ranges`` and per-leaf
+    true counts, as the packed CD-Adam round makes it) equals the JAX
+    package's loop of one call per leaf slice, leaf scale by leaf scale."""
+    ranges = ((0, 8), (8, 24), (24, 32), (32, 32), (32, 40))
+    sizes = (8 * 128 - 5, 2048, 1, 0, 1000)
+    x, hat = residual_inputs((K, 40, 128), seed=7)
+    for (r0, r1), sz in zip(ranges, sizes):
+        seg_x = x[:, r0:r1].reshape(K, -1)
+        seg_h = hat[:, r0:r1].reshape(K, -1)
+        seg_x[:, sz:] = 0.0
+        seg_h[:, sz:] = 0.0
+        x[:, r0:r1] = seg_x.reshape(K, r1 - r0, 128)
+        hat[:, r0:r1] = seg_h.reshape(K, r1 - r0, 128)
+    parts = [jsc.sign_compress_stacked(
+        jnp.asarray(x[:, r0:r1]), jnp.asarray(hat[:, r0:r1]),
+        n_true=sz or None, block_rows=ROWS, interpret=True)
+        for (r0, r1), sz in zip(ranges, sizes)]
+    want = (np.concatenate([np.asarray(p[0]) for p in parts], axis=1),
+            np.stack([np.asarray(p[1]) for p in parts], axis=1),
+            np.concatenate([np.asarray(p[2]) for p in parts], axis=1))
+    got = ops.sign_compress_stacked(*to_t(x, hat), n_true=sizes,
+                                    row_ranges=ranges)
+    assert tuple(got[1].shape) == (K, len(ranges))
+    assert_compressed_equal(got, want)
+    assert not got[1][:, 3].any()       # the empty leaf's scale is 0
+    # the whole-buffer case is one segment over the true count
+    whole = ops.sign_compress_stacked(*to_t(x, hat), n_true=sum(sizes))
+    np.testing.assert_array_equal(whole[0].numpy(), got[0].numpy())
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (1000,), (11,), (3, 8, 128)],
+                         ids=str)
+def test_sign_compress_plain_matches_jax_kernel(shape):
+    x, hat = residual_inputs(shape, seed=8)
+    want = jsc.sign_compress(jnp.asarray(x), jnp.asarray(hat),
+                             block_rows=ROWS, interpret=True)
+    got = ops.sign_compress(*to_t(x, hat))
+    assert got[1].shape == () and got[0].shape == shape
+    assert_compressed_equal(got, want)
+    assert_compressed_equal(ref.sign_compress_ref(*to_t(x, hat)),
+                            jref.sign_compress_ref(jnp.asarray(x),
+                                                   jnp.asarray(hat)))
+
+
+def test_sign_compress_edge_cases_and_rejections():
+    x = torch.zeros(K, 0)
+    q, scale, hat = ops.sign_compress_stacked(x, x)
+    assert q.shape == (K, 0) and q.dtype == torch.int8
+    assert torch.equal(scale, torch.zeros(K)) and hat is x
+    p, g, _, _ = to_t(*bufs())
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ops.sign_compress_stacked(p, g, reduce_axis="model")
+    with pytest.raises(ValueError, match="out of range"):
+        ops.sign_compress_stacked(p, g, n_true=ROWS * 128 + 1)
+    with pytest.raises(ValueError, match="cover"):
+        ops.sign_compress_stacked(p, g, row_ranges=((0, 4), (5, ROWS)))
+    with pytest.raises(ValueError, match="one entry"):
+        ops.sign_compress_stacked(p, g, n_true=(1,),
+                                  row_ranges=((0, 4), (4, ROWS)))
+    with pytest.raises(ValueError, match="hat"):
+        ops.sign_compress_stacked(p, g[:, :4])
+    # zero residual maps to zero in q and leaves hat as it was
+    q, _, h = ops.sign_compress_stacked(p, p.clone())
+    assert not q.any() and torch.equal(h, p)

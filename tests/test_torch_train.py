@@ -239,3 +239,14 @@ def test_launch_runs_on_the_cpu_when_asked():
     assert res.log.comm_mb[-1] == pytest.approx(
         2 * res.trainer.comm_mb_per_round(res.state))
     assert res.state.count == 4 and res.state.buf.device.type == "cpu"
+    # the example's CD-Adam row: sign-compressed gossip, one int8 per
+    # parameter and one f32 scale per leaf on the wire
+    res = deepfm_ctr.run("cd-adam p=2 + sign", "deepfm", "cd-adam", 4,
+                         n_fields=F, features_per_field=FPF, hidden=HIDDEN,
+                         period=2, gamma=0.4, compressor="sign",
+                         device="cpu")
+    assert np.isfinite(res.log.loss[-1]) and 0.0 <= res.auc <= 1.0
+    per_worker = tree_leaves(res.trainer.opt.params_of(res.state))
+    assert res.trainer.comm_mb_per_round(res.state) == pytest.approx(
+        2 * sum(x[0].numel() + 4 for x in per_worker) / 1e6)
+    assert res.state.count == 4 and len(res.state.hat_nbr_bufs) == 2
