@@ -13,20 +13,33 @@ script exits non-zero without the final ``ok`` line:
    path's shape, the resident ``(8, 89344, 128)`` f32 state of full-width
    DeepFM on a K=8 ring (``sign_compress_stacked`` over DeepFM's 11 leaf
    segments and over the whole buffer; ``sign_compress`` over one
-   worker's 11,202,602 elements), with CUDA-event times (median of 20
-   after warm-up) beside the least time the card's memory rate allows;
-   then the CD-Adam neighbour-copy update, plain torch ops, timed alone;
+   worker's 11,202,602 elements; ``payload_mix`` with the ring's 2
+   payloads and one-peer-exponential's union of 5), with CUDA-event times
+   (median of 20 after warm-up) beside the least time the card's memory
+   rate allows; then the CD-Adam neighbour-copy update, plain torch ops,
+   timed alone;
 4. slice, once per path: the paper's experiment through the user's entry
    points, ``launch.deepfm_ctr.run`` (DeepFM 39 fields x 25,000 features,
-   embed 10, MLP 400-400-400, K=8 ring, packed, p=4, 512 examples per
-   worker, 20 ``fit`` steps) then one ``opt.round`` of p=4: D-Adam, then
-   CD-Adam with the sign compressor (gamma 0.4). The launch counters are
-   zeroed just before each path and read just after: every kernel of the
-   path must have run, and exactly as often as the schedule says; a
-   profile of one communication period follows each;
-5. card vs CPU: three steps (p=3) of each path from one init and one set
-   of batches on the card (kernels) and on the CPU (plain versions) must
-   agree.
+   embed 10, MLP 400-400-400, K=8, packed, p=4, 512 examples per worker,
+   20 ``fit`` steps) then one ``opt.round`` of p=4: D-Adam and CD-Adam
+   (sign compressor, gamma 0.4) on the ring, then the straggler-tolerant
+   runtime: D-Adam with staleness 2 at straggler rate 0.3, D-Adam over
+   the one-peer-exponential schedule with overlap, CD-Adam with overlap.
+   The launch counters are zeroed just before each path and read just
+   after: every kernel of the path must have run, exactly as often as its
+   schedule says; a profile of one communication period follows each;
+5. checkpoint: the CD-Adam overlap and D-Adam straggler states saved from
+   the card and restored into ``opt.init``: the resident buffers equal to
+   the bit, the straggler buffers cold, then one more step;
+6. churn: the D-Adam straggler state resized K 8 -> 6 (clone) -> 8 (mean)
+   at full width, 4 steps after each resize;
+7. card vs CPU: three steps of each path from one init and one set of
+   batches on the card (kernels) and on the CPU (plain versions) must
+   agree (p=3 for the synchronous paths, p=1 for the straggler-tolerant
+   ones, so that rounds 2 and 3 mix buffered payloads); on the CD-Adam
+   paths every step's hat moves are held to the CPU's one by one (size
+   to the tolerance, flipped signs counted) and the neighbour copies to
+   their neighbours' own hats to the bit.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 at once.
@@ -72,7 +85,9 @@ KERNEL_TOL = dict(rtol=1e-6, atol=1e-6)
 # 0.023% of the elements, at most 0.11 eta, after 3 steps). So after step
 # 3 the losses must agree to the tolerance, and the parameters outside it
 # must be few (<= 1%) and each within eta; a fault of the port (a wrong
-# leaf, worker or neighbour) breaks step 1 or whole leaves.
+# leaf, worker or neighbour) breaks step 1 or whole leaves. On CD-Adam a
+# sign that falls the other way moves a hat by 2 * scale, and every later
+# mix moves the params there by gamma * w times that: ``hat_check``.
 CARD_CPU_TOL = dict(rtol=2e-5, atol=2e-6)
 CARD_CPU_MAX_SHARE = 0.01
 # the H100 SXM's data-sheet memory rate (bytes/s) and f32 rate outside
@@ -85,12 +100,43 @@ F32_RATE = 67e12
 # differ by that scale error on top of KERNEL_TOL.
 SCALE_RTOL = 1e-5
 BIT_EQUAL = dict(rtol=0.0, atol=0.0)
+NO_LIBRARY = "none: no single PyTorch call computes this update"
+NO_STACKED_SUM = ("none: no single PyTorch call sums these operands "
+                  "without first stacking them")
 GAMMA = 0.4
-# per-worker bytes of full-width DeepFM on the wire per round, ring (two
-# neighbours): D-Adam sends the f32 params, CD-Adam an int8 sign per
-# parameter and one f32 scale per leaf (11 leaves)
 PARAMS = 11_202_602
-WIRE_BYTES = {"d-adam": 2 * 4 * PARAMS, "cd-adam": 2 * (PARAMS + 11 * 4)}
+CD_ADAM = dict(gamma=GAMMA, compressor="sign")
+# Each path of the main-path run: the optimizer, and the kernel launches
+# of 20 fit steps at p=4 then one opt.round of p=4 (every other kernel 0).
+# Synchronous D-Adam: the local steps take fused_adam, each comm step one
+# gossip_adam_mix, the round's mix gossip_mix. Every other path takes
+# fused_adam on all 24 steps; the straggler-tolerant D-Adam rounds (6) mix
+# through payload_mix, CD-Adam's rounds take one consensus_mix and one
+# sign_compress_stacked (all 11 leaves) each.
+PATHS = {
+    "d-adam": dict(kind="d-adam", opt={}, launches={
+        "fused_adam": 19, "gossip_adam_mix": 5, "gossip_mix": 1}),
+    "cd-adam": dict(kind="cd-adam", opt=CD_ADAM, launches={
+        "fused_adam": 24, "consensus_mix": 6, "sign_compress_stacked": 6}),
+    "d-adam-straggler": dict(kind="d-adam", opt=dict(
+        staleness=2, straggler_rate=0.3, straggler_seed=1), launches={
+        "fused_adam": 24, "payload_mix": 6}),
+    "d-adam-one-peer-exp-overlap": dict(kind="d-adam", opt=dict(
+        topology="one-peer-exponential", overlap=True), launches={
+        "fused_adam": 24, "payload_mix": 6}),
+    "cd-adam-overlap": dict(kind="cd-adam", opt=dict(CD_ADAM, overlap=True),
+                            launches={"fused_adam": 24, "consensus_mix": 6,
+                                      "sign_compress_stacked": 6}),
+}
+# per-worker bytes of full-width DeepFM on the wire per round (the list
+# over one schedule cycle): D-Adam sends the f32 params to each neighbour
+# (ring: 2; one-peer-exponential with buffers: its union of 5 offsets
+# every round), CD-Adam an int8 sign per parameter and one f32 scale per
+# leaf (11 leaves) to each of the ring's 2
+WIRE_BYTES = {"d-adam": [2 * 4 * PARAMS], "cd-adam": [2 * (PARAMS + 11 * 4)],
+              "d-adam-straggler": [2 * 4 * PARAMS],
+              "d-adam-one-peer-exp-overlap": [5 * 4 * PARAMS],
+              "cd-adam-overlap": [2 * (PARAMS + 11 * 4)]}
 
 
 def emit(obj) -> None:
@@ -211,6 +257,7 @@ def phase_build():
 def phase_kernels():
     """Each kernel against its plain version on the card at the main
     path's shape; returns the kernel records without launch counts."""
+    from repro_torch.core.schedule import one_peer_exponential
     from repro_torch.core.topology import make_topology
     from repro_torch.kernels import fused_adam as fa
     from repro_torch.kernels import gossip as gk
@@ -236,6 +283,9 @@ def phase_kernels():
     hs1 = torch.randn(PARAMS, generator=gen, device="cuda")
     topo = make_topology("ring", K)
     mix = (topo.offsets, topo.offset_weights, topo.self_weight)
+    # the one-peer-exponential union at K=8 (offsets 1, 7, 2, 6, 4), its
+    # first round's view
+    union = one_peer_exponential(K).union_views()[0]
     deg = len(topo.offsets)
     adam = dict(eta=ETA, beta1=0.9, beta2=0.999, tau=1e-6, weight_decay=0.0)
     W = torch.as_tensor(topo.weights, dtype=torch.float32, device="cuda")
@@ -301,6 +351,28 @@ def phase_kernels():
              compressed=True, library=None, bytes=13 * PARAMS,
              ops=8 * PARAMS,
              variant="one worker's 11,202,602 elements, flat"),
+        # payload mix: read x and each payload, write out; per element a
+        # product, then a product and a sum per payload
+        dict(name="payload_mix", source="src/repro_torch/csrc/gossip.cu",
+             replaces="src/repro/kernels/gossip.py:161",
+             kernel=lambda: (gk.payload_mix(p, (g, m), topo.offset_weights,
+                                            topo.self_weight),),
+             plain=lambda: (gk.payload_mix_plain(
+                 p, (g, m), topo.offset_weights, topo.self_weight),),
+             tol=BIT_EQUAL, library=None, bytes=(2 + deg) * buf_bytes,
+             ops=(1 + 2 * deg) * n, library_note=NO_STACKED_SUM,
+             variant="ring: 2 payloads"),
+        dict(name="payload_mix", source="src/repro_torch/csrc/gossip.cu",
+             replaces="src/repro/kernels/gossip.py:161",
+             kernel=lambda: (gk.payload_mix(p, (g, m, v, hn1, hn2),
+                                            union.offset_weights,
+                                            union.self_weight),),
+             plain=lambda: (gk.payload_mix_plain(
+                 p, (g, m, v, hn1, hn2), union.offset_weights,
+                 union.self_weight),),
+             tol=BIT_EQUAL, library=None, bytes=7 * buf_bytes,
+             ops=(1 + 2 * 5) * n, library_note=NO_STACKED_SUM,
+             variant="one-peer-exponential union: 5 payloads"),
     ]
     records = []
     for c in cases:
@@ -330,8 +402,7 @@ def phase_kernels():
                "bytes": c["bytes"], "library_ms": library_ms,
                "library": ("torch.einsum('kj,jrc->krc', W, x)"
                            if c["library"] is not None else
-                           "none: no single PyTorch call computes this "
-                           "update")}
+                           c.get("library_note", NO_LIBRARY))}
         if "variant" in c:
             rec["variant"] = c["variant"]
         emit({"phase": "kernel", **rec})
@@ -353,33 +424,24 @@ def phase_kernels():
     return records
 
 
-SCHEDULES = {
-    # steps 20 at p=4 then one opt.round of p=4. D-Adam: the local steps
-    # take fused_adam, each comm step one gossip_adam_mix, the round's mix
-    # gossip_mix. CD-Adam: every step takes fused_adam, each comm round
-    # one consensus_mix and one sign_compress_stacked (all 11 leaves).
-    "d-adam": {"fused_adam": 19, "gossip_adam_mix": 5, "gossip_mix": 1},
-    "cd-adam": {"fused_adam": 24, "consensus_mix": 6,
-                "sign_compress_stacked": 6},
-}
-
-
-def phase_slice(kind: str, **opt_kw):
+def phase_slice(path: str):
     """The paper's experiment at full width through the entry points,
     with the launch counters zeroed just before and read just after; then
-    a few more steps, timed one by one, and a profile of one period."""
+    a few more steps, timed one by one, and a profile of one period.
+    Returns the launch counts and ``(trainer, state, result)``."""
     from repro_torch._tree import tree_map
     from repro_torch.kernels import ops
     from repro_torch.launch import deepfm_ctr
 
+    spec = PATHS[path]
     period, steps, timed = 4, 20, 8
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    res = deepfm_ctr.run(f"{kind} p={period}, paper width", "deepfm", kind,
-                         steps, backend="packed", device=DEVICE,
-                         period=period, log_every=1, **opt_kw, **FULL)
+    res = deepfm_ctr.run(f"{path} p={period}, paper width", "deepfm",
+                         spec["kind"], steps, backend="packed", device=DEVICE,
+                         period=period, log_every=1, **spec["opt"], **FULL)
     trainer, opt = res.trainer, res.trainer.opt
     round_batches = [next(res.batches) for _ in range(period)]
     batches = tree_map(lambda *xs: torch.stack(xs), *round_batches)
@@ -391,24 +453,24 @@ def phase_slice(kind: str, **opt_kw):
     state = opt.round(res.state, grad_fn, batches)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    want = {name: SCHEDULES[kind].get(name, 0) for name in launches}
+    want = {name: spec["launches"].get(name, 0) for name in launches}
     if launches != want:
-        raise AssertionError(f"{kind}: launches {launches} != schedule "
+        raise AssertionError(f"{path}: launches {launches} != schedule "
                              f"{want}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = res.log.loss
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"{kind}: non-finite loss in {losses}")
+        raise AssertionError(f"{path}: non-finite loss in {losses}")
     # init and batches come from fixed seeds, so the sequence is the same
     # in every run on this card
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"{kind}: loss did not fall: {losses}")
+        raise AssertionError(f"{path}: loss did not fall: {losses}")
     if not bool(torch.isfinite(state.buf).all()):
-        raise AssertionError(f"{kind}: non-finite params after opt.round")
-    wire = opt.comm_bytes_per_round(opt.params_of(state))
-    if wire != WIRE_BYTES[kind]:
-        raise AssertionError(f"{kind}: {wire} bytes per round, expected "
-                             f"{WIRE_BYTES[kind]}")
+        raise AssertionError(f"{path}: non-finite params after opt.round")
+    wire = opt.comm_bytes_round_list(opt.params_of(state))
+    if wire != WIRE_BYTES[path]:
+        raise AssertionError(f"{path}: {wire} bytes per round, expected "
+                             f"{WIRE_BYTES[path]}")
     auc_after_round = deepfm_ctr.heldout_auc(
         res.teacher, trainer.averaged_params(state),
         deepfm_ctr.MODELS["deepfm"][2])
@@ -427,9 +489,10 @@ def phase_slice(kind: str, **opt_kw):
                            hook=hook, hook_every=1)
     dts = [((c, (t - t0) * 1e3)) for (_, t0), (c, t) in
            zip(stamps, stamps[1:])]
-    emit({"phase": "slice", "kind": kind,
-          "config": {"K": K, "topology": "ring", "period": period,
-                     "steps": steps, **opt_kw, **FULL,
+    stale = getattr(state, "stale", None)
+    emit({"phase": "slice", "path": path, "kind": spec["kind"],
+          "config": {"K": K, "topology": spec["opt"].get("topology", "ring"),
+                     "period": period, "steps": steps, **spec["opt"], **FULL,
                      "hidden": list(FULL["hidden"])},
           "buffer_shape": list(state.buf.shape),
           "params_per_worker": state.spec.n,
@@ -443,15 +506,17 @@ def phase_slice(kind: str, **opt_kw):
           "auc_after_fit": res.auc, "auc_after_round": auc_after_round,
           "comm_mb_fit": res.log.comm_mb[-1],
           "comm_mb_per_round": trainer.comm_mb_per_round(state),
-          "comm_bytes_per_round": wire,
+          "comm_bytes_round_list": wire,
           "consensus": res.log.consensus[-1],
+          "stale_age_max": (int(stale.age.max()) if stale is not None
+                            else None),
           "peak_mem_gb": peak_gb, "launches": launches})
-    phase_profile(kind, trainer, state, [next(res.batches)
+    phase_profile(path, trainer, state, [next(res.batches)
                                          for _ in range(period)])
-    return launches
+    return launches, (trainer, state, res)
 
 
-def phase_profile(kind, trainer, state, batches):
+def phase_profile(path, trainer, state, batches):
     """Device time by kernel over one communication period of steps, the
     device's busy share of the window's wall time, and the device time of
     the port's named ranges (``repro_torch.*``)."""
@@ -483,7 +548,7 @@ def phase_profile(kind, trainer, state, batches):
         rows.append((us / 1e3, e.count, e.key[:90]))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    emit({"phase": "profile", "kind": kind, "steps": len(batches),
+    emit({"phase": "profile", "path": path, "steps": len(batches),
           "wall_ms": wall_ms, "device_ms": device_ms,
           "busy_share": device_ms / wall_ms if wall_ms else None,
           "ranges": ranges,
@@ -498,35 +563,223 @@ def state_tensors(state):
         out["hat_buf"] = state.hat_buf.cpu()
         for i, h in enumerate(state.hat_nbr_bufs):
             out[f"hat_nbr_bufs[{i}]"] = h.cpu()
+    if getattr(state, "stale", None) is not None:
+        for i, b in enumerate(state.stale.bufs):
+            out[f"stale.bufs[{i}]"] = b.cpu()
     return out
 
 
-def step3_check(name, a, b):
-    """Step 3 against the CPU: few elements outside the tolerance, each
-    within eta. A hat element is ``scale * sign(x - hat)``: where the
-    parameter lies within the card-CPU difference of the old hat, the sign
-    may flip between the two; such flips are counted (and may be no more
-    than the share allowed), not held to eta."""
+def phase_checkpoint(path: str, trainer, state, batches):
+    """Save a state from the card, restore it into ``opt.init``: the
+    resident buffers equal to the bit, the straggler buffers cold; then
+    one more step."""
+    from repro_torch.checkpoint import io as ckpt
+    from repro_torch.core.dadam import COLD_AGE
+
+    opt = trainer.opt
+    folder = ROOT / "build" / "smoke_checkpoints"
+    f = folder / f"{path}.npz"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(str(f), state, step=state.count, meta={"path": path})
+    save_s = time.perf_counter() - t0
+    nbytes = f.stat().st_size
+    like = opt.init(opt.params_of(state))
+    t0 = time.perf_counter()
+    restored, step = ckpt.restore(str(f), like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    f.unlink()
+    (folder / f"{path}.npz.json").unlink()
+    if step != state.count or restored.count != state.count:
+        raise AssertionError(f"{path}: restored step {step}, count "
+                             f"{restored.count} != {state.count}")
+    names = ["buf", "m", "v"]
+    if hasattr(state, "hat_buf"):
+        names.append("hat_buf")
+    pairs = [(n, getattr(restored, n), getattr(state, n)) for n in names]
+    pairs += [(f"hat_nbr_bufs[{i}]", a, b) for i, (a, b) in enumerate(zip(
+        getattr(restored, "hat_nbr_bufs", ()),
+        getattr(state, "hat_nbr_bufs", ())))]
+    for name, a, b in pairs:
+        if a.device != b.device or not torch.equal(a, b):
+            raise AssertionError(f"{path}: restored {name} differs")
+    if getattr(state, "stale", None) is not None:
+        st = restored.stale
+        cold = (bool((st.age == COLD_AGE).all())
+                and not any(bool(b.any()) for b in st.bufs))
+    else:
+        cold = not any(bool(t.any()) for ring in restored.pending
+                       for t in ring.values())
+    if not cold:
+        raise AssertionError(f"{path}: straggler buffers not cold")
+    restored, loss = trainer.step(restored, next(batches))
+    loss = float(loss)
+    if not math.isfinite(loss) or not bool(torch.isfinite(
+            restored.buf).all()):
+        raise AssertionError(f"{path}: step after restore: loss {loss}")
+    emit({"phase": "checkpoint", "path": path, "file_bytes": nbytes,
+          "save_s": save_s, "restore_s": restore_s,
+          "bit_equal": [n for n, _, _ in pairs], "cold": cold,
+          "loss_after_restore": loss})
+
+
+def phase_churn(trainer, state, teacher):
+    """Elastic membership at full width: K 8 -> 6 (clone) -> 8 (mean),
+    4 steps after each resize."""
+    from repro_torch.data.synthetic import ctr_batch_stacked
+
+    rec = {"phase": "churn", "path": "d-adam-straggler", "resizes": []}
+    for k_new, strategy in ((6, "clone"), (8, "mean")):
+        state = trainer.resize(state, trainer.opt.rebuild(K=k_new),
+                               strategy=strategy)
+        shape = tuple(state.buf.shape)
+        if shape != (k_new,) + SHAPE[1:] or trainer.opt.K != k_new:
+            raise AssertionError(f"resize to {k_new}: buffer {shape}")
+        gen = torch.Generator(device=DEVICE).manual_seed(10 + k_new)
+        stream = (ctr_batch_stacked(teacher, gen, k_new, FULL["per_worker"])
+                  for _ in range(4))
+        state, log = trainer.fit(state, stream, 4, log_every=1)
+        if not all(math.isfinite(x) for x in log.loss):
+            raise AssertionError(f"K={k_new}: losses {log.loss}")
+        rec["resizes"].append({"K": k_new, "strategy": strategy,
+                               "buffer_shape": list(shape),
+                               "losses": log.loss,
+                               "stale_age": state.stale.age.tolist()})
+    emit(rec)
+
+
+def outside_tol(a, b):
     d = (a.double() - b.double()).abs()
-    outside = d > CARD_CPU_TOL["atol"] + CARD_CPU_TOL["rtol"] * b.double().abs()
-    flips = (outside & (torch.sign(a) != torch.sign(b))
-             if name.startswith("hat") else torch.zeros_like(outside))
-    rest = d[~flips]
-    rec = {"max_abs_err": float(rest.max()) if rest.numel() else 0.0,
-           "share_outside": float(outside.double().mean()),
-           "sign_flips": int(flips.sum()),
-           "share_flipped": float(flips.double().mean())}
-    if (rec["share_outside"] > CARD_CPU_MAX_SHARE
-            or rec["max_abs_err"] > ETA):
+    return d, d > CARD_CPU_TOL["atol"] + CARD_CPU_TOL["rtol"] * b.double().abs()
+
+
+def step3_check(name, a, b, slack=None):
+    """Step 3 against the CPU: few elements outside the tolerance, each
+    within eta, and, for the params of a CD-Adam path, within eta plus
+    what the earlier hat gaps moved them by (``slack``, elementwise)."""
+    d, outside = outside_tol(a, b)
+    over = d - ETA if slack is None else d - ETA - slack
+    rec = {"max_abs_err": float(d.max()),
+           "max_past_cap": float(over.max()),
+           "share_outside": float(outside.double().mean())}
+    if rec["share_outside"] > CARD_CPU_MAX_SHARE or rec["max_past_cap"] > 0:
         raise AssertionError(f"step 3 {name}: {rec} past share "
-                             f"{CARD_CPU_MAX_SHARE} / max {ETA}")
+                             f"{CARD_CPU_MAX_SHARE} / eta {ETA} + slack")
     return rec
 
 
-def phase_card_vs_cpu(kind: str, **opt_kw):
-    """Three steps (period 3: two fused_adam steps, then a communication
-    step) from one init and one set of batches, on the card and on the
-    CPU."""
+def leaf_rows(spec):
+    """Each packed row's leaf (int64, (rows,)) and each leaf's true element
+    count (f64); the rows past the last leaf form one more, empty leaf."""
+    from repro_torch.kernels import pack as packing
+
+    ranges = packing.leaf_row_ranges(spec)
+    leaf = torch.full((spec.buf_shape()[1],), len(ranges), dtype=torch.long)
+    for i, (r0, r1) in enumerate(ranges):
+        leaf[r0:r1] = i
+    n_true = torch.tensor(list(spec.sizes) + [1], dtype=torch.float64)
+    return leaf, n_true.clamp(min=1)
+
+
+def hat_check(path, card, cpu, opt, spec, period):
+    """CD-Adam's hat copies, card against CPU, step by step (``card`` and
+    ``cpu``: the state tensors after each step).
+
+    On each device, every round must follow the sign compressor's rule:
+    worker k's hat moves by ``scale * sign(x - hat)``, with x the round's
+    mixed params and hat the one before, and one scale per (worker, leaf),
+    the mean of ``|x - hat|`` over the leaf's true elements; off the
+    rounds it stays as it was. That is checked to the tolerance from the
+    state alone, so a wrong leaf, worker or scale fails it. Worker k's
+    copy of neighbour i's hat must be that worker's own hat of ``delay``
+    steps before (1 under overlap), to the bit: both add the same
+    ``scale * sign`` values in the same order, so a wrong slot, worker or
+    offset in the ring's push or gather fails it.
+
+    Card against CPU, the hats can then part only where ``sign(x - hat)``
+    differs between the devices, a residual within their difference of x:
+    by 2 * scale where the sign fell the other way, by one scale where the
+    residual is exactly zero on one device. Those positions are counted,
+    at most the share allowed.
+
+    Returns the record and the params' slack at step 3: the mix (8) adds
+    ``gamma * sum_i w_i * (hat_nbr_i - hat_self)`` at every later round,
+    so each step's hat gaps move the later params by at most gamma times
+    the weighted sum of their sizes."""
+    from repro_torch.core.dadam import shift_worker
+
+    topo, delay = opt.topo, 1 if opt.cfg.overlap else 0
+    weights = [float(w) for w in topo.offset_weights]
+    nbrs = [f"hat_nbr_bufs[{i}]" for i in range(len(topo.offsets))]
+    zeros = torch.zeros_like(card[0]["hat_buf"])
+    leaf, n_true = leaf_rows(spec)
+    signs, rule_err = {}, {}
+    for dev, snaps in (("card", card), ("cpu", cpu)):
+        prev = zeros.double()
+        signs[dev], rule_err[dev] = [], []
+        for t in range(len(snaps)):
+            own = snaps[t - delay]["hat_buf"] if t >= delay else zeros
+            for name, s in zip(nbrs, topo.offsets):
+                if not torch.equal(snaps[t][name],
+                                   shift_worker(own, s, topo.K)):
+                    raise AssertionError(
+                        f"{path} {dev} step {t + 1}: {name} is not the "
+                        f"neighbour's hat of {delay} step(s) before")
+            hat = snaps[t]["hat_buf"].double()
+            sign = torch.zeros_like(hat)
+            if (t + 1) % period == 0:
+                resid = snaps[t]["buf"].double() - prev
+                scale = (torch.zeros((topo.K, len(n_true)),
+                                     dtype=torch.float64)
+                         .index_add_(1, leaf, resid.abs().sum(-1))
+                         / n_true)[:, leaf, None]
+                sign = torch.sign(resid)
+                want = scale * sign
+            else:
+                want = torch.zeros_like(hat)
+            err = (hat - prev - want).abs()
+            past = err - (CARD_CPU_TOL["atol"]
+                          + CARD_CPU_TOL["rtol"] * want.abs())
+            rule_err[dev].append(float(err.max()))
+            if float(past.max()) > 0:
+                raise AssertionError(
+                    f"{path} {dev} step {t + 1}: the hat moved by "
+                    f"{float(err.max())} off scale * sign(x - hat)")
+            signs[dev].append(sign)
+            prev = hat
+    disputed = torch.zeros(zeros.shape, dtype=torch.bool)
+    slack = torch.zeros(zeros.shape, dtype=torch.float64)
+    steps = []
+    for t in range(len(card)):
+        sc, sh = signs["card"][t], signs["cpu"][t]
+        flip, zero = sc * sh < 0, (sc == 0) != (sh == 0)
+        disputed |= flip | zero
+        steps.append({"step": t + 1, "flips": int(flip.sum()),
+                      "zero_on_one": int(zero.sum()),
+                      "rule_err_card": rule_err["card"][t],
+                      "rule_err_cpu": rule_err["cpu"][t]})
+        if t + 1 < len(card):
+            # the hat gaps after this step enter every later mix
+            g = sum(weights) * (card[t]["hat_buf"].double()
+                                - cpu[t]["hat_buf"].double()).abs()
+            for w, name in zip(weights, nbrs):
+                g += w * (card[t][name].double() - cpu[t][name].double()).abs()
+            slack += GAMMA * g
+    share = float(disputed.double().mean())
+    if share > CARD_CPU_MAX_SHARE:
+        raise AssertionError(f"{path}: {share} of the positions hold a "
+                             "sign that differs")
+    return {"delay": delay, "steps": steps, "disputed_share": share,
+            "max_slack": float(slack.max())}, slack
+
+
+def phase_card_vs_cpu(path: str, period: int = 3):
+    """Three steps from one init and one set of batches, on the card and
+    on the CPU: at period 3 two fused_adam steps, then a communication
+    step; at period 1 three rounds, the later ones mixing buffered
+    payloads on the straggler-tolerant paths. The straggler draw is made
+    on the host from its seed, so both devices see the same arrivals."""
     from repro_torch.core.api import make_optimizer
     from repro_torch.data.synthetic import (ctr_batch_stacked, ctr_teacher,
                                             make_ctr_task)
@@ -542,30 +795,45 @@ def phase_card_vs_cpu(kind: str, **opt_kw):
     gen = torch.Generator().manual_seed(1)
     batches = [ctr_batch_stacked(teacher, gen, K, FULL["per_worker"])
                for _ in range(3)]
-    out = {}
+    spec = PATHS[path]
+    kind, opt_kw = spec["kind"], dict(spec["opt"])
+    topology = opt_kw.pop("topology", "ring")
+    out, ages = {}, {}
     for dev in (DEVICE, "cpu"):
         t0 = time.perf_counter()
-        opt = make_optimizer(kind, K, eta=ETA, period=3, topology="ring",
-                             backend="packed", device=dev, **opt_kw)
+        opt = make_optimizer(kind, K, eta=ETA, period=period,
+                             topology=topology, backend="packed",
+                             device=dev, **opt_kw)
         tr = DecentralizedTrainer(deepfm_loss, opt)
         it = iter(batches)
-        state, log = tr.fit(tr.init(params), it, 1, log_every=1)
-        first = state_tensors(state)
-        state, log = tr.fit(state, it, 2, log_every=1, log=log)
-        out[dev] = (first, state_tensors(state), log.loss,
-                    time.perf_counter() - t0)
-        del opt, tr, state
+        state, log, snaps = tr.init(params), None, []
+        for _ in range(3):
+            state, log = tr.fit(state, it, 1, log_every=1, log=log)
+            snaps.append(state_tensors(state))
+        out[dev] = (snaps, log.loss, time.perf_counter() - t0)
+        stale = getattr(state, "stale", None)
+        ages[dev] = stale.age.tolist() if stale is not None else None
+        pack_spec = state.spec
+        del tr, state
         torch.cuda.empty_cache()
-    (c1, c3, closs, ct), (h1, h3, hloss, ht) = out[DEVICE], out["cpu"]
-    step1 = {n: compare([c1[n]], [h1[n]], CARD_CPU_TOL, f"step 1 {n}")[0]
-             for n in c1}
+    (card, closs, ct), (cpu, hloss, ht) = out[DEVICE], out["cpu"]
+    step1 = {n: compare([card[0][n]], [cpu[0][n]], CARD_CPU_TOL,
+                        f"step 1 {n}")[0] for n in card[0]}
     loss_err = compare([torch.tensor(closs)], [torch.tensor(hloss)],
                        CARD_CPU_TOL, "losses")[0]
-    step3 = {n: step3_check(n, c3[n], h3[n]) for n in c3}
-    emit({"phase": "card_vs_cpu", "kind": kind, "steps": 3, "period": 3,
+    hats, slack = (hat_check(path, card, cpu, opt, pack_spec, period)
+                   if "hat_buf" in card[0] else (None, None))
+    step3 = {n: step3_check(n, card[2][n], cpu[2][n],
+                            slack if n == "buf" else None)
+             for n in card[2] if not n.startswith("hat")}
+    if ages[DEVICE] != ages["cpu"]:
+        raise AssertionError(f"{path}: stale ages {ages}")
+    emit({"phase": "card_vs_cpu", "path": path, "steps": 3,
+          "period": period, "stale_age": ages["cpu"],
           "losses_card": closs, "losses_cpu": hloss, "loss_max_abs_err":
           loss_err, "step1_max_abs_err": step1, "step3": step3,
-          "tol": CARD_CPU_TOL, "max_share_outside": CARD_CPU_MAX_SHARE,
+          "hats": hats, "tol": CARD_CPU_TOL,
+          "max_share_outside": CARD_CPU_MAX_SHARE,
           "seconds_card": ct, "seconds_cpu": ht})
 
 
@@ -573,11 +841,20 @@ def main() -> int:
     card, smi = phase_env()
     phase_build()
     records = phase_kernels()
-    cd_adam = dict(gamma=GAMMA, compressor="sign")
-    by_path = {"d-adam": phase_slice("d-adam"),
-               "cd-adam": phase_slice("cd-adam", **cd_adam)}
+    by_path = {}
+    for path in PATHS:
+        by_path[path], (trainer, state, res) = phase_slice(path)
+        # the async states go on from their slice, so no phase holds
+        # another path's buffers while its peak memory is read
+        if path in ("d-adam-straggler", "cd-adam-overlap"):
+            phase_checkpoint(path, trainer, state, res.batches)
+        if path == "d-adam-straggler":
+            phase_churn(trainer, state, res.teacher)
+        del trainer, state, res
     phase_card_vs_cpu("d-adam")
-    phase_card_vs_cpu("cd-adam", **cd_adam)
+    phase_card_vs_cpu("cd-adam")
+    phase_card_vs_cpu("d-adam-straggler", period=1)
+    phase_card_vs_cpu("cd-adam-overlap", period=1)
     for rec in records:
         rec["launches_by_path"] = {k: c[rec["name"]]
                                    for k, c in by_path.items()}

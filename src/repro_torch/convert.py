@@ -3,11 +3,12 @@
 The JAX side hands over numpy arrays (``jax.tree_util.tree_map(np.asarray,
 ...)``); nothing here imports JAX. Leaf order is ``jax.tree_util``'s
 (sorted dict keys) in both packages, and the packed layouts are equal
-element for element, so a packed state crosses as a plain copy.
+element for element, so a packed state crosses as a plain copy, live
+straggler buffers (D-Adam ``stale``, CD-Adam ``pending`` rings) included.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -15,7 +16,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
 from repro_torch.core.cdadam import PackedCDAdamState
-from repro_torch.core.dadam import PackedDAdamState
+from repro_torch.core.dadam import PackedDAdamState, StaleBufs
 from repro_torch.kernels import pack as packing
 from repro_torch.kernels.pack import BLOCK_ROWS
 
@@ -75,44 +76,89 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def dadam_state_from_numpy(buf, m, v, count, params_like: PyTree,
-                           device: "str | torch.device" = "cuda"
-                           ) -> PackedDAdamState:
+                           device: "str | torch.device" = "cuda", *,
+                           stale_bufs: Optional[Sequence[Any]] = None,
+                           stale_age=None) -> PackedDAdamState:
     """A JAX ``PackedDAdamState``'s buffers become the port's.
     ``params_like`` is the port's stacked params tree (any values); the
-    buffers must have the shape of the port's own layout for it."""
-    spec, bufs = _resident_buffers(zip(("buf", "m", "v"), (buf, m, v)),
+    buffers must have the shape of the port's own layout for it. A state
+    with live staleness / overlap buffers hands over ``stale.bufs`` (one
+    packed buffer per offset) and ``stale.age`` ((K, deg) int32, kept on
+    the host CPU by the port)."""
+    bufs_in = tuple(stale_bufs or ())
+    names = ("buf", "m", "v") + tuple(f"stale_bufs[{i}]"
+                                      for i in range(len(bufs_in)))
+    spec, bufs = _resident_buffers(zip(names, (buf, m, v) + bufs_in),
                                    params_like, device)
-    return PackedDAdamState(*bufs, int(count), spec, spec)
+    stale = None
+    if stale_bufs is not None:
+        age = torch.from_numpy(np.array(stale_age, dtype=np.int32))
+        if tuple(age.shape) != (spec.k, len(bufs_in)):
+            raise ValueError(f"stale_age has shape {tuple(age.shape)}, "
+                             f"expected {(spec.k, len(bufs_in))}")
+        stale = StaleBufs(tuple(bufs[3:]), age)
+    return PackedDAdamState(*bufs[:3], int(count), spec, spec, stale)
 
 
 def dadam_state_to_numpy(state: PackedDAdamState) -> Dict[str, Any]:
-    """The reverse: ``{'buf', 'm', 'v'}`` as numpy arrays and ``count``
-    as an int."""
+    """The reverse: ``{'buf', 'm', 'v'}`` as numpy arrays, ``count`` as an
+    int and, with live buffers, ``stale_bufs`` (a tuple) and
+    ``stale_age``."""
     out: Dict[str, Any] = {k: _to_numpy(getattr(state, k))
                            for k in ("buf", "m", "v")}
     out["count"] = int(state.count)
+    if getattr(state, "stale", None) is not None:
+        out["stale_bufs"] = tuple(_to_numpy(b) for b in state.stale.bufs)
+        out["stale_age"] = _to_numpy(state.stale.age)
     return out
+
+
+def _rings_from_numpy(pending: Sequence[Any], spec: packing.PackSpec,
+                      device) -> Tuple[Dict[str, torch.Tensor], ...]:
+    out = []
+    for i, ring in enumerate(pending):
+        q = tensor_from_numpy(ring["q"], device)
+        sc = tensor_from_numpy(ring["scale"], device)
+        K, rows = spec.buf_shape()[:2]
+        if (q.dim() != 4 or tuple(q.shape[:1] + q.shape[2:])
+                != (K, rows, packing.LANE) or q.dtype != torch.int8
+                or tuple(sc.shape[:2]) != tuple(q.shape[:2])):
+            raise ValueError(
+                f"pending[{i}] has q {tuple(q.shape)} {q.dtype} and scale "
+                f"{tuple(sc.shape)}; the port's ring for this layout is q "
+                f"(K, T, {rows}, {packing.LANE}) int8, scale (K, T[, L])")
+        out.append({"q": q, "scale": sc})
+    return tuple(out)
 
 
 def cdadam_state_from_numpy(buf, m, v, count, hat_buf,
                             hat_nbr_bufs: Sequence[Any], params_like: PyTree,
-                            device: "str | torch.device" = "cuda"
+                            device: "str | torch.device" = "cuda", *,
+                            pending: Optional[Sequence[Any]] = None
                             ) -> PackedCDAdamState:
     """A JAX ``PackedCDAdamState``'s buffers become the port's, one
-    ``hat_nbr_bufs`` entry per topology offset, in the topology's order."""
+    ``hat_nbr_bufs`` entry per topology offset, in the topology's order.
+    A state with live delay rings hands over ``pending``, one
+    ``{"q", "scale"}`` dict per offset."""
     hat_nbr_bufs = tuple(hat_nbr_bufs)
     names = ("buf", "m", "v", "hat_buf") + tuple(
         f"hat_nbr_bufs[{i}]" for i in range(len(hat_nbr_bufs)))
     spec, bufs = _resident_buffers(
         zip(names, (buf, m, v, hat_buf) + hat_nbr_bufs), params_like, device)
+    rings = (None if pending is None
+             else _rings_from_numpy(pending, spec, resolve_device(device)))
     return PackedCDAdamState(*bufs[:3], int(count), bufs[3], tuple(bufs[4:]),
-                             spec, spec)
+                             spec, spec, rings)
 
 
 def cdadam_state_to_numpy(state: PackedCDAdamState) -> Dict[str, Any]:
     """The reverse: ``{'buf', 'm', 'v', 'hat_buf'}`` as numpy arrays,
-    ``hat_nbr_bufs`` as a tuple of them and ``count`` as an int."""
+    ``hat_nbr_bufs`` as a tuple of them, ``count`` as an int and, with
+    live rings, ``pending`` as a tuple of ``{"q", "scale"}`` dicts."""
     out = dadam_state_to_numpy(state)
     out["hat_buf"] = _to_numpy(state.hat_buf)
     out["hat_nbr_bufs"] = tuple(_to_numpy(h) for h in state.hat_nbr_bufs)
+    if state.pending is not None:
+        out["pending"] = tuple({k: _to_numpy(v) for k, v in ring.items()}
+                               for ring in state.pending)
     return out

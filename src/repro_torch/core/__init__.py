@@ -1,5 +1,6 @@
 """D-Adam (Alg. 1) and CD-Adam (Alg. 2) over K stacked workers: topologies
-(``topology``), the optimizer math and packed state (``dadam``,
+and their time-varying schedules (``topology``, ``schedule``), the
+optimizer math, packed state and straggler-tolerant rounds (``dadam``,
 ``cdadam``), the compressors (``compression``), the baselines
-(``baselines``) and the ``make_optimizer`` facade (``api``). Import the
-submodules directly."""
+(``baselines``), elastic membership (``elastic``) and the
+``make_optimizer`` facade (``api``). Import the submodules directly."""

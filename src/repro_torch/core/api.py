@@ -5,6 +5,10 @@
                          backend="packed")          # on cuda by default
     opt = make_optimizer("cd-adam", K=8, period=16, gamma=0.4,
                          compressor="sign", backend="packed")
+    opt = make_optimizer("d-adam", K=8, period=4, staleness=2,
+                         straggler_rate=0.3, backend="packed")
+    opt = make_optimizer("d-adam", K=8, topology="one-peer-exp",
+                         overlap=True, backend="packed")
     state = opt.init(stacked_params)
     state = opt.step(state, stacked_grads)      # host-side comm-skip test
     state = opt.round(state, grad_fn, batches)  # p local steps + 1 gossip
@@ -20,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
@@ -28,20 +33,18 @@ from repro_torch.core import baselines, cdadam, dadam
 from repro_torch.core.cdadam import CDAdamConfig
 from repro_torch.core.compression import (Compressor, make_compressor,
                                           tree_dense_bytes, tree_wire_bytes)
-from repro_torch.core.dadam import DAdamConfig
+from repro_torch.core.dadam import ArrivalFn, DAdamConfig
+from repro_torch.core.schedule import (SCHEDULES, TopologySchedule,
+                                       make_schedule)
 from repro_torch.core.topology import Topology, make_topology
 
 PyTree = Any
-
-# time-varying schedule families of repro.core.schedule (not ported yet)
-_SCHEDULE_NAMES = ("one-peer-exponential", "one-peer-exp",
-                   "randomized-rings", "rand-ring")
 
 
 @dataclasses.dataclass(frozen=True)
 class DecentralizedOptimizer:
     name: str
-    topo: Topology
+    topo: "Topology | TopologySchedule"
     cfg: Any
     device: torch.device
     init: Callable[[PyTree], Any]
@@ -58,11 +61,21 @@ class DecentralizedOptimizer:
         return self.topo.K
 
     def _degree(self) -> int:
-        """Peers each worker exchanges with per round: the shift offsets,
-        or the weight matrix's off-diagonal support when mixing densely."""
+        """Peers each worker exchanges with per round on a static
+        topology: the shift offsets, or the weight matrix's off-diagonal
+        support when mixing densely."""
         if self.topo.offsets and self.cfg.mixing != "dense":
             return len(self.topo.offsets)
         return len(self.topo.neighbors_of(0))
+
+    def _union_exchange(self) -> bool:
+        """Whether a schedule exchanges over the UNION edge set every
+        round: per-edge-state consumers (CD-Adam payloads, staleness and
+        overlap buffers) keep every edge's state aligned across the
+        cycle."""
+        return (self.compressor is not None
+                or (getattr(self.cfg, "staleness", None) or 0) > 0
+                or bool(getattr(self.cfg, "overlap", False)))
 
     def _bytes_for_degree(self, deg: int, per_worker: PyTree) -> int:
         """Wire bytes one worker sends in a round of gossip degree
@@ -75,32 +88,48 @@ class DecentralizedOptimizer:
             return deg * (n + 4)
         return deg * tree_wire_bytes(self.compressor, per_worker)
 
-    def comm_bytes_per_round(self, params: PyTree) -> int:
+    def comm_bytes_per_round(self, params: PyTree) -> "int | float":
         """Bytes each worker sends per communication round (the paper's
-        'communication cost (MB)' x-axes)."""
+        'communication cost (MB)' x-axes). For a schedule without
+        per-edge state this is the cycle average; per-round accounting is
+        :meth:`comm_bytes_round_list`."""
         per_worker = tree_map(lambda x: x[0], params)
+        if isinstance(self.topo, TopologySchedule):
+            if self._union_exchange():
+                deg = len(self.topo.union_offsets())
+            else:
+                deg = float(np.mean([len(e.offsets)
+                                     for e in self.topo.entries]))
+            return self._bytes_for_degree(deg, per_worker)
         return self._bytes_for_degree(self._degree(), per_worker)
 
     def comm_bytes_round_list(self, params: PyTree) -> list:
-        """Per-round bytes across one schedule cycle; a static topology
-        has one entry."""
+        """Per-round bytes across one schedule cycle: entry ``r % len`` is
+        what a worker sends in communication round ``r``. A static
+        topology, and a schedule with per-edge state (which exchanges
+        over the union every round), have one entry."""
+        per_worker = tree_map(lambda x: x[0], params)
+        if (isinstance(self.topo, TopologySchedule)
+                and not self._union_exchange()):
+            return [self._bytes_for_degree(len(e.offsets), per_worker)
+                    for e in self.topo.entries]
         return [self.comm_bytes_per_round(params)]
 
 
-def resolve_topology(topology: "str | Topology", K: int) -> Topology:
-    """A zoo name becomes a :class:`Topology`; a built one passes through
-    (K-checked). Time-varying schedules are not ported yet."""
-    if isinstance(topology, Topology):
+def resolve_topology(topology: "str | Topology | TopologySchedule",
+                     K: int) -> "Topology | TopologySchedule":
+    """A string names either a static zoo graph (-> Topology) or a
+    time-varying schedule family like ``one-peer-exp`` / ``rand-ring:6``
+    (-> TopologySchedule); built instances pass through (K-checked)."""
+    if isinstance(topology, (Topology, TopologySchedule)):
         if topology.K != K:
             raise ValueError(
                 f"topology {topology.name!r} is over K={topology.K} "
                 f"workers, optimizer has K={K}")
         return topology
     name = topology.partition(":")[0].replace("_", "-")
-    if name in _SCHEDULE_NAMES:
-        raise NotImplementedError(
-            f"time-varying topology schedules ({topology!r}) are not ported "
-            "yet (ROADMAP queue 1, item 3: topologies and schedules)")
+    if name in SCHEDULES:
+        return make_schedule(topology, K)
     return make_topology(topology, K)
 
 
@@ -122,8 +151,11 @@ def make_optimizer(
     mixing: str = "roll",
     backend: str = "reference",
     comm: str = "stacked",
-    staleness=None,
+    staleness: Optional[int] = None,
+    straggler_rate: float = 0.0,
+    straggler_seed: int = 0,
     overlap: bool = False,
+    arrival: Optional[ArrivalFn] = None,
     device: "str | torch.device" = "cuda",
     **comp_kw,
 ) -> DecentralizedOptimizer:
@@ -136,7 +168,9 @@ def make_optimizer(
       K: number of workers; params enter ``opt.init`` with a leading K dim
         on every leaf.
       topology: a zoo name (``"ring"``, ``"torus"``, ``"exponential"``,
-        ``"fully_connected"``) or a built ``Topology`` (K-checked).
+        ``"fully_connected"``), a schedule spec (``"one-peer-exp"``,
+        ``"rand-ring:N"``), or a built ``Topology`` /
+        ``TopologySchedule`` (K-checked).
       period: local steps per gossip round (the paper's p).
       eta, beta1, beta2, tau, weight_decay, bias_correction: Adam.
       gamma: CD-Adam's consensus step size.
@@ -151,7 +185,17 @@ def make_optimizer(
       backend: ``"reference"`` (tree math) or ``"packed"`` (resident
         ``(K, rows, 128)`` state and the CUDA kernels).
       comm: ``"stacked"`` (all workers on one device).
-      staleness, overlap: not ported yet; anything but the defaults raises.
+      staleness: bounded-staleness gossip (tau rounds), with
+        ``straggler_rate`` / ``straggler_seed`` modelling late payloads.
+        Mutually exclusive with ``overlap``.
+      overlap: delay-1 wire schedule: round r sends its payload and
+        round r+1 mixes it. For CD-Adam this is bit for bit the
+        ``staleness=1`` delay ring with every payload late.
+      arrival: D-Adam's straggler trace, a callable ``r -> (K, deg)`` bool
+        array (deg: the topology's, or the schedule's union, offsets);
+        by default a CPU ``torch.Generator`` seeded by
+        ``(straggler_seed, r)`` draws it. Consulted only when
+        ``straggler_rate > 0``.
       device: where ``opt.init`` puts the state; ``cuda`` unless
         ``"cpu"`` is asked for. Raises ``RuntimeError`` without CUDA.
 
@@ -159,7 +203,9 @@ def make_optimizer(
       NotImplementedError: a kind, comm mode or option not ported yet.
       ValueError: an inconsistent combination: ``scales`` on a kind other
         than CD-Adam, a non-sign compressor on ``backend="packed"``,
-        d-psgd on a kernel backend.
+        d-psgd on a kernel backend or a schedule, ``mixing="dense"`` with
+        a schedule or with staleness / overlap, ``staleness`` together
+        with ``overlap``.
       KeyError: unknown kind, compressor or topology name.
     """
     factory_kwargs: Dict[str, Any] = dict(
@@ -167,17 +213,30 @@ def make_optimizer(
         beta1=beta1, beta2=beta2, tau=tau, weight_decay=weight_decay,
         bias_correction=bias_correction, gamma=gamma, compressor=compressor,
         scales=scales, mixing=mixing, backend=backend, comm=comm,
-        staleness=staleness, overlap=overlap, device=device, **comp_kw)
+        staleness=staleness, straggler_rate=straggler_rate,
+        straggler_seed=straggler_seed, overlap=overlap, arrival=arrival,
+        device=device, **comp_kw)
     dev = resolve_device(device)
     topo = resolve_topology(topology, K)
     kind = kind.lower().replace("_", "-")
     if scales != "leaf" and kind not in ("cd-adam", "cdadam"):
         raise ValueError("scales= selects CD-Adam's compression-scale "
                          f"granularity; meaningless for {kind!r}")
+    if isinstance(topo, TopologySchedule):
+        if mixing == "dense":
+            raise ValueError(
+                "time-varying schedules run per-entry shifts over their "
+                "offsets; mixing='dense' has no round-indexed form (use "
+                "mixing='roll')")
+        if kind in ("d-psgd", "dpsgd"):
+            raise ValueError(
+                "d-psgd is the static-graph baseline; time-varying "
+                "schedules are wired for d-adam / cd-adam")
     adam = dict(eta=eta, beta1=beta1, beta2=beta2, tau=tau, period=period,
                 weight_decay=weight_decay, bias_correction=bias_correction,
                 mixing=mixing, backend=backend, comm=comm,
-                staleness=staleness, overlap=overlap)
+                staleness=staleness, straggler_rate=straggler_rate,
+                straggler_seed=straggler_seed, overlap=overlap)
     comp = None
 
     if kind in ("d-adam", "dadam", "d-adam-vanilla"):
@@ -185,9 +244,10 @@ def make_optimizer(
             adam["period"] = 1
         cfg = DAdamConfig(**adam)
         cfg.validate()
-        init_fn = lambda p: dadam.init(p, cfg)
-        step = lambda s, g: dadam.step(s, g, topo, cfg)
-        round_ = lambda s, fn, b: dadam.round_step(s, fn, b, topo, cfg)
+        init_fn = lambda p: dadam.init(p, cfg, topo)
+        step = lambda s, g: dadam.step(s, g, topo, cfg, arrival)
+        round_ = lambda s, fn, b: dadam.round_step(s, fn, b, topo, cfg,
+                                                   arrival)
 
     elif kind in ("cd-adam", "cdadam"):
         comp = (compressor if isinstance(compressor, Compressor)
@@ -198,7 +258,7 @@ def make_optimizer(
                 f"compressor={comp.name!r} (use backend='reference')")
         cfg = CDAdamConfig(gamma=gamma, scales=scales, **adam)
         cfg.validate()
-        init_fn = lambda p: cdadam.init(p, cfg, topo)
+        init_fn = lambda p: cdadam.init(p, cfg, topo, comp)
         step = lambda s, g: cdadam.step(s, g, topo, cfg, comp)
         round_ = lambda s, fn, b: cdadam.round_step(s, fn, b, topo, cfg,
                                                     comp)

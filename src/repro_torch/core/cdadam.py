@@ -26,23 +26,31 @@ Two backends, as for D-Adam:
   ``scales='worker'``) and the neighbour-copy update in torch ops.
 
 An unpacked :class:`CDAdamState` stepped with ``backend='packed'`` takes
-the reference round with the sign compressor, the same math. The step
-counter is a host int, so the communication test costs no device sync.
+the reference round with the sign compressor, the same math.
+
+Straggler tolerance (``cfg.staleness`` > 0 or ``cfg.overlap``) delays the
+encoded payloads through per-edge delay rings (``pending``), and a
+topology schedule runs each round over its union edge set. The step
+counter and round index are host ints, so the communication test, the
+ring slots and a schedule's entry for the round cost no device sync.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch._tree import (tree_flatten, tree_leaves, tree_map,
                                tree_unflatten)
 from repro_torch.core.compression import Compressor
 from repro_torch.core.dadam import (AdamMoments, DAdamConfig, _comm_due,
-                                    _fused_local_packed, init_moments,
-                                    local_update, shift_worker)
+                                    _fused_local_packed, _round_index,
+                                    init_moments, local_update, round_view,
+                                    select_workers, shift_worker)
+from repro_torch.core.schedule import TopologySchedule, comm_offsets
 from repro_torch.core.topology import Topology
 from repro_torch.kernels import ops
 from repro_torch.kernels import pack as packing
@@ -80,6 +88,11 @@ class CDAdamState(NamedTuple):
     hat_self: PyTree               # xhat of worker k, stacked (K, ...)
     hat_nbrs: Tuple[PyTree, ...]   # worker k's copy of xhat_{src_s(k)},
     #                                one per topology offset s
+    # straggler-tolerant payload delay rings (cfg.staleness > 0 or
+    # cfg.overlap): one per offset, a tuple over the param leaves of
+    # encoded payloads with a T = tau + 1 slot dim at axis 1. Stripped
+    # from checkpoints, rebuilt cold on restore.
+    pending: Optional[Tuple[Any, ...]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +102,9 @@ class PackedCDAdamState:
     Params (``buf``), both moments, ``xhat_self`` (``hat_buf``) and one
     ``xhat`` copy per topology offset (``hat_nbr_bufs``) live in stacked,
     leaf-aligned ``(K, rows, 128)`` buffers across steps. The tree views
-    are made at boundaries (eval, logging, checkpoints)."""
+    are made at boundaries (eval, logging, checkpoints). ``pending``
+    holds one delay ring per offset, ``{"q": (K, T, rows, 128) int8,
+    "scale": (K, T, L) or (K, T) f32}``, or ``None``."""
 
     buf: torch.Tensor
     m: torch.Tensor
@@ -99,6 +114,10 @@ class PackedCDAdamState:
     hat_nbr_bufs: Tuple[torch.Tensor, ...]
     spec: packing.PackSpec
     spec_m: packing.PackSpec
+    pending: Optional[Tuple[Any, ...]] = None
+
+    def with_pending(self, pending) -> "PackedCDAdamState":
+        return dataclasses.replace(self, pending=pending)
 
     @property
     def params(self) -> PyTree:
@@ -119,7 +138,7 @@ class PackedCDAdamState:
 
     def unpacked(self) -> CDAdamState:
         """The backend-agnostic tree state, leaf for leaf a reference
-        state."""
+        state, without the transient delay rings."""
         return CDAdamState(self.params, self.moments, self.hat_self,
                            self.hat_nbrs)
 
@@ -138,20 +157,119 @@ class PackedCDAdamState:
                    spec, spec_m)
 
 
-def init(params_stacked: PyTree, cfg: CDAdamConfig, topo: Topology
+# ---------------- straggler-tolerant payload delay rings --------------------
+#
+# A CHOCO hat copy is a running SUM of residual payloads, so dropping (or
+# re-applying) a payload would desync worker k's copy of its neighbour's hat
+# for good. Stragglers therefore DELAY payloads, never drop them: each edge
+# (k, offset i) has a static delay d <= tau, incoming encoded payloads enter
+# a ring with T = tau + 1 slots, and round r applies the payload pushed at
+# round r - d: in order, exactly once, at most tau rounds late.
+
+
+def _wire_tau(cfg: CDAdamConfig) -> int:
+    """Rounds of wire delay the rings implement: the staleness bound, or
+    exactly one round under ``cfg.overlap``: overlap is the tau=1 ring with
+    an all-ones delay table, which is what makes it bit for bit
+    ``staleness=1`` with every payload late."""
+    if cfg.overlap:
+        return 1
+    return int(cfg.staleness or 0)
+
+
+def _payload_delays(cfg: CDAdamConfig, K: int, deg: int) -> np.ndarray:
+    """Static (K, deg) per-edge delay table from ``straggler_seed``
+    (``np.random.RandomState``, the JAX package's draw): a fraction
+    ``straggler_rate`` of edges is persistently slow, delay uniform in
+    [1, tau]; the rest deliver in the same round. Under ``cfg.overlap``
+    every edge is exactly one round late."""
+    if cfg.overlap:
+        return np.ones((K, deg), np.int32)
+    tau = _wire_tau(cfg)
+    if tau == 0 or cfg.straggler_rate <= 0.0:
+        return np.zeros((K, deg), np.int32)
+    rs = np.random.RandomState(cfg.straggler_seed)
+    slow = rs.rand(K, deg) < cfg.straggler_rate
+    d = np.where(slow, rs.randint(1, tau + 1, size=(K, deg)), 0)
+    return d.astype(np.int32)
+
+
+def _ring_like(payload_like: Any, T: int) -> Any:
+    """A cold (zero) ring: every payload leaf gains a T-slot dim at axis 1
+    (axis 0 stays the worker dim). Zero payloads decode to zero residuals,
+    so warm-up rounds apply no hat update: 'no message yet'."""
+    return tree_map(lambda p: torch.zeros((p.shape[0], T) + tuple(p.shape[1:]),
+                                          dtype=p.dtype, device=p.device),
+                    payload_like)
+
+
+def _ring_push(ring: Any, payload: Any, slot: int) -> Any:
+    """A new ring with ``payload`` in ``slot`` (the old ring is kept)."""
+    def push(rb, p):
+        out = rb.clone()
+        out[:, slot] = p.to(rb.dtype)
+        return out
+
+    return tree_map(push, ring, payload)
+
+
+def _ring_gather(ring: Any, sel: np.ndarray) -> Any:
+    """Per-worker slot read: leaf (K, T, ...) and host ``sel`` (K,) ->
+    (K, ...)."""
+    return tree_map(lambda rb: select_workers(sel, lambda j: rb[:, j]), ring)
+
+
+def _delayed_recv(recv: Any, ring: Optional[Any], d_col: np.ndarray, r: int,
+                  tau: int) -> Tuple[Any, Optional[Any]]:
+    """Push this round's received payload, pop each worker's delayed
+    one."""
+    if ring is None:
+        return recv, None
+    T = tau + 1
+    new_ring = _ring_push(ring, recv, r % T)
+    return _ring_gather(new_ring, (r - d_col) % T), new_ring
+
+
+def init(params_stacked: PyTree, cfg: CDAdamConfig,
+         topo: "Topology | TopologySchedule",
+         comp: Optional[Compressor] = None
          ) -> "CDAdamState | PackedCDAdamState":
     """xhat_0 = 0 for every worker and every neighbour copy (CHOCO's
-    convention)."""
+    convention), one copy per offset that can ever be active (a
+    schedule's union); cold delay rings when ``cfg`` delays payloads."""
     cfg.validate()
-    if not topo.offsets and topo.K > 1:
+    offs = comm_offsets(topo)
+    if not offs and topo.K > 1:
         raise ValueError("CD-Adam runtime requires a shift-invariant topology")
+    tau = _wire_tau(cfg)
     zeros = tree_map(torch.zeros_like, params_stacked)
     hat_nbrs = tuple(tree_map(torch.zeros_like, params_stacked)
-                     for _ in topo.offsets)
+                     for _ in offs)
     state = CDAdamState(params_stacked, init_moments(params_stacked), zeros,
                         hat_nbrs)
     if cfg.backend == "packed":
-        return PackedCDAdamState.from_unpacked(state)
+        packed = PackedCDAdamState.from_unpacked(state)
+        if tau > 0:
+            K, rows = packed.buf.shape[:2]
+            per_worker = (() if cfg.scales == "worker"
+                          else (len(packed.spec.sizes),))
+            dev = packed.buf.device
+            ring = {"q": torch.zeros((K, tau + 1, rows, packing.LANE),
+                                     dtype=torch.int8, device=dev),
+                    "scale": torch.zeros((K, tau + 1) + per_worker,
+                                         device=dev)}
+            packed = packed.with_pending(tuple(ring for _ in offs))
+        return packed
+    if tau > 0:
+        if comp is None:
+            raise ValueError(
+                "cfg.staleness > 0 rings buffer ENCODED payloads; the "
+                "reference backend needs the compressor at init (pass "
+                "comp=, as make_optimizer does)")
+        payload_like = tuple(_encode_stacked(comp, z)
+                             for z in tree_leaves(zeros))
+        ring = _ring_like(payload_like, tau + 1)
+        state = state._replace(pending=tuple(ring for _ in offs))
     return state
 
 
@@ -190,7 +308,7 @@ def _decode_stacked(comp: Compressor, payload: Any,
 
 
 def _comm_round(state_half: CDAdamState, topo: Topology, cfg: CDAdamConfig,
-                comp: Compressor) -> CDAdamState:
+                comp: Compressor, r: int) -> CDAdamState:
     """Lines 8-11 of Alg. 2 on the half-step parameters, leaf by leaf."""
     x_new = _mix_with_hats(state_half.params, state_half.hat_self,
                            state_half.hat_nbrs, topo, cfg)
@@ -198,20 +316,28 @@ def _comm_round(state_half: CDAdamState, topo: Topology, cfg: CDAdamConfig,
     hats = tree_leaves(state_half.hat_self)
     resid = [a - b for a, b in zip(xs, hats)]
     # (9) compress the residual against our own xhat; (11a) xhat_k += q_k
-    q_enc = [_encode_stacked(comp, r) for r in resid]
-    new_hat_self = [h + _decode_stacked(comp, p, r).to(h.dtype)
-                    for h, p, r in zip(hats, q_enc, resid)]
+    q_enc = tuple(_encode_stacked(comp, res) for res in resid)
+    new_hat_self = [h + _decode_stacked(comp, p, res).to(h.dtype)
+                    for h, p, res in zip(hats, q_enc, resid)]
     # (10) + (11b) worker k receives the ENCODED payload of src_s(k) and
-    # decodes it locally
-    new_hat_nbrs = []
-    for s, hn in zip(topo.offsets, state_half.hat_nbrs):
-        upd = []
-        for h, p, r in zip(tree_leaves(hn), q_enc, resid):
-            recv = tree_map(lambda a: shift_worker(a, s, topo.K), p)
-            upd.append(h + _decode_stacked(comp, recv, r).to(h.dtype))
+    # decodes it locally; with delay rings it takes the payload of round
+    # r - d instead, in order, never dropped
+    tau = _wire_tau(cfg)
+    delays = _payload_delays(cfg, topo.K, len(topo.offsets))
+    pending = state_half.pending
+    new_hat_nbrs, new_pending = [], []
+    for i, (s, hn) in enumerate(zip(topo.offsets, state_half.hat_nbrs)):
+        recv = tuple(tree_map(lambda a: shift_worker(a, s, topo.K), p)
+                     for p in q_enc)
+        use, ring = _delayed_recv(recv, None if pending is None
+                                  else pending[i], delays[:, i], r, tau)
+        upd = [h + _decode_stacked(comp, u, res).to(h.dtype)
+               for h, u, res in zip(tree_leaves(hn), use, resid)]
         new_hat_nbrs.append(tree_unflatten(td, upd))
+        new_pending.append(ring)
     return CDAdamState(x_new, state_half.moments,
-                       tree_unflatten(td, new_hat_self), tuple(new_hat_nbrs))
+                       tree_unflatten(td, new_hat_self), tuple(new_hat_nbrs),
+                       None if pending is None else tuple(new_pending))
 
 
 # ------------------------------- packed round ------------------------------
@@ -223,34 +349,47 @@ def _rows_per_leaf(ranges: Tuple[Tuple[int, int], ...],
     return torch.tensor([r1 - r0 for r0, r1 in ranges], device=device)
 
 
+def shift_payload(q_buf: torch.Tensor, scales: torch.Tensor, s: Any,
+                  K: int) -> dict:
+    """(10): worker k receives ``src_s(k)``'s int8 q and scales."""
+    return {"q": shift_worker(q_buf, s, K),
+            "scale": shift_worker(scales, s, K)}
+
+
+def apply_nbr_hat(hn: torch.Tensor, recv: dict,
+                  ranges: Optional[Tuple[Tuple[int, int], ...]] = None
+                  ) -> torch.Tensor:
+    """(11b): ``hn + scale * q`` with the received scales (``(K,)``, or
+    ``(K, L)`` spread over the leaves' row ``ranges``)."""
+    q, sc = recv["q"], recv["scale"]
+    if ranges is None:
+        sc = sc[:, None, None]
+    else:
+        sc = torch.repeat_interleave(
+            sc, _rows_per_leaf(ranges, q.device), dim=1,
+            output_size=q.shape[1])[:, :, None]
+    return hn + (sc * q.to(torch.float32)).to(hn.dtype)
+
+
 def update_nbr_hats(hat_nbr_bufs: Sequence[torch.Tensor], q_buf: torch.Tensor,
                     scales: torch.Tensor, topo: Topology,
                     ranges: Optional[Tuple[Tuple[int, int], ...]] = None
                     ) -> Tuple[torch.Tensor, ...]:
-    """(10) + (11b) on the resident buffers: per offset s, shift the int8
-    ``q_buf`` and the scales (``(K,)``, or ``(K, L)`` with the leaves'
-    row ``ranges``) by ``s`` and add ``scale * q`` to the neighbour copy."""
-    out: List[torch.Tensor] = []
-    rows = q_buf.shape[1]
-    for s, hn in zip(topo.offsets, hat_nbr_bufs):
-        q_recv = shift_worker(q_buf, s, topo.K)
-        sc_recv = shift_worker(scales, s, topo.K)
-        if ranges is None:
-            sc = sc_recv[:, None, None]
-        else:
-            sc = torch.repeat_interleave(
-                sc_recv, _rows_per_leaf(ranges, q_buf.device), dim=1,
-                output_size=rows)[:, :, None]
-        out.append(hn + (sc * q_recv.to(torch.float32)).to(hn.dtype))
-    return tuple(out)
+    """(10) + (11b) on the resident buffers with no delay: per offset s,
+    shift the int8 ``q_buf`` and the scales by ``s`` and add
+    ``scale * q`` to the neighbour copy."""
+    return tuple(apply_nbr_hat(hn, shift_payload(q_buf, scales, s, topo.K),
+                               ranges)
+                 for s, hn in zip(topo.offsets, hat_nbr_bufs))
 
 
 def _comm_round_packed(state_half: PackedCDAdamState, topo: Topology,
-                       cfg: CDAdamConfig) -> PackedCDAdamState:
+                       cfg: CDAdamConfig, r: int) -> PackedCDAdamState:
     """Lines 8-11 of Alg. 2 on the resident buffers: one ``consensus_mix``
     pass, one ``sign_compress_stacked`` call over every leaf segment (or
     the whole buffer for ``scales='worker'``, divided by the true element
-    count), then the neighbour copies from the int8 payload."""
+    count), then the neighbour copies from the int8 payload, through the
+    delay rings when ``cfg`` delays payloads."""
     spec = state_half.spec
     x_new = ops.consensus_mix(state_half.buf, state_half.hat_buf,
                               state_half.hat_nbr_bufs, topo.offset_weights,
@@ -263,11 +402,22 @@ def _comm_round_packed(state_half: PackedCDAdamState, topo: Topology,
         ranges = packing.leaf_row_ranges(spec)
         q_buf, scales, new_hat = ops.sign_compress_stacked(
             x_new, state_half.hat_buf, n_true=spec.sizes, row_ranges=ranges)
+    tau = _wire_tau(cfg)
+    delays = _payload_delays(cfg, topo.K, len(topo.offsets))
+    pending = state_half.pending
+    new_nbrs, new_pending = [], []
     with torch.profiler.record_function("repro_torch.cdadam.nbr_hat_update"):
-        new_nbrs = update_nbr_hats(state_half.hat_nbr_bufs, q_buf, scales,
-                                   topo, ranges)
-    return dataclasses.replace(state_half, buf=x_new, hat_buf=new_hat,
-                               hat_nbr_bufs=new_nbrs)
+        for i, (s, hn) in enumerate(zip(topo.offsets,
+                                        state_half.hat_nbr_bufs)):
+            recv, ring = _delayed_recv(
+                shift_payload(q_buf, scales, s, topo.K),
+                None if pending is None else pending[i], delays[:, i], r,
+                tau)
+            new_nbrs.append(apply_nbr_hat(hn, recv, ranges))
+            new_pending.append(ring)
+    return dataclasses.replace(
+        state_half, buf=x_new, hat_buf=new_hat, hat_nbr_bufs=tuple(new_nbrs),
+        pending=None if pending is None else tuple(new_pending))
 
 
 # ---------------------------------- steps ----------------------------------
@@ -282,20 +432,24 @@ def _local_packed(state: PackedCDAdamState, grads: Any,
 def _local_ref(state: CDAdamState, grads: PyTree,
                cfg: CDAdamConfig) -> CDAdamState:
     half, mom = local_update(state.params, grads, state.moments, cfg)
-    return CDAdamState(half, mom, state.hat_self, state.hat_nbrs)
+    return state._replace(params=half, moments=mom)
 
 
-def _comm(state, topo: Topology, cfg: CDAdamConfig, comp: Compressor):
+def _comm(state, topo: "Topology | TopologySchedule", cfg: CDAdamConfig,
+          comp: Compressor, r: int):
+    """Round r's compressed gossip; a schedule runs its union view of the
+    round, so the per-edge hats and rings stay aligned."""
     if topo.K == 1:
         return state
+    view = round_view(topo, r, union=True)
     if isinstance(state, PackedCDAdamState):
-        return _comm_round_packed(state, topo, cfg)
-    return _comm_round(state, topo, cfg, comp)
+        return _comm_round_packed(state, view, cfg, r)
+    return _comm_round(state, view, cfg, comp, r)
 
 
 def step(state: "CDAdamState | PackedCDAdamState", grads: PyTree,
-         topo: Topology, cfg: CDAdamConfig, comp: Compressor
-         ) -> "CDAdamState | PackedCDAdamState":
+         topo: "Topology | TopologySchedule", cfg: CDAdamConfig,
+         comp: Compressor) -> "CDAdamState | PackedCDAdamState":
     """One iteration of Alg. 2. Packed states never leave the
     ``(K, rows, 128)`` layout; ``grads`` may be a congruent tree or an
     already packed buffer."""
@@ -307,13 +461,13 @@ def step(state: "CDAdamState | PackedCDAdamState", grads: PyTree,
         count = half.moments.count
     if not _comm_due(count, cfg):
         return half
-    return _comm(half, topo, cfg, comp)
+    return _comm(half, topo, cfg, comp, _round_index(count, cfg.period))
 
 
 def round_step(state: "CDAdamState | PackedCDAdamState",
                grad_fn: Callable[[Any, Any], Any], batches: Any,
-               topo: Topology, cfg: CDAdamConfig, comp: Compressor
-               ) -> "CDAdamState | PackedCDAdamState":
+               topo: "Topology | TopologySchedule", cfg: CDAdamConfig,
+               comp: Compressor) -> "CDAdamState | PackedCDAdamState":
     """One communication round: a local step per entry of ``batches``'
     leading dim (p of them), then one compressed gossip.
 
@@ -326,4 +480,6 @@ def round_step(state: "CDAdamState | PackedCDAdamState",
             state = _local_packed(state, grad_fn(state.buf, batch), cfg)
         else:
             state = _local_ref(state, grad_fn(state.params, batch), cfg)
-    return _comm(state, topo, cfg, comp)
+    count = (state.count if isinstance(state, PackedCDAdamState)
+             else state.moments.count)
+    return _comm(state, topo, cfg, comp, _round_index(count, cfg.period))

@@ -20,18 +20,29 @@ is the one-GPU case. Two backends:
   runs the ``fused_adam``, ``gossip_adam_mix`` and ``gossip_mix`` kernels
   on them through :mod:`repro_torch.kernels.ops`.
 
+The straggler-tolerant runtime of the JAX package is here too: bounded
+staleness (``cfg.staleness``, with ``straggler_rate`` / ``straggler_seed``
+modelling late payloads), the delay-1 overlap schedule (``cfg.overlap``)
+and time-varying topology schedules. Their payload buffers
+(:class:`StaleBufs`) ride on the state; the packed rounds mix through the
+``payload_mix`` kernel.
+
 The step counter is a host int, so the communication test
-``count % period == 0`` costs no device sync.
+``count % period == 0``, the round index, the arrival mask, the staleness
+ages (kept on the host CPU) and a schedule's entry for the round are all
+decided without a device sync.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch._tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from repro_torch.core.schedule import TopologySchedule, comm_offsets
 from repro_torch.core.topology import GridShift, Topology, offset_perm
 from repro_torch.kernels import ops
 from repro_torch.kernels import pack as packing
@@ -40,6 +51,13 @@ from repro_torch.kernels.gossip import MAX_FUSED_DEGREE, MAX_GOSSIP_ADAM_DEGREE
 from repro_torch.kernels.pack import BLOCK_ROWS
 
 PyTree = Any
+# (r) -> (K, deg) bool: which neighbour payloads arrive in round r
+ArrivalFn = Callable[[int], Any]
+
+# staleness ages start "infinitely old" so the FIRST gossip round always
+# takes a fresh payload (cold buffers never mix in); half of int32 max so
+# age + 1 cannot overflow
+COLD_AGE = 2**30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,8 +73,15 @@ class DAdamConfig:
     backend: str = "reference"  # 'reference' (tree math) | 'packed'
     #                             (resident (K, rows, 128) state + kernels)
     comm: str = "stacked"       # 'stacked' only in this port so far
-    staleness: Optional[int] = None  # not ported yet
-    overlap: bool = False            # not ported yet
+    staleness: Optional[int] = None  # straggler-tolerant gossip: mix the
+    #                             last-arrived neighbour payload, at most
+    #                             tau rounds old (None = synchronous;
+    #                             tau=0 == synchronous bit for bit)
+    straggler_rate: float = 0.0  # probability a neighbour payload misses
+    #                              a round (deterministic per seed)
+    straggler_seed: int = 0
+    overlap: bool = False       # delay-1 wire schedule: round r sends its
+    #                             payload and round r+1 mixes it
 
     def validate(self) -> None:
         if not 0 <= self.beta1 < 1 or not 0 <= self.beta2 < 1:
@@ -80,10 +105,33 @@ class DAdamConfig:
                 "backend='packed' implements the paper's Alg. 1 update "
                 "(no bias correction); use backend='reference' for "
                 "bias_correction=True")
-        if self.staleness is not None or self.overlap:
-            raise NotImplementedError(
-                "staleness-bounded and overlapped gossip are not ported yet "
-                "(ROADMAP queue 1, item 7: async runtime)")
+        if self.staleness is not None:
+            if self.staleness < 0:
+                raise ValueError(
+                    f"staleness bound tau must be >= 0, got {self.staleness}")
+            if self.mixing == "dense":
+                raise ValueError(
+                    "staleness-bounded gossip double-buffers per-offset "
+                    "neighbour payloads; it requires the shift lowering "
+                    "(mixing='roll')")
+        if not 0.0 <= self.straggler_rate < 1.0:
+            raise ValueError(
+                f"straggler_rate must be in [0, 1), got "
+                f"{self.straggler_rate}")
+        if self.straggler_rate > 0.0 and self.staleness is None:
+            raise ValueError(
+                "straggler_rate > 0 models delayed payload arrivals and "
+                "needs a staleness bound (set staleness=tau)")
+        if self.overlap:
+            if self.staleness is not None:
+                raise ValueError(
+                    "overlap IS the staleness tau=1 wire schedule (every "
+                    "payload exactly one round late); combining it with "
+                    "an explicit staleness bound is ambiguous: choose one")
+            if self.mixing == "dense":
+                raise ValueError(
+                    "overlap double-buffers per-offset neighbour payloads "
+                    "and requires the shift lowering (mixing='roll')")
 
 
 class AdamMoments(NamedTuple):
@@ -149,8 +197,13 @@ def shift_worker(x: torch.Tensor, s: Any, K: int) -> torch.Tensor:
         xg = x.reshape((s.rows, s.cols) + tuple(x.shape[1:]))
         xg = torch.roll(xg, (-s.dr, -s.dc), dims=(0, 1))
         return xg.reshape(x.shape)
-    idx = torch.as_tensor(offset_perm(s, K), device=x.device)
-    return x.index_select(0, idx)
+    return x.index_select(0, _perm_index(s, K, x.device))
+
+
+@functools.lru_cache(maxsize=256)
+def _perm_index(s: Any, K: int, device: torch.device) -> torch.Tensor:
+    """``offset_perm`` on ``device``, made once per offset and device."""
+    return torch.as_tensor(offset_perm(s, K), device=device)
 
 
 def gossip_dense(params: PyTree, W: np.ndarray) -> PyTree:
@@ -164,6 +217,18 @@ def gossip_dense(params: PyTree, W: np.ndarray) -> PyTree:
     return tree_map(mix, params)
 
 
+def _mix_trees(params: PyTree, nbrs, topo: Topology) -> PyTree:
+    """mixed = w_self * x + sum_i w_i * nbrs[i], leaf by leaf, accumulated
+    in f32: the self term first, then the neighbour trees in order."""
+    def mix(x, *ns):
+        acc = f32(topo.self_weight) * x.to(torch.float32)
+        for w, nb in zip(topo.offset_weights, ns):
+            acc = acc + f32(w) * nb.to(torch.float32)
+        return acc.to(x.dtype)
+
+    return tree_map(mix, params, *nbrs)
+
+
 def gossip_shift(params: PyTree, topo: Topology) -> PyTree:
     """mixed[k] = w_self * x[k] + sum_s w_s * x[src_s(k)], one shift per
     graph offset, accumulated in f32."""
@@ -173,14 +238,8 @@ def gossip_shift(params: PyTree, topo: Topology) -> PyTree:
         raise ValueError(
             f"topology {topo.name!r} has no shift structure; use gossip_dense"
         )
-
-    def mix(x):
-        acc = f32(topo.self_weight) * x.to(torch.float32)
-        for s, w in zip(topo.offsets, topo.offset_weights):
-            acc = acc + f32(w) * shift_worker(x, s, topo.K).to(torch.float32)
-        return acc.to(x.dtype)
-
-    return tree_map(mix, params)
+    return _mix_trees(params, [tree_map(lambda x, s=s: shift_worker(
+        x, s, topo.K), params) for s in topo.offsets], topo)
 
 
 def gossip(params: PyTree, topo: Topology, cfg: DAdamConfig) -> PyTree:
@@ -211,12 +270,239 @@ def gossip_packed(buf: torch.Tensor, topo: Topology,
                           topo.self_weight)
 
 
+# -------------------- straggler-tolerant (stale) gossip ---------------------
+
+
+class StaleBufs(NamedTuple):
+    """Double-buffered neighbour payloads for staleness-bounded gossip.
+
+    ``bufs[i]`` holds the payload last taken from offset i's neighbour
+    (the structure of the params, or the packed buffer); ``age[k, i]``
+    counts rounds since worker k last refreshed it, an int32 tensor kept
+    on the host CPU, where the round's take is decided. A round mixes the
+    buffered copy while it is younger than the bound tau and MUST take a
+    fresh payload once ``age >= tau``, so no mixed-in value is more than
+    tau rounds old, and tau=0 is the synchronous gossip bit for bit."""
+
+    bufs: Tuple[Any, ...]
+    age: torch.Tensor
+
+
+def _round_index(count: int, period: int) -> int:
+    """0-based communication-round index at a comm step (count = p, 2p...)."""
+    return max(count // period - 1, 0)
+
+
+def default_arrival(cfg: DAdamConfig, K: int, deg: int) -> ArrivalFn:
+    """The arrival draw of ``cfg``: round r's ``(K, deg)`` mask comes from
+    a CPU ``torch.Generator`` seeded by ``(straggler_seed, r)``, so every
+    worker, the card and the CPU agree on the trace without communication.
+    (The JAX package draws with threefry, which torch cannot reproduce;
+    ``make_optimizer(arrival=)`` takes any other draw.)"""
+    rate = float(cfg.straggler_rate)
+    seed = int(cfg.straggler_seed) & 0xFFFFFFFF
+
+    def arrival(r: int) -> torch.Tensor:
+        gen = torch.Generator().manual_seed((seed << 32) | (int(r)
+                                                            & 0xFFFFFFFF))
+        return torch.rand((K, deg), generator=gen) >= rate
+
+    return arrival
+
+
+def _arrival_mask(cfg: DAdamConfig, r: int, K: int, deg: int,
+                  arrival: Optional[ArrivalFn] = None) -> torch.Tensor:
+    """(K, deg) bool on the host: which neighbour payloads arrive in round
+    r. All of them without stragglers; else ``arrival(r)``, or the
+    default draw of ``cfg``."""
+    if cfg.straggler_rate <= 0.0:
+        return torch.ones((K, deg), dtype=torch.bool)
+    mask = (arrival or default_arrival(cfg, K, deg))(r)
+    if not isinstance(mask, torch.Tensor):
+        mask = torch.from_numpy(np.array(mask, dtype=bool))
+    mask = mask.to("cpu", torch.bool)
+    if tuple(mask.shape) != (K, deg):
+        raise ValueError(f"arrival mask of round {r} has shape "
+                         f"{tuple(mask.shape)}, expected {(K, deg)}")
+    return mask
+
+
+def init_stale(params_like: PyTree,
+               topo: "Topology | TopologySchedule") -> StaleBufs:
+    """Cold staleness buffers over ``topo``'s (union) offsets: zero
+    payloads at COLD_AGE, forcing a fresh exchange on first use."""
+    offs = comm_offsets(topo)
+    zeros = tree_map(torch.zeros_like, params_like)
+    return StaleBufs(tuple(zeros for _ in offs),
+                     torch.full((topo.K, len(offs)), COLD_AGE,
+                                dtype=torch.int32))
+
+
+def select_workers(slot, option: Callable[[int], torch.Tensor]
+                   ) -> torch.Tensor:
+    """Worker k's value ``option(slot[k])[k]``, for a host per-worker slot
+    index ``slot`` (K,). A uniform index passes that one operand through
+    (no other option is even made); mixed ones stack the chosen worker
+    slices, a copy of exactly those bytes."""
+    slot = [int(j) for j in np.asarray(slot)]
+    made = {j: option(j) for j in dict.fromkeys(slot)}
+    if len(made) == 1:
+        return made[slot[0]]
+    return torch.stack([made[j][k] for k, j in enumerate(slot)])
+
+
+def gossip_shift_stale(params: PyTree, stale: StaleBufs, topo: Topology,
+                       cfg: DAdamConfig, r: int,
+                       arrival: Optional[ArrivalFn] = None
+                       ) -> Tuple[PyTree, StaleBufs]:
+    """Shift gossip with a staleness bound: round r mixes, per offset, the
+    freshly shifted payload when it arrives (or when the buffered copy hits
+    the bound tau) and the buffered <= tau-rounds-old copy otherwise. With
+    tau=0 every payload is forced fresh and the result is bit for bit
+    :func:`gossip_shift`."""
+    if not topo.offsets:
+        return params, stale
+    tau = int(cfg.staleness)
+    if tau == 0:
+        return (gossip_shift(params, topo),
+                StaleBufs(stale.bufs, torch.zeros_like(stale.age)))
+    take = _arrival_mask(cfg, r, topo.K, len(topo.offsets),
+                         arrival) | (stale.age >= tau)
+    new_age = torch.where(take, 0, stale.age + 1).to(torch.int32)
+    new_bufs = []
+    for i, s in enumerate(topo.offsets):
+        def pick(x, b, i=i, s=s):
+            return select_workers(take[:, i], lambda j: shift_worker(
+                x, s, topo.K) if j else b.to(x.dtype))
+
+        new_bufs.append(tree_map(pick, params, stale.bufs[i]))
+    return _mix_trees(params, new_bufs, topo), StaleBufs(tuple(new_bufs),
+                                                         new_age)
+
+
+def gossip_shift_overlap(params: PyTree, stale: StaleBufs, topo: Topology,
+                         cfg: DAdamConfig) -> Tuple[PyTree, StaleBufs]:
+    """Overlapped shift gossip: round r SENDS this round's neighbour
+    exchange (the fresh shifts) but MIXES the payloads sent at round
+    r-1, held in the buffers, a uniform delay-1 wire schedule. Cold
+    buffers (first round, and after an elastic resize or a restore: ``age
+    >= COLD_AGE``) fold the fresh payload instead."""
+    if not topo.offsets:
+        return params, stale
+    cold = stale.age >= COLD_AGE
+    fresh, used = [], []
+    for i, s in enumerate(topo.offsets):
+        f = tree_map(lambda x, s=s: shift_worker(x, s, topo.K), params)
+        fresh.append(f)
+        used.append(tree_map(
+            lambda a, b, i=i: select_workers(
+                cold[:, i], lambda j: a if j else b.to(a.dtype)),
+            f, stale.bufs[i]))
+    return (_mix_trees(params, used, topo),
+            StaleBufs(tuple(fresh), torch.zeros_like(stale.age)))
+
+
+def gossip_packed_stale(buf: torch.Tensor, stale: StaleBufs, topo: Topology,
+                        cfg: DAdamConfig, r: int,
+                        arrival: Optional[ArrivalFn] = None
+                        ) -> Tuple[torch.Tensor, StaleBufs]:
+    """Staleness-bounded gossip on the resident packed buffer: the
+    payload choice per worker, then the ``payload_mix`` kernel (the
+    accumulation order of ``gossip_mix``, so tau=0, which runs the
+    synchronous packed round, and tau>0 share their arithmetic)."""
+    if not topo.offsets:
+        return buf, stale
+    tau = int(cfg.staleness)
+    if tau == 0:
+        return (gossip_packed(buf, topo, cfg),
+                StaleBufs(stale.bufs, torch.zeros_like(stale.age)))
+    take = _arrival_mask(cfg, r, topo.K, len(topo.offsets),
+                         arrival) | (stale.age >= tau)
+    new_age = torch.where(take, 0, stale.age + 1).to(torch.int32)
+    used = [select_workers(take[:, i], lambda j, i=i, s=s: shift_worker(
+        buf, s, topo.K) if j else stale.bufs[i].to(buf.dtype))
+            for i, s in enumerate(topo.offsets)]
+    return (ops.payload_mix(buf, used, topo.offset_weights,
+                            topo.self_weight),
+            StaleBufs(tuple(used), new_age))
+
+
+def gossip_packed_overlap(buf: torch.Tensor, stale: StaleBufs,
+                          topo: Topology, cfg: DAdamConfig
+                          ) -> Tuple[torch.Tensor, StaleBufs]:
+    """Packed twin of :func:`gossip_shift_overlap`: send this round's
+    shifted buffers, mix last round's (fresh on a cold start) with the
+    ``payload_mix`` kernel."""
+    if not topo.offsets:
+        return buf, stale
+    cold = stale.age >= COLD_AGE
+    fresh = [shift_worker(buf, s, topo.K) for s in topo.offsets]
+    used = [select_workers(cold[:, i], lambda j, i=i, f=f: f if j
+                           else stale.bufs[i].to(buf.dtype))
+            for i, f in enumerate(fresh)]
+    return (ops.payload_mix(buf, used, topo.offset_weights,
+                            topo.self_weight),
+            StaleBufs(tuple(fresh), torch.zeros_like(stale.age)))
+
+
+# --------------------- round dispatch (schedule-aware) ----------------------
+
+
+def round_view(topo: "Topology | TopologySchedule", r: int,
+               union: bool) -> Topology:
+    """Round r's topology: a static one as it is; a schedule's entry
+    ``r % n``, rebuilt over the union offsets when per-edge state needs
+    the same offset tuple every round. ``r`` is a host int."""
+    if not isinstance(topo, TopologySchedule):
+        return topo
+    views = topo.union_views() if union else topo.entries
+    return views[r % len(views)]
+
+
+def _uses_union(stale: Optional[StaleBufs], cfg: DAdamConfig) -> bool:
+    """Live payload buffers need the union edge set; without them (no
+    staleness or overlap, or tau=0 where they are never read) each round
+    gossips its own entry."""
+    return stale is not None and (int(cfg.staleness or 0) > 0
+                                  or cfg.overlap)
+
+
+def _gossip_round(params: PyTree, stale: Optional[StaleBufs],
+                  topo: "Topology | TopologySchedule", cfg: DAdamConfig,
+                  r: int, arrival: Optional[ArrivalFn] = None
+                  ) -> Tuple[PyTree, Optional[StaleBufs]]:
+    """One communication round on the tree path."""
+    view = round_view(topo, r, _uses_union(stale, cfg))
+    if stale is None:
+        return gossip(params, view, cfg), None
+    if cfg.overlap:
+        return gossip_shift_overlap(params, stale, view, cfg)
+    return gossip_shift_stale(params, stale, view, cfg, r, arrival)
+
+
+def _gossip_packed_round(buf: torch.Tensor, stale: Optional[StaleBufs],
+                         topo: "Topology | TopologySchedule",
+                         cfg: DAdamConfig, r: int,
+                         arrival: Optional[ArrivalFn] = None
+                         ) -> Tuple[torch.Tensor, Optional[StaleBufs]]:
+    """Packed twin of :func:`_gossip_round`."""
+    view = round_view(topo, r, _uses_union(stale, cfg))
+    if stale is None:
+        return gossip_packed(buf, view, cfg), None
+    if cfg.overlap:
+        return gossip_packed_overlap(buf, stale, view, cfg)
+    return gossip_packed_stale(buf, stale, view, cfg, r, arrival)
+
+
 # ------------------------------ state + step -------------------------------
 
 
 class DAdamState(NamedTuple):
     params: PyTree          # stacked (K, ...)
     moments: AdamMoments
+    # straggler-tolerant payload buffers (cfg.staleness / cfg.overlap);
+    # stripped from checkpoints and rebuilt cold on restore
+    stale: Optional[StaleBufs] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,7 +513,9 @@ class PackedDAdamState:
     leaf-aligned ``(K, rows, 128)`` buffers across steps, so the kernels
     consume and produce them directly. Packing happens once in
     :func:`init`; the tree views (``params``, ``moments``) are views of
-    the buffers, made at boundaries (eval, logging, checkpoints)."""
+    the buffers, made at boundaries (eval, logging, checkpoints).
+    ``stale`` holds the packed payload buffers of the straggler-tolerant
+    runtime, or ``None``."""
 
     buf: torch.Tensor
     m: torch.Tensor
@@ -235,6 +523,10 @@ class PackedDAdamState:
     count: int
     spec: packing.PackSpec
     spec_m: packing.PackSpec
+    stale: Optional[StaleBufs] = None
+
+    def with_stale(self, stale: Optional[StaleBufs]) -> "PackedDAdamState":
+        return dataclasses.replace(self, stale=stale)
 
     @property
     def params(self) -> PyTree:
@@ -247,7 +539,7 @@ class PackedDAdamState:
 
     def unpacked(self) -> DAdamState:
         """The backend-agnostic tree state, leaf for leaf a reference
-        state."""
+        state, without the transient payload buffers."""
         return DAdamState(self.params, self.moments)
 
     @classmethod
@@ -278,12 +570,24 @@ def grads_buffer(grads: Any, spec: packing.PackSpec,
     return packing.pack(grads, spec, dtype=dtype)
 
 
-def init(params_stacked: PyTree, cfg: DAdamConfig
+def init(params_stacked: PyTree, cfg: DAdamConfig,
+         topo: "Topology | TopologySchedule | None" = None
          ) -> "DAdamState | PackedDAdamState":
     cfg.validate()
+    needs_bufs = cfg.staleness is not None or cfg.overlap
+    if needs_bufs and topo is None:
+        raise ValueError(
+            "cfg.staleness/cfg.overlap buffer one payload per topology "
+            "offset; init needs the topology (pass topo=, as "
+            "make_optimizer does)")
     state = DAdamState(params_stacked, init_moments(params_stacked))
     if cfg.backend == "packed":
-        return PackedDAdamState.from_unpacked(state)
+        packed = PackedDAdamState.from_unpacked(state)
+        if needs_bufs:
+            packed = packed.with_stale(init_stale(packed.buf, topo))
+        return packed
+    if needs_bufs:
+        state = state._replace(stale=init_stale(params_stacked, topo))
     return state
 
 
@@ -301,11 +605,15 @@ def _fused_local_packed(state: PackedDAdamState, grads: Any,
     return po, mo, vo, state.count + 1
 
 
-def _gossip_adam_eligible(topo: Topology, cfg: DAdamConfig) -> bool:
+def _gossip_adam_eligible(topo: "Topology | TopologySchedule",
+                          cfg: DAdamConfig) -> bool:
     """True when the communication step can run as the single-pass
-    ``gossip_adam_mix`` kernel: a shift-invariant topology of int or
-    ``GridShift`` offsets whose degree is at most
-    ``MAX_GOSSIP_ADAM_DEGREE``, mixed by shifts."""
+    ``gossip_adam_mix`` kernel: a static shift-invariant topology of int
+    or ``GridShift`` offsets whose degree is at most
+    ``MAX_GOSSIP_ADAM_DEGREE``, mixed by shifts, with no payload buffers
+    in flight."""
+    if isinstance(topo, TopologySchedule):
+        return False
     if cfg.comm != "stacked" or cfg.mixing == "dense":
         return False
     if cfg.staleness is not None or cfg.overlap:
@@ -338,36 +646,47 @@ def _step_packed_fused(state: PackedDAdamState, grads: Any,
             topo.offset_weights, topo.self_weight, **kw)
     else:
         po, mo, vo = ops.fused_adam(state.buf, gbuf, state.m, state.v, **kw)
-    return PackedDAdamState(po, mo, vo, count, state.spec, state.spec_m)
+    return dataclasses.replace(state, buf=po, m=mo, v=vo, count=count)
 
 
-def _step_packed(state: PackedDAdamState, grads: Any, topo: Topology,
-                 cfg: DAdamConfig) -> PackedDAdamState:
+def _step_packed(state: PackedDAdamState, grads: Any,
+                 topo: "Topology | TopologySchedule", cfg: DAdamConfig,
+                 arrival: Optional[ArrivalFn] = None) -> PackedDAdamState:
     if _gossip_adam_eligible(topo, cfg):
         return _step_packed_fused(state, grads, topo, cfg)
     po, mo, vo, count = _fused_local_packed(state, grads, cfg)
+    stale = state.stale
     if _comm_due(count, cfg):
-        po = gossip_packed(po, topo, cfg)
-    return PackedDAdamState(po, mo, vo, count, state.spec, state.spec_m)
+        po, stale = _gossip_packed_round(po, stale, topo, cfg,
+                                         _round_index(count, cfg.period),
+                                         arrival)
+    return dataclasses.replace(state, buf=po, m=mo, v=vo, count=count,
+                               stale=stale)
 
 
 def step(state: "DAdamState | PackedDAdamState", grads: PyTree,
-         topo: Topology, cfg: DAdamConfig
+         topo: "Topology | TopologySchedule", cfg: DAdamConfig,
+         arrival: Optional[ArrivalFn] = None
          ) -> "DAdamState | PackedDAdamState":
     """One iteration of Alg. 1. Packed states never leave the
     ``(K, rows, 128)`` layout; ``grads`` may be a congruent tree or an
-    already packed buffer."""
+    already packed buffer. ``arrival`` replaces the default straggler
+    draw (:func:`default_arrival`)."""
     if isinstance(state, PackedDAdamState):
-        return _step_packed(state, grads, topo, cfg)
+        return _step_packed(state, grads, topo, cfg, arrival)
     half, mom = local_update(state.params, grads, state.moments, cfg)
+    stale = state.stale
     if _comm_due(mom.count, cfg):
-        half = gossip(half, topo, cfg)
-    return DAdamState(half, mom)
+        half, stale = _gossip_round(half, stale, topo, cfg,
+                                    _round_index(mom.count, cfg.period),
+                                    arrival)
+    return DAdamState(half, mom, stale)
 
 
 def round_step(state: "DAdamState | PackedDAdamState",
                grad_fn: Callable[[Any, Any], Any], batches: Any,
-               topo: Topology, cfg: DAdamConfig
+               topo: "Topology | TopologySchedule", cfg: DAdamConfig,
+               arrival: Optional[ArrivalFn] = None
                ) -> "DAdamState | PackedDAdamState":
     """One communication round: a local step per entry of ``batches``'
     leading dim (p of them), then one gossip.
@@ -381,17 +700,22 @@ def round_step(state: "DAdamState | PackedDAdamState",
         if isinstance(state, PackedDAdamState):
             po, mo, vo, count = _fused_local_packed(
                 state, grad_fn(state.buf, batch), cfg)
-            state = PackedDAdamState(po, mo, vo, count, state.spec,
-                                     state.spec_m)
+            state = dataclasses.replace(state, buf=po, m=mo, v=vo,
+                                        count=count)
         else:
             half, mom = local_update(state.params,
                                      grad_fn(state.params, batch),
                                      state.moments, cfg)
-            state = DAdamState(half, mom)
+            state = DAdamState(half, mom, state.stale)
     if isinstance(state, PackedDAdamState):
-        return dataclasses.replace(state,
-                                   buf=gossip_packed(state.buf, topo, cfg))
-    return DAdamState(gossip(state.params, topo, cfg), state.moments)
+        buf, stale = _gossip_packed_round(
+            state.buf, state.stale, topo, cfg,
+            _round_index(state.count, cfg.period), arrival)
+        return dataclasses.replace(state, buf=buf, stale=stale)
+    params, stale = _gossip_round(
+        state.params, state.stale, topo, cfg,
+        _round_index(state.moments.count, cfg.period), arrival)
+    return DAdamState(params, state.moments, stale)
 
 
 def consensus_error(params_stacked: PyTree) -> torch.Tensor:

@@ -19,6 +19,16 @@
 // operands are read at one index; their pointers and weights come by value
 // in the kernel's parameter block (at most kMaxConsensusDegree of them).
 //
+// payload_mix replaces src/repro/kernels/gossip.py:payload_mix (_mix_kernel
+// with identity index maps, pallas_call at line 161), the mix of D-Adam's
+// staleness-bounded and overlapped rounds:
+//     out[k] = w_self * x[k] + sum_i w_i * payload_i[k]
+// in gossip_mix's order: the self term first, then the payloads in order.
+// The runtime has already chosen each payload (fresh shift or buffered
+// copy) for every destination worker, so every operand is read at one
+// index; the payload pointers and weights travel by value in the
+// parameter block, as consensus_mix's do (at most kMaxMixDegree of them).
+//
 // The source table src is a (deg, K) int32 device array built once per
 // topology from topology.offset_perm, so ring offsets and torus GridShifts
 // take one code path; the weights are a (1 + deg,) f32 device array, self
@@ -33,7 +43,10 @@
 // to serve all K workers of a row tile; that is left for a later change.
 // consensus_mix must read x, hat_self and the deg neighbour copies once and
 // write out once, and this design does exactly that: (3 + deg) buffers, 5 on
-// the ring, with 2 + 3 deg f32 operations per element.
+// the ring, with 2 + 3 deg f32 operations per element. payload_mix must read
+// x and the deg payloads once and write out once, and does exactly that:
+// (2 + deg) buffers, 4 on the ring, 7 over one-peer-exponential's union of
+// 5 offsets, with 1 + 2 deg f32 operations per element.
 // Loads and stores are 16 bytes (float4); the wrappers check the alignment.
 #include <cuda_runtime.h>
 
@@ -49,6 +62,11 @@ constexpr int kMaxConsensusDegree = 32;  // kernels.gossip.MAX_CONSENSUS_DEGREE
 struct ConsensusNbrs {
   const float4* hat[kMaxConsensusDegree];
   float w[kMaxConsensusDegree];
+};
+
+struct MixPayloads {
+  const float4* p[kMaxMixDegree];
+  float w[kMaxMixDegree];
 };
 
 __device__ __forceinline__ float4 scale4(float w, float4 a) {
@@ -80,6 +98,21 @@ __global__ void gossip_mix_kernel(const float4* __restrict__ x,
       acc = add4(acc, scale4(s_w[j + 1], x[(long long)s_src[j] * per_worker + i]));
     }
     ok[i] = acc;
+  }
+}
+
+__global__ void payload_mix_kernel(const float4* __restrict__ x,
+                                   float4* __restrict__ out,
+                                   MixPayloads pay, float w_self, int deg,
+                                   long long n4) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n4; i += stride) {
+    float4 acc = scale4(w_self, x[i]);
+    for (int j = 0; j < deg; ++j) {
+      acc = add4(acc, scale4(pay.w[j], pay.p[j][i]));
+    }
+    out[i] = acc;
   }
 }
 
@@ -159,6 +192,13 @@ int sm_count() {
   return sms;
 }
 
+unsigned flat_blocks(long long n4) {
+  long long blocks = (n4 + kThreads - 1) / kThreads;
+  const long long cap = (long long)sm_count() * 16;
+  if (blocks > cap) blocks = cap;
+  return (unsigned)blocks;
+}
+
 dim3 grid_for(long long per_worker, int K) {
   long long bx = (per_worker + kThreads - 1) / kThreads;
   long long cap = (long long)sm_count() * 16 / K;
@@ -227,13 +267,35 @@ extern "C" int consensus_mix_f32(const float* x, const float* hat_self,
     nbrs.hat[j] = static_cast<const float4*>(nbr_ptrs[j]);
     nbrs.w[j] = weights[j];
   }
-  long long blocks = (n4 + kThreads - 1) / kThreads;
-  const long long cap = (long long)sm_count() * 16;
-  if (blocks > cap) blocks = cap;
-  consensus_mix_kernel<<<(unsigned)blocks, kThreads, 0,
+  consensus_mix_kernel<<<flat_blocks(n4), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(x),
       reinterpret_cast<const float4*>(hat_self), reinterpret_cast<float4*>(out),
       nbrs, deg, n4, gamma);
+  return (int)cudaGetLastError();
+}
+
+// n is the element count of each (K, rows, 128) buffer, a multiple of 4;
+// payload_ptrs and weights are HOST arrays of deg entries, copied by value
+// into the launch. Returns cudaGetLastError() after the launch; 1 marks a
+// degree outside the kernel's table (cudaErrorInvalidValue).
+extern "C" int payload_mix_f32(const float* x, float* out,
+                               const void* const* payload_ptrs,
+                               const float* weights, int deg, long long n,
+                               float self_weight, void* stream) {
+  if (deg < 1 || deg > kMaxMixDegree || n % 4 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long n4 = n / 4;
+  if (n4 == 0) return 0;
+  MixPayloads pay{};
+  for (int j = 0; j < deg; ++j) {
+    pay.p[j] = static_cast<const float4*>(payload_ptrs[j]);
+    pay.w[j] = weights[j];
+  }
+  payload_mix_kernel<<<flat_blocks(n4), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out), pay,
+      self_weight, deg, n4);
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,18 @@ with ``acc = 0`` and the offsets added in order, as the TPU kernel does.
 The neighbour copies are already aligned to the destination worker, so
 every operand is read at the same index.
 
-All three are bound by bytes on the H100; ``csrc/gossip.cu`` says what
+``payload_mix`` replaces ``src/repro/kernels/gossip.py:payload_mix``
+(``_mix_kernel`` with identity index maps, ``pallas_call`` at line 161),
+the mix of D-Adam's staleness-bounded and overlapped rounds::
+
+    out[k] = w_self * x[k] + sum_i w_i * payloads[i][k]
+
+in ``gossip_mix``'s order, the self term first, then the payloads in
+order. Each payload already holds, for every destination worker, the
+neighbour value the round chose (fresh or buffered), so every operand is
+read at the same index.
+
+All four are bound by bytes on the H100; ``csrc/gossip.cu`` says what
 the design reads against the least it must. ``src_j(k)`` comes from a
 ``(deg, K)`` int32 table built once per topology from
 :func:`~repro_torch.core.topology.offset_perm`, so ring offsets and torus
@@ -46,8 +57,9 @@ from repro_torch.kernels.fused_adam import (adam_consts, adam_half_step_plain,
                                             check_f32_cuda, f32)
 from repro_torch.kernels.pack import LANE
 
-# the shared-memory source table of gossip_mix holds this many offsets;
-# denser graphs take the einsum in core.dadam.gossip_packed
+# the shared-memory source table of gossip_mix holds this many offsets
+# (denser graphs take the einsum in core.dadam.gossip_packed); one
+# payload_mix launch takes this many payloads, and more chain launches
 MAX_FUSED_DEGREE = 32
 # gossip_adam_mix reads 4 * (deg + 1) operand buffers per output; denser
 # graphs take the two-pass sequence
@@ -155,6 +167,33 @@ def consensus_mix_plain(x: torch.Tensor, hat_self: torch.Tensor,
     return (x.to(torch.float32) + f32(gamma) * acc).to(x.dtype)
 
 
+def _check_payloads(x, payloads, offset_weights
+                    ) -> Tuple[tuple, Tuple[float, ...]]:
+    _check_buf(x)
+    payloads = tuple(payloads)
+    weights = tuple(float(w) for w in offset_weights)
+    if len(payloads) != len(weights):
+        raise ValueError("payloads and offset_weights must align")
+    for p in payloads:
+        if p.shape != x.shape:
+            raise ValueError(f"payload shape {tuple(p.shape)} != x "
+                             f"{tuple(x.shape)}")
+    return payloads, weights
+
+
+def payload_mix_plain(x: torch.Tensor, payloads: Sequence[torch.Tensor],
+                      offset_weights: Sequence[float],
+                      self_weight: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`payload_mix`, op by op."""
+    payloads, weights = _check_payloads(x, payloads, offset_weights)
+    if not payloads:
+        return x
+    acc = f32(self_weight) * x.to(torch.float32)
+    for w, p in zip(weights, payloads):
+        acc = acc + f32(w) * p.to(torch.float32)
+    return acc.to(x.dtype)
+
+
 def _check_gossip_adam(p, g, m, v, offsets, offset_weights) -> int:
     K = _check_buf(p)
     for name, b in (("g", g), ("m", m), ("v", v)):
@@ -198,7 +237,11 @@ def _entries():
     con.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
                                              ctypes.c_float, ctypes.c_void_p])
     con.restype = ctypes.c_int
-    return mix, gam, con
+    pay = lib.payload_mix_f32
+    pay.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
+                                             ctypes.c_float, ctypes.c_void_p])
+    pay.restype = ctypes.c_int
+    return mix, gam, con, pay
 
 
 def gossip_mix(x: torch.Tensor, offsets: Sequence,
@@ -217,7 +260,7 @@ def gossip_mix(x: torch.Tensor, offsets: Sequence,
     src, w = mix_table(offs, weights, float(self_weight), K, x.device)
     out = torch.empty_like(x)
     _check_aligned(x, out)
-    mix, _, _ = _entries()
+    mix, _, _, _ = _entries()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = mix(x.data_ptr(), out.data_ptr(), src.data_ptr(),
@@ -241,7 +284,7 @@ def gossip_adam_mix(p, g, m, v, offsets: Sequence,
     po, mo, vo = (torch.empty_like(p), torch.empty_like(m),
                   torch.empty_like(v))
     _check_aligned(p, g, m, v, po, mo, vo)
-    _, gam, _ = _entries()
+    _, gam, _, _ = _entries()
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = gam(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
@@ -276,7 +319,7 @@ def consensus_mix(x: torch.Tensor, hat_self: torch.Tensor,
     # C entry copies into the kernel's parameter block
     ptrs = (ctypes.c_void_p * deg)(*(h.data_ptr() for h in hat_nbrs))
     w = (ctypes.c_float * deg)(*(f32(v) for v in weights))
-    _, _, con = _entries()
+    _, _, con, _ = _entries()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = con(x.data_ptr(), hat_self.data_ptr(), out.data_ptr(),
@@ -287,6 +330,43 @@ def consensus_mix(x: torch.Tensor, hat_self: torch.Tensor,
     return out
 
 
+def payload_mix(x: torch.Tensor, payloads: Sequence[torch.Tensor],
+                offset_weights: Sequence[float],
+                self_weight: float) -> torch.Tensor:
+    """Launch the CUDA payload mix on contiguous f32 ``(K, rows, 128)``
+    CUDA buffers; the output is a new tensor. One launch takes at most
+    ``MAX_FUSED_DEGREE`` payloads; past that the launches chain, each
+    adding the next payloads to the previous output with self weight 1.0
+    (``1.0f * acc == acc``), so the sum runs in the plain version's order
+    and stays equal to it to the bit."""
+    payloads, weights = _check_payloads(x, payloads, offset_weights)
+    if not payloads:
+        return x
+    check_f32_cuda(x, *payloads)
+    _check_aligned(x, *payloads)
+    _, _, _, pay = _entries()
+    out, w_self = x, self_weight
+    for i in range(0, len(payloads), MAX_FUSED_DEGREE):
+        chunk = payloads[i:i + MAX_FUSED_DEGREE]
+        acc, out = out, torch.empty_like(x)
+        _check_aligned(out)
+        # the payload pointers and weights go by value, in a host array
+        # the C entry copies into the kernel's parameter block
+        ptrs = (ctypes.c_void_p * len(chunk))(*(p.data_ptr() for p in chunk))
+        w = (ctypes.c_float * len(chunk))(
+            *(f32(v) for v in weights[i:i + MAX_FUSED_DEGREE]))
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            status = pay(acc.data_ptr(), out.data_ptr(),
+                         ctypes.addressof(ptrs), ctypes.addressof(w),
+                         len(chunk), x.numel(), f32(w_self), stream)
+        _build.check(status, "payload_mix")
+        payload_mix.launches += 1
+        w_self = 1.0
+    return out
+
+
 gossip_mix.launches = 0
 gossip_adam_mix.launches = 0
 consensus_mix.launches = 0
+payload_mix.launches = 0

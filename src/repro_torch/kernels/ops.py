@@ -16,7 +16,7 @@ from repro_torch.kernels import sign_compress as _sc
 
 KERNELS = (_adam.fused_adam, _gossip.gossip_mix, _gossip.gossip_adam_mix,
            _gossip.consensus_mix, _sc.sign_compress_stacked,
-           _sc.sign_compress)
+           _sc.sign_compress, _gossip.payload_mix)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -46,6 +46,11 @@ def gossip_adam_mix(p, g, m, v, offsets, offset_weights, self_weight, *,
           else _gossip.gossip_adam_mix)
     return fn(p, g, m, v, offsets, offset_weights, self_weight, eta=eta,
               beta1=beta1, beta2=beta2, tau=tau, weight_decay=weight_decay)
+
+
+def payload_mix(x, payloads, offset_weights, self_weight):
+    fn = _gossip.payload_mix_plain if _on_cpu(x) else _gossip.payload_mix
+    return fn(x, payloads, offset_weights, self_weight)
 
 
 def consensus_mix(x, hat_self, hat_nbrs, offset_weights, gamma):

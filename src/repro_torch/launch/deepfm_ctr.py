@@ -19,7 +19,8 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
-from repro_torch.core.api import make_optimizer
+from repro_torch.core.api import make_optimizer, resolve_topology
+from repro_torch.core.schedule import TopologySchedule
 from repro_torch.data.synthetic import (CTRTeacher, ctr_batch_stacked,
                                         ctr_teacher, make_ctr_task)
 from repro_torch.models.deepfm import (deepfm_logits, deepfm_loss,
@@ -70,21 +71,23 @@ def run(name: str = "d-adam p=4", model: str = "deepfm",
         features_per_field: int = 32, embed_dim: int = 10,
         hidden: Tuple[int, ...] = (64, 64), per_worker: int = 32,
         backend: str = "packed", device: "str | torch.device" = "cuda",
-        log_every: Optional[int] = None,
+        topology: Any = "ring", log_every: Optional[int] = None,
         hook: Optional[Callable[[int, Any], None]] = None,
         hook_every: int = 0, **opt_kw) -> RunResult:
     """Train one row of the comparison and print its loss, AUC and comm
     MB. The defaults are the example's sizes (8 fields x 32 features,
     hidden (64, 64)); the paper's widths are 39 fields x 25,000 features,
-    embedding 10 and hidden (400, 400, 400). ``log_every`` defaults to
-    logging the last step only; ``hook``/``hook_every`` go to ``fit``."""
+    embedding 10 and hidden (400, 400, 400). ``topology`` is a zoo name, a
+    schedule spec (``"one-peer-exp"``) or a built one. ``log_every``
+    defaults to logging the last step only; ``hook``/``hook_every`` go to
+    ``fit``."""
     dev = resolve_device(device)
     task = make_ctr_task(seed=0, n_fields=n_fields,
                          features_per_field=features_per_field,
                          embed_dim=embed_dim)
     teacher = ctr_teacher(task, dev)
     init_fn, loss_fn, logits_fn = MODELS[model]
-    opt = make_optimizer(kind, K=K, eta=1e-3, topology="ring",
+    opt = make_optimizer(kind, K=K, eta=1e-3, topology=topology,
                          backend=backend, device=dev, **opt_kw)
     trainer = DecentralizedTrainer(loss_fn, opt)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -107,10 +110,15 @@ def main(argv=None) -> None:
     ap.add_argument("--backend", default="packed",
                     choices=["packed", "reference"])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--topology", default="ring",
+                    help="a zoo name or a schedule spec (one-peer-exp, "
+                         "rand-ring:N)")
     args = ap.parse_args(argv)
     print(f"== {args.model} on synthetic Criteo-style CTR, {K} workers, "
-          f"backend={args.backend} on {args.device} ==")
-    kw = dict(backend=args.backend, device=args.device)
+          f"topology={args.topology}, backend={args.backend} on "
+          f"{args.device} ==")
+    kw = dict(backend=args.backend, device=args.device,
+              topology=args.topology)
     run("d-adam-vanilla (p=1)", args.model, "d-adam", args.steps, period=1,
         **kw)
     for p in (4, 16):
@@ -118,8 +126,10 @@ def main(argv=None) -> None:
             **kw)
     run("cd-adam p=16 + sign", args.model, "cd-adam", args.steps,
         period=16, gamma=0.4, compressor="sign", **kw)
-    run("d-psgd (non-adaptive)", args.model, "d-psgd", args.steps,
-        **{**kw, "backend": "reference"})
+    if not isinstance(resolve_topology(args.topology, K), TopologySchedule):
+        # d-psgd is the static-graph baseline: no schedules
+        run("d-psgd (non-adaptive)", args.model, "d-psgd", args.steps,
+            **{**kw, "backend": "reference"})
 
 
 if __name__ == "__main__":

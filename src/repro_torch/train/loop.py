@@ -102,9 +102,18 @@ class DecentralizedTrainer:
 
     def resize(self, state: Any, new_opt: DecentralizedOptimizer, *,
                strategy: str = "clone") -> Any:
-        raise NotImplementedError(
-            "elastic resize is not ported yet (ROADMAP queue 1, item 7: "
-            "async runtime)")
+        """Elastic membership change: carry ``state`` over to ``new_opt``
+        (built for the new K / topology) and rebind the trainer, its grad
+        pipeline and its comm accounting to it. Params and Adam moments
+        survive per ``strategy`` ("clone" bootstraps joiners from live
+        workers round-robin, "mean" from the consensus mean); hats and
+        straggler buffers restart cold. The eager port has no compile to
+        redo."""
+        from repro_torch.core.elastic import resize_state
+
+        new_state = resize_state(state, new_opt, strategy=strategy)
+        self._build(new_opt)
+        return new_state
 
     def comm_mb_per_round(self, state) -> float:
         return self.opt.comm_bytes_per_round(

@@ -361,9 +361,13 @@ def test_bad_combinations_raise_as_in_jax():
         make_optimizer("cd-adam", K, gamma=0.0, device="cpu")
     with pytest.raises(KeyError):
         make_optimizer("cd-adam", K, compressor="nope", device="cpu")
-    for kw in (dict(staleness=1), dict(overlap=True), dict(comm="axis")):
-        with pytest.raises(NotImplementedError):
-            make_optimizer("cd-adam", K, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        make_optimizer("cd-adam", K, device="cpu", comm="axis")
+    for kw in (dict(staleness=1), dict(overlap=True)):
+        assert make_optimizer("cd-adam", K, device="cpu", **kw).cfg.gamma \
+            == 0.4
+    with pytest.raises(ValueError, match="static-graph"):
+        make_optimizer("d-psgd", K, topology="one-peer-exp", device="cpu")
     opt = make_optimizer("cd-adam", K, gamma=0.3, device="cpu")
     assert opt.compressor.name == "sign" and opt.cfg.gamma == 0.3
     assert opt.rebuild(gamma=0.5).cfg.gamma == 0.5

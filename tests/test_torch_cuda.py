@@ -99,6 +99,23 @@ def test_cuda_consensus_mix_matches_plain(cuda, name):
     assert torch.equal(got, want)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("deg", [1, 2, 5, 32, 33, 70])
+def test_cuda_payload_mix_matches_plain(cuda, deg):
+    """Past MAX_FUSED_DEGREE payloads the launches chain, one per 32, and
+    the result stays equal to the plain version to the bit."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x, *pay = torch.randn((1 + deg, K, ROWS, 128), generator=gen,
+                          device="cuda")
+    weights = [0.5 / deg] * deg
+    before = tgossip.payload_mix.launches
+    got = tgossip.payload_mix(x, pay, weights, 0.5)
+    assert tgossip.payload_mix.launches - before == -(-deg // 32)
+    want = tgossip.payload_mix_plain(x, pay, weights, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def compressed_close(got, want):
     q, scale, hat = got
     assert torch.equal(q, want[0])
@@ -150,9 +167,11 @@ def test_cuda_wrappers_count_launches_and_reject_bad_operands(cuda):
     ops.consensus_mix(p, g, (m, v), topo.offset_weights, 0.4)
     ops.sign_compress_stacked(p, g, row_ranges=((0, 4), (4, ROWS)))
     ops.sign_compress(p, g)
+    ops.payload_mix(p, (m, v), topo.offset_weights, topo.self_weight)
     assert ops.launch_counts() == {
         "fused_adam": 1, "gossip_mix": 1, "gossip_adam_mix": 1,
-        "consensus_mix": 1, "sign_compress_stacked": 1, "sign_compress": 1}
+        "consensus_mix": 1, "sign_compress_stacked": 1, "sign_compress": 1,
+        "payload_mix": 1}
     with pytest.raises(ValueError, match="f32"):
         ops.fused_adam(p.double(), g.double(), m.double(), v.double(),
                        eta=1e-3)

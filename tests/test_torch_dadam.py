@@ -263,16 +263,31 @@ def test_shift_and_dense_gossip_agree(name):
 
 
 def test_options_not_ported_raise_and_bad_configs_are_rejected():
-    for kw in (dict(staleness=1), dict(overlap=True), dict(comm="axis")):
-        with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):
+        make_optimizer("d-adam", K, device="cpu", comm="axis")
+    # the straggler-tolerant runtime builds, with JAX's validation rules
+    for kw in (dict(staleness=1), dict(overlap=True)):
+        assert make_optimizer("d-adam", K, device="cpu", **kw).cfg.validate() \
+            is None
+    for kw, match in ((dict(staleness=-1), ">= 0"),
+                      (dict(straggler_rate=0.3), "staleness bound"),
+                      (dict(staleness=1, straggler_rate=1.0), r"\[0, 1\)"),
+                      (dict(staleness=1, overlap=True), "ambiguous"),
+                      (dict(overlap=True, mixing="dense"), "roll"),
+                      (dict(staleness=2, mixing="dense"), "roll")):
+        with pytest.raises(ValueError, match=match):
             make_optimizer("d-adam", K, device="cpu", **kw)
     # CD-Adam and D-PSGD build; "adam" is no kind, as in the JAX package
     assert make_optimizer("cd-adam", K, device="cpu").compressor.name == "sign"
     assert make_optimizer("d-psgd", K, device="cpu").compressor is None
     with pytest.raises(KeyError):
         make_optimizer("adam", K, device="cpu")
-    with pytest.raises(NotImplementedError, match="schedule"):
-        make_optimizer("d-adam", K, topology="one-peer-exp", device="cpu")
+    sched = make_optimizer("d-adam", K, topology="one-peer-exp",
+                           device="cpu").topo
+    assert len(sched.entries) == 3 and sched.union_offsets() == (1, 7, 2, 6, 4)
+    with pytest.raises(ValueError, match="dense"):
+        make_optimizer("d-adam", K, topology="one-peer-exp", mixing="dense",
+                       device="cpu")
     with pytest.raises(KeyError):
         make_optimizer("sgd", K, device="cpu")
     with pytest.raises(ValueError, match="backend"):

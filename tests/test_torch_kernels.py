@@ -26,6 +26,7 @@ from repro.kernels import fused_adam as jfa
 from repro.kernels import gossip as jgossip
 from repro.kernels import ref as jref
 from repro.kernels import sign_compress as jsc
+from repro_torch.core.dadam import shift_worker
 from repro_torch.core.topology import make_topology, offsets_matrix
 from repro_torch.kernels import fused_adam as tfa
 from repro_torch.kernels import gossip as tgossip
@@ -133,6 +134,57 @@ def test_gossip_adam_mix_tracks_two_pass(name):
     assert torch.equal(got_m, m2) and torch.equal(got_v, v2)
 
 
+@pytest.mark.parametrize("deg", [1, 2, 5])
+def test_payload_mix_plain_matches_jax_kernel(deg):
+    """The staleness / overlap mix: identity index maps, payloads already
+    chosen per destination worker (deg 5: one-peer-exponential's union
+    at K=8, with the zero weights of an idle round)."""
+    rng = np.random.default_rng(9)
+    x, *pay = rng.standard_normal((1 + deg, K, ROWS, 128)).astype(np.float32)
+    weights = (1 / 3, 1 / 3, 0.0, 0.0, 1 / 3)[:deg]
+    want = jgossip.payload_mix(jnp.asarray(x), [jnp.asarray(p) for p in pay],
+                               weights, 1 / 3, block_rows=ROWS,
+                               interpret=True)
+    got = ops.payload_mix(torch.from_numpy(x), to_t(*pay), weights, 1 / 3)
+    close([got], [want])
+    x0 = torch.from_numpy(x)
+    assert ops.payload_mix(x0, (), (), 1.0) is x0
+
+
+def test_payload_mix_of_shifted_copies_is_gossip_mix_bitwise():
+    """With every payload the fresh shift, the payload mix is the
+    synchronous gossip_mix to the last bit: same order, same constants."""
+    topo = make_topology("exponential", K)
+    x = torch.from_numpy(bufs(3)[0])
+    pay = [shift_worker(x, s, K) for s in topo.offsets]
+    got = ops.payload_mix(x, pay, topo.offset_weights, topo.self_weight)
+    want = ops.gossip_mix(x, topo.offsets, topo.offset_weights,
+                          topo.self_weight)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="align"):
+        ops.payload_mix(x, pay[:1], topo.offset_weights, topo.self_weight)
+    with pytest.raises(ValueError, match="payload shape"):
+        ops.payload_mix(x, [p[:, :4] for p in pay], topo.offset_weights,
+                        topo.self_weight)
+
+
+def test_payload_mix_chained_in_chunks_is_one_mix_bitwise():
+    """The CUDA wrapper chains launches of at most MAX_FUSED_DEGREE
+    payloads, each later one with self weight 1.0 on the previous output;
+    in f32 that is the one-pass sum to the last bit."""
+    deg, step = 70, tgossip.MAX_FUSED_DEGREE
+    rng = np.random.default_rng(11)
+    x, *pay = to_t(*rng.standard_normal((1 + deg, 2, 8, 128)).astype(
+        np.float32))
+    weights = list(rng.uniform(0.0, 1.0 / deg, deg))
+    acc, w_self = x, 0.3
+    for i in range(0, deg, step):
+        acc = ops.payload_mix(acc, pay[i:i + step], weights[i:i + step],
+                              w_self)
+        w_self = 1.0
+    assert torch.equal(acc, ops.payload_mix(x, pay, weights, 0.3))
+
+
 @pytest.mark.parametrize("name,k", [("ring", 8), ("torus", 8),
                                     ("torus", 12), ("exponential", 8),
                                     ("fully_connected", 5)])
@@ -176,9 +228,11 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     ops.consensus_mix(p, g, (m, v), topo.offset_weights, 0.4)
     ops.sign_compress_stacked(p, g, row_ranges=((0, 4), (4, ROWS)))
     ops.sign_compress(p, g)
+    ops.payload_mix(p, (m, v), topo.offset_weights, topo.self_weight)
     assert ops.launch_counts() == {
         "fused_adam": 0, "gossip_mix": 0, "gossip_adam_mix": 0,
-        "consensus_mix": 0, "sign_compress_stacked": 0, "sign_compress": 0}
+        "consensus_mix": 0, "sign_compress_stacked": 0, "sign_compress": 0,
+        "payload_mix": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -197,6 +251,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tsc.sign_compress_stacked(p, g)
     with pytest.raises(ValueError, match="CUDA"):
         tsc.sign_compress(p, g)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgossip.payload_mix(p, (m, v), (1 / 3, 1 / 3), 1 / 3)
 
 
 # ------------------------------ CD-Adam kernels ----------------------------

@@ -198,8 +198,11 @@ def test_trainer_options_not_ported_raise():
                dict(sharded_loss=lambda *a: 0.0)):
         with pytest.raises(NotImplementedError):
             DecentralizedTrainer(deepfm.deepfm_loss, opt, **kw)
-    with pytest.raises(NotImplementedError):
-        DecentralizedTrainer(deepfm.deepfm_loss, opt).resize(None, opt)
+    # elastic resize is ported: the trainer rebinds to the new optimizer
+    trainer = DecentralizedTrainer(deepfm.deepfm_loss, opt)
+    small = make_optimizer("d-adam", K - 2, device="cpu")
+    state = trainer.resize(opt.init({"w": torch.ones(K, 3)}), small)
+    assert trainer.opt is small and state.params["w"].shape == (K - 2, 3)
 
 
 def test_auc_matches_jax():
