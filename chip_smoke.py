@@ -39,7 +39,29 @@ script exits non-zero without the final ``ok`` line:
    ones, so that rounds 2 and 3 mix buffered payloads); on the CD-Adam
    paths every step's hat moves are held to the CPU's one by one (size
    to the tolerance, flipped signs counted) and the neighbour copies to
-   their neighbours' own hats to the bit.
+   their neighbours' own hats to the bit;
+8. serve: llama3.2-1b at full width (16 layers, d_model 2048, vocab
+   128,256; weights from a seed) published into a ``ParamStore`` and
+   served by ``DecodeEngine`` over buckets (1, 128) and (8, 1024), 32 new
+   tokens, 11 prompts (batch padding, seq padding with the rewind, group
+   splitting), then a second published version and the same prompts
+   again: every prefill runs the CUDA flash kernel once per layer and no
+   other kernel runs; then prefill and decode times per bucket, tokens/s,
+   peak memory and a profile of one batch;
+9. serve card vs CPU: the same weights (full width, 2 layers) on both,
+   teacher-forced logits within the f32 tolerance at f32 compute and, at
+   bf16, no farther from the f32 logits on the card than on the CPU;
+   greedy tokens equal wherever the CPU's top-2 logit gap exceeds twice
+   the devices' difference;
+10. online: full-width DeepFM, K=8 packed D-Adam, ``train_online`` for 12
+   steps publishing the consensus mean every 4: versions 1-3, held-out
+   AUC of each snapshot, the last one equal to ``unpack_mean`` of the
+   live buffer computed on the CPU.
+
+The kernels phase also holds ``flash_attention`` against its plain
+version at five shapes: the serve bucket's prefill, an 8192-token prompt,
+a 512-key window, a non-causal f32 D=128 case and a ragged S=1021; at
+each it times the one SDPA call that computes the same function.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 at once.
@@ -105,6 +127,53 @@ NO_STACKED_SUM = ("none: no single PyTorch call sums these operands "
                   "without first stacking them")
 GAMMA = 0.4
 PARAMS = 11_202_602
+# the dense bf16 tensor-core peak of the H100 SXM at 700 W (operations/s)
+BF16_RATE = 989e12
+# flash_attention against its plain version. Both accumulate in f32 and
+# differ only by the order of the sums (f32: tests/test_kernels.py's
+# 2e-5). In bf16 both round nearly the same f32 value once, so they differ
+# by at most one bf16 ulp, at most 2**-7 of the value (rtol 8e-3), plus
+# the f32 difference where the output is near zero (atol 2e-5).
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=8e-3, atol=2e-5)}
+# (name, B, S, T, Hq, Hk, D, dtype, causal, window)
+FLASH_CASES = (
+    ("serve bucket prefill", 8, 1024, 1024, 32, 8, 64, torch.bfloat16, True,
+     0),
+    ("long prompt", 1, 8192, 8192, 32, 8, 64, torch.bfloat16, True, 0),
+    ("window 512", 2, 2048, 2048, 32, 8, 64, torch.bfloat16, True, 512),
+    ("non-causal f32, D=128", 2, 512, 1024, 16, 16, 128, torch.float32,
+     False, 0),
+    ("ragged S=1021", 2, 1021, 1021, 32, 8, 64, torch.bfloat16, True, 0),
+)
+# serving: llama3.2-1b at full width over two buckets; the prompts fill
+# the (8, 1024) bucket (1024 x 5), pad it in seq and take the rewind
+# (1000 x 2, 700), split a group over the (1, 128) bucket (128 x 2) and
+# pad a short prompt (97): 6 prefills per pass, each one flash launch per
+# layer
+SERVE_ARCH = "llama3.2-1b"
+SERVE_BUCKETS = ((1, 128), (8, 1024))
+SERVE_NEW = 32
+SERVE_LENGTHS = (1024,) * 5 + (1000,) * 2 + (700, 128, 128, 97)
+SERVE_PREFILLS = 6
+# serving, card against CPU. At f32 compute the teacher-forced logits must
+# agree to the f32 tolerance of tests/test_kernels.py. At bf16 compute no
+# elementwise 2e-2 bound holds between two correct pipelines at full
+# width: each rounds the 2048-wide hidden state to bf16 at every op, and
+# on the H100 (2 layers) the CPU's bf16 logits lie up to 0.072 from its
+# own f32 ones, the card's up to 0.071, and the two up to 0.047 apart
+# (0.03% of the elements past 2e-2). So the card's bf16 logits must lie
+# no farther from the CPU's f32 logits than the CPU's bf16 logits do
+# (times SERVE_BF16_RATIO), and greedy tokens must be equal wherever the
+# CPU's top-2 gap exceeds twice the step's largest card-CPU difference
+# (or 2e-2, if larger): past that no rounding can swap them.
+SERVE_F32_TOL = dict(rtol=2e-5, atol=2e-5)
+SERVE_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+SERVE_BF16_RATIO = 1.25
+# the online phase: 12 fit steps at p=4 take fused_adam on the 9 local
+# steps and gossip_adam_mix on the 3 communication steps
+ONLINE_STEPS, ONLINE_EVERY = 12, 4
+ONLINE_LAUNCHES = {"fused_adam": 9, "gossip_adam_mix": 3}
 CD_ADAM = dict(gamma=GAMMA, compressor="sign")
 # Each path of the main-path run: the optimizer, and the kernel launches
 # of 20 fit steps at p=4 then one opt.round of p=4 (every other kernel 0).
@@ -237,16 +306,21 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build()
     seconds = time.perf_counter() - t0
-    # ptxas names each entry function (mangled: "<length><name>_kernel")
-    # before its resource line
+    # ptxas names each entry function (mangled: "<length><name>_kernel",
+    # then "I<template args>E" for a template) before its resource line
     regs = {}
     for name, lib in libs.items():
         log = (lib.parent / f"lib{name}.log").read_text()
         entry = "?"
         for ln in log.splitlines():
-            found = re.search(r"entry function '.*?\d+([a-z_]+_kernel)E", ln)
+            found = re.search(r"entry function '.*?\d+([a-z_]+_kernel)"
+                              r"(I.*?E)?E", ln)
             if found:
                 entry = found.group(1)
+                if found.group(2):
+                    dt = "bf16" if "bfloat16" in found.group(2) else "f32"
+                    d = re.search(r"Li(\d+)E", found.group(2))
+                    entry += f"<{dt},{d.group(1) if d else '?'}>"
             elif "Used" in ln:
                 regs[f"{name}:{entry}"] = ln.split("ptxas info    : ")[-1]
     emit({"phase": "build", "seconds": round(seconds, 3),
@@ -421,6 +495,110 @@ def phase_kernels():
     emit({"phase": "torch_ops", "name": "cdadam.update_nbr_hats",
           "ms": nbr_ms, "bound_ms": nbr_bytes / MEM_RATE * 1e3,
           "bytes": nbr_bytes, "offsets": deg})
+    del p, g, m, v, x, hs, hn1, hn2, xs, hs1, q, scales
+    torch.cuda.empty_cache()
+    return records + flash_records()
+
+
+def attention_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the masks keep, per batch row and head."""
+    import numpy as np
+
+    i = np.arange(S)
+    hi = np.minimum(i, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(S, int)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def attention_keep(S: int, T: int, causal: bool, window: int,
+                   device=None) -> torch.Tensor:
+    """The ``(S, T)`` boolean mask of the (query, key) pairs kept."""
+    q_pos = torch.arange(S, device=device)[:, None]
+    k_pos = torch.arange(T, device=device)[None, :]
+    keep = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        keep = keep & (k_pos <= q_pos)
+    if window > 0:
+        keep = keep & (q_pos - k_pos < window)
+    return keep
+
+
+def sdpa_library(q, k, v, causal: bool, window: int):
+    """One ``F.scaled_dot_product_attention`` call computing the flash
+    kernel's function on the same ``(B, S, H, D)`` tensors (heads moved
+    by a view): ``is_causal`` without a window (SDPA's causal mask is
+    aligned top-left, as the kernel's), else the band as a boolean
+    ``attn_mask`` made beforehand. Returns ``(call, description)``."""
+    import torch.nn.functional as F
+
+    S, T = q.shape[1], k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(enable_gqa=q.shape[2] != k.shape[2])
+    if window > 0:
+        kw["attn_mask"] = attention_keep(S, T, causal, window, q.device)
+        desc = "attn_mask=<boolean band>"
+    else:
+        kw["is_causal"] = causal
+        desc = f"is_causal={causal}"
+    desc = (f"F.scaled_dot_product_attention({desc}, "
+            f"enable_gqa={kw['enable_gqa']})")
+    return (lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)), desc
+
+
+def flash_records():
+    """``flash_attention`` against its plain version on the card, with
+    its time beside the plain version's, SDPA's (one call computing the
+    same function: its distance from the plain version is recorded, not
+    held) and the bound: q, k, v read and the output written once over
+    the memory rate, against 4 * D operations per kept (query, key) pair
+    (the two products) over the peak for the operands' type."""
+    from repro_torch.kernels import flash_attention as fa
+
+    records = []
+    for name, B, S, T, Hq, Hk, D, dt, causal, window in FLASH_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q = torch.randn((B, S, Hq, D), generator=gen, device="cuda").to(dt)
+        k = torch.randn((B, T, Hk, D), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, T, Hk, D), generator=gen, device="cuda").to(dt)
+        kw = dict(causal=causal, window=window)
+        library, library_desc = sdpa_library(q, k, v, causal, window)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        lib_out = library().transpose(1, 2)
+        torch.cuda.synchronize()
+        max_abs, max_rel = compare([got.float()], [want.float()],
+                                   FLASH_TOL[dt], f"flash_attention {name}")
+        library_err = float((lib_out.float() - want.float()).abs().max())
+        del got, want, lib_out
+        torch.cuda.empty_cache()
+        ms = median_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v, **kw))
+        torch.cuda.empty_cache()
+        library_ms = median_ms(library)
+        del library
+        size = q.element_size()
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * size
+        ops = 4 * D * B * Hq * attention_pairs(S, T, causal, window)
+        rate = BF16_RATE if dt == torch.bfloat16 else F32_RATE
+        t_bytes, t_ops = n_bytes / MEM_RATE * 1e3, ops / rate * 1e3
+        rec = {"name": "flash_attention", "route": "cuda",
+               "source": "src/repro_torch/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:114",
+               "launches": None, "max_abs_err": max_abs,
+               "max_rel_err": max_rel, "tol": FLASH_TOL[dt], "ms": ms,
+               "kernel_ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": n_bytes, "operations": ops,
+               "library_ms": library_ms, "library": library_desc,
+               "library_max_abs_err": library_err,
+               "variant": f"{name}: B={B} S={S} T={T} Hq={Hq} Hk={Hk} "
+                          f"D={D} {str(dt).split('.')[-1]} causal={causal} "
+                          f"window={window}"}
+        emit({"phase": "kernel", **rec})
+        records.append(rec)
+        del q, k, v
+        torch.cuda.empty_cache()
     return records
 
 
@@ -520,14 +698,26 @@ def phase_profile(path, trainer, state, batches):
     """Device time by kernel over one communication period of steps, the
     device's busy share of the window's wall time, and the device time of
     the port's named ranges (``repro_torch.*``)."""
+    def period():
+        st = state
+        for b in batches:
+            st, _ = trainer.step(st, b)
+
+    emit({"phase": "profile", "path": path, "steps": len(batches),
+          **device_profile(period)})
+
+
+def device_profile(fn):
+    """Profile ``fn()``: its wall time (synchronised), the device time
+    summed over kernels, the busy share, the port's named ranges and the
+    top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in batches:
-            state, _ = trainer.step(state, b)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows, ranges = [], {}
@@ -548,12 +738,11 @@ def phase_profile(path, trainer, state, batches):
         rows.append((us / 1e3, e.count, e.key[:90]))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    emit({"phase": "profile", "path": path, "steps": len(batches),
-          "wall_ms": wall_ms, "device_ms": device_ms,
-          "busy_share": device_ms / wall_ms if wall_ms else None,
-          "ranges": ranges,
-          "top": [{"kernel": k, "ms": ms, "calls": n}
-                  for ms, n, k in rows[:16]]})
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "ranges": ranges,
+            "top": [{"kernel": k, "ms": ms, "calls": n}
+                    for ms, n, k in rows[:16]]}
 
 
 def state_tensors(state):
@@ -837,6 +1026,281 @@ def phase_card_vs_cpu(path: str, period: int = 3):
           "seconds_card": ct, "seconds_cpu": ht})
 
 
+def serve_prompts(cfg, lengths, seed=1):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randint(0, cfg.vocab_size, (L,), generator=gen,
+                          device=DEVICE, dtype=torch.int32) for L in lengths]
+
+
+def synced(fn):
+    """(result, wall ms) of ``fn()`` between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_serve(cfg=None, buckets=SERVE_BUCKETS, lengths=SERVE_LENGTHS,
+                new_tokens=SERVE_NEW, prefills=SERVE_PREFILLS):
+    """llama3.2-1b at full width through the port's serving entry points:
+    weights from a seed published into a ParamStore, DecodeEngine over
+    the buckets, the prompts served, a second version published and the
+    prompts served again. The launch counters are zeroed just before and
+    read just after: one flash launch per layer per prefill, no other
+    kernel. Then the per-bucket times and a profile. Returns the launch
+    counts."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import DecodeEngine, ParamStore
+
+    cfg = cfg or get_arch(SERVE_ARCH).model
+    api = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # device memory held (GB) at each stage, and the peak up to it
+    mem = {}
+
+    def mark(stage):
+        mem[stage] = {"held": torch.cuda.memory_allocated() / 1e9,
+                      "peak": torch.cuda.max_memory_allocated() / 1e9}
+
+    mark("start")
+    store = ParamStore()
+    _, init_ms = synced(lambda: store.publish(
+        api.init(torch.Generator(device=DEVICE).manual_seed(0))))
+    mark("v1 published")
+    n_params = sum(x.numel() for x in tree_leaves(store.snapshot()[1]))
+    # the analytic count leaves out the RMS-norm weights (two per layer
+    # and the final one)
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    if n_params != cfg.param_count() + norms:
+        raise AssertionError(f"{n_params} params, config "
+                             f"{cfg.param_count()} + {norms} norm weights")
+    engine = DecodeEngine(cfg, store, buckets=buckets,
+                          max_new_tokens=new_tokens)
+    prompts = serve_prompts(cfg, lengths)
+    ops.reset_launches()
+    outs, walls = [], []
+    for seed in (None, 1):
+        if seed is not None:   # hot-swap: version 2 from another seed
+            store.publish(api.init(torch.Generator(device=DEVICE)
+                                   .manual_seed(seed)))
+            mark("v2 published")
+        out, ms = synced(lambda: engine.generate(prompts, new_tokens))
+        outs.append(out)
+        walls.append(ms)
+        mark(f"pass {len(walls)} served")
+    launches = ops.launch_counts()
+    want = {n: 0 for n in launches}
+    want["flash_attention"] = cfg.n_layers * prefills * 2
+    if launches != want:
+        raise AssertionError(f"serve: launches {launches} != {want}")
+    if engine.last_version != 2:
+        raise AssertionError(f"served version {engine.last_version}")
+    if engine.compile_counts != {"prefill": len(buckets),
+                                 "decode": len(buckets)}:
+        raise AssertionError(f"signatures {engine.compile_counts}")
+    for out in outs:
+        for o in out:
+            if (o.shape != (new_tokens,) or o.dtype != torch.int32
+                    or not bool(((o >= 0) & (o < cfg.vocab_size)).all())):
+                raise AssertionError(f"served tokens {o}")
+    if all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError("version 2 served the same tokens as 1")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # per bucket: a full prompt's prefill (n_new = 1: no decode step),
+    # then n_new tokens; decode ms per token from the difference
+    per_bucket = {}
+    for B, S in buckets:
+        toks = torch.randint(0, cfg.vocab_size, (B, S), device=DEVICE,
+                             dtype=torch.int32)
+        pre = [synced(lambda: engine.generate_batch(toks, 1))[1]
+               for _ in range(3)]
+        full = [synced(lambda: engine.generate_batch(toks, new_tokens))[1]
+                for _ in range(3)]
+        pre_ms, full_ms = statistics.median(pre), statistics.median(full)
+        per_bucket[f"{B}x{S}"] = {
+            "prefill_ms": pre_ms, "generate_ms": full_ms,
+            "decode_ms_per_token": (full_ms - pre_ms) / (new_tokens - 1),
+            "tokens_per_s": B * new_tokens / full_ms * 1e3}
+    B, S = max(buckets)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=DEVICE,
+                         dtype=torch.int32)
+    n_prof = min(8, new_tokens)
+    prof = device_profile(lambda: engine.generate_batch(toks, n_prof))
+    flash_ms = sum(r["ms"] for r in prof["top"]
+                   if "flash_attention" in r["kernel"])
+    n_out = sum(o.numel() for o in outs[1])
+    emit({"phase": "serve", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "params": n_params, "param_count": cfg.param_count(),
+          "param_bytes_f32": 4 * n_params,
+          "buckets": [list(b) for b in buckets], "new_tokens": new_tokens,
+          "prompt_lengths": list(lengths), "init_ms": init_ms,
+          "serve_ms": walls, "tokens_per_s": n_out / walls[1] * 1e3,
+          "per_bucket": per_bucket, "peak_mem_gb": peak_gb,
+          "mem_gb_by_stage": mem,
+          "last_version": engine.last_version,
+          "compile_counts": engine.compile_counts, "launches": launches,
+          "profile_batch": f"{B}x{S}, {n_prof} new tokens",
+          "profile": {**prof, "flash_ms": flash_ms}})
+    del engine, store
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_card_vs_cpu(cfg=None, seq=128, new_tokens=4):
+    """The same weights on the card and on the CPU (full width, depth cut
+    to 2): greedy tokens of a (1, seq) request through the engine on
+    each, then the logits of both devices teacher-forced along the card's
+    tokens, at f32 and at bf16 compute (see SERVE_F32_TOL)."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import DecodeEngine, cast_params
+
+    cfg = cfg or dataclasses.replace(get_arch(SERVE_ARCH).model, n_layers=2)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    api = build_model(cfg)
+    params = {"cpu": api.init(torch.Generator().manual_seed(2))}
+    params[DEVICE] = tree_map(lambda x: x.to(DEVICE), params["cpu"])
+    prompt = torch.randint(0, cfg.vocab_size, (1, seq),
+                           generator=torch.Generator().manual_seed(3),
+                           dtype=torch.int32)
+    toks, secs = {}, {}
+    for dev in ("cpu", DEVICE):
+        eng = DecodeEngine(cfg, params[dev], buckets=((1, seq),),
+                           max_new_tokens=new_tokens)
+        t0 = time.perf_counter()
+        toks[dev] = eng.generate_batch(prompt.to(dev), new_tokens)[0].cpu()
+        secs[dev] = time.perf_counter() - t0
+
+    def forced(dev, c):
+        api_c = build_model(c)
+        p = cast_params(params[dev], c.compute_dtype)
+        with torch.no_grad():
+            logits, cache = api_c.prefill(p, {"tokens": prompt.to(dev)},
+                                          cache_len=seq + new_tokens,
+                                          attn_impl="kernel")
+            out = [logits[:, -1]]
+            for t in toks[DEVICE][:-1]:
+                logits, cache = api_c.decode_step(p, cache,
+                                                  t.view(1).to(dev))
+                out.append(logits)
+        return torch.cat(out).float().cpu()
+
+    logits = {(dev, dt): forced(dev, c) for dev in (DEVICE, "cpu")
+              for dt, c in (("f32", cfg32), ("bf16", cfg))}
+    f32_err = compare([logits[DEVICE, "f32"]], [logits["cpu", "f32"]],
+                      SERVE_F32_TOL, "teacher-forced logits, f32")
+    ref = logits["cpu", "f32"]
+    card_dev = float((logits[DEVICE, "bf16"] - ref).abs().max())
+    cpu_dev = float((logits["cpu", "bf16"] - ref).abs().max())
+    if card_dev > SERVE_BF16_RATIO * cpu_dev:
+        raise AssertionError(f"bf16 logits: the card lies {card_dev} from "
+                             f"the f32 logits, the CPU {cpu_dev}")
+    diff = (logits[DEVICE, "bf16"] - logits["cpu", "bf16"]).abs()
+    outside = diff > (SERVE_BF16_TOL["atol"] + SERVE_BF16_TOL["rtol"]
+                      * logits["cpu", "bf16"].abs())
+    top2 = torch.topk(logits["cpu", "bf16"], 2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    margins = [max(SERVE_BF16_TOL["atol"], 2 * float(d))
+               for d in diff.amax(dim=-1)]
+    checked = 0
+    for t in range(new_tokens):
+        if toks[DEVICE][t] != toks["cpu"][t]:
+            if gaps[t] > margins[t]:
+                raise AssertionError(f"token {t}: card {toks[DEVICE]} cpu "
+                                     f"{toks['cpu']} with a gap of "
+                                     f"{gaps[t]} > {margins[t]}")
+            break          # a near-tie: the sequences part from here
+        checked += 1
+    emit({"phase": "serve_card_vs_cpu", "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size, "seq": seq,
+          "tokens_card": toks[DEVICE].tolist(),
+          "tokens_cpu": toks["cpu"].tolist(), "tokens_checked": checked,
+          "top2_gaps_cpu": gaps, "token_margins": margins,
+          "f32_max_abs_err": f32_err[0], "f32_tol": SERVE_F32_TOL,
+          "bf16_max_abs_err": float(diff.max()),
+          "bf16_share_outside_2e-2": float(outside.double().mean()),
+          "bf16_from_f32_card": card_dev, "bf16_from_f32_cpu": cpu_dev,
+          "bf16_ratio_allowed": SERVE_BF16_RATIO,
+          "seconds_card": secs[DEVICE], "seconds_cpu": secs["cpu"]})
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_online():
+    """``train_online`` at the paper's width: K=8 packed D-Adam on the
+    ring, 12 steps, the consensus mean published every 4. The launch
+    counters are zeroed just before and read just after."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core.api import make_optimizer
+    from repro_torch.data.stream import ctr_stream
+    from repro_torch.data.synthetic import ctr_teacher, make_ctr_task
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pack as packing
+    from repro_torch.launch import deepfm_ctr
+    from repro_torch.models.deepfm import (deepfm_logits, deepfm_loss,
+                                           init_deepfm)
+    from repro_torch.serve import ParamStore
+    from repro_torch.train.loop import DecentralizedTrainer
+    from repro_torch.train.online import train_online
+
+    task = make_ctr_task(seed=0, n_fields=FULL["n_fields"],
+                         features_per_field=FULL["features_per_field"],
+                         embed_dim=FULL["embed_dim"])
+    teacher = ctr_teacher(task, DEVICE)
+    opt = make_optimizer("d-adam", K=K, eta=ETA, period=4,
+                         backend="packed", device=DEVICE)
+    trainer = DecentralizedTrainer(deepfm_loss, opt)
+    state = trainer.init(init_deepfm(
+        torch.Generator(device=DEVICE).manual_seed(0), task.n_features,
+        task.n_fields, FULL["embed_dim"], FULL["hidden"]))
+    store, snaps = ParamStore(), {}
+    publish = store.publish
+
+    def keep(params, **kw):
+        version = publish(params, **kw)
+        snaps[version] = params
+        return version
+
+    store.publish = keep
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    res, wall_ms = synced(lambda: train_online(
+        trainer, state, ctr_stream(teacher, K, FULL["per_worker"], seed=1),
+        ONLINE_STEPS, store=store, publish_every=ONLINE_EVERY, mode="mean",
+        log_every=ONLINE_EVERY))
+    launches = ops.launch_counts()
+    want = {n: ONLINE_LAUNCHES.get(n, 0) for n in launches}
+    if launches != want:
+        raise AssertionError(f"online: launches {launches} != {want}")
+    steps = list(range(ONLINE_EVERY, ONLINE_STEPS + 1, ONLINE_EVERY))
+    if res.published != [(s, i + 1) for i, s in enumerate(steps)]:
+        raise AssertionError(f"published {res.published}")
+    if not all(math.isfinite(x) for x in res.log.loss):
+        raise AssertionError(f"online losses {res.log.loss}")
+    aucs = {v: deepfm_ctr.heldout_auc(teacher, p, deepfm_logits)
+            for v, p in sorted(snaps.items())}
+    want_mean = packing.unpack_mean(res.state.buf.cpu(), res.state.spec)
+    got = [x.cpu() for x in tree_leaves(store.snapshot()[1])]
+    max_abs, _ = compare(got, tree_leaves(want_mean), KERNEL_TOL,
+                         "published mean vs unpack_mean on the CPU")
+    emit({"phase": "online", "K": K, "period": 4, "steps": ONLINE_STEPS,
+          "publish_every": ONLINE_EVERY, "published": res.published,
+          "versions": res.versions, "losses": res.log.loss,
+          "auc_by_version": aucs, "wall_ms": wall_ms,
+          "mean_vs_cpu_max_abs_err": max_abs, "tol": KERNEL_TOL,
+          "launches": launches})
+    return launches
+
+
 def main() -> int:
     card, smi = phase_env()
     phase_build()
@@ -855,6 +1319,9 @@ def main() -> int:
     phase_card_vs_cpu("cd-adam")
     phase_card_vs_cpu("d-adam-straggler", period=1)
     phase_card_vs_cpu("cd-adam-overlap", period=1)
+    by_path["serve"] = phase_serve()
+    phase_serve_card_vs_cpu()
+    by_path["online"] = phase_online()
     for rec in records:
         rec["launches_by_path"] = {k: c[rec["name"]]
                                    for k, c in by_path.items()}

@@ -24,34 +24,38 @@ class TreeDef(NamedTuple):
 LEAF = TreeDef("leaf", None, ())
 
 
+def _walk(node, leaves: List[Any]) -> TreeDef:
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return TreeDef("dict", keys,
+                       tuple(_walk(node[k], leaves) for k in keys))
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return TreeDef(kind, None, tuple(_walk(c, leaves) for c in node))
+    leaves.append(node)
+    return LEAF
+
+
 def tree_flatten(tree: PyTree) -> Tuple[List[Any], TreeDef]:
+    # module-level helpers, not nested recursive closures: a closure that
+    # calls itself is a reference cycle, which would keep the leaves (and
+    # the tensors) alive until the cyclic garbage collector runs
     leaves: List[Any] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node) -> TreeDef:
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return TreeDef("dict", keys, tuple(walk(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return TreeDef(kind, None, tuple(walk(c) for c in node))
-        leaves.append(node)
-        return LEAF
 
-    return leaves, walk(tree)
+def _build(td: TreeDef, it) -> PyTree:
+    if td.kind == "leaf":
+        return next(it)
+    children = [_build(c, it) for c in td.children]
+    if td.kind == "dict":
+        return dict(zip(td.keys, children))
+    return children if td.kind == "list" else tuple(children)
 
 
 def tree_unflatten(treedef: TreeDef, leaves) -> PyTree:
     it = iter(leaves)
-
-    def build(td: TreeDef):
-        if td.kind == "leaf":
-            return next(it)
-        children = [build(c) for c in td.children]
-        if td.kind == "dict":
-            return dict(zip(td.keys, children))
-        return children if td.kind == "list" else tuple(children)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the treedef holds")
     return out

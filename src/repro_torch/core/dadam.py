@@ -41,6 +41,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch._rng import step_generator
 from repro_torch._tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from repro_torch.core.schedule import TopologySchedule, comm_offsets
 from repro_torch.core.topology import GridShift, Topology, offset_perm
@@ -300,11 +301,9 @@ def default_arrival(cfg: DAdamConfig, K: int, deg: int) -> ArrivalFn:
     (The JAX package draws with threefry, which torch cannot reproduce;
     ``make_optimizer(arrival=)`` takes any other draw.)"""
     rate = float(cfg.straggler_rate)
-    seed = int(cfg.straggler_seed) & 0xFFFFFFFF
 
     def arrival(r: int) -> torch.Tensor:
-        gen = torch.Generator().manual_seed((seed << 32) | (int(r)
-                                                            & 0xFFFFFFFF))
+        gen = step_generator(cfg.straggler_seed, r)
         return torch.rand((K, deg), generator=gen) >= rate
 
     return arrival

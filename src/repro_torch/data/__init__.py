@@ -1,1 +1,2 @@
-"""Synthetic non-IID data (``synthetic``)."""
+"""Synthetic non-IID data (``synthetic``) and the streams of the online
+train->serve loop (``stream``)."""

@@ -5,6 +5,7 @@
                 (K, rows, 128) state
   sign_compress — CD-Adam's error-feedback sign compression (stacked,
                 per leaf segment, and single-scale)
+  flash_attention — GQA prefill attention with an online softmax
 
 pack.py is the tree <-> (rows, 128) bridge; ops.py dispatches each call by
 the operand's device (CUDA kernel on the card, plain version on the CPU);

@@ -10,13 +10,14 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_adam as _adam
 from repro_torch.kernels import gossip as _gossip
 from repro_torch.kernels import sign_compress as _sc
 
 KERNELS = (_adam.fused_adam, _gossip.gossip_mix, _gossip.gossip_adam_mix,
            _gossip.consensus_mix, _sc.sign_compress_stacked,
-           _sc.sign_compress, _gossip.payload_mix)
+           _sc.sign_compress, _gossip.payload_mix, _fa.flash_attention)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -70,6 +71,18 @@ def sign_compress_stacked(x, hat, *, n_true=None, row_ranges=None,
 def sign_compress(x, hat):
     fn = _sc.sign_compress_plain if _on_cpu(x) else _sc.sign_compress
     return fn(x, hat)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """Prefill attention. Neither version has a backward (the TPU kernel
+    has none), so a call that autograd would record raises instead of
+    returning a result without a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward; call it under torch.no_grad() "
+            "or take sdpa's 'naive' / 'chunked' impl for training")
+    fn = _fa.flash_attention_plain if _on_cpu(q) else _fa.flash_attention
+    return fn(q, k, v, causal=causal, window=window)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -20,6 +20,10 @@ Padding is zero, and the optimizer kernels map zeros to zeros, so a
 resident buffer's padding stays zero across steps. Mixed-dtype trees pack
 in the widest float dtype and cast back per leaf. Integer leaves are
 rejected. The row-sharded 2D layout (``row_shards > 1``) is not ported yet.
+
+:func:`unpack_worker` and :func:`unpack_mean` decode ONE per-worker tree
+straight out of a stacked buffer (the serving publish path): one worker's
+row block, or the mean over the worker dim taken in the packed domain.
 """
 from __future__ import annotations
 
@@ -160,3 +164,47 @@ def unpack(buf: torch.Tensor, spec: PackSpec) -> PyTree:
               for o, sz, dt, shape in zip(spec.offsets, spec.sizes,
                                           spec.dtypes, spec.shapes)]
     return tree_unflatten(spec.treedef, leaves)
+
+
+def _unpack_one_row(row: torch.Tensor, spec: PackSpec) -> PyTree:
+    """Decode one worker's ``(rows, LANE)`` block into the per-worker
+    tree (leaf shapes without the leading K dim)."""
+    flat = row.reshape(-1)
+    leaves = [flat[o:o + sz].to(dt).reshape(shape[1:])
+              for o, sz, dt, shape in zip(spec.offsets, spec.sizes,
+                                          spec.dtypes, spec.shapes)]
+    return tree_unflatten(spec.treedef, leaves)
+
+
+def _check_stacked(buf: torch.Tensor, spec: PackSpec, what: str) -> None:
+    if not spec.stacked:
+        raise ValueError(f"{what} needs a stacked spec")
+    if tuple(buf.shape) != spec.buf_shape():
+        raise ValueError(f"buffer shape {tuple(buf.shape)} does not match "
+                         f"spec {spec.buf_shape()}")
+
+
+def unpack_worker(buf: torch.Tensor, spec: PackSpec, k: int) -> PyTree:
+    """Worker ``k``'s param tree straight from the stacked buffer, reading
+    1/K of it. The leaves are a copy: the published tree does not change
+    when the trainer's buffer does."""
+    _check_stacked(buf, spec, "unpack_worker")
+    k = int(k)
+    if not 0 <= k < spec.k:
+        raise ValueError(f"worker index {k} out of range for K={spec.k}")
+    return _unpack_one_row(buf[k].clone(), spec)
+
+
+def unpack_mean(buf: torch.Tensor, spec: PackSpec) -> PyTree:
+    """The consensus-mean param tree straight from the stacked buffer: the
+    worker dim is reduced in the packed domain into one ``(rows, LANE)``
+    block and that block decoded. The workers are summed in index order in
+    f32 and divided by K, then rounded to the buffer's dtype (JAX's
+    ``jnp.mean`` also accumulates a bf16 buffer in f32), so the result
+    does not depend on a reduction order; it agrees with JAX's to f32
+    rounding."""
+    _check_stacked(buf, spec, "unpack_mean")
+    acc = buf[0].to(torch.float32, copy=True)
+    for i in range(1, spec.k):
+        acc += buf[i]
+    return _unpack_one_row((acc / spec.k).to(buf.dtype), spec)

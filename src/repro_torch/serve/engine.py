@@ -1,0 +1,414 @@
+"""Serving engine: cache specs, decode steps and the batched bucket
+engine, the port of ``repro.serve.engine``.
+
+``cache_spec`` gives the shapes and dtypes of the KV cache (it allocates
+nothing); ``make_serve_step`` / ``make_prefill_step`` the one-token decode
+and the prefill; :class:`DecodeEngine` is the serving path: padded-bucket
+batching over a fixed set of ``(batch, seq)`` shapes, batched prefill
+through the CUDA flash kernel plus KV-cache decode, optional bf16 cache
+storage, and lock-free param hot-swap through a ``serve.publish.
+ParamStore``.
+
+**Why seq padding is exact** (JAX's bucket contract): decode attention
+masks cache slots with ``slot <= index`` and writes the new token at
+``index``. A prompt of true length L right-padded to a bucket length S
+prefills pad K/V into slots [L, S); the engine then REWINDS the cache
+index to L-1 and re-feeds the last real token: that decode step
+recomputes slot L-1's K/V from the same token and rope position, attends
+only to slots <= L-1, and yields the logits of an unpadded prefill. Every
+later step overwrites one pad slot before the mask reaches it. This holds
+for positional, non-rotating KV caches; with a rotating window pads fold
+into the cache, so the engine pads only the batch dim there.
+
+JAX states that contract bit for bit. On the card a ``(B, 1, d)`` and a
+``(B, S, d)`` projection may take GEMM kernels that round differently, so
+the port holds it as: tokens equal at ``compute_dtype=float32``; at bf16,
+tokens equal wherever the top-2 logit gap exceeds the two paths' logit
+difference (within 2e-2 at the reduced config).
+
+**The engine casts the params once per published version** to the
+compute dtype (``cast_params``), where JAX writes ``x @ W.astype(bf16)``
+in every projection and XLA fuses the convert into the dot: eagerly that
+would re-read and re-write every f32 weight on every decode step. The
+values are identical to a per-call cast; the copy costs half the f32
+params' memory.
+
+The positions, the rewind and the rotating slot are host ints, so no
+decode step reads the device; the tokens stay on the device until the
+final ``stack``. JAX pins one compiled program per bucket with
+``RecompileWatch``; the port runs eagerly and keeps the same contract with
+:class:`SignatureWatch` over the leaf shapes and dtypes of each phase's
+inputs (CUDA-graph capture per bucket is later work).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, \
+    Sequence, Tuple
+
+import torch
+
+from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.models import attention
+from repro_torch.models.registry import build_model
+
+PyTree = Any
+
+
+class TensorSpec(NamedTuple):
+    """The shape and dtype of a tensor that is not allocated."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def effective_config(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
+    """Apply the long-context window substitution for long_500k."""
+    if (shape.name == "long_500k" and cfg.long_context_window
+            and cfg.family in ("dense", "moe", "vlm", "hybrid")):
+        return dataclasses.replace(cfg,
+                                   sliding_window=cfg.long_context_window)
+    return cfg
+
+
+def kv_cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    if cfg.sliding_window:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
+def cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
+               cache_dtype: torch.dtype = torch.bfloat16
+               ) -> attention.KVCache:
+    """The decode cache's shapes and dtypes as a ``KVCache`` of
+    :class:`TensorSpec` (the index: a host int, spec'd as JAX's int32
+    scalar). Recurrent and encoder-decoder caches are not ported yet
+    (ROADMAP queue 1, item 11)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            f"the {cfg.family!r} cache is not ported yet (ROADMAP queue 1, "
+            "item 11: model zoo)")
+    S = kv_cache_len(cfg, seq_len)
+    kv = TensorSpec((cfg.n_layers, batch, S, cfg.n_kv_heads,
+                     cfg.resolved_head_dim), cache_dtype)
+    return attention.KVCache(kv, kv, TensorSpec((), torch.int32))
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable:
+    """(params, cache, token) -> (logits, cache): one decode step."""
+    api = build_model(cfg)
+
+    def serve_step(params, cache, token):
+        return api.decode_step(params, cache, token)
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig, cache_len: int) -> Callable:
+    """(params, batch) -> (logits, cache): the prefill at ``cache_len``."""
+    api = build_model(cfg)
+
+    def prefill_step(params, batch):
+        return api.prefill(params, batch, cache_len=cache_len)
+
+    return prefill_step
+
+
+def cast_params(params: PyTree, dtype: torch.dtype) -> PyTree:
+    """Every float leaf in ``dtype`` (a leaf already in it is kept, not
+    copied). The forward casts each weight to the compute dtype where it
+    uses it, so this changes no value: it moves the cast out of the
+    per-step path."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    params)
+
+
+def _argmax_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy tokens, int32; ``torch.argmax`` returns the first maximum,
+    as ``jnp.argmax`` does."""
+    if logits.dim() == 3:
+        logits = logits[:, -1, :]
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+# ----------------------------- request serving ------------------------------
+
+
+@torch.no_grad()
+def greedy_generate(cfg: ModelConfig, params: PyTree, batch: PyTree,
+                    n_new: int, *, cache_len: Optional[int] = None,
+                    attn_impl: str = "auto") -> torch.Tensor:
+    """Batched greedy decoding: prefill the prompt, then n_new - 1 decode
+    steps. Returns (B, n_new) int32 on the prompt's device."""
+    api = build_model(cfg)
+    prompt = batch["tokens"]
+    B = prompt.shape[0]
+    if n_new < 0:
+        raise ValueError(f"n_new must be >= 0, got {n_new}")
+    if n_new == 0:
+        return torch.zeros((B, 0), dtype=torch.int32, device=prompt.device)
+    need = prompt.shape[1] + n_new + (cfg.n_patches or 0)
+    if cache_len is None:
+        cache_len = need
+    elif cache_len < need:
+        raise ValueError(
+            f"cache_len={cache_len} cannot hold prompt + {n_new} new "
+            f"tokens (need >= {need})")
+    params = cast_params(params, cfg.compute_dtype)
+    logits, cache = api.prefill(params, batch, cache_len=cache_len,
+                                attn_impl=attn_impl)
+    tok = _argmax_tokens(logits)
+    out = [tok]
+    for _ in range(n_new - 1):
+        logits, cache = api.decode_step(params, cache, tok)
+        tok = _argmax_tokens(logits)
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+# --------------------------- batched decode engine ---------------------------
+
+
+def cast_cache(cache: attention.KVCache,
+               cache_dtype: Optional[torch.dtype]) -> attention.KVCache:
+    """The cache's K/V in ``cache_dtype`` (bf16 halves the cache's memory
+    and decode read traffic); the index passes through. ``None`` is the
+    identity."""
+    if cache_dtype is None:
+        return cache
+    return cache._replace(k=cache.k.to(cache_dtype),
+                          v=cache.v.to(cache_dtype))
+
+
+def select_bucket(buckets: Sequence[Tuple[int, int]], batch: int, seq: int,
+                  *, pad_seq: bool = True) -> Tuple[int, int]:
+    """The tightest ``(batch, seq)`` bucket that holds a request group.
+
+    Seq is padded up to the nearest bucket seq (an exact match when
+    ``pad_seq`` is False); batch up to the smallest bucket batch >=
+    ``batch``, else the largest available (the caller then splits the
+    group across calls)."""
+    fits = [b for b in buckets if (b[1] >= seq if pad_seq else b[1] == seq)]
+    if not fits:
+        raise ValueError(
+            f"no bucket holds seq={seq} (pad_seq={pad_seq}); "
+            f"buckets={list(buckets)}")
+    best_seq = min(s for _, s in fits)
+    fits = [b for b in fits if b[1] == best_seq]
+    exact = [b for b in fits if b[0] >= batch]
+    return min(exact) if exact else max(fits)
+
+
+class RecompileError(RuntimeError):
+    pass
+
+
+class SignatureWatch:
+    """Counts the distinct input signatures of one engine phase: the
+    shapes, dtypes and devices of every tensor leaf (host ints such as the
+    cache index are not part of it). More than ``limit`` means the bucket
+    set was escaped; :meth:`check` raises then."""
+
+    def __init__(self, name: str, limit: int):
+        self.name = name
+        self.limit = int(limit)
+        self.signatures: Dict[Any, int] = {}
+
+    def observe(self, *trees: Any) -> int:
+        sig = tuple((tuple(x.shape), x.dtype, x.device)
+                    for x in tree_leaves(list(trees))
+                    if isinstance(x, torch.Tensor))
+        self.signatures[sig] = self.signatures.get(sig, 0) + 1
+        return len(self.signatures)
+
+    def check(self) -> None:
+        n = len(self.signatures)
+        if n > self.limit:
+            raise RecompileError(
+                f"`{self.name}` saw {n} distinct input signatures (limit "
+                f"{self.limit}): each one is a program shape outside the "
+                "bucket set. Pad requests into the buckets")
+
+
+class DecodeEngine:
+    """Padded-bucket batched serving engine over a fixed shape set.
+
+    Requests are grouped by prompt length and padded (batch up to the
+    bucket's batch, seq, where exact, up to the bucket's seq), so every
+    prefill and decode runs one of ``len(buckets)`` ``(batch, seq)``
+    shapes; a :class:`SignatureWatch` per phase raises on a shape that
+    escapes the set. Params come from a ``ParamStore`` (each call decodes
+    one complete versioned snapshot) or a plain param tree.
+
+    Args:
+      cfg: the model config.
+      source: a ``ParamStore`` or a param tree.
+      buckets: the ``(batch, seq)`` shape set.
+      max_new_tokens: per-bucket decode cache headroom (cache length
+        ``seq + max_new_tokens``), so every ``n_new <= max_new_tokens``
+        runs the same shapes.
+      cache_dtype: optional storage dtype of the decode cache; ``None``
+        keeps the prefill's. Must not be wider than ``cfg.compute_dtype``.
+      recompile_limit: distinct signatures per phase; default
+        ``len(buckets)``.
+      attn_impl: the prefill's ``sdpa`` impl, the CUDA flash kernel by
+        default (its plain version on a CPU tensor).
+    """
+
+    def __init__(self, cfg: ModelConfig, source: Any, *,
+                 buckets: Sequence[Tuple[int, int]] = ((1, 32), (8, 32)),
+                 max_new_tokens: int = 32,
+                 cache_dtype: Optional[torch.dtype] = None,
+                 recompile_limit: Optional[int] = None,
+                 attn_impl: str = "kernel"):
+        if not buckets:
+            raise ValueError("DecodeEngine needs at least one bucket")
+        if attn_impl not in attention.IMPLS:
+            raise ValueError(f"attn_impl must be one of {attention.IMPLS}, "
+                             f"got {attn_impl!r}")
+        self.cfg = cfg
+        self.api = build_model(cfg)
+        self.buckets = tuple(sorted({(int(b), int(s)) for b, s in buckets}))
+        self.max_new_tokens = int(max_new_tokens)
+        if cache_dtype is not None and (cache_dtype.itemsize
+                                        > cfg.compute_dtype.itemsize):
+            # an upcast cache would widen the hidden state mid-decode; only
+            # storage downcasts are meaningful
+            raise ValueError(
+                f"cache_dtype {cache_dtype} is wider than compute_dtype "
+                f"{cfg.compute_dtype}; the KV cache dtype may only narrow "
+                "storage")
+        self.cache_dtype = cache_dtype
+        self.attn_impl = attn_impl
+        self._source = source
+        self.pad_seq = (cfg.family in ("dense", "moe", "vlm")
+                        and not cfg.sliding_window)
+        limit = (len(self.buckets) if recompile_limit is None
+                 else recompile_limit)
+        self._watch_prefill = SignatureWatch("engine.prefill", limit)
+        self._watch_decode = SignatureWatch("engine.decode", limit)
+        self._cast_key: Any = None
+        self._cast: PyTree = None
+        self.last_version = 0
+
+    # ------------------------------ internals ------------------------------
+
+    def _params(self) -> Tuple[int, PyTree]:
+        """The current snapshot's version and its compute-dtype copy, cast
+        once per version (and per plain tree)."""
+        snap = getattr(self._source, "snapshot", None)
+        version, params = snap() if snap is not None else (0, self._source)
+        key = (version, id(params))
+        if key != self._cast_key:
+            self._cast = None          # free the old copy before the new
+            self._cast = cast_params(params, self.cfg.compute_dtype)
+            self._cast_key = key
+        return version, self._cast
+
+    def cache_len_for(self, seq: int) -> int:
+        """Per-bucket cache length: prompt slots + decode headroom (+ the
+        vlm patch prefix)."""
+        extra = self.cfg.n_patches or 0
+        return kv_cache_len(self.cfg, seq + extra + self.max_new_tokens)
+
+    @property
+    def compile_counts(self) -> dict:
+        """Distinct input signatures per phase, pinned at the bucket-set
+        size."""
+        return {"prefill": len(self._watch_prefill.signatures),
+                "decode": len(self._watch_decode.signatures)}
+
+    def _decode(self, params, cache, tok):
+        self._watch_decode.observe(params, cache.k, cache.v, tok)
+        self._watch_decode.check()
+        return self.api.decode_step(params, cache, tok)
+
+    # ------------------------------ execution ------------------------------
+
+    @torch.no_grad()
+    def generate_batch(self, tokens: torch.Tensor, n_new: int, *,
+                       true_len: Optional[int] = None,
+                       extras: Optional[dict] = None) -> torch.Tensor:
+        """Greedy-decode one bucket-shaped batch.
+
+        ``tokens``: (B, S) ints with (B, S) in the bucket set, right-padded
+        past ``true_len`` (the shared real prompt length; default S).
+        Returns (B, n_new) int32 on the tokens' device."""
+        B, S = tokens.shape
+        if (B, S) not in self.buckets:
+            raise ValueError(
+                f"batch shape ({B}, {S}) is not in the bucket set "
+                f"{list(self.buckets)}; pad requests with generate()")
+        if n_new < 0:
+            raise ValueError(f"n_new must be >= 0, got {n_new}")
+        if n_new > self.max_new_tokens:
+            raise ValueError(
+                f"n_new={n_new} exceeds max_new_tokens="
+                f"{self.max_new_tokens} (the per-bucket cache headroom)")
+        if n_new == 0:
+            return torch.zeros((B, 0), dtype=torch.int32,
+                               device=tokens.device)
+        L = S if true_len is None else int(true_len)
+        if not 0 < L <= S:
+            raise ValueError(f"true_len={L} out of range for seq {S}")
+        if L < S and not self.pad_seq:
+            raise ValueError(
+                f"family {self.cfg.family!r} (or a rotating window) folds "
+                "pad tokens into its decode state; seq must match a "
+                "bucket exactly (pad_seq=False)")
+        tokens = tokens.to(torch.int32)
+        version, params = self._params()
+        batch = {"tokens": tokens, **(extras or {})}
+        self._watch_prefill.observe(params, batch)
+        self._watch_prefill.check()
+        logits, cache = self.api.prefill(params, batch,
+                                         cache_len=self.cache_len_for(S),
+                                         attn_impl=self.attn_impl)
+        cache = cast_cache(cache, self.cache_dtype)
+        if L == S:
+            tok = _argmax_tokens(logits)
+        else:
+            # rewind + re-feed: recompute slot L-1, attend only to real
+            # slots, recover the true last position's logits
+            extra = self.cfg.n_patches or 0
+            cache = cache._replace(index=L - 1 + extra)
+            logits, cache = self._decode(params, cache, tokens[:, L - 1])
+            tok = _argmax_tokens(logits)
+        out = [tok]
+        for _ in range(n_new - 1):
+            logits, cache = self._decode(params, cache, tok)
+            tok = _argmax_tokens(logits)
+            out.append(tok)
+        self.last_version = version
+        return torch.stack(out, dim=1)
+
+    def generate(self, prompts: Sequence[torch.Tensor], n_new: int
+                 ) -> List[torch.Tensor]:
+        """Serve a ragged request list: group by prompt length, pad each
+        group to its bucket (batch rows repeat the group's first request
+        and are dropped on the way out), split groups larger than the
+        biggest bucket. Returns one (n_new,) int32 tensor per request, in
+        request order."""
+        if any(p.dim() != 1 for p in prompts):
+            raise ValueError("generate() takes 1-D token prompts; use "
+                             "generate_batch() for pre-batched input")
+        groups: dict = {}
+        for i, p in enumerate(prompts):
+            groups.setdefault(int(p.shape[0]), []).append(i)
+        results: List[Optional[torch.Tensor]] = [None] * len(prompts)
+        for L, idxs in sorted(groups.items()):
+            pending = idxs
+            while pending:
+                B, S = select_bucket(self.buckets, len(pending), L,
+                                     pad_seq=self.pad_seq)
+                take = pending[:B]
+                pending = pending[B:]
+                rows = [torch.nn.functional.pad(prompts[i], (0, S - L))
+                        for i in take]
+                while len(rows) < B:          # batch-dim padding
+                    rows.append(rows[0])
+                out = self.generate_batch(
+                    torch.stack(rows).to(torch.int32), n_new, true_len=L)
+                for r, i in enumerate(take):
+                    results[i] = out[r]
+        return results  # type: ignore[return-value]

@@ -1,2 +1,3 @@
-"""The gradient pipeline (``grad``), the decentralized trainer (``loop``)
-and the evaluation metrics (``metrics``)."""
+"""The gradient pipeline (``grad``), the decentralized trainer (``loop``),
+the evaluation metrics (``metrics``) and the online train->serve loop
+(``online``)."""

@@ -275,6 +275,10 @@ def test_default_arrival_is_seeded_and_checked():
     a, b = draw(3), draw(3)
     assert a.dtype == torch.bool and a.shape == (K, 2)
     assert torch.equal(a, b) and not torch.equal(draw(3), draw(4))
+    # the seed enters the draw (the CPU generator keeps 32 bits of a seed)
+    other = dadam.default_arrival(
+        dataclasses.replace(cfg, straggler_seed=2), K, 2)
+    assert any(not torch.equal(draw(r), other(r)) for r in range(4))
     share = float(torch.stack([draw(r) for r in range(200)]).float().mean())
     assert 0.6 < share < 0.8              # about 1 - rate arrive
     with pytest.raises(ValueError, match="shape"):

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.core.topology import make_topology
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import fused_adam as tfa
 from repro_torch.kernels import gossip as tgossip
 from repro_torch.kernels import sign_compress as tsc
@@ -168,13 +169,103 @@ def test_cuda_wrappers_count_launches_and_reject_bad_operands(cuda):
     ops.sign_compress_stacked(p, g, row_ranges=((0, 4), (4, ROWS)))
     ops.sign_compress(p, g)
     ops.payload_mix(p, (m, v), topo.offset_weights, topo.self_weight)
+    q = p.reshape(1, K * ROWS, 4, 32)
+    ops.flash_attention(q, q[:, :, :2], q[:, :, 2:])
     assert ops.launch_counts() == {
         "fused_adam": 1, "gossip_mix": 1, "gossip_adam_mix": 1,
         "consensus_mix": 1, "sign_compress_stacked": 1, "sign_compress": 1,
-        "payload_mix": 1}
+        "payload_mix": 1, "flash_attention": 1}
     with pytest.raises(ValueError, match="f32"):
         ops.fused_adam(p.double(), g.double(), m.double(), v.double(),
                        eta=1e-3)
     with pytest.raises(ValueError, match="contiguous"):
         ops.gossip_mix(p.transpose(1, 2).contiguous().transpose(1, 2),
                        topo.offsets, topo.offset_weights, topo.self_weight)
+
+
+# The flash kernel sums the dot products and the softmax-weighted values
+# in another order than the plain version's einsums (explicit FMAs, one
+# key tile at a time), so in f32 it is held to tests/test_kernels.py's
+# 2e-5. In bf16 both round nearly the same f32 value once: at most one
+# bf16 ulp apart, at most 2**-7 of the value (rtol 8e-3), plus the f32
+# difference where the output is near zero (atol 2e-5).
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=8e-3, atol=2e-5)}
+# chip_smoke.py's shapes: (B, S, T, Hq, Hk, D, dtype, causal, window)
+FLASH_CASES = {
+    "serve_bucket": (8, 1024, 1024, 32, 8, 64, torch.bfloat16, True, 0),
+    "long_prompt": (1, 8192, 8192, 32, 8, 64, torch.bfloat16, True, 0),
+    "window_512": (2, 2048, 2048, 32, 8, 64, torch.bfloat16, True, 512),
+    "non_causal_f32_d128": (2, 512, 1024, 16, 16, 128, torch.float32,
+                            False, 0),
+    "ragged_1021": (2, 1021, 1021, 32, 8, 64, torch.bfloat16, True, 0),
+    "d32_window_strided": (2, 300, 300, 8, 2, 32, torch.float32, True, 16),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_cuda_flash_attention_matches_plain(cuda, case):
+    B, S, T, Hq, Hk, D, dt, causal, window = FLASH_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn((B, S, Hq, D), generator=gen, device="cuda").to(dt)
+    kv = torch.randn((B, T, 2 * Hk, D), generator=gen, device="cuda").to(dt)
+    k, v = kv[:, :, :Hk], kv[:, :, Hk:]       # strided views, read in place
+    if case == "d32_window_strided":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    before = tflash.flash_attention.launches
+    got = tflash.flash_attention(q, k, v, causal=causal, window=window)
+    assert tflash.flash_attention.launches == before + 1
+    want = tflash.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape and got.is_contiguous()
+    close([got.float()], [want.float()], **FLASH_TOL[dt])
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 16, 2, 48), device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        tflash.flash_attention(q, q, q)
+    q = torch.zeros((1, 16, 2, 64), device="cuda")
+    with pytest.raises(ValueError, match="one dtype"):
+        tflash.flash_attention(q, q.half(), q.half())
+    every_other = torch.zeros((1, 16, 2, 128), device="cuda")[..., ::2]
+    with pytest.raises(ValueError, match="unit-stride"):
+        tflash.flash_attention(q, every_other, q)
+
+
+@pytest.mark.gpu
+def test_cuda_engine_prefills_through_the_kernel(cuda):
+    """The reduced llama3.2-1b served on the card: one flash launch per
+    layer per prefill and no other kernel; tokens equal to the naive
+    impl's at f32 compute."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import DecodeEngine, ParamStore
+
+    cfg = dataclasses.replace(get_reduced("llama3.2-1b").model,
+                              compute_dtype=torch.float32)
+    store = ParamStore()
+    store.publish(build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0)))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (L,), generator=gen,
+                             device="cuda") for L in (16, 9, 16, 12, 16)]
+    outs = {}
+    for impl in ("kernel", "naive"):
+        eng = DecodeEngine(cfg, store, buckets=((1, 16), (4, 16)),
+                           max_new_tokens=4, attn_impl=impl)
+        ops.reset_launches()
+        outs[impl] = eng.generate(prompts, 4)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = cfg.n_layers * 3 if impl == "kernel" else 0
+        assert counts == {**{n: 0 for n in counts}, "flash_attention": want}
+        assert eng.compile_counts == {"prefill": 2, "decode": 2}
+    for a, b in zip(outs["kernel"], outs["naive"]):
+        assert a.is_cuda and torch.equal(a, b)

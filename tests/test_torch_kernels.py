@@ -229,10 +229,12 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     ops.sign_compress_stacked(p, g, row_ranges=((0, 4), (4, ROWS)))
     ops.sign_compress(p, g)
     ops.payload_mix(p, (m, v), topo.offset_weights, topo.self_weight)
+    q = p.reshape(1, K * ROWS, 4, 32)
+    ops.flash_attention(q, q[:, :, :2], q[:, :, 2:])
     assert ops.launch_counts() == {
         "fused_adam": 0, "gossip_mix": 0, "gossip_adam_mix": 0,
         "consensus_mix": 0, "sign_compress_stacked": 0, "sign_compress": 0,
-        "payload_mix": 0}
+        "payload_mix": 0, "flash_attention": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -7,6 +7,9 @@ exactly and returns views of the buffer, padding is zero, non-float leaves
 are rejected, and DeepFM's leaf order and row ranges agree at the paper's
 full width.
 """
+import gc
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -126,6 +129,22 @@ def test_tree_flatten_sorts_dict_keys_like_jax():
     assert leaves == jax.tree_util.tree_leaves(tree)
     assert _tree.tree_unflatten(td, leaves) == tree
     assert _tree.tree_map(lambda x, y: x + y, tree, tree)["a"][1]["y"] == 6.0
+
+
+def test_tree_map_keeps_no_leaf_alive():
+    """Flattening makes no reference cycle: once a tree_map returns, its
+    inputs are freed without the cyclic garbage collector (a 4.94 GB
+    model init held ~3.9 GB more on the card until it ran)."""
+    x = torch.zeros(3)
+    ref = weakref.ref(x)
+    gc.disable()
+    try:
+        out = _tree.tree_map(lambda t: t + 1, {"b": [x, (x,)], "a": x})
+        del x
+        assert ref() is None
+    finally:
+        gc.enable()
+    assert _tree.tree_leaves(out)[0].tolist() == [1.0, 1.0, 1.0]
 
 
 @pytest.mark.parametrize("bad", [
