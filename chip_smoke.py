@@ -56,18 +56,32 @@ script exits non-zero without the final ``ok`` line:
 10. online: full-width DeepFM, K=8 packed D-Adam, ``train_online`` for 12
    steps publishing the consensus mean every 4: versions 1-3, held-out
    AUC of each snapshot, the last one equal to ``unpack_mean`` of the
-   live buffer computed on the CPU.
+   live buffer computed on the CPU;
+11. serve_rwkv: rwkv6-3b at full width (32 layers, d_model 2560, 40 WKV
+   heads of 64, vocab 65,536; weights from a seed) published into a
+   ``ParamStore`` and served by ``DecodeEngine`` over the same buckets,
+   32 new tokens, 7 prompts (1024 x 5 in one batch with 3 padding rows,
+   128 x 2 in two calls), then a second version (recast with the f32
+   leaves kept) and the prompts again: every prefill and decode step runs
+   the CUDA WKV kernel once per layer and no other kernel runs; then the
+   times per bucket, tokens/s, peak memory and a profile of one batch;
+12. serve_rwkv card vs CPU: as 9, for rwkv6-3b cut to 2 layers, one
+   (2, 128) prefill and 4 decode steps.
 
 The kernels phase also holds ``flash_attention`` against its plain
 version at five shapes: the serve bucket's prefill, an 8192-token prompt,
 a 512-key window, a non-causal f32 D=128 case and a ragged S=1021; at
-each it times the one SDPA call that computes the same function.
+each it times the one SDPA call that computes the same function. And it
+holds ``rwkv_scan`` against its plain version at the serve bucket's
+prefill, a (1, 128) prefill, a decode step, a ragged f32 D=32 S=1000 case
+and a 1024-step sequence cut into two calls that carry the state.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 at once.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -157,7 +171,9 @@ SERVE_NEW = 32
 SERVE_LENGTHS = (1024,) * 5 + (1000,) * 2 + (700, 128, 128, 97)
 SERVE_PREFILLS = 6
 # serving, card against CPU. At f32 compute the teacher-forced logits must
-# agree to the f32 tolerance of tests/test_kernels.py. At bf16 compute no
+# agree to the f32 tolerance of tests/test_kernels.py, and the greedy
+# tokens must be equal wherever the CPU's top-2 gap exceeds twice the
+# step's card-CPU difference (or 2e-5). At bf16 compute no
 # elementwise 2e-2 bound holds between two correct pipelines at full
 # width: each rounds the 2048-wide hidden state to bf16 at every op, and
 # on the H100 (2 layers) the CPU's bf16 logits lie up to 0.072 from its
@@ -168,6 +184,27 @@ SERVE_PREFILLS = 6
 # CPU's top-2 gap exceeds twice the step's largest card-CPU difference
 # (or 2e-2, if larger): past that no rounding can swap them.
 SERVE_F32_TOL = dict(rtol=2e-5, atol=2e-5)
+# serving rwkv6-3b at full width over the same buckets: five full (8, 1024)
+# rows in one batch (3 padding rows) and two (1, 128) calls, 3 batches a
+# pass, each one WKV launch per layer per prefill and per decode step
+SERVE_RWKV_ARCH = "rwkv6-3b"
+SERVE_RWKV_LENGTHS = (1024,) * 5 + (128,) * 2
+SERVE_RWKV_BATCHES = 3
+# rwkv_scan against its plain version: each state element is w * S rounded
+# plus k * v rounded in both (no FMA contraction in the kernel), so the
+# final state must be equal to the bit, and a sequence cut into two calls
+# equal to one call; y sums over the key dim in another order than the
+# plain version's einsum: f32 2e-5 (tests/test_kernels.py)
+WKV_Y_TOL = dict(rtol=2e-5, atol=2e-5)
+# (name, B, S, H, D, r/k/v dtype); w from the model's decays at init
+# (w0 = -5), u and a nonzero state at JAX's scales
+WKV_CASES = (
+    ("serve bucket prefill", 8, 1024, 40, 64, torch.bfloat16),
+    ("B=1 prefill", 1, 128, 40, 64, torch.bfloat16),
+    ("decode step", 8, 1, 40, 64, torch.bfloat16),
+    ("D=32 f32, ragged S=1000", 8, 1000, 80, 32, torch.float32),
+)
+NO_WKV_LIBRARY = "none: no PyTorch call computes the WKV recurrence"
 SERVE_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 SERVE_BF16_RATIO = 1.25
 # the online phase: 12 fit steps at p=4 take fused_adam on the 9 local
@@ -497,7 +534,7 @@ def phase_kernels():
           "bytes": nbr_bytes, "offsets": deg})
     del p, g, m, v, x, hs, hn1, hn2, xs, hs1, q, scales
     torch.cuda.empty_cache()
-    return records + flash_records()
+    return records + flash_records() + rwkv_records()
 
 
 def attention_pairs(S: int, T: int, causal: bool, window: int) -> int:
@@ -598,6 +635,136 @@ def flash_records():
         emit({"phase": "kernel", **rec})
         records.append(rec)
         del q, k, v
+        torch.cuda.empty_cache()
+    return records
+
+
+def wkv_inputs(B, S, H, D, dt, seed=0):
+    """r, k, v ~ 0.3 N in ``dt``; w f32 from the decays of a model at
+    init (exp(-exp(w0 + small)), w0 = -5); u ~ 0.1 N; a state ~ 0.1 N."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    r, k, v = (n((B, S, H, D), 0.3).to(dt) for _ in range(3))
+    w = torch.exp(-torch.exp(-5.0 + n((B, S, H, D), 0.5)))
+    return r, k, v, w, n((H, D), 0.1), n((B, H, D, D), 0.1)
+
+
+def device_kernel_ms(fn, kernel: str, reps: int = REPS) -> float:
+    """Device time per call of ``fn`` of the CUDA kernels whose name holds
+    ``kernel``, from a profile of ``reps`` calls: the kernel alone, where
+    CUDA events around one call also count the host time before its
+    launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if kernel in e.key and str(e.device_type).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    return us / 1e3 / reps
+
+
+def wkv_work(B, S, H, D, itemsize):
+    """(bytes, operations) of one call: r, k, v at their size, w and y in
+    f32, u read once, the state read and written; 4 * D^2 operations per
+    (b, h, t): 2 D^2 for r . S, 2 D^2 for the decay and the add."""
+    n = B * S * H * D
+    return (n * (3 * itemsize + 8) + H * D * 4 + 2 * B * H * D * D * 4,
+            4 * D * D * B * H * S)
+
+
+def rwkv_records():
+    """``rwkv_scan`` against its plain version on the card: the final
+    state equal to the bit, y within WKV_Y_TOL; kernel, plain and bound
+    ms at each shape, then the continuity contract (one S=1024 call
+    against two calls of 512 that carry the state, equal to the bit),
+    timed as the two calls."""
+    from repro_torch.kernels import rwkv_scan as wk
+
+    records = []
+    cont = ("1024 steps as two calls of 512", 8, 1024, 40, 64,
+            torch.bfloat16)
+    for name, B, S, H, D, dt in WKV_CASES + (cont,):
+        ins = wkv_inputs(B, S, H, D, dt)
+        r, k, v, w, u, s0 = ins
+        if name == cont[0]:
+            h = S // 2
+
+            def kernel():
+                y1, s1 = wk.rwkv_scan(r[:, :h], k[:, :h], v[:, :h],
+                                      w[:, :h], u, s0)
+                y2, s2 = wk.rwkv_scan(r[:, h:], k[:, h:], v[:, h:],
+                                      w[:, h:], u, s1)
+                return torch.cat([y1, y2], 1), s2
+
+            def plain():
+                y1, s1 = wk.rwkv_scan_plain(r[:, :h], k[:, :h], v[:, :h],
+                                            w[:, :h], u, s0)
+                y2, s2 = wk.rwkv_scan_plain(r[:, h:], k[:, h:], v[:, h:],
+                                            w[:, h:], u, s1)
+                return torch.cat([y1, y2], 1), s2
+
+            one = wk.rwkv_scan(*ins)
+            halves = [wkv_work(B, h, H, D, r.element_size())
+                      for _ in range(2)]
+            n_bytes = sum(b for b, _ in halves)
+            ops = sum(o for _, o in halves)
+        else:
+            def kernel():
+                return wk.rwkv_scan(*ins)
+
+            def plain():
+                return wk.rwkv_scan_plain(*ins)
+
+            one = None
+            n_bytes, ops = wkv_work(B, S, H, D, r.element_size())
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        state_equal = torch.equal(got[1], want[1])
+        if not state_equal:
+            raise AssertionError(f"rwkv_scan {name}: final state differs "
+                                 f"from the plain version's by "
+                                 f"{float((got[1] - want[1]).abs().max())}")
+        max_abs, max_rel = compare([got[0]], [want[0]], WKV_Y_TOL,
+                                   f"rwkv_scan {name} y")
+        if one is not None and not (torch.equal(one[0], got[0])
+                                    and torch.equal(one[1], got[1])):
+            raise AssertionError("rwkv_scan: two calls carrying the state "
+                                 "differ from one call")
+        del got, want, one
+        ms = median_ms(kernel)
+        device_ms = device_kernel_ms(kernel, "rwkv_scan_kernel")
+        plain_ms = median_ms(plain, reps=5 if S > 1 else REPS,
+                             warmup=1 if S > 1 else 3)
+        t_bytes, t_ops = n_bytes / MEM_RATE * 1e3, ops / F32_RATE * 1e3
+        rec = {"name": "rwkv_scan", "route": "cuda",
+               "source": "src/repro_torch/csrc/rwkv_scan.cu",
+               "replaces": "src/repro/kernels/rwkv_scan.py:78",
+               "launches": None, "max_abs_err": max_abs,
+               "max_rel_err": max_rel,
+               "tol": {"y": WKV_Y_TOL, "state": "equal"}, "ms": ms,
+               "kernel_ms": ms, "kernel_device_ms": device_ms,
+               "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": n_bytes, "operations": ops, "library_ms": None,
+               "library": NO_WKV_LIBRARY, "state_bit_equal": state_equal,
+               "variant": f"{name}: B={B} S={S} H={H} D={D} "
+                          f"{str(dt).split('.')[-1]}"}
+        emit({"phase": "kernel", **rec})
+        records.append(rec)
+        del ins, r, k, v, w, u, s0
         torch.cuda.empty_cache()
     return records
 
@@ -709,8 +876,9 @@ def phase_profile(path, trainer, state, batches):
 
 def device_profile(fn):
     """Profile ``fn()``: its wall time (synchronised), the device time
-    summed over kernels, the busy share, the port's named ranges and the
-    top kernels by device time."""
+    summed over kernels, the busy share, the torch calls made from Python
+    (top-level ``aten::`` ops, each a host round trip), the port's named
+    ranges and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -738,9 +906,13 @@ def device_profile(fn):
         rows.append((us / 1e3, e.count, e.key[:90]))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
+    calls = collections.Counter(
+        e.name for e in prof.events()
+        if e.cpu_parent is None and e.name.startswith("aten::"))
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
-            "ranges": ranges,
+            "torch_calls": sum(calls.values()),
+            "torch_calls_top": calls.most_common(8), "ranges": ranges,
             "top": [{"kernel": k, "ms": ms, "calls": n}
                     for ms, n, k in rows[:16]]}
 
@@ -1041,23 +1213,42 @@ def synced(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def phase_serve(cfg=None, buckets=SERVE_BUCKETS, lengths=SERVE_LENGTHS,
-                new_tokens=SERVE_NEW, prefills=SERVE_PREFILLS):
-    """llama3.2-1b at full width through the port's serving entry points:
+def bucket_times(engine, cfg, buckets, new_tokens):
+    """Per bucket: a full prompt's prefill (n_new = 1: no decode step),
+    then n_new tokens, each synchronised, median of 3; decode ms per token
+    from the difference."""
+    per_bucket = {}
+    for B, S in buckets:
+        toks = torch.randint(0, cfg.vocab_size, (B, S), device=DEVICE,
+                             dtype=torch.int32)
+        pre = [synced(lambda: engine.generate_batch(toks, 1))[1]
+               for _ in range(3)]
+        full = [synced(lambda: engine.generate_batch(toks, new_tokens))[1]
+                for _ in range(3)]
+        pre_ms, full_ms = statistics.median(pre), statistics.median(full)
+        per_bucket[f"{B}x{S}"] = {
+            "prefill_ms": pre_ms, "generate_ms": full_ms,
+            "decode_ms_per_token": (full_ms - pre_ms) / (new_tokens - 1),
+            "tokens_per_s": B * new_tokens / full_ms * 1e3}
+    return per_bucket
+
+
+def serve_full_width(phase, cfg, buckets, lengths, new_tokens, kernel,
+                     per_pass):
+    """A model at full width through the port's serving entry points:
     weights from a seed published into a ParamStore, DecodeEngine over
     the buckets, the prompts served, a second version published and the
     prompts served again. The launch counters are zeroed just before and
-    read just after: one flash launch per layer per prefill, no other
-    kernel. Then the per-bucket times and a profile. Returns the launch
-    counts."""
+    read just after: ``kernel`` launched ``per_pass`` times a pass, no
+    other kernel. Then the per-bucket times and a profile of one batch of
+    the largest bucket. Returns the phase's record and the engine."""
     from repro_torch._tree import tree_leaves
-    from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models.registry import build_model
     from repro_torch.serve import DecodeEngine, ParamStore
 
-    cfg = cfg or get_arch(SERVE_ARCH).model
     api = build_model(cfg)
+    # the previous phase's tensors are gone: the peak is this phase's own
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1074,12 +1265,6 @@ def phase_serve(cfg=None, buckets=SERVE_BUCKETS, lengths=SERVE_LENGTHS,
         api.init(torch.Generator(device=DEVICE).manual_seed(0))))
     mark("v1 published")
     n_params = sum(x.numel() for x in tree_leaves(store.snapshot()[1]))
-    # the analytic count leaves out the RMS-norm weights (two per layer
-    # and the final one)
-    norms = (2 * cfg.n_layers + 1) * cfg.d_model
-    if n_params != cfg.param_count() + norms:
-        raise AssertionError(f"{n_params} params, config "
-                             f"{cfg.param_count()} + {norms} norm weights")
     engine = DecodeEngine(cfg, store, buckets=buckets,
                           max_new_tokens=new_tokens)
     prompts = serve_prompts(cfg, lengths)
@@ -1096,9 +1281,9 @@ def phase_serve(cfg=None, buckets=SERVE_BUCKETS, lengths=SERVE_LENGTHS,
         mark(f"pass {len(walls)} served")
     launches = ops.launch_counts()
     want = {n: 0 for n in launches}
-    want["flash_attention"] = cfg.n_layers * prefills * 2
+    want[kernel] = per_pass * 2
     if launches != want:
-        raise AssertionError(f"serve: launches {launches} != {want}")
+        raise AssertionError(f"{phase}: launches {launches} != {want}")
     if engine.last_version != 2:
         raise AssertionError(f"served version {engine.last_version}")
     if engine.compile_counts != {"prefill": len(buckets),
@@ -1112,125 +1297,157 @@ def phase_serve(cfg=None, buckets=SERVE_BUCKETS, lengths=SERVE_LENGTHS,
     if all(torch.equal(a, b) for a, b in zip(*outs)):
         raise AssertionError("version 2 served the same tokens as 1")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    # per bucket: a full prompt's prefill (n_new = 1: no decode step),
-    # then n_new tokens; decode ms per token from the difference
-    per_bucket = {}
-    for B, S in buckets:
-        toks = torch.randint(0, cfg.vocab_size, (B, S), device=DEVICE,
-                             dtype=torch.int32)
-        pre = [synced(lambda: engine.generate_batch(toks, 1))[1]
-               for _ in range(3)]
-        full = [synced(lambda: engine.generate_batch(toks, new_tokens))[1]
-                for _ in range(3)]
-        pre_ms, full_ms = statistics.median(pre), statistics.median(full)
-        per_bucket[f"{B}x{S}"] = {
-            "prefill_ms": pre_ms, "generate_ms": full_ms,
-            "decode_ms_per_token": (full_ms - pre_ms) / (new_tokens - 1),
-            "tokens_per_s": B * new_tokens / full_ms * 1e3}
+    per_bucket = bucket_times(engine, cfg, buckets, new_tokens)
     B, S = max(buckets)
     toks = torch.randint(0, cfg.vocab_size, (B, S), device=DEVICE,
                          dtype=torch.int32)
     n_prof = min(8, new_tokens)
     prof = device_profile(lambda: engine.generate_batch(toks, n_prof))
-    flash_ms = sum(r["ms"] for r in prof["top"]
-                   if "flash_attention" in r["kernel"])
+    kernel_ms = sum(r["ms"] for r in prof["top"] if kernel in r["kernel"])
     n_out = sum(o.numel() for o in outs[1])
-    emit({"phase": "serve", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
-          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-          "params": n_params, "param_count": cfg.param_count(),
-          "param_bytes_f32": 4 * n_params,
-          "buckets": [list(b) for b in buckets], "new_tokens": new_tokens,
-          "prompt_lengths": list(lengths), "init_ms": init_ms,
-          "serve_ms": walls, "tokens_per_s": n_out / walls[1] * 1e3,
-          "per_bucket": per_bucket, "peak_mem_gb": peak_gb,
-          "mem_gb_by_stage": mem,
-          "last_version": engine.last_version,
-          "compile_counts": engine.compile_counts, "launches": launches,
-          "profile_batch": f"{B}x{S}, {n_prof} new tokens",
-          "profile": {**prof, "flash_ms": flash_ms}})
-    del engine, store
+    rec = {"phase": phase, "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": n_params, "param_count": cfg.param_count(),
+           "param_bytes_f32": 4 * n_params,
+           "buckets": [list(b) for b in buckets], "new_tokens": new_tokens,
+           "prompt_lengths": list(lengths), "init_ms": init_ms,
+           "serve_ms": walls, "tokens_per_s": n_out / walls[1] * 1e3,
+           "per_bucket": per_bucket, "peak_mem_gb": peak_gb,
+           "mem_gb_by_stage": mem, "last_version": engine.last_version,
+           "compile_counts": engine.compile_counts, "launches": launches,
+           "profile_batch": f"{B}x{S}, {n_prof} new tokens",
+           "profile": {**prof, f"{kernel}_ms": kernel_ms,
+                       "kernel_share": (kernel_ms / prof["device_ms"]
+                                        if prof["device_ms"] else None)}}
+    del store, outs, prompts
+    return rec, engine
+
+
+def phase_serve(cfg=None, buckets=SERVE_BUCKETS, lengths=SERVE_LENGTHS,
+                new_tokens=SERVE_NEW, prefills=SERVE_PREFILLS):
+    """llama3.2-1b at full width (``serve_full_width``): one flash launch
+    per layer per prefill. Returns the launch counts."""
+    from repro_torch.configs import get_arch
+
+    cfg = cfg or get_arch(SERVE_ARCH).model
+    rec, engine = serve_full_width("serve", cfg, buckets, lengths,
+                                   new_tokens, "flash_attention",
+                                   cfg.n_layers * prefills)
+    # the analytic count leaves out the RMS-norm weights (two per layer
+    # and the final one)
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    if rec["params"] != cfg.param_count() + norms:
+        raise AssertionError(f"{rec['params']} params, config "
+                             f"{cfg.param_count()} + {norms} norm weights")
+    emit(rec)
+    del engine
     torch.cuda.empty_cache()
-    return launches
+    return rec["launches"]
 
 
-def phase_serve_card_vs_cpu(cfg=None, seq=128, new_tokens=4):
+def phase_serve_card_vs_cpu(cfg=None, seq=128, new_tokens=4, batch=1,
+                            phase="serve_card_vs_cpu"):
     """The same weights on the card and on the CPU (full width, depth cut
-    to 2): greedy tokens of a (1, seq) request through the engine on
-    each, then the logits of both devices teacher-forced along the card's
-    tokens, at f32 and at bf16 compute (see SERVE_F32_TOL)."""
+    to 2): greedy tokens of a (batch, seq) request through the engine on
+    each, at f32 and at bf16 compute; then the logits of both devices
+    teacher-forced along the card's tokens of that compute dtype (the
+    prefill and new_tokens - 1 decode steps, through the family's
+    kernels). See SERVE_F32_TOL for what each dtype is held to."""
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_arch
-    from repro_torch.models.registry import build_model
+    from repro_torch.models.registry import build_model, impl_kwargs
     from repro_torch.serve import DecodeEngine, cast_params
 
     cfg = cfg or dataclasses.replace(get_arch(SERVE_ARCH).model, n_layers=2)
-    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    cfgs = {"f32": dataclasses.replace(cfg, compute_dtype=torch.float32),
+            "bf16": cfg}
     api = build_model(cfg)
     params = {"cpu": api.init(torch.Generator().manual_seed(2))}
     params[DEVICE] = tree_map(lambda x: x.to(DEVICE), params["cpu"])
-    prompt = torch.randint(0, cfg.vocab_size, (1, seq),
+    prompt = torch.randint(0, cfg.vocab_size, (batch, seq),
                            generator=torch.Generator().manual_seed(3),
                            dtype=torch.int32)
     toks, secs = {}, {}
-    for dev in ("cpu", DEVICE):
-        eng = DecodeEngine(cfg, params[dev], buckets=((1, seq),),
-                           max_new_tokens=new_tokens)
-        t0 = time.perf_counter()
-        toks[dev] = eng.generate_batch(prompt.to(dev), new_tokens)[0].cpu()
-        secs[dev] = time.perf_counter() - t0
+    for dt, c in cfgs.items():
+        for dev in ("cpu", DEVICE):
+            eng = DecodeEngine(c, params[dev], buckets=((batch, seq),),
+                               max_new_tokens=new_tokens)
+            t0 = time.perf_counter()
+            toks[dev, dt] = eng.generate_batch(prompt.to(dev),
+                                               new_tokens).cpu()
+            secs[dev, dt] = time.perf_counter() - t0
 
-    def forced(dev, c):
+    def forced(dev, c, along):
+        """(batch, new_tokens, V) f32 logits along the tokens ``along``."""
         api_c = build_model(c)
-        p = cast_params(params[dev], c.compute_dtype)
+        p = cast_params(params[dev], c.compute_dtype, keep=api_c.f32_leaves)
+        pre_kw, dec_kw = impl_kwargs(c, attn_impl="kernel",
+                                     wkv_impl="kernel")
         with torch.no_grad():
             logits, cache = api_c.prefill(p, {"tokens": prompt.to(dev)},
                                           cache_len=seq + new_tokens,
-                                          attn_impl="kernel")
+                                          **pre_kw)
             out = [logits[:, -1]]
-            for t in toks[DEVICE][:-1]:
-                logits, cache = api_c.decode_step(p, cache,
-                                                  t.view(1).to(dev))
+            for t in range(new_tokens - 1):
+                logits, cache = api_c.decode_step(
+                    p, cache, along[:, t].to(dev), **dec_kw)
                 out.append(logits)
-        return torch.cat(out).float().cpu()
+        return torch.stack(out, 1).float().cpu()
 
-    logits = {(dev, dt): forced(dev, c) for dev in (DEVICE, "cpu")
-              for dt, c in (("f32", cfg32), ("bf16", cfg))}
-    f32_err = compare([logits[DEVICE, "f32"]], [logits["cpu", "f32"]],
-                      SERVE_F32_TOL, "teacher-forced logits, f32")
-    ref = logits["cpu", "f32"]
-    card_dev = float((logits[DEVICE, "bf16"] - ref).abs().max())
-    cpu_dev = float((logits["cpu", "bf16"] - ref).abs().max())
+    def tokens_equal(dt, lg, floor):
+        """The greedy tokens of ``dt``, card against CPU, must be equal
+        wherever the CPU's top-2 gap exceeds the larger of ``floor`` and
+        twice the step's largest card-CPU difference (past that no
+        rounding can swap them); from the first near-tie on the sequences
+        may part."""
+        diff = (lg[DEVICE] - lg["cpu"]).abs().amax(dim=-1)
+        top2 = torch.topk(lg["cpu"], 2, dim=-1).values
+        gaps = (top2[..., 0] - top2[..., 1]).tolist()
+        margins = torch.clamp(2 * diff, min=floor).tolist()
+        card, cpu = toks[DEVICE, dt], toks["cpu", dt]
+        checked = 0
+        for b in range(batch):
+            for t in range(new_tokens):
+                if card[b, t] != cpu[b, t]:
+                    if gaps[b][t] > margins[b][t]:
+                        raise AssertionError(
+                            f"{dt} row {b} token {t}: card {card[b]} cpu "
+                            f"{cpu[b]} with a gap of {gaps[b][t]} > "
+                            f"{margins[b][t]}")
+                    break  # a near-tie: the sequences part from here
+                checked += 1
+        return {"card": card.tolist(), "cpu": cpu.tolist(),
+                "checked": checked, "top2_gaps_cpu": gaps,
+                "margins": margins}
+
+    devs = (DEVICE, "cpu")
+    f32 = {d: forced(d, cfgs["f32"], toks[DEVICE, "f32"]) for d in devs}
+    bf16 = {d: forced(d, cfg, toks[DEVICE, "bf16"]) for d in devs}
+    # the CPU's f32 logits along the bf16 tokens: the bf16 yardstick
+    ref = forced("cpu", cfgs["f32"], toks[DEVICE, "bf16"])
+    f32_err = compare([f32[DEVICE]], [f32["cpu"]], SERVE_F32_TOL,
+                      "teacher-forced logits, f32")
+    card_dev = float((bf16[DEVICE] - ref).abs().max())
+    cpu_dev = float((bf16["cpu"] - ref).abs().max())
     if card_dev > SERVE_BF16_RATIO * cpu_dev:
         raise AssertionError(f"bf16 logits: the card lies {card_dev} from "
                              f"the f32 logits, the CPU {cpu_dev}")
-    diff = (logits[DEVICE, "bf16"] - logits["cpu", "bf16"]).abs()
+    diff = (bf16[DEVICE] - bf16["cpu"]).abs()
     outside = diff > (SERVE_BF16_TOL["atol"] + SERVE_BF16_TOL["rtol"]
-                      * logits["cpu", "bf16"].abs())
-    top2 = torch.topk(logits["cpu", "bf16"], 2, dim=-1).values
-    gaps = (top2[:, 0] - top2[:, 1]).tolist()
-    margins = [max(SERVE_BF16_TOL["atol"], 2 * float(d))
-               for d in diff.amax(dim=-1)]
-    checked = 0
-    for t in range(new_tokens):
-        if toks[DEVICE][t] != toks["cpu"][t]:
-            if gaps[t] > margins[t]:
-                raise AssertionError(f"token {t}: card {toks[DEVICE]} cpu "
-                                     f"{toks['cpu']} with a gap of "
-                                     f"{gaps[t]} > {margins[t]}")
-            break          # a near-tie: the sequences part from here
-        checked += 1
-    emit({"phase": "serve_card_vs_cpu", "n_layers": cfg.n_layers,
-          "d_model": cfg.d_model, "vocab": cfg.vocab_size, "seq": seq,
-          "tokens_card": toks[DEVICE].tolist(),
-          "tokens_cpu": toks["cpu"].tolist(), "tokens_checked": checked,
-          "top2_gaps_cpu": gaps, "token_margins": margins,
+                      * bf16["cpu"].abs())
+    emit({"phase": phase, "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size, "batch": batch,
+          "seq": seq, "new_tokens": new_tokens,
+          "tokens": {"f32": tokens_equal("f32", f32, SERVE_F32_TOL["atol"]),
+                     "bf16": tokens_equal("bf16", bf16,
+                                          SERVE_BF16_TOL["atol"])},
           "f32_max_abs_err": f32_err[0], "f32_tol": SERVE_F32_TOL,
           "bf16_max_abs_err": float(diff.max()),
           "bf16_share_outside_2e-2": float(outside.double().mean()),
           "bf16_from_f32_card": card_dev, "bf16_from_f32_cpu": cpu_dev,
           "bf16_ratio_allowed": SERVE_BF16_RATIO,
-          "seconds_card": secs[DEVICE], "seconds_cpu": secs["cpu"]})
+          "seconds_card": {dt: secs[DEVICE, dt] for dt in cfgs},
+          "seconds_cpu": {dt: secs["cpu", dt] for dt in cfgs}})
     del params
     torch.cuda.empty_cache()
 
@@ -1301,6 +1518,32 @@ def phase_online():
     return launches
 
 
+def phase_serve_rwkv(cfg=None, buckets=SERVE_BUCKETS,
+                     lengths=SERVE_RWKV_LENGTHS, new_tokens=SERVE_NEW,
+                     batches=SERVE_RWKV_BATCHES):
+    """rwkv6-3b at full width (``serve_full_width``; exact seq buckets: the
+    recurrent state would fold pads in): one WKV launch per layer per
+    prefill and per decode step, and the second version's recast keeps
+    the f32 leaves. Returns the launch counts."""
+    from repro_torch.configs import get_arch
+
+    cfg = cfg or get_arch(SERVE_RWKV_ARCH).model
+    rec, engine = serve_full_width("serve_rwkv", cfg, buckets, lengths,
+                                   new_tokens, "rwkv_scan",
+                                   cfg.n_layers * new_tokens * batches)
+    kept = {n: str(x.dtype) for n, x in engine._params()[1]["layers"].items()
+            if x.dtype != cfg.compute_dtype}
+    if set(kept) != set(engine.api.f32_leaves) or set(kept.values()) != {
+            "torch.float32"}:
+        raise AssertionError(f"the recast kept {kept}, not the f32 leaves "
+                             f"{engine.api.f32_leaves}")
+    emit({**rec, "heads": cfg.d_model // cfg.rwkv_head_size,
+          "f32_leaves_kept": sorted(kept)})
+    del engine
+    torch.cuda.empty_cache()
+    return rec["launches"]
+
+
 def main() -> int:
     card, smi = phase_env()
     phase_build()
@@ -1322,6 +1565,11 @@ def main() -> int:
     by_path["serve"] = phase_serve()
     phase_serve_card_vs_cpu()
     by_path["online"] = phase_online()
+    by_path["serve_rwkv"] = phase_serve_rwkv()
+    from repro_torch.configs import get_arch
+    phase_serve_card_vs_cpu(
+        cfg=dataclasses.replace(get_arch(SERVE_RWKV_ARCH).model, n_layers=2),
+        seq=128, new_tokens=5, batch=2, phase="serve_rwkv_card_vs_cpu")
     for rec in records:
         rec["launches_by_path"] = {k: c[rec["name"]]
                                    for k, c in by_path.items()}

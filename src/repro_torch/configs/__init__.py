@@ -1,7 +1,7 @@
 """Architecture config registry: ``get_arch(id)`` / ``get_reduced(id)``.
 
-Lists only the architectures the port can build. The JAX package's other
-configs (qwen1.5-32b, starcoder2-15b, phi3.5-moe, rwkv6-3b,
+Lists only the architectures the port can build (llama3.2-1b, rwkv6-3b).
+The JAX package's other configs (qwen1.5-32b, starcoder2-15b, phi3.5-moe,
 whisper-large-v3, zamba2-7b, yi-6b, llama4-maverick, phi-3-vision) belong
 to the model zoo, not ported yet: asking for one raises
 ``NotImplementedError`` (ROADMAP queue 1, item 11).
@@ -16,10 +16,11 @@ from repro_torch.configs.base import (ArchConfig, INPUT_SHAPES, InputShape,
 
 _MODULES: Dict[str, str] = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
 }
 # the JAX package's other architectures, by id
 _NOT_PORTED = ("qwen1.5-32b", "starcoder2-15b", "phi3.5-moe-42b-a6.6b",
-               "rwkv6-3b", "whisper-large-v3", "zamba2-7b", "yi-6b",
+               "whisper-large-v3", "zamba2-7b", "yi-6b",
                "llama4-maverick-400b-a17b", "phi-3-vision-4.2b")
 
 

@@ -6,6 +6,7 @@
   sign_compress — CD-Adam's error-feedback sign compression (stacked,
                 per leaf segment, and single-scale)
   flash_attention — GQA prefill attention with an online softmax
+  rwkv_scan   — the RWKV6 WKV recurrence, the state held on chip
 
 pack.py is the tree <-> (rows, 128) bridge; ops.py dispatches each call by
 the operand's device (CUDA kernel on the card, plain version on the CPU);

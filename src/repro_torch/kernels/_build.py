@@ -20,7 +20,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fused_adam", "gossip", "sign_compress", "flash_attention")
+SOURCES = ("fused_adam", "gossip", "sign_compress", "flash_attention",
+           "rwkv_scan")
 
 # sm_90a keeps Hopper-only instructions open to later kernels. No fast
 # math: the kernels' sqrt and division stay IEEE, and FMA contraction is

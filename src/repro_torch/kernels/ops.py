@@ -13,11 +13,13 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_adam as _adam
 from repro_torch.kernels import gossip as _gossip
+from repro_torch.kernels import rwkv_scan as _wkv
 from repro_torch.kernels import sign_compress as _sc
 
 KERNELS = (_adam.fused_adam, _gossip.gossip_mix, _gossip.gossip_adam_mix,
            _gossip.consensus_mix, _sc.sign_compress_stacked,
-           _sc.sign_compress, _gossip.payload_mix, _fa.flash_attention)
+           _sc.sign_compress, _gossip.payload_mix, _fa.flash_attention,
+           _wkv.rwkv_scan)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -83,6 +85,18 @@ def flash_attention(q, k, v, *, causal=True, window=0):
             "or take sdpa's 'naive' / 'chunked' impl for training")
     fn = _fa.flash_attention_plain if _on_cpu(q) else _fa.flash_attention
     return fn(q, k, v, causal=causal, window=window)
+
+
+def rwkv_scan(r, k, v, w, u, state):
+    """The RWKV6 WKV recurrence. Neither version has a backward (the TPU
+    kernel has none), so a call that autograd would record raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, k, v, w, u, state)):
+        raise RuntimeError(
+            "rwkv_scan has no backward; call it under torch.no_grad() or "
+            "take rwkv6's wkv_impl='scan' for training")
+    fn = _wkv.rwkv_scan_plain if _on_cpu(r) else _wkv.rwkv_scan
+    return fn(r, k, v, w, u, state)
 
 
 def launch_counts() -> Dict[str, int]:

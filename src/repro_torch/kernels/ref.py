@@ -5,6 +5,10 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.rwkv_scan import rwkv_scan_plain as rwkv_scan_ref
+
+__all__ = ["fused_adam_ref", "sign_compress_ref", "rwkv_scan_ref"]
+
 
 def fused_adam_ref(p, g, m, v, *, eta: float, beta1: float, beta2: float,
                    tau: float, weight_decay: float = 0.0

@@ -1,4 +1,4 @@
 """Models of the port: the paper's CTR models (``deepfm``) on stacked
-``(K, ...)`` params, and the dense transformer LM that the serving path
-runs (``common``, ``mlp``, ``attention``, ``transformer``; ``registry``
-builds one by config)."""
+``(K, ...)`` params, and the LMs that the serving path runs: the dense
+transformer (``common``, ``mlp``, ``attention``, ``transformer``) and
+RWKV6 (``rwkv6``); ``registry`` builds one by config."""

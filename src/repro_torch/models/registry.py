@@ -4,24 +4,32 @@ over the model families the port can build.
     api = build_model(cfg)
     params = api.init(gen)                        # a torch.Generator
     loss   = api.loss(params, batch)
-    logits, cache = api.prefill(params, batch, cache_len=..., attn_impl=...)
-    logits, cache = api.decode_step(params, cache, token)
+    logits, cache = api.prefill(params, batch, cache_len=..., <impl>=...)
+    logits, cache = api.decode_step(params, cache, token[, <impl>=...])
 
-Only the dense family is ported; the others (moe, vlm, audio, ssm,
-hybrid) raise ``NotImplementedError`` (ROADMAP queue 1, item 11).
+Each family names its kernel choice with its own keyword, the JAX
+package's: ``attn_impl`` for the dense family's prefill attention
+(decode attention has no kernel), ``wkv_impl`` for the ssm family's
+recurrence in prefill and in decode. ``impl_kwargs`` gives the keywords of
+one choice for a config's family. The defaults are JAX's (``"auto"``,
+``"scan"``); the serving engine asks for the kernels.
+
+The dense (llama) and ssm (rwkv6) families are ported; the others (moe,
+vlm, audio, hybrid) raise ``NotImplementedError`` (ROADMAP queue 1,
+item 11).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 
 PyTree = Any
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +39,19 @@ class ModelAPI:
     loss: Callable[..., torch.Tensor]
     prefill: Callable[..., Tuple[torch.Tensor, Any]]
     decode_step: Callable[..., Tuple[torch.Tensor, Any]]
+    # per-layer leaves the forward reads in f32 wherever it uses them:
+    # a compute-dtype copy of the params keeps them as they are
+    f32_leaves: Tuple[str, ...] = ()
+
+
+def impl_kwargs(cfg: ModelConfig, *, attn_impl: str = "auto",
+                wkv_impl: str = "scan"
+                ) -> Tuple[Dict[str, str], Dict[str, str]]:
+    """The keywords that carry a kernel choice into the family's prefill
+    and decode_step: ``(prefill_kw, decode_kw)``."""
+    if cfg.family == "ssm":
+        return {"wkv_impl": wkv_impl}, {"wkv_impl": wkv_impl}
+    return {"attn_impl": attn_impl}, {}
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
@@ -38,6 +59,19 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
             f"item 11: model zoo); the port builds {FAMILIES}")
+    if cfg.family == "ssm":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen: rwkv6.init_params(gen, cfg),
+            loss=lambda p, b, remat="none": rwkv6.loss_fn(
+                p, b, cfg, remat=remat),
+            prefill=lambda p, b, cache_len=None, wkv_impl="scan":
+                rwkv6.prefill(p, b["tokens"], cfg, cache_len=cache_len,
+                              wkv_impl=wkv_impl),
+            decode_step=lambda p, c, t, wkv_impl="scan": rwkv6.decode_step(
+                p, c, t, cfg, wkv_impl=wkv_impl),
+            f32_leaves=rwkv6.F32_LEAVES,
+        )
     return ModelAPI(
         cfg=cfg,
         init=lambda gen: transformer.init_params(gen, cfg),

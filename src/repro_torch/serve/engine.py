@@ -1,13 +1,14 @@
 """Serving engine: cache specs, decode steps and the batched bucket
 engine, the port of ``repro.serve.engine``.
 
-``cache_spec`` gives the shapes and dtypes of the KV cache (it allocates
-nothing); ``make_serve_step`` / ``make_prefill_step`` the one-token decode
-and the prefill; :class:`DecodeEngine` is the serving path: padded-bucket
-batching over a fixed set of ``(batch, seq)`` shapes, batched prefill
-through the CUDA flash kernel plus KV-cache decode, optional bf16 cache
-storage, and lock-free param hot-swap through a ``serve.publish.
-ParamStore``.
+``cache_spec`` gives the shapes and dtypes of the decode cache (it
+allocates nothing); ``make_serve_step`` / ``make_prefill_step`` the
+one-token decode and the prefill; :class:`DecodeEngine` is the serving
+path: padded-bucket batching over a fixed set of ``(batch, seq)`` shapes,
+batched prefill plus decode through the family's CUDA kernel (the flash
+kernel in the dense family's prefill, the WKV kernel in the ssm family's
+prefill and every decode step), optional bf16 cache storage, and
+lock-free param hot-swap through a ``serve.publish.ParamStore``.
 
 **Why seq padding is exact** (JAX's bucket contract): decode attention
 masks cache slots with ``slot <= index`` and writes the new token at
@@ -17,8 +18,9 @@ index to L-1 and re-feeds the last real token: that decode step
 recomputes slot L-1's K/V from the same token and rope position, attends
 only to slots <= L-1, and yields the logits of an unpadded prefill. Every
 later step overwrites one pad slot before the mask reaches it. This holds
-for positional, non-rotating KV caches; with a rotating window pads fold
-into the cache, so the engine pads only the batch dim there.
+for positional, non-rotating KV caches; with a rotating window, and in
+the ssm family's recurrent state, pads fold into the cache, so the engine
+pads only the batch dim there.
 
 JAX states that contract bit for bit. On the card a ``(B, 1, d)`` and a
 ``(B, S, d)`` projection may take GEMM kernels that round differently, so
@@ -30,8 +32,9 @@ difference (within 2e-2 at the reduced config).
 compute dtype (``cast_params``), where JAX writes ``x @ W.astype(bf16)``
 in every projection and XLA fuses the convert into the dot: eagerly that
 would re-read and re-write every f32 weight on every decode step. The
-values are identical to a per-call cast; the copy costs half the f32
-params' memory.
+leaves a family reads in f32 (``ModelAPI.f32_leaves``: RWKV6's decay,
+bonus and group-norm leaves) stay as they are, so the values are
+identical to a per-call cast; the copy costs half the f32 params' memory.
 
 The positions, the rewind and the rotating slot are host ints, so no
 decode step reads the device; the tokens stay on the device until the
@@ -50,8 +53,8 @@ import torch
 
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.models import attention
-from repro_torch.models.registry import build_model
+from repro_torch.models import attention, rwkv6
+from repro_torch.models.registry import build_model, impl_kwargs
 
 PyTree = Any
 
@@ -79,19 +82,28 @@ def kv_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
                cache_dtype: torch.dtype = torch.bfloat16
-               ) -> attention.KVCache:
-    """The decode cache's shapes and dtypes as a ``KVCache`` of
-    :class:`TensorSpec` (the index: a host int, spec'd as JAX's int32
-    scalar). Recurrent and encoder-decoder caches are not ported yet
-    (ROADMAP queue 1, item 11)."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} cache is not ported yet (ROADMAP queue 1, "
-            "item 11: model zoo)")
-    S = kv_cache_len(cfg, seq_len)
-    kv = TensorSpec((cfg.n_layers, batch, S, cfg.n_kv_heads,
-                     cfg.resolved_head_dim), cache_dtype)
-    return attention.KVCache(kv, kv, TensorSpec((), torch.int32))
+               ) -> "attention.KVCache | rwkv6.RWKVCache":
+    """The decode cache's shapes and dtypes as a ``KVCache`` or an
+    ``RWKVCache`` of :class:`TensorSpec` (the index: a host int, spec'd as
+    JAX's int32 scalar). As in JAX, the ssm cache takes the compute dtype
+    and f32, whatever ``cache_dtype`` says. The hybrid and encoder-decoder
+    caches are not ported yet (ROADMAP queue 1, item 11)."""
+    L = cfg.n_layers
+    idx = TensorSpec((), torch.int32)
+    if cfg.family in ("dense", "moe", "vlm"):
+        S = kv_cache_len(cfg, seq_len)
+        kv = TensorSpec((L, batch, S, cfg.n_kv_heads,
+                         cfg.resolved_head_dim), cache_dtype)
+        return attention.KVCache(kv, kv, idx)
+    if cfg.family == "ssm":
+        d, hs = cfg.d_model, cfg.rwkv_head_size
+        x = TensorSpec((L, batch, d), cfg.compute_dtype)
+        return rwkv6.RWKVCache(
+            x, x, TensorSpec((L, batch, d // hs, hs, hs), torch.float32),
+            idx)
+    raise NotImplementedError(
+        f"the {cfg.family!r} cache is not ported yet (ROADMAP queue 1, "
+        "item 11: model zoo)")
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
@@ -114,11 +126,19 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int) -> Callable:
     return prefill_step
 
 
-def cast_params(params: PyTree, dtype: torch.dtype) -> PyTree:
+def cast_params(params: PyTree, dtype: torch.dtype,
+                keep: Sequence[str] = ()) -> PyTree:
     """Every float leaf in ``dtype`` (a leaf already in it is kept, not
-    copied). The forward casts each weight to the compute dtype where it
-    uses it, so this changes no value: it moves the cast out of the
-    per-step path."""
+    copied), but the leaves under a dict key in ``keep``, which stay as
+    they are. The dense family's forward casts every weight to the compute
+    dtype where it uses it; the ssm family's does too, except for the
+    leaves it reads in f32 (``rwkv6.F32_LEAVES``: ``w0``, ``w_A``, ``w_B``,
+    ``u``, ``gn``, ``gn_b``), which a bf16 copy would round. So with
+    ``keep=api.f32_leaves`` this changes no value: it moves the cast out
+    of the per-step path."""
+    if isinstance(params, dict):
+        return {k: v if k in keep else cast_params(v, dtype, keep)
+                for k, v in params.items()}
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
                     params)
 
@@ -137,10 +157,14 @@ def _argmax_tokens(logits: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def greedy_generate(cfg: ModelConfig, params: PyTree, batch: PyTree,
                     n_new: int, *, cache_len: Optional[int] = None,
-                    attn_impl: str = "auto") -> torch.Tensor:
+                    attn_impl: str = "auto", wkv_impl: str = "scan"
+                    ) -> torch.Tensor:
     """Batched greedy decoding: prefill the prompt, then n_new - 1 decode
-    steps. Returns (B, n_new) int32 on the prompt's device."""
+    steps. Returns (B, n_new) int32 on the prompt's device. ``attn_impl``
+    (dense) or ``wkv_impl`` (ssm) picks the family's kernel path."""
     api = build_model(cfg)
+    prefill_kw, decode_kw = impl_kwargs(cfg, attn_impl=attn_impl,
+                                        wkv_impl=wkv_impl)
     prompt = batch["tokens"]
     B = prompt.shape[0]
     if n_new < 0:
@@ -154,13 +178,13 @@ def greedy_generate(cfg: ModelConfig, params: PyTree, batch: PyTree,
         raise ValueError(
             f"cache_len={cache_len} cannot hold prompt + {n_new} new "
             f"tokens (need >= {need})")
-    params = cast_params(params, cfg.compute_dtype)
+    params = cast_params(params, cfg.compute_dtype, keep=api.f32_leaves)
     logits, cache = api.prefill(params, batch, cache_len=cache_len,
-                                attn_impl=attn_impl)
+                                **prefill_kw)
     tok = _argmax_tokens(logits)
     out = [tok]
     for _ in range(n_new - 1):
-        logits, cache = api.decode_step(params, cache, tok)
+        logits, cache = api.decode_step(params, cache, tok, **decode_kw)
         tok = _argmax_tokens(logits)
         out.append(tok)
     return torch.stack(out, dim=1)
@@ -169,15 +193,18 @@ def greedy_generate(cfg: ModelConfig, params: PyTree, batch: PyTree,
 # --------------------------- batched decode engine ---------------------------
 
 
-def cast_cache(cache: attention.KVCache,
-               cache_dtype: Optional[torch.dtype]) -> attention.KVCache:
-    """The cache's K/V in ``cache_dtype`` (bf16 halves the cache's memory
-    and decode read traffic); the index passes through. ``None`` is the
-    identity."""
+def cast_cache(cache: "attention.KVCache | rwkv6.RWKVCache",
+               cache_dtype: Optional[torch.dtype]
+               ) -> "attention.KVCache | rwkv6.RWKVCache":
+    """Every float tensor of the cache in ``cache_dtype`` (bf16 halves the
+    cache's memory and decode read traffic): K/V, or the token shifts AND
+    the WKV state, as JAX casts every float leaf. The index passes
+    through. ``None`` is the identity."""
     if cache_dtype is None:
         return cache
-    return cache._replace(k=cache.k.to(cache_dtype),
-                          v=cache.v.to(cache_dtype))
+    return cache._replace(**{
+        f: x.to(cache_dtype) for f, x in zip(cache._fields, cache)
+        if isinstance(x, torch.Tensor) and x.is_floating_point()})
 
 
 def select_bucket(buckets: Sequence[Tuple[int, int]], batch: int, seq: int,
@@ -251,8 +278,10 @@ class DecodeEngine:
         keeps the prefill's. Must not be wider than ``cfg.compute_dtype``.
       recompile_limit: distinct signatures per phase; default
         ``len(buckets)``.
-      attn_impl: the prefill's ``sdpa`` impl, the CUDA flash kernel by
-        default (its plain version on a CPU tensor).
+      attn_impl: the dense family's prefill ``sdpa`` impl, the CUDA
+        flash kernel by default (its plain version on a CPU tensor).
+      wkv_impl: the ssm family's recurrence in prefill and decode, the
+        CUDA WKV kernel by default (its plain version on a CPU tensor).
     """
 
     def __init__(self, cfg: ModelConfig, source: Any, *,
@@ -260,12 +289,15 @@ class DecodeEngine:
                  max_new_tokens: int = 32,
                  cache_dtype: Optional[torch.dtype] = None,
                  recompile_limit: Optional[int] = None,
-                 attn_impl: str = "kernel"):
+                 attn_impl: str = "kernel", wkv_impl: str = "kernel"):
         if not buckets:
             raise ValueError("DecodeEngine needs at least one bucket")
         if attn_impl not in attention.IMPLS:
             raise ValueError(f"attn_impl must be one of {attention.IMPLS}, "
                              f"got {attn_impl!r}")
+        if wkv_impl not in rwkv6.WKV_IMPLS:
+            raise ValueError(f"wkv_impl must be one of {rwkv6.WKV_IMPLS}, "
+                             f"got {wkv_impl!r}")
         self.cfg = cfg
         self.api = build_model(cfg)
         self.buckets = tuple(sorted({(int(b), int(s)) for b, s in buckets}))
@@ -279,7 +311,8 @@ class DecodeEngine:
                 f"{cfg.compute_dtype}; the KV cache dtype may only narrow "
                 "storage")
         self.cache_dtype = cache_dtype
-        self.attn_impl = attn_impl
+        self._prefill_kw, self._decode_kw = impl_kwargs(
+            cfg, attn_impl=attn_impl, wkv_impl=wkv_impl)
         self._source = source
         self.pad_seq = (cfg.family in ("dense", "moe", "vlm")
                         and not cfg.sliding_window)
@@ -301,7 +334,8 @@ class DecodeEngine:
         key = (version, id(params))
         if key != self._cast_key:
             self._cast = None          # free the old copy before the new
-            self._cast = cast_params(params, self.cfg.compute_dtype)
+            self._cast = cast_params(params, self.cfg.compute_dtype,
+                                     keep=self.api.f32_leaves)
             self._cast_key = key
         return version, self._cast
 
@@ -319,9 +353,9 @@ class DecodeEngine:
                 "decode": len(self._watch_decode.signatures)}
 
     def _decode(self, params, cache, tok):
-        self._watch_decode.observe(params, cache.k, cache.v, tok)
+        self._watch_decode.observe(params, tuple(cache), tok)
         self._watch_decode.check()
-        return self.api.decode_step(params, cache, tok)
+        return self.api.decode_step(params, cache, tok, **self._decode_kw)
 
     # ------------------------------ execution ------------------------------
 
@@ -363,7 +397,7 @@ class DecodeEngine:
         self._watch_prefill.check()
         logits, cache = self.api.prefill(params, batch,
                                          cache_len=self.cache_len_for(S),
-                                         attn_impl=self.attn_impl)
+                                         **self._prefill_kw)
         cache = cast_cache(cache, self.cache_dtype)
         if L == S:
             tok = _argmax_tokens(logits)

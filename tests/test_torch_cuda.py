@@ -14,6 +14,7 @@ from repro_torch.core.topology import make_topology
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import fused_adam as tfa
 from repro_torch.kernels import gossip as tgossip
+from repro_torch.kernels import rwkv_scan as twkv
 from repro_torch.kernels import sign_compress as tsc
 
 torch.set_num_threads(2)
@@ -171,10 +172,12 @@ def test_cuda_wrappers_count_launches_and_reject_bad_operands(cuda):
     ops.payload_mix(p, (m, v), topo.offset_weights, topo.self_weight)
     q = p.reshape(1, K * ROWS, 4, 32)
     ops.flash_attention(q, q[:, :, :2], q[:, :, 2:])
+    x = p.reshape(2, K * ROWS // 2, 4, 32)
+    ops.rwkv_scan(x, x, x, x.sigmoid(), x[0, 0], p.reshape(2, 4, 32, 32))
     assert ops.launch_counts() == {
         "fused_adam": 1, "gossip_mix": 1, "gossip_adam_mix": 1,
         "consensus_mix": 1, "sign_compress_stacked": 1, "sign_compress": 1,
-        "payload_mix": 1, "flash_attention": 1}
+        "payload_mix": 1, "flash_attention": 1, "rwkv_scan": 1}
     with pytest.raises(ValueError, match="f32"):
         ops.fused_adam(p.double(), g.double(), m.double(), v.double(),
                        eta=1e-3)
@@ -268,4 +271,114 @@ def test_cuda_engine_prefills_through_the_kernel(cuda):
         assert counts == {**{n: 0 for n in counts}, "flash_attention": want}
         assert eng.compile_counts == {"prefill": 2, "decode": 2}
     for a, b in zip(outs["kernel"], outs["naive"]):
+        assert a.is_cuda and torch.equal(a, b)
+
+
+# rwkv_scan against its plain version. Both compute each state element as
+# w * S rounded plus k * v rounded (the kernel is built without FMA
+# contraction), so the final state is bit-equal, and so is a sequence cut
+# into two calls that carry it; y sums over the key dim in another order
+# than the plain version's einsum, so it is held to f32 2e-5.
+WKV_Y_TOL = dict(rtol=2e-5, atol=2e-5)
+# chip_smoke.py's shapes, (B, S, H, D, r/k/v dtype), and a D=128 case
+WKV_CASES = {
+    "serve_prefill": (8, 1024, 40, 64, torch.bfloat16),
+    "b1_s128": (1, 128, 40, 64, torch.bfloat16),
+    "decode": (8, 1, 40, 64, torch.bfloat16),
+    "d32_f32_ragged": (2, 1000, 8, 32, torch.float32),
+    "d128_f32": (2, 96, 4, 128, torch.float32),
+}
+
+
+def wkv_inputs(B, S, H, D, dt, seed=0):
+    """r, k, v ~ 0.3 N in ``dt`` (k and v strided views of one tensor), w
+    = sigmoid(N) f32, u ~ 0.1 N f32, state ~ 0.1 N f32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def n(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    r = n((B, S, H, D), 0.3).to(dt)
+    kv = n((B, S, 2 * H, D), 0.3).to(dt)
+    w = torch.sigmoid(n((B, S, H, D)))
+    return r, kv[:, :, :H], kv[:, :, H:], w, n((H, D), 0.1), \
+        n((B, H, D, D), 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(WKV_CASES))
+def test_cuda_rwkv_scan_matches_plain(cuda, case):
+    ins = wkv_inputs(*WKV_CASES[case])
+    before = twkv.rwkv_scan.launches
+    y, st = twkv.rwkv_scan(*ins)
+    assert twkv.rwkv_scan.launches == before + 1
+    want_y, want_st = twkv.rwkv_scan_plain(*ins)
+    torch.cuda.synchronize()
+    assert y.dtype == st.dtype == torch.float32 and y.is_contiguous()
+    assert torch.equal(st, want_st)
+    close([y], [want_y], **WKV_Y_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_rwkv_scan_state_continuity(cuda):
+    """S=1024 in one call against two calls of 512 that carry the state:
+    equal to the bit."""
+    r, k, v, w, u, s0 = wkv_inputs(8, 1024, 40, 64, torch.bfloat16, seed=1)
+    y, st = twkv.rwkv_scan(r, k, v, w, u, s0)
+    y1, s1 = twkv.rwkv_scan(r[:, :512], k[:, :512], v[:, :512], w[:, :512],
+                            u, s0)
+    y2, s2 = twkv.rwkv_scan(r[:, 512:], k[:, 512:], v[:, 512:], w[:, 512:],
+                            u, s1)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(s2, st)
+
+
+@pytest.mark.gpu
+def test_cuda_rwkv_scan_rejects_what_it_does_not_take(cuda):
+    r, k, v, w, u, s0 = wkv_inputs(1, 4, 2, 32, torch.float32)
+    with pytest.raises(ValueError, match="one dtype"):
+        twkv.rwkv_scan(r, k.bfloat16(), v, w, u, s0)
+    with pytest.raises(ValueError, match="f32"):
+        twkv.rwkv_scan(r, k, v, w.bfloat16(), u, s0)
+    r48, k48, v48, w48, u48, s48 = wkv_inputs(1, 4, 2, 48, torch.float32)
+    with pytest.raises(ValueError, match="head dims"):
+        twkv.rwkv_scan(r48, k48, v48, w48, u48, s48)
+    every_other = torch.zeros((1, 4, 2, 64), device="cuda")[..., ::2]
+    with pytest.raises(ValueError, match="unit-stride"):
+        twkv.rwkv_scan(every_other, k, v, w, u, s0)
+
+
+@pytest.mark.gpu
+def test_cuda_engine_serves_rwkv_through_the_kernel(cuda):
+    """The reduced rwkv6-3b served on the card: one WKV launch per layer
+    per prefill and per decode step, no other kernel; tokens equal to the
+    plain scan's at f32 compute."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import DecodeEngine, ParamStore
+
+    cfg = dataclasses.replace(get_reduced("rwkv6-3b").model,
+                              compute_dtype=torch.float32)
+    store = ParamStore()
+    store.publish(build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0)))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (L,), generator=gen,
+                             device="cuda") for L in (16, 8, 16, 8, 16)]
+    outs = {}
+    for impl in ("kernel", "scan"):
+        eng = DecodeEngine(cfg, store, buckets=((1, 8), (4, 16)),
+                           max_new_tokens=4, wkv_impl=impl)
+        ops.reset_launches()
+        outs[impl] = eng.generate(prompts, 4)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        # three batches (one (4, 16), two (1, 8)), 4 tokens each
+        want = cfg.n_layers * 4 * 3 if impl == "kernel" else 0
+        assert counts == {**{n: 0 for n in counts}, "rwkv_scan": want}
+        assert eng.compile_counts == {"prefill": 2, "decode": 2}
+    for a, b in zip(outs["kernel"], outs["scan"]):
         assert a.is_cuda and torch.equal(a, b)

@@ -231,10 +231,12 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     ops.payload_mix(p, (m, v), topo.offset_weights, topo.self_weight)
     q = p.reshape(1, K * ROWS, 4, 32)
     ops.flash_attention(q, q[:, :, :2], q[:, :, 2:])
+    x = p.reshape(2, K * ROWS // 2, 4, 32)
+    ops.rwkv_scan(x, x, x, x.sigmoid(), x[0, 0], p.reshape(2, 4, 32, 32))
     assert ops.launch_counts() == {
         "fused_adam": 0, "gossip_mix": 0, "gossip_adam_mix": 0,
         "consensus_mix": 0, "sign_compress_stacked": 0, "sign_compress": 0,
-        "payload_mix": 0, "flash_attention": 0}
+        "payload_mix": 0, "flash_attention": 0, "rwkv_scan": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -1,7 +1,8 @@
 """The port's serving slice against the JAX package's, on the CPU: the
 configs, the dense transformer's prefill / decode at the reduced
 llama3.2-1b config, ``greedy_generate`` and ``DecodeEngine`` (mirroring
-``tests/test_serve.py`` and ``tests/test_serve_engine.py``).
+``tests/test_serve.py`` and ``tests/test_serve_engine.py``), and the
+engine serving the reduced rwkv6-3b (``TestRWKVEngine``).
 
 JAX's params cross as numpy arrays (``convert.params_from_numpy``).
 Logits are held to f32 rtol = atol = 2e-5 at ``compute_dtype=float32``
@@ -10,6 +11,7 @@ engine and ``greedy_generate``; the port holds tokens equal at f32
 compute and, at bf16, wherever the top-2 logit gap exceeds the bf16
 tolerance (GEMMs of other shapes may round differently on a card).
 """
+import contextlib
 import dataclasses
 import functools
 
@@ -25,14 +27,16 @@ from repro.models import attention as jattention
 from repro.models import build_model as jbuild_model
 from repro.models import transformer as jtransformer
 from repro.serve import greedy_generate as jgreedy_generate
+from repro.serve.engine import cast_cache as jcast_cache
 from repro_torch.configs import (INPUT_SHAPES, get_arch, get_reduced,
                                  list_archs)
 from repro_torch._tree import tree_leaves
 from repro_torch.convert import params_from_numpy, params_to_numpy
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.registry import build_model
 from repro_torch.serve import (DecodeEngine, ParamStore, cache_spec,
-                               cast_cache, effective_config, greedy_generate,
+                               cast_cache, cast_params, effective_config,
+                               greedy_generate,
                                make_prefill_step, make_serve_step,
                                select_bucket)
 from repro_torch.serve.engine import RecompileError, kv_cache_len
@@ -111,9 +115,9 @@ def test_param_count_matches_jax():
 
 
 def test_config_registry():
-    assert list_archs() == [ARCH]
+    assert list_archs() == [ARCH, "rwkv6-3b"]
     with pytest.raises(NotImplementedError, match="item 11"):
-        get_arch("rwkv6-3b")
+        get_arch("zamba2-7b")
     with pytest.raises(NotImplementedError, match="item 11"):
         get_reduced("phi3.5-moe-42b-a6.6b")
     with pytest.raises(KeyError):
@@ -247,7 +251,7 @@ def test_cache_spec_matches_actual_prefill(lm32):
     windowed = dataclasses.replace(tcfg, sliding_window=8)
     assert cache_spec(windowed, 1, 524288).k.shape[2] == 8
     with pytest.raises(NotImplementedError, match="item 11"):
-        cache_spec(dataclasses.replace(tcfg, family="ssm"), 1, 16)
+        cache_spec(dataclasses.replace(tcfg, family="hybrid"), 1, 16)
 
 
 def test_effective_config_substitutes_window():
@@ -567,3 +571,210 @@ def test_serve_launcher_runs_on_the_cpu(capsys):
     assert rec["launches"]["flash_attention"] == 0   # CPU: plain version
     assert rec["prefill_ms"] > 0 and rec["first_token_ms"] > 0
     assert "[serve] llama3.2-1b (reduced)" in capsys.readouterr().out
+
+
+# ---------------------------- rwkv6 through the engine ----------------------
+
+RWKV = "rwkv6-3b"
+
+
+def rwkv_configs(dt):
+    jcfg, tcfg = jget_reduced(RWKV).model, get_reduced(RWKV).model
+    if dt == "f32":
+        jcfg = dataclasses.replace(jcfg, compute_dtype=jnp.float32)
+        tcfg = dataclasses.replace(tcfg, compute_dtype=torch.float32)
+    return jcfg, tcfg
+
+
+@pytest.fixture(scope="module", params=["f32", "bf16"])
+def rwkv_lm(request):
+    jcfg, tcfg = rwkv_configs(request.param)
+    jp = jbuild_model(jcfg).init(jax.random.PRNGKey(3))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    return request.param, jcfg, tcfg, jp, tp
+
+
+class TestRWKVEngine:
+    def test_engine_matches_jax_greedy(self, rwkv_lm):
+        """The slice as a whole: the engine (WKV kernel path, exact
+        buckets) against JAX's ``greedy_generate``. At f32 the tokens are
+        equal; at bf16 they are equal up to the first step whose top-2 gap
+        (JAX's logits along its tokens) is not past twice the two
+        packages' logit difference there, where a rounding may swap
+        them."""
+        dt, jcfg, tcfg, jp, tp = rwkv_lm
+        toks = tokens((2, 16), 512, seed=21)
+        n_new = 5
+        want = np.asarray(jgreedy_generate(
+            jcfg, jp, {"tokens": jnp.asarray(toks)}, n_new))
+        eng = DecodeEngine(tcfg, tp, buckets=((2, 16),),
+                           max_new_tokens=n_new)
+        got = eng.generate_batch(torch.from_numpy(toks), n_new).numpy()
+        if dt == "f32":
+            np.testing.assert_array_equal(got, want)
+            return
+        japi, tapi = jbuild_model(jcfg), build_model(tcfg)
+        with jax.disable_jit():   # op by op: see tests/test_torch_rwkv.py
+            jl, jc = japi.prefill(jp, {"tokens": jnp.asarray(toks)})
+            jlog = [f32(jl[:, 0])]
+            for t in range(n_new - 1):
+                jl, jc = japi.decode_step(jp, jc, jnp.asarray(want[:, t]))
+                jlog.append(f32(jl))
+        with torch.no_grad():
+            tl, tc = tapi.prefill(tp, {"tokens": torch.from_numpy(toks)},
+                                  wkv_impl="kernel")
+            tlog = [f32(tl[:, 0])]
+            for t in range(n_new - 1):
+                tl, tc = tapi.decode_step(
+                    tp, tc, torch.from_numpy(want[:, t]), wkv_impl="kernel")
+                tlog.append(f32(tl))
+        jlog, tlog = np.stack(jlog, 1), np.stack(tlog, 1)     # (B, T, V)
+        top2 = np.sort(jlog, axis=-1)[..., -2:]
+        firm = (top2[..., 1] - top2[..., 0]) > 2 * np.abs(
+            tlog - jlog).max(-1)
+        for b in range(toks.shape[0]):
+            for t in range(n_new):
+                if not firm[b, t]:
+                    break
+                assert got[b, t] == want[b, t], (b, t)
+
+    def test_recast_keeps_the_f32_leaves(self, rwkv_lm):
+        """The once-per-version cast keeps the leaves RWKV6 reads in f32,
+        so the engine's logits equal forward on the uncast params; a cast
+        of every leaf would not (at bf16 it moves the decays)."""
+        dt, _, tcfg, _, tp = rwkv_lm
+        eng = DecodeEngine(tcfg, tp, buckets=((2, 16),), max_new_tokens=2)
+        _, cast = eng._params()
+        for name, x in cast["layers"].items():
+            want = (torch.float32 if name in rwkv6.F32_LEAVES
+                    else tcfg.compute_dtype)
+            assert x.dtype == want, name
+            if name in rwkv6.F32_LEAVES:
+                assert x is tp["layers"][name]
+        toks = torch.from_numpy(tokens((2, 16), 512, seed=22))
+        with torch.no_grad():
+            want, _ = rwkv6.prefill(tp, toks, tcfg, wkv_impl="kernel")
+            full, _ = rwkv6.forward(tp, toks, tcfg, wkv_impl="kernel")
+            got, _ = eng.api.prefill(cast, {"tokens": toks},
+                                     wkv_impl="kernel")
+            every, _ = eng.api.prefill(cast_params(tp, tcfg.compute_dtype),
+                                       {"tokens": toks}, wkv_impl="kernel")
+        assert torch.equal(got, want)
+        # the head on the last position alone: a GEMM of another shape
+        np.testing.assert_allclose(f32(got[:, 0]), f32(full[:, -1]),
+                                   **TOL[dt])
+        if dt == "bf16":
+            assert not torch.equal(every, want)
+
+    def test_bf16_cache_casts_the_wkv_state_as_jax(self, rwkv_lm):
+        """cache_dtype=bf16 casts every float leaf, the WKV state too, as
+        JAX's cast_cache does; a decode step from it matches JAX's (op by
+        op at bf16 compute: see tests/test_torch_rwkv.py)."""
+        dt, jcfg, tcfg, jp, tp = rwkv_lm
+        toks = tokens((2, 12), 512, seed=23)
+        with torch.no_grad():
+            _, cache = build_model(tcfg).prefill(
+                tp, {"tokens": torch.from_numpy(toks)})
+        def eager():
+            return (jax.disable_jit() if dt == "bf16"
+                    else contextlib.nullcontext())
+
+        with eager():
+            _, jc = jbuild_model(jcfg).prefill(jp, {"tokens": jnp.asarray(
+                toks)})
+        cast, jcast = cast_cache(cache, torch.bfloat16), jcast_cache(
+            jc, jnp.bfloat16)
+        assert [x.dtype for x in cast[:3]] == [torch.bfloat16] * 3
+        assert cast.index == cache.index == int(jcast.index) == 12
+        for a, b in zip(cast[:3], jcast[:3]):
+            assert str(b.dtype) == "bfloat16"
+            np.testing.assert_allclose(f32(a), f32(b), **TOL["bf16"])
+        tok = np.array([5, 300], np.int32)
+        with torch.no_grad():
+            tl, tc = build_model(tcfg).decode_step(tp, cast,
+                                                   torch.from_numpy(tok))
+        with eager():
+            jl, jc2 = jbuild_model(jcfg).decode_step(jp, jcast,
+                                                     jnp.asarray(tok))
+        assert tc.wkv.dtype == torch.bfloat16 and str(jc2.wkv.dtype) == \
+            "bfloat16"
+        np.testing.assert_allclose(f32(tl), f32(jl), **TOL["bf16"])
+        eng = DecodeEngine(tcfg, tp, buckets=((2, 12),), max_new_tokens=3,
+                           cache_dtype=torch.bfloat16)
+        if dt == "bf16":
+            out = eng.generate_batch(torch.from_numpy(toks), 3)
+            assert out.shape == (2, 3) and out.dtype == torch.int32
+            return
+        # at f32 compute the token shifts come back from a decode step in
+        # f32 (JAX's time_mix returns x[:, -1] in the compute dtype), so
+        # the second step is a new input signature: JAX's RecompileWatch
+        # raises there too (ROADMAP queue 3)
+        assert tc.tm_x.dtype == torch.float32 and str(jc2.tm_x.dtype) == \
+            "float32"
+        with pytest.raises(RecompileError, match="signatures"):
+            eng.generate_batch(torch.from_numpy(toks), 3)
+
+    def test_short_prompt_raises(self, rwkv_lm):
+        """The recurrent state would fold pads in: buckets match the
+        prompt length exactly, as in JAX."""
+        _, _, tcfg, _, tp = rwkv_lm
+        eng = DecodeEngine(tcfg, tp, buckets=((2, 16),), max_new_tokens=2)
+        assert eng.pad_seq is False
+        with pytest.raises(ValueError, match="pad_seq"):
+            eng.generate_batch(torch.from_numpy(tokens((2, 16), 512)), 2,
+                               true_len=12)
+        with pytest.raises(ValueError, match="bucket"):
+            eng.generate(prompts_of((12,), 512), 2)
+        with pytest.raises(ValueError, match="wkv_impl"):
+            DecodeEngine(tcfg, tp, wkv_impl="pallas")
+
+    def test_one_signature_per_bucket_and_generate(self, rwkv_lm):
+        _, _, tcfg, _, tp = rwkv_lm
+        eng = DecodeEngine(tcfg, tp, buckets=((1, 8), (4, 16)),
+                           max_new_tokens=3)
+        prompts = prompts_of((16, 8, 16, 8, 16), 512, seed=24)
+        outs = eng.generate(prompts, 3)
+        for B in (1, 4, 1):
+            eng.generate_batch(torch.from_numpy(tokens(
+                (B, 8 if B == 1 else 16), 512)), 3)
+        assert eng.compile_counts == {"prefill": 2, "decode": 2}
+        for p, out in zip(prompts, outs):
+            ref = greedy_generate(tcfg, tp, {"tokens": p[None]}, 3,
+                                  wkv_impl="kernel")
+            assert torch.equal(out, ref[0])
+
+    def test_cache_spec_matches_actual_prefill(self, rwkv_lm):
+        _, jcfg, tcfg, _, tp = rwkv_lm
+        spec = cache_spec(tcfg, 2, 16)
+        with torch.no_grad():
+            _, cache = build_model(tcfg).prefill(
+                tp, {"tokens": torch.from_numpy(tokens((2, 16), 512))},
+                cache_len=kv_cache_len(tcfg, 16))
+        assert isinstance(cache, rwkv6.RWKVCache)
+        for s_, x in zip(spec[:3], cache[:3]):
+            assert s_.shape == tuple(x.shape) and s_.dtype == x.dtype
+        assert spec.index == ((), torch.int32) and cache.index == 16
+
+    def test_hot_swap_and_launcher(self, rwkv_lm, capsys):
+        dt, _, tcfg, _, tp = rwkv_lm
+        store = ParamStore()
+        store.publish(tp)
+        eng = DecodeEngine(tcfg, store, buckets=((2, 16),),
+                           max_new_tokens=3)
+        toks = torch.from_numpy(tokens((2, 16), 512))
+        out1 = eng.generate_batch(toks, 3)
+        store.publish(build_model(tcfg).init(
+            torch.Generator().manual_seed(9)))
+        out2 = eng.generate_batch(toks, 3)
+        assert eng.last_version == 2 and not torch.equal(out1, out2)
+        assert eng.compile_counts == {"prefill": 1, "decode": 1}
+        if dt == "f32":
+            return
+        from repro_torch.launch import serve
+
+        rec = serve.main(["--arch", RWKV, "--device", "cpu", "--buckets",
+                          "1x16,4x16", "--batch", "3", "--prompt-len", "16",
+                          "--new-tokens", "3"])
+        assert rec["bucket"] == [4, 16]
+        assert rec["launches"]["rwkv_scan"] == 0    # CPU: plain version
+        assert "[serve] rwkv6-3b (reduced)" in capsys.readouterr().out
