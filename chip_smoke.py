@@ -69,9 +69,11 @@ script exits non-zero without the final ``ok`` line:
    (2, 128) prefill and 4 decode steps.
 
 The kernels phase also holds ``flash_attention`` against its plain
-version at five shapes: the serve bucket's prefill, an 8192-token prompt,
-a 512-key window, a non-causal f32 D=128 case and a ragged S=1021; at
-each it times the one SDPA call that computes the same function. And it
+version at seven shapes: the serve bucket's prefill, an 8192-token prompt,
+a 512-key window, a non-causal f32 D=128 case, a ragged S=1021, and bf16
+head dims 96 and 112 (the tensor-core kernel takes bf16, the CUDA-core
+one f32; each record names its ``design``); at each it times the one SDPA
+call that computes the same function. And it
 holds ``rwkv_scan`` against its plain version at the serve bucket's
 prefill, a (1, 128) prefill, a decode step, a ragged f32 D=32 S=1000 case
 and a 1024-step sequence cut into two calls that carry the state.
@@ -145,9 +147,12 @@ PARAMS = 11_202_602
 BF16_RATE = 989e12
 # flash_attention against its plain version. Both accumulate in f32 and
 # differ only by the order of the sums (f32: tests/test_kernels.py's
-# 2e-5). In bf16 both round nearly the same f32 value once, so they differ
-# by at most one bf16 ulp, at most 2**-7 of the value (rtol 8e-3), plus
-# the f32 difference where the output is near zero (atol 2e-5).
+# 2e-5); the bf16 tensor-core kernel also carries p as bf16 hi + lo (to
+# ~2**-17) and takes its exponentials by ex2.approx (~1e-6), both far
+# below the atol. In bf16 both round nearly the same f32 value once, so
+# they differ by at most one bf16 ulp, at most 2**-7 of the value (rtol
+# 8e-3), plus the f32 difference where the output is near zero (atol
+# 2e-5).
 FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
              torch.bfloat16: dict(rtol=8e-3, atol=2e-5)}
 # (name, B, S, T, Hq, Hk, D, dtype, causal, window)
@@ -159,6 +164,8 @@ FLASH_CASES = (
     ("non-causal f32, D=128", 2, 512, 1024, 16, 16, 128, torch.float32,
      False, 0),
     ("ragged S=1021", 2, 1021, 1021, 32, 8, 64, torch.bfloat16, True, 0),
+    ("D=96", 2, 1024, 1024, 32, 8, 96, torch.bfloat16, True, 0),
+    ("D=112", 2, 1024, 1024, 32, 8, 112, torch.bfloat16, True, 0),
 )
 # serving: llama3.2-1b at full width over two buckets; the prompts fill
 # the (8, 1024) bucket (1024 x 5), pad it in seq and take the rewind
@@ -205,6 +212,11 @@ WKV_CASES = (
     ("D=32 f32, ragged S=1000", 8, 1000, 80, 32, torch.float32),
 )
 NO_WKV_LIBRARY = "none: no PyTorch call computes the WKV recurrence"
+# the CUDA functions each serving kernel's wrapper launches, as the
+# profiler names them (bf16 and f32 flash are two designs)
+KERNEL_FUNCTIONS = {"flash_attention": ("flash_wgmma_kernel",
+                                        "flash_attention_kernel"),
+                    "rwkv_scan": ("rwkv_scan_kernel",)}
 SERVE_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 SERVE_BF16_RATIO = 1.25
 # the online phase: 12 fit steps at p=4 take fused_adam on the 9 local
@@ -354,10 +366,14 @@ def phase_build():
                               r"(I.*?E)?E", ln)
             if found:
                 entry = found.group(1)
-                if found.group(2):
-                    dt = "bf16" if "bfloat16" in found.group(2) else "f32"
-                    d = re.search(r"Li(\d+)E", found.group(2))
-                    entry += f"<{dt},{d.group(1) if d else '?'}>"
+                args = found.group(2)
+                if args:
+                    # the dtype where the template takes one (the wgmma
+                    # kernel is bf16 only and takes the head dim alone)
+                    dt = ("bf16," if "bfloat16" in args else
+                          "f32," if args.startswith("If") else "")
+                    d = re.search(r"Li(\d+)E", args)
+                    entry += f"<{dt}{d.group(1) if d else '?'}>"
             elif "Used" in ln:
                 regs[f"{name}:{entry}"] = ln.split("ptxas info    : ")[-1]
     emit({"phase": "build", "seconds": round(seconds, 3),
@@ -609,6 +625,10 @@ def flash_records():
         del got, want, lib_out
         torch.cuda.empty_cache()
         ms = median_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        device_ms = device_kernel_ms(
+            lambda: fa.flash_attention(q, k, v, **kw),
+            "flash_wgmma_kernel" if dt == torch.bfloat16
+            else "flash_attention_kernel")
         plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v, **kw))
         torch.cuda.empty_cache()
         library_ms = median_ms(library)
@@ -619,11 +639,13 @@ def flash_records():
         rate = BF16_RATE if dt == torch.bfloat16 else F32_RATE
         t_bytes, t_ops = n_bytes / MEM_RATE * 1e3, ops / rate * 1e3
         rec = {"name": "flash_attention", "route": "cuda",
+               "design": "wgmma" if dt == torch.bfloat16 else "simt",
                "source": "src/repro_torch/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention.py:114",
                "launches": None, "max_abs_err": max_abs,
                "max_rel_err": max_rel, "tol": FLASH_TOL[dt], "ms": ms,
-               "kernel_ms": ms, "plain_ms": plain_ms,
+               "kernel_ms": ms, "kernel_device_ms": device_ms,
+               "plain_ms": plain_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": n_bytes, "operations": ops,
@@ -652,26 +674,43 @@ def wkv_inputs(B, S, H, D, dt, seed=0):
     return r, k, v, w, n((H, D), 0.1), n((B, H, D, D), 0.1)
 
 
-def device_kernel_ms(fn, kernel: str, reps: int = REPS) -> float:
+def matched_device_us(prof, names) -> tuple[float, int]:
+    """(device µs, calls) of the profiled CUDA kernels whose name holds
+    one of ``names``."""
+    us, calls = 0.0, 0
+    for e in prof.key_averages():
+        if (str(e.device_type).endswith("CUDA")
+                and any(n in e.key for n in names)):
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+            calls += e.count
+    return us, calls
+
+
+def device_kernel_ms(fn, kernel: str, reps: int = REPS,
+                     attempts: int = 3) -> float:
     """Device time per call of ``fn`` of the CUDA kernels whose name holds
     ``kernel``, from a profile of ``reps`` calls: the kernel alone, where
     CUDA events around one call also count the host time before its
-    launch."""
+    launch. A profile that recorded fewer than ``reps`` such kernels, or
+    no time for them, is taken again; after ``attempts`` of them this
+    raises, so no time is reported that was not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if kernel in e.key and str(e.device_type).endswith("CUDA"):
-            t = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if t is None else t
-    return us / 1e3 / reps
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, calls = matched_device_us(prof, (kernel,))
+        if calls >= reps and us > 0:
+            return us / 1e3 / reps
+    raise AssertionError(f"the profiler recorded {calls} launches of "
+                         f"{kernel} ({us} µs) in {reps} calls, {attempts} "
+                         f"times")
 
 
 def wkv_work(B, S, H, D, itemsize):
@@ -748,7 +787,7 @@ def rwkv_records():
         plain_ms = median_ms(plain, reps=5 if S > 1 else REPS,
                              warmup=1 if S > 1 else 3)
         t_bytes, t_ops = n_bytes / MEM_RATE * 1e3, ops / F32_RATE * 1e3
-        rec = {"name": "rwkv_scan", "route": "cuda",
+        rec = {"name": "rwkv_scan", "route": "cuda", "design": "lane-split",
                "source": "src/repro_torch/csrc/rwkv_scan.cu",
                "replaces": "src/repro/kernels/rwkv_scan.py:78",
                "launches": None, "max_abs_err": max_abs,
@@ -874,11 +913,12 @@ def phase_profile(path, trainer, state, batches):
           **device_profile(period)})
 
 
-def device_profile(fn):
+def device_profile(fn, kernel_names=()):
     """Profile ``fn()``: its wall time (synchronised), the device time
     summed over kernels, the busy share, the torch calls made from Python
     (top-level ``aten::`` ops, each a host round trip), the port's named
-    ranges and the top kernels by device time."""
+    ranges, the top kernels by device time, and the device ms and calls of
+    the CUDA kernels whose name holds one of ``kernel_names``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -909,7 +949,9 @@ def device_profile(fn):
     calls = collections.Counter(
         e.name for e in prof.events()
         if e.cpu_parent is None and e.name.startswith("aten::"))
+    kernel_us, kernel_calls = matched_device_us(prof, kernel_names)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "kernel_ms": kernel_us / 1e3, "kernel_calls": kernel_calls,
             "busy_share": device_ms / wall_ms if wall_ms else None,
             "torch_calls": sum(calls.values()),
             "torch_calls_top": calls.most_common(8), "ranges": ranges,
@@ -1302,8 +1344,14 @@ def serve_full_width(phase, cfg, buckets, lengths, new_tokens, kernel,
     toks = torch.randint(0, cfg.vocab_size, (B, S), device=DEVICE,
                          dtype=torch.int32)
     n_prof = min(8, new_tokens)
-    prof = device_profile(lambda: engine.generate_batch(toks, n_prof))
-    kernel_ms = sum(r["ms"] for r in prof["top"] if kernel in r["kernel"])
+    before = ops.launch_counts()[kernel]
+    prof = device_profile(lambda: engine.generate_batch(toks, n_prof),
+                          KERNEL_FUNCTIONS[kernel])
+    profiled = ops.launch_counts()[kernel] - before
+    kernel_ms = prof.pop("kernel_ms")
+    if prof.pop("kernel_calls") != profiled or (profiled and kernel_ms <= 0):
+        raise AssertionError(f"{phase}: the profile holds no device time "
+                             f"for {kernel}'s {profiled} launches")
     n_out = sum(o.numel() for o in outs[1])
     rec = {"phase": phase, "arch": cfg.arch_id, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,

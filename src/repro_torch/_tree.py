@@ -1,34 +1,58 @@
-"""Nested dict/list/tuple trees, flattened in ``jax.tree_util``'s order.
+"""Nested containers flattened in ``jax.tree_util``'s order.
 
-Dict keys are SORTED, as ``jax.tree_util`` sorts them. ``torch.utils._pytree``
-keeps insertion order instead, which would shift every offset of the packed
-layout against the JAX reference. Everything that is not a dict, list or
-tuple is a leaf.
+The nodes, as ``jax.tree_util`` treats them:
+
+- ``dict``: children by SORTED key (``torch.utils._pytree`` keeps
+  insertion order instead, which would shift every offset of the packed
+  layout against the JAX reference);
+- ``collections.OrderedDict``: children in insertion order, rebuilt as an
+  ``OrderedDict``;
+- a NamedTuple (a tuple subclass with ``_fields``): its fields in order,
+  rebuilt as its own class;
+- ``list`` and ``tuple``: children in order;
+- ``None``: a node with no children, so it adds no leaf.
+
+Everything else is a leaf.
 """
 from __future__ import annotations
 
+import collections
 from typing import Any, Callable, List, NamedTuple, Tuple
 
 PyTree = Any
 
 
 class TreeDef(NamedTuple):
-    """The structure of a tree: ``kind`` is 'leaf', 'dict', 'list' or
-    'tuple'; ``keys`` the sorted dict keys (else ``None``)."""
+    """The structure of a tree: ``kind`` is 'leaf', 'none', 'dict',
+    'odict', 'namedtuple', 'list' or 'tuple'; ``keys`` the dict keys in
+    flattening order (else ``None``); ``node_type`` the NamedTuple class
+    (else ``None``), so that two NamedTuple classes of one shape differ."""
 
     kind: str
     keys: Any
     children: Tuple["TreeDef", ...]
+    node_type: Any = None
 
 
 LEAF = TreeDef("leaf", None, ())
+NONE = TreeDef("none", None, ())
+
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(type(node), "_fields")
 
 
 def _walk(node, leaves: List[Any]) -> TreeDef:
+    if node is None:
+        return NONE
     if isinstance(node, dict):
-        keys = tuple(sorted(node))
-        return TreeDef("dict", keys,
+        ordered = isinstance(node, collections.OrderedDict)
+        keys = tuple(node) if ordered else tuple(sorted(node))
+        return TreeDef("odict" if ordered else "dict", keys,
                        tuple(_walk(node[k], leaves) for k in keys))
+    if _is_namedtuple(node):
+        return TreeDef("namedtuple", None,
+                       tuple(_walk(c, leaves) for c in node), type(node))
     if isinstance(node, (list, tuple)):
         kind = "list" if isinstance(node, list) else "tuple"
         return TreeDef(kind, None, tuple(_walk(c, leaves) for c in node))
@@ -47,9 +71,15 @@ def tree_flatten(tree: PyTree) -> Tuple[List[Any], TreeDef]:
 def _build(td: TreeDef, it) -> PyTree:
     if td.kind == "leaf":
         return next(it)
+    if td.kind == "none":
+        return None
     children = [_build(c, it) for c in td.children]
     if td.kind == "dict":
         return dict(zip(td.keys, children))
+    if td.kind == "odict":
+        return collections.OrderedDict(zip(td.keys, children))
+    if td.kind == "namedtuple":
+        return td.node_type(*children)
     return children if td.kind == "list" else tuple(children)
 
 

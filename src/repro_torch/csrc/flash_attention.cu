@@ -14,29 +14,66 @@
 // reading kv head h / (Hq / Hk). q is (B, S, Hq, D), k and v (B, T, Hk, D),
 // read in place through their strides (the head dim must be unit-stride);
 // the output is a contiguous (B, S, Hq, D) tensor of q's dtype.
+// kernels/flash_attention.py binds it to PyTorch through ctypes
+// (flash_attention_fwd below).
 //
 // Bound on the H100: at the serving shapes (S = T = 1024, D = 64, bf16) the
-// two products are ~34 GFLOP against ~84 MB, so operations bind it. The
-// card's peak for that work is its bf16 tensor cores; this first design
-// does not use them. It keeps everything but the K/V tiles out of device
-// memory and spends f32 FMAs on the CUDA cores:
+// two products are ~34 GFLOP against ~84 MB, so operations bind it, and the
+// card's peak for them is its bf16 tensor cores. Two designs:
 //
+// bf16, D in {32, 64, 96, 112, 128}: tensor cores (flash_wgmma_kernel).
+//   - One block per (128-row query tile, query head, batch row), the tiles
+//     of a head heaviest (latest, under a causal mask) first: two consumer
+//     warpgroups of 64 query rows each and one producer warp.
+//   - The producer loads the Q tile once and streams the K and V tiles,
+//     64 keys each, with TMA, as bf16, into a ring of five shared-memory
+//     stages, each with a full and an empty mbarrier. The tensor maps
+//     describe the strided 4-D (B, S, H, D) views and are encoded on the
+//     host at each call (cuTensorMapEncodeTiled, reached through
+//     cudaGetDriverEntryPointByVersion); the tiles land swizzled (128 B
+//     rows for D = 64 and 128, 64 B for 32 and 96, 32 B for 112), and rows
+//     past S or T arrive as zeros.
+//   - S = Q K^T: wgmma m64n64k16, Q and K from shared memory, K-major, f32
+//     accumulator (bf16 products are exact in f32; only the order of the
+//     sum differs from the plain version).
+//   - Softmax in registers on the accumulator fragment: each row's max and
+//     sum across the four threads that share it, by shuffles; only tiles
+//     that cross the causal diagonal, the window's edge or T take the mask.
+//     Scores are kept in log2 units (s * scale * log2 e) and the
+//     exponentials are 2^(x - m) by ex2.approx (relative error ~1e-6, far
+//     inside the bf16 output's rounding).
+//   - O += P V: P stays in registers as wgmma's A operand (the S
+//     accumulator's layout is the A fragment's), V is the B operand from
+//     shared memory, MN-major (the transpose flag). P is split into
+//     P_hi = bf16(p) and P_lo = bf16(p - P_hi), and both go through the
+//     product: a single bf16 P would put an error of up to 2^-9 * sum p|v|
+//     on outputs near zero, where hi + lo keeps p to about 2^-17.
+//   - Software-pipelined: key tile i's S = Q K^T is issued together with
+//     tile i - 1's P V, and tile i's softmax runs while that P V is on the
+//     tensor cores; O is rescaled once it has landed.
+//
+// f32, D in {32, 64, 128}: CUDA cores (flash_attention_kernel). Tensor
+// cores would need TF32 (a 10-bit mantissa), which the f32 tolerance
+// forbids. It keeps everything but the K/V tiles out of device memory:
 //   - one block per (64-row query tile, head, batch row); the tiles of a
 //     head run heaviest (latest, under a causal mask) first;
 //   - one thread per query row holds its q row, m, l and acc[D] in
 //     registers (two threads per row, each half of D, for D = 128, whose
 //     partial dot products meet in one warp shuffle);
 //   - each 64-key (32 for D = 128) K and V tile is staged in shared
-//     memory as f32, read by all rows as broadcasts; a row's scores for
-//     the tile wait in shared memory between the max and the exp pass;
+//     memory, read by all rows as broadcasts; a row's scores for the tile
+//     wait in shared memory between the max and the exp pass;
 //   - key tiles wholly outside the causal / window band are skipped, and
 //     the ragged last query and key tiles are masked by bounds checks.
 //
-// Tensor cores (wgmma), TMA and warp specialisation are later work. The
-// products are written as explicit fmaf, so -fmad=false does not split
-// them; expf and the division stay IEEE (no fast math).
+// Both write their products as explicit fmaf / wgmma, so -fmad=false does
+// not split them; the division stays IEEE, and so does the f32 kernel's
+// expf (no fast math).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
+
 
 namespace {
 
@@ -52,13 +89,7 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float x, float* y) { *y = x; }
-__device__ __forceinline__ void store(float x, __nv_bfloat16* y) {
-  *y = __float2bfloat16_rn(x);
-}
 
 // Per head dim: the key tile, the threads per query row and the dynamic
 // shared memory (K and V tiles, then the tile's scores), all <= 48 KB.
@@ -206,9 +237,398 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (q, k, v and the output alike). Returns
+// ---- bf16: the tensor-core kernel -----------------------------------------
+
+namespace {
+
+constexpr int kBM = 128;       // query rows per block: two warpgroups of 64
+constexpr int kThreads = 288;  // two consumer warpgroups, one producer warp
+constexpr int kStages = 5;     // K/V ring depth
+
+struct WParams {
+  int S, T, Hq, group, causal, window;
+  float scale;
+};
+
+// Per head dim: 64 keys per tile (128 keys spill registers, and run
+// slower at D = 64), the swizzle (columns per swizzle row CW, its bytes
+// SW, the descriptor's mode) and shared memory.
+template <int D>
+struct WCfg {
+  static constexpr int BN = 64;
+  static constexpr int CW = D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);
+  static constexpr int SW = CW * 2;
+  static constexpr int NC = D / CW;  // column chunks of a tile
+  static constexpr uint32_t MODE = SW == 128 ? 1 : (SW == 64 ? 2 : 3);
+  static constexpr int Q_BYTES = kBM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;  // one K or V tile
+  static constexpr int BAR_OFF = Q_BYTES + 2 * kStages * KV_BYTES;
+  // + 1024 to align the tiles to the swizzle's repeat
+  static constexpr int SMEM = BAR_OFF + 8 * (2 * kStages + 1) + 1024;
+};
+
+// 2^x by the special-function unit (ex2.approx, about 2 ulp)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ o, WParams p) {
+  using C = WCfg<D>;
+  constexpr int BN = C::BN;
+  constexpr int SW = C::SW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sq = base;                            // [chunk][kBM][CW]
+  uint8_t* sk = base + C::Q_BYTES;               // [stage][chunk][BN][CW]
+  uint8_t* sv = sk + kStages * C::KV_BYTES;      // [stage][chunk][BN][CW]
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = qt * kBM;
+  const int q_hi = min(q0 + kBM, p.S) - 1;
+  const int n_kt = (p.T + BN - 1) / BN;
+  const int kt_end = p.causal ? min(n_kt, q_hi / BN + 1) : n_kt;
+  const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / BN : 0;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * 128);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // producer: one thread issues every copy
+    if (threadIdx.x % 32 != 0) return;
+    const int hk = h / p.group;
+    hopper::mbar_arrive_expect_tx(qbar, C::Q_BYTES);
+    for (int c = 0; c < C::NC; ++c)
+      hopper::tma_load_4d(sq + c * kBM * SW, &tq, qbar, c * C::CW, h, q0, b);
+    for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+      const int s = i % kStages;
+      const uint32_t round = i / kStages;
+      if (i >= kStages) hopper::mbar_wait(&empty[s], (round & 1) ^ 1);
+      hopper::mbar_arrive_expect_tx(&full[s], 2 * C::KV_BYTES);
+      for (int c = 0; c < C::NC; ++c) {
+        const int off = s * C::KV_BYTES + c * BN * SW;
+        hopper::tma_load_4d(sk + off, &tk, &full[s], c * C::CW, hk, kt * BN,
+                            b);
+        hopper::tma_load_4d(sv + off, &tv, &full[s], c * C::CW, hk, kt * BN,
+                            b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows r0 .. r0 + 63; this thread the
+  // accumulator rows row_a and row_a + 8 ("half" 0 and 1), columns
+  // 8 j + 2 (lane % 4) + {0, 1}
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int r0 = q0 + wg * 64;
+  const int row_a = r0 + (warp % 4) * 16 + lane / 4;
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  // scores and maxima in log2 units: s * scale * log2 e, so that
+  // p = 2^(x - m) is exp(s * scale - m'); masked scores are -1e30 there
+  const float scale_log2e = p.scale * kLog2e;
+  float m[2] = {-1e30f, -1e30f};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float sacc[BN / 2];
+  uint32_t ahi[BN / 16][4];  // P = P_hi + P_lo as bf16 A fragments
+  uint32_t alo[BN / 16][4];
+  const uint32_t q_addr = hopper::smem_addr(sq) + wg * 64 * SW;
+
+  // S = Q K^T of the stage's K tile over D in steps of 16 (advancing
+  // inside a swizzle row); issued, not waited for
+  auto issue_qk = [&](int s) {
+    const uint32_t k_addr = hopper::smem_addr(sk + s * C::KV_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 / C::CW;
+      const int e = kk * 16 % C::CW;
+      const uint64_t da = hopper::wgmma_desc(q_addr + c * kBM * SW + e * 2,
+                                             16, 8 * SW, C::MODE);
+      const uint64_t db = hopper::wgmma_desc(k_addr + c * BN * SW + e * 2,
+                                             16, 8 * SW, C::MODE);
+      hopper::wgmma_ss(sacc, da, db, kk > 0 ? 1 : 0);
+    }
+    hopper::wgmma_commit();
+  };
+  // O += P_hi V + P_lo V over the stage's keys in steps of 16; issued
+  auto issue_pv = [&](int s) {
+    const uint32_t v_addr = hopper::smem_addr(sv + s * C::KV_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t dv = hopper::wgmma_desc(v_addr + kk * 16 * SW, BN * SW,
+                                             8 * SW, C::MODE);
+      hopper::wgmma_rs(oacc, ahi[kk], dv);
+      hopper::wgmma_rs(oacc, alo[kk], dv);
+    }
+    hopper::wgmma_commit();
+  };
+  // key tile kt's scores in sacc: scale, the mask where the tile crosses
+  // an edge of the band, then the online softmax (p in place of s); returns
+  // each row's correction of the running sums in corr
+  auto softmax = [&](int kt, float* corr) {
+#pragma unroll
+    for (int i2 = 0; i2 < BN / 2; ++i2)
+      hopper::warpgroup_fence_operand(sacc[i2]);
+    const int kv0 = kt * BN;
+    const bool edge = kv0 + BN > p.T || (p.causal && kv0 + BN - 1 > r0) ||
+                      (p.window > 0 && r0 + 63 - kv0 >= p.window);
+#pragma unroll
+    for (int i2 = 0; i2 < BN / 2; ++i2) {
+      float x = sacc[i2] * scale_log2e;
+      if (edge) {
+        const int col = kv0 + 8 * (i2 / 4) + 2 * (lane % 4) + (i2 % 2);
+        const int row = row_a + 8 * ((i2 / 2) % 2);
+        bool ok = col < p.T;
+        if (p.causal) ok = ok && col <= row;
+        if (p.window > 0) ok = ok && (row - col < p.window);
+        x = ok ? x : -1e30f;
+      }
+      sacc[i2] = x;
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = -1e30f;
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj) {
+        mx = fmaxf(mx, sacc[4 * jj + 2 * half]);
+        mx = fmaxf(mx, sacc[4 * jj + 2 * half + 1]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[half], mx);
+      corr[half] = fast_exp2(m[half] - m_new);
+      m[half] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pv = fast_exp2(sacc[4 * jj + 2 * half + e] - m_new);
+          sacc[4 * jj + 2 * half + e] = pv;
+          sum += pv;
+        }
+      }
+      l[half] = l[half] * corr[half] + sum;
+    }
+  };
+  // P as the A fragments, hi and lo: registers r of step kk hold the
+  // accumulator pair 8 kk + 2 r, 8 kk + 2 r + 1
+  auto convert = [&] {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x0 = sacc[8 * kk + 2 * r];
+        const float x1 = sacc[8 * kk + 2 * r + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        ahi[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
+        alo[kk][r] = pack_bf16(x0 - __low2float(hi), x1 - __high2float(hi));
+      }
+    }
+  };
+  auto rescale = [&](const float* corr) {
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      oacc[4 * jj] *= corr[0];
+      oacc[4 * jj + 1] *= corr[0];
+      oacc[4 * jj + 2] *= corr[1];
+      oacc[4 * jj + 3] *= corr[1];
+    }
+  };
+
+  // Software-pipelined over the key tiles: tile i's S = Q K^T runs on the
+  // tensor cores together with tile i - 1's P V, and tile i's softmax
+  // overlaps that P V; O is rescaled once it has landed.
+  hopper::mbar_wait(qbar, 0);
+  if (kt_begin < kt_end) {
+    float corr[2];
+    hopper::mbar_wait(&full[0], 0);
+    hopper::wgmma_fence();
+    issue_qk(0);
+    hopper::wgmma_wait<0>();
+    softmax(kt_begin, corr);
+    convert();
+    int prev = 0;
+    for (int kt = kt_begin + 1, i = 1; kt < kt_end; ++kt, ++i) {
+      const int s = i % kStages;
+      hopper::mbar_wait(&full[s], (i / kStages) & 1);
+#pragma unroll
+      for (int i2 = 0; i2 < D / 2; ++i2)
+        hopper::warpgroup_fence_operand(oacc[i2]);
+      hopper::wgmma_fence();
+      issue_qk(s);
+      issue_pv(prev);
+      hopper::wgmma_wait<1>();  // S of tile i
+      softmax(kt, corr);
+      hopper::wgmma_wait<0>();  // P V of tile i - 1
+#pragma unroll
+      for (int i2 = 0; i2 < D / 2; ++i2)
+        hopper::warpgroup_fence_operand(oacc[i2]);
+      hopper::mbar_arrive(&empty[prev]);
+      rescale(corr);
+      convert();
+      prev = s;
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < D / 2; ++i2)
+      hopper::warpgroup_fence_operand(oacc[i2]);
+    hopper::wgmma_fence();
+    issue_pv(prev);
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int i2 = 0; i2 < D / 2; ++i2)
+      hopper::warpgroup_fence_operand(oacc[i2]);
+    hopper::mbar_arrive(&empty[prev]);
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float lt = l[half] + __shfl_xor_sync(0xffffffffu, l[half], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float denom = fmaxf(lt, 1e-30f);
+    const int row = row_a + 8 * half;
+    if (row >= p.S) continue;
+    __nv_bfloat16* orow =
+        o + (((long long)b * p.S + row) * p.Hq + h) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const __nv_bfloat162 v2 =
+          __floats2bfloat162_rn(oacc[4 * jj + 2 * half] / denom,
+                                oacc[4 * jj + 2 * half + 1] / denom);
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jj) = v2;
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The 4-D bf16 view (B, L, H, D) with element strides (sb, sl, sh) and a
+// unit-stride D, cut into boxes of `rows` positions x cw columns of one
+// head of one batch row.
+bool encode(CUtensorMap* map, const void* ptr, int B, int L, int H, int D,
+            long long sb, long long sl, long long sh, int cw, int rows,
+            int sw_bytes) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cw, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = sw_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : sw_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int Hk, const long long* st, const WParams& p,
+                 cudaStream_t stream) {
+  using C = WCfg<D>;
+  CUtensorMap tq, tk, tv;
+  if (!encode(&tq, q, B, p.S, p.Hq, D, st[0], st[1], st[2], C::CW, kBM,
+              C::SW) ||
+      !encode(&tk, k, B, p.T, Hk, D, st[3], st[4], st[5], C::CW, C::BN,
+              C::SW) ||
+      !encode(&tv, v, B, p.T, Hk, D, st[6], st[7], st[8], C::CW, C::BN,
+              C::SW))
+    return (int)cudaErrorInvalidValue;
+  // the dynamic shared memory past 48 KB, once per device
+  static uint64_t attr_set = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(attr_set >> dev & 1)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attr_set |= uint64_t(1) << dev;
+  }
+  const dim3 grid((p.S + kBM - 1) / kBM, p.Hq, B);
+  flash_wgmma_kernel<D><<<grid, kThreads, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), p);
+  return (int)cudaGetLastError();
+}
+
+int launch_wgmma_d(const void* q, const void* k, const void* v, void* o,
+                   int B, int Hk, int D, const long long* st,
+                   const WParams& p, cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      return launch_wgmma<32>(q, k, v, o, B, Hk, st, p, stream);
+    case 64:
+      return launch_wgmma<64>(q, k, v, o, B, Hk, st, p, stream);
+    case 96:
+      return launch_wgmma<96>(q, k, v, o, B, Hk, st, p, stream);
+    case 112:
+      return launch_wgmma<112>(q, k, v, o, B, Hk, st, p, stream);
+    case 128:
+      return launch_wgmma<128>(q, k, v, o, B, Hk, st, p, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = f32 (the CUDA-core kernel), 1 = bf16 (the tensor-core
+// kernel; the wrapper has checked TMA's rule: 16-byte-aligned bases and
+// strides). q, k, v and the output share the dtype. Returns
 // cudaGetLastError() after the launch (0 when it was accepted), or
-// cudaErrorInvalidValue for a dtype or head dim it has no instance of.
+// cudaErrorInvalidValue for a dtype or head dim it has no instance of or a
+// view the tensor maps refuse.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int S, int T, int Hq, int Hk, int D, long long qs_b, long long qs_s,
@@ -217,10 +637,17 @@ extern "C" int flash_attention_fwd(
     float scale, void* stream) {
   if (B <= 0 || S <= 0 || Hq <= 0) return 0;
   if (T <= 0 || Hk <= 0 || Hq % Hk != 0) return (int)cudaErrorInvalidValue;
-  Params p{S,    T,    Hq,   Hq / Hk, causal, window, qs_b, qs_s,
-           qs_h, ks_b, ks_s, ks_h,    vs_b,   vs_s,   vs_h, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(q, k, v, o, B, D, p, st);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(q, k, v, o, B, D, p, st);
+  if (dtype == 0) {
+    Params p{S,    T,    Hq,   Hq / Hk, causal, window, qs_b, qs_s,
+             qs_h, ks_b, ks_s, ks_h,    vs_b,   vs_s,   vs_h, scale};
+    return launch_d<float>(q, k, v, o, B, D, p, st);
+  }
+  if (dtype == 1) {
+    const long long strides[9] = {qs_b, qs_s, qs_h, ks_b, ks_s,
+                                  ks_h, vs_b, vs_s, vs_h};
+    WParams p{S, T, Hq, Hq / Hk, causal, window, scale};
+    return launch_wgmma_d(q, k, v, o, B, Hk, D, strides, p, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -18,6 +18,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("fused_adam", "gossip", "sign_compress", "flash_attention",
@@ -108,3 +110,15 @@ def check(status: int, what: str) -> None:
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
                            f"{status}")
+
+
+def launch(entry, device: torch.device, *args) -> int:
+    """Call the C entry point with ``args`` and then the current stream of
+    ``device``, with ``device`` current. It switches the current device
+    only when another one is current, and reads the raw stream handle
+    (``torch.cuda.current_stream`` builds a Stream object): both cost more
+    host time than a short kernel takes on the card."""
+    if device.index == torch.cuda.current_device():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return entry(*args, torch.cuda.current_stream().cuda_stream)

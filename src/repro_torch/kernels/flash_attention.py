@@ -15,9 +15,12 @@ A row with no valid key at all (window > 0 and ``S >= T + window``) would
 get an output that depends on how the TPU kernel tiles the keys; both
 versions here raise ``ValueError`` for such shapes instead.
 
-:func:`flash_attention` launches ``csrc/flash_attention.cu`` (f32 or bf16,
-D in 32 / 64 / 128; it reads the operands through their strides) and
-counts each launch in ``flash_attention.launches``;
+:func:`flash_attention` launches ``csrc/flash_attention.cu`` and counts
+each launch in ``flash_attention.launches``: bf16 operands (D in 32 / 64 /
+96 / 112 / 128) go to the tensor-core kernel, which loads them with TMA
+and so needs 16-byte-aligned bases and strides (it raises on anything
+else: no copy, no fallback); f32 operands (D in 32 / 64 / 128) go to the
+CUDA-core kernel. Both read the operands through their strides.
 :func:`flash_attention_plain` materialises the f32 scores, as
 ``repro.kernels.ref.flash_attention_ref`` does. ``kernels.ops`` picks
 between them by the operands' device. Neither has a backward: the TPU
@@ -36,8 +39,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fused_adam import f32
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+# the kernels' instances per operand dtype
+HEAD_DIMS = {torch.float32: (32, 64, 128),
+             torch.bfloat16: (32, 64, 96, 112, 128)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TMA_ALIGN = 16  # bytes: TMA's rule for a tensor map's base and strides
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -99,12 +105,27 @@ def _entry():
     return fn
 
 
+def _check_tma(t: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless a bf16 operand's base and (batch, seq,
+    head) strides are multiples of 16 bytes, as its tensor map needs."""
+    if t.data_ptr() % TMA_ALIGN:
+        raise ValueError(f"flash_attention (bf16) loads its operands with "
+                         f"TMA, which needs a {TMA_ALIGN}-byte-aligned base; "
+                         f"got a view at {t.data_ptr() % TMA_ALIGN} bytes "
+                         "past one")
+    if any(st * t.element_size() % TMA_ALIGN for st in t.stride()[:3]):
+        raise ValueError(f"flash_attention (bf16) loads its operands with "
+                         f"TMA, which needs strides that are multiples of "
+                         f"{TMA_ALIGN} bytes; got strides {tuple(t.stride())}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors of one dtype (f32 or bf16)
-    with a unit-stride head dim of 32, 64 or 128; returns a new contiguous
-    ``(B, S, Hq, D)`` tensor. Raises on anything the kernel does not
-    take."""
+    """Launch the CUDA kernel on CUDA tensors of one dtype with a
+    unit-stride head dim: bf16 with D in 32 / 64 / 96 / 112 / 128 and TMA's
+    16-byte alignment, or f32 with D in 32 / 64 / 128. Returns a new
+    contiguous ``(B, S, Hq, D)`` tensor. Raises on anything the kernel
+    does not take."""
     B, S, Hq, D, T, Hk = check_shapes(q, k, v, window=window)
     for t in (q, k, v):
         if not t.is_cuda or t.device != q.device:
@@ -117,17 +138,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"{v.dtype}")
         if t.stride(-1) != 1:
             raise ValueError("flash_attention needs a unit-stride head dim")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention has kernels for head dims "
-                         f"{HEAD_DIMS}; got {D}")
-    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    if D not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"flash_attention has {q.dtype} kernels for head "
+                         f"dims {HEAD_DIMS[q.dtype]}; got {D}")
+    if q.dtype == torch.bfloat16:
+        for t in (q, k, v):
+            _check_tma(t)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), _DTYPES[q.dtype], B, S, T, Hq, Hk,
-                          D, *strides, int(causal), int(window or 0),
-                          f32(1.0 / math.sqrt(D)), stream)
+    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    status = _build.launch(_entry(), q.device, q.data_ptr(), k.data_ptr(),
+                           v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], B,
+                           S, T, Hq, Hk, D, *strides, int(causal),
+                           int(window or 0), f32(1.0 / math.sqrt(D)))
     _build.check(status, "flash_attention")
     flash_attention.launches += 1
     return out

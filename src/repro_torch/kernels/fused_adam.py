@@ -104,11 +104,8 @@ def fused_adam(p, g, m, v, *, eta: float, beta1: float = 0.9,
                   torch.empty_like(v))
     ptrs = [t.data_ptr() for t in (p, g, m, v, po, mo, vo)]
     vec = int(all(x % 16 == 0 for x in ptrs))
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _entry()(*ptrs, p.numel(), vec,
-                          *adam_consts(eta, beta1, beta2, tau, weight_decay),
-                          stream)
+    status = _build.launch(_entry(), p.device, *ptrs, p.numel(), vec,
+                           *adam_consts(eta, beta1, beta2, tau, weight_decay))
     _build.check(status, "fused_adam")
     fused_adam.launches += 1
     return po, mo, vo

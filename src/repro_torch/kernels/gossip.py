@@ -261,10 +261,9 @@ def gossip_mix(x: torch.Tensor, offsets: Sequence,
     out = torch.empty_like(x)
     _check_aligned(x, out)
     mix, _, _, _ = _entries()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = mix(x.data_ptr(), out.data_ptr(), src.data_ptr(),
-                     w.data_ptr(), K, len(offs), x[0].numel(), stream)
+    status = _build.launch(mix, x.device, x.data_ptr(), out.data_ptr(),
+                           src.data_ptr(), w.data_ptr(), K, len(offs),
+                           x[0].numel())
     _build.check(status, "gossip_mix")
     gossip_mix.launches += 1
     return out
@@ -285,14 +284,11 @@ def gossip_adam_mix(p, g, m, v, offsets: Sequence,
                   torch.empty_like(v))
     _check_aligned(p, g, m, v, po, mo, vo)
     _, gam, _, _ = _entries()
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = gam(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-                     po.data_ptr(), mo.data_ptr(), vo.data_ptr(),
-                     src.data_ptr(), w.data_ptr(), K, len(offs),
-                     p[0].numel(),
-                     *adam_consts(eta, beta1, beta2, tau, weight_decay),
-                     stream)
+    status = _build.launch(gam, p.device, p.data_ptr(), g.data_ptr(),
+                           m.data_ptr(), v.data_ptr(), po.data_ptr(),
+                           mo.data_ptr(), vo.data_ptr(), src.data_ptr(),
+                           w.data_ptr(), K, len(offs), p[0].numel(),
+                           *adam_consts(eta, beta1, beta2, tau, weight_decay))
     _build.check(status, "gossip_adam_mix")
     gossip_adam_mix.launches += 1
     return po, mo, vo
@@ -320,11 +316,9 @@ def consensus_mix(x: torch.Tensor, hat_self: torch.Tensor,
     ptrs = (ctypes.c_void_p * deg)(*(h.data_ptr() for h in hat_nbrs))
     w = (ctypes.c_float * deg)(*(f32(v) for v in weights))
     _, _, con, _ = _entries()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = con(x.data_ptr(), hat_self.data_ptr(), out.data_ptr(),
-                     ctypes.addressof(ptrs), ctypes.addressof(w), deg,
-                     x.numel(), f32(gamma), stream)
+    status = _build.launch(con, x.device, x.data_ptr(), hat_self.data_ptr(),
+                           out.data_ptr(), ctypes.addressof(ptrs),
+                           ctypes.addressof(w), deg, x.numel(), f32(gamma))
     _build.check(status, "consensus_mix")
     consensus_mix.launches += 1
     return out
@@ -355,11 +349,10 @@ def payload_mix(x: torch.Tensor, payloads: Sequence[torch.Tensor],
         ptrs = (ctypes.c_void_p * len(chunk))(*(p.data_ptr() for p in chunk))
         w = (ctypes.c_float * len(chunk))(
             *(f32(v) for v in weights[i:i + MAX_FUSED_DEGREE]))
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            status = pay(acc.data_ptr(), out.data_ptr(),
-                         ctypes.addressof(ptrs), ctypes.addressof(w),
-                         len(chunk), x.numel(), f32(w_self), stream)
+        status = _build.launch(pay, x.device, acc.data_ptr(),
+                               out.data_ptr(), ctypes.addressof(ptrs),
+                               ctypes.addressof(w), len(chunk), x.numel(),
+                               f32(w_self))
         _build.check(status, "payload_mix")
         payload_mix.launches += 1
         w_self = 1.0

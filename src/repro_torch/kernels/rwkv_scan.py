@@ -116,12 +116,11 @@ def rwkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y = torch.empty((B, S, H, D), dtype=torch.float32, device=r.device)
     final = torch.empty_like(state)
     strides = [s for t in (r, k, v, w) for s in t.stride()[:3]]
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _entry()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          w.data_ptr(), u.data_ptr(), state.data_ptr(),
-                          y.data_ptr(), final.data_ptr(), _DTYPES[r.dtype],
-                          B, S, H, D, *strides, u.stride(0), stream)
+    status = _build.launch(_entry(), r.device, r.data_ptr(), k.data_ptr(),
+                           v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                           state.data_ptr(), y.data_ptr(), final.data_ptr(),
+                           _DTYPES[r.dtype], B, S, H, D, *strides,
+                           u.stride(0))
     _build.check(status, "rwkv_scan")
     rwkv_scan.launches += 1
     return y, final

@@ -172,13 +172,11 @@ def _launch(x: torch.Tensor, hat: torch.Tensor, K: int, n: int,
     # 16-byte accesses when every tile of every worker starts aligned
     vec = int((K == 1 or n % 4 == 0) and all(a % 4 == 0 for a, _ in bounds)
               and all(t.data_ptr() % 16 == 0 for t in (x, hat, q, hat_new)))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _entry()(x.data_ptr(), hat.data_ptr(), q.data_ptr(),
-                          hat_new.data_ptr(), scales.data_ptr(),
-                          partials.data_ptr(), start.data_ptr(),
-                          end.data_ptr(), seg.data_ptr(), first.data_ptr(),
-                          div.data_ptr(), K, T, L, n, vec, stream)
+    status = _build.launch(_entry(), x.device, x.data_ptr(), hat.data_ptr(),
+                           q.data_ptr(), hat_new.data_ptr(),
+                           scales.data_ptr(), partials.data_ptr(),
+                           start.data_ptr(), end.data_ptr(), seg.data_ptr(),
+                           first.data_ptr(), div.data_ptr(), K, T, L, n, vec)
     _build.check(status, "sign_compress")
     return q, scales, hat_new
 

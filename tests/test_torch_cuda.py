@@ -186,12 +186,14 @@ def test_cuda_wrappers_count_launches_and_reject_bad_operands(cuda):
                        topo.offsets, topo.offset_weights, topo.self_weight)
 
 
-# The flash kernel sums the dot products and the softmax-weighted values
-# in another order than the plain version's einsums (explicit FMAs, one
-# key tile at a time), so in f32 it is held to tests/test_kernels.py's
-# 2e-5. In bf16 both round nearly the same f32 value once: at most one
-# bf16 ulp apart, at most 2**-7 of the value (rtol 8e-3), plus the f32
-# difference where the output is near zero (atol 2e-5).
+# The flash kernels sum the dot products and the softmax-weighted values
+# in another order than the plain version's einsums (one key tile at a
+# time), so in f32 they are held to tests/test_kernels.py's 2e-5; the
+# bf16 tensor-core kernel also carries p as bf16 hi + lo (to ~2**-17)
+# and takes its exponentials by ex2.approx (~1e-6). In bf16 both round
+# nearly the same f32 value once: at most one bf16 ulp apart, at most
+# 2**-7 of the value (rtol 8e-3), plus the f32 difference where the
+# output is near zero (atol 2e-5).
 FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
              torch.bfloat16: dict(rtol=8e-3, atol=2e-5)}
 # chip_smoke.py's shapes: (B, S, T, Hq, Hk, D, dtype, causal, window)
@@ -203,6 +205,10 @@ FLASH_CASES = {
                             False, 0),
     "ragged_1021": (2, 1021, 1021, 32, 8, 64, torch.bfloat16, True, 0),
     "d32_window_strided": (2, 300, 300, 8, 2, 32, torch.float32, True, 16),
+    "d96_bf16": (2, 1024, 1024, 32, 8, 96, torch.bfloat16, True, 0),
+    "d112_bf16": (2, 1024, 1024, 32, 8, 112, torch.bfloat16, True, 0),
+    "non_causal_bf16_s_ne_t": (2, 300, 700, 8, 2, 64, torch.bfloat16,
+                               False, 0),
 }
 
 
@@ -237,6 +243,22 @@ def test_cuda_flash_attention_rejects_what_it_does_not_take(cuda):
     every_other = torch.zeros((1, 16, 2, 128), device="cuda")[..., ::2]
     with pytest.raises(ValueError, match="unit-stride"):
         tflash.flash_attention(q, every_other, q)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_rejects_unaligned_bf16_views(cuda):
+    """The bf16 kernel loads q, k and v with TMA: a view whose base is 2
+    bytes past a 16-byte boundary raises instead of launching."""
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device="cuda")
+    flat = torch.zeros(64 * 2 * 64 + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = flat[1:].view(1, 64, 2, 64)
+    before = tflash.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        tflash.flash_attention(q, shifted, q)
+    wide = torch.zeros((1, 64, 2, 68), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        tflash.flash_attention(q, wide[..., :64], q)
+    assert tflash.flash_attention.launches == before
 
 
 @pytest.mark.gpu
@@ -287,6 +309,7 @@ WKV_CASES = {
     "decode": (8, 1, 40, 64, torch.bfloat16),
     "d32_f32_ragged": (2, 1000, 8, 32, torch.float32),
     "d128_f32": (2, 96, 4, 128, torch.float32),
+    "decode_b1": (1, 1, 40, 64, torch.bfloat16),
 }
 
 
@@ -331,6 +354,28 @@ def test_cuda_rwkv_scan_state_continuity(cuda):
                             u, s1)
     torch.cuda.synchronize()
     assert torch.equal(torch.cat([y1, y2], 1), y) and torch.equal(s2, st)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 37])
+def test_cuda_rwkv_scan_reads_unaligned_views(cuda, S):
+    """r, k, v, w, u and the state one element past a 16-byte boundary
+    take the kernel's plain loads instead of its 16-byte copies (the state
+    its scalar reads instead of float2): same state, same y."""
+    r, k, v, w, u, s0 = wkv_inputs(2, S, 4, 64, torch.bfloat16, seed=2)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    ins = [shifted(t) for t in (r, k, v, w, u, s0)]
+    y, st = twkv.rwkv_scan(*ins)
+    want_y, want_st = twkv.rwkv_scan_plain(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert torch.equal(st, want_st)
+    close([y], [want_y], **WKV_Y_TOL)
 
 
 @pytest.mark.gpu

@@ -7,8 +7,10 @@ exactly and returns views of the buffer, padding is zero, non-float leaves
 are rejected, and DeepFM's leaf order and row ranges agree at the paper's
 full width.
 """
+import collections
 import gc
 import weakref
+from typing import Any, NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -129,6 +131,58 @@ def test_tree_flatten_sorts_dict_keys_like_jax():
     assert leaves == jax.tree_util.tree_leaves(tree)
     assert _tree.tree_unflatten(td, leaves) == tree
     assert _tree.tree_map(lambda x, y: x + y, tree, tree)["a"][1]["y"] == 6.0
+
+
+class _Pair(NamedTuple):
+    a: Any
+    b: Any
+
+
+class _OtherPair(NamedTuple):
+    a: Any
+    b: Any
+
+
+@pytest.mark.parametrize("case", ["none", "ordered_dict", "namedtuple"])
+def test_tree_nodes_match_jax_tree_util(case):
+    """``None``, ``OrderedDict`` and NamedTuple nodes flatten, rebuild and
+    map as ``jax.tree_util`` does them (numpy leaves on both sides)."""
+    rng = np.random.default_rng(0)
+    x, y, z = (rng.standard_normal(3).astype(np.float32) for _ in range(3))
+    if case == "none":
+        tree = {"a": None, "b": x}
+    elif case == "ordered_dict":
+        tree = collections.OrderedDict([("z", x), ("a", y), ("m", z)])
+    else:
+        tree = {"s": _Pair(x, [y, None]), "t": z}
+    leaves, td = _tree.tree_flatten(tree)
+    jleaves, jtd = jax.tree_util.tree_flatten(tree)
+    assert len(leaves) == len(jleaves)
+    assert all(a is b for a, b in zip(leaves, jleaves))
+    back = _tree.tree_unflatten(td, leaves)
+    jback = jax.tree_util.tree_unflatten(jtd, jleaves)
+    assert type(back) is type(jback)
+    mapped = _tree.tree_map(lambda v: v * 2, tree)
+    jmapped = jax.tree_util.tree_map(lambda v: v * 2, tree)
+    assert jax.tree_util.tree_structure(mapped) == \
+        jax.tree_util.tree_structure(jmapped)
+    for a, b in zip(_tree.tree_leaves(mapped),
+                    jax.tree_util.tree_leaves(jmapped)):
+        np.testing.assert_array_equal(a, b)
+    if case == "none":
+        assert len(leaves) == 1 and back["a"] is None
+        assert mapped["a"] is None
+    elif case == "ordered_dict":
+        assert list(back) == ["z", "a", "m"]
+        assert isinstance(mapped, collections.OrderedDict)
+        assert [v is w for v, w in zip(leaves, (x, y, z))] == [True] * 3
+    else:
+        assert type(mapped["s"]) is _Pair and mapped["s"].b[1] is None
+        other = {"s": _OtherPair(x, [y, None]), "t": z}
+        with pytest.raises(ValueError, match="structures differ"):
+            _tree.tree_map(lambda u, v: u + v, tree, other)
+        with pytest.raises(ValueError):
+            jax.tree_util.tree_map(lambda u, v: u + v, tree, other)
 
 
 def test_tree_map_keeps_no_leaf_alive():
