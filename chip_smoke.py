@@ -11,10 +11,11 @@ script exits non-zero without the final ``ok`` line:
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a);
 3. kernels: each CUDA kernel against its plain PyTorch version at the main
    path's shape, the resident ``(8, 89344, 128)`` f32 state of full-width
-   DeepFM on a K=8 ring (``sign_compress_stacked`` over DeepFM's 11 leaf
-   segments and over the whole buffer; ``sign_compress`` over one
-   worker's 11,202,602 elements; ``payload_mix`` with the ring's 2
-   payloads and one-peer-exponential's union of 5), with CUDA-event times
+   DeepFM on a K=8 ring (``fused_adam`` beside ``torch._fused_adam_``,
+   held to the same plain version; ``sign_compress_stacked`` over
+   DeepFM's 11 leaf segments and over the whole buffer; ``sign_compress``
+   over one worker's 11,202,602 elements; ``payload_mix`` with the ring's
+   2 payloads and one-peer-exponential's union of 5), with CUDA-event times
    (median of 20 after warm-up) beside the least time the card's memory
    rate allows; then the CD-Adam neighbour-copy update, plain torch ops,
    timed alone;
@@ -69,17 +70,27 @@ script exits non-zero without the final ``ok`` line:
    (2, 128) prefill and 4 decode steps.
 
 The kernels phase also holds ``flash_attention`` against its plain
-version at seven shapes: the serve bucket's prefill, an 8192-token prompt,
-a 512-key window, a non-causal f32 D=128 case, a ragged S=1021, and bf16
-head dims 96 and 112 (the tensor-core kernel takes bf16, the CUDA-core
-one f32; each record names its ``design``); at each it times the one SDPA
-call that computes the same function. And it
+version at eleven shapes: the serve bucket's prefill, an 8192-token
+prompt, a 512-key window, a non-causal f32 D=128 case, a ragged S=1021,
+bf16 head dims 96 and 112, and in f32 the serve bucket and head dims 96,
+112 and 32 (bf16 runs the wgmma kernel, f32 the 3xTF32 one; each record names
+its ``design``); at each it times the one SDPA call that computes the
+same function, and names the CUDA kernels that call launched. And it
 holds ``rwkv_scan`` against its plain version at the serve bucket's
 prefill, a (1, 128) prefill, a decode step, a ragged f32 D=32 S=1000 case
 and a 1024-step sequence cut into two calls that carry the state.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 at once.
+
+    python3 chip_smoke.py --parent DIR
+
+times the f32 ``flash_attention`` cases and ``gossip_adam_mix`` of the
+tree at DIR (an earlier commit unpacked by ``git archive <commit> | tar
+-x -C DIR``, its kernels built in its own tree) against this tree's, one
+process per turn in the order parent, change, change, parent, then prints
+the medians of each side and the ``nvidia-smi`` line; it runs no other
+phase and prints no ``ok`` line.
 """
 from __future__ import annotations
 
@@ -105,6 +116,7 @@ SHAPE = (K, 89344, 128)          # the resident buffer of full-width DeepFM
 FULL = dict(n_fields=39, features_per_field=25_000, embed_dim=10,
             hidden=(400, 400, 400), per_worker=512)
 ETA = 1e-3
+ADAM = dict(eta=ETA, beta1=0.9, beta2=0.999, tau=1e-6, weight_decay=0.0)
 REPS = 20
 # A kernel and its plain version run the same f32 operations in the same
 # order (the kernels are built without FMA contraction), so they agree to
@@ -143,13 +155,16 @@ NO_STACKED_SUM = ("none: no single PyTorch call sums these operands "
                   "without first stacking them")
 GAMMA = 0.4
 PARAMS = 11_202_602
-# the dense bf16 tensor-core peak of the H100 SXM at 700 W (operations/s)
+# the dense bf16 and TF32 tensor-core peaks of the H100 SXM at 700 W
+# (operations/s)
 BF16_RATE = 989e12
+TF32_RATE = 495e12
 # flash_attention against its plain version. Both accumulate in f32 and
-# differ only by the order of the sums (f32: tests/test_kernels.py's
-# 2e-5); the bf16 tensor-core kernel also carries p as bf16 hi + lo (to
-# ~2**-17) and takes its exponentials by ex2.approx (~1e-6), both far
-# below the atol. In bf16 both round nearly the same f32 value once, so
+# differ by the order of the sums (f32: tests/test_kernels.py's 2e-5),
+# by the exponentials (ex2.approx, ~1e-6) and by the kernels' splits: the
+# bf16 kernel carries p as bf16 hi + lo (to ~2**-17), the f32 kernel each
+# product as three TF32 products (hi.hi + hi.lo + lo.hi, to ~2**-21), all
+# far below the atol. In bf16 both round nearly the same f32 value once, so
 # they differ by at most one bf16 ulp, at most 2**-7 of the value (rtol
 # 8e-3), plus the f32 difference where the output is near zero (atol
 # 2e-5).
@@ -166,7 +181,16 @@ FLASH_CASES = (
     ("ragged S=1021", 2, 1021, 1021, 32, 8, 64, torch.bfloat16, True, 0),
     ("D=96", 2, 1024, 1024, 32, 8, 96, torch.bfloat16, True, 0),
     ("D=112", 2, 1024, 1024, 32, 8, 112, torch.bfloat16, True, 0),
+    ("serve bucket prefill, f32", 8, 1024, 1024, 32, 8, 64, torch.float32,
+     True, 0),
+    ("D=96 f32", 2, 1024, 1024, 32, 8, 96, torch.float32, True, 0),
+    ("D=112 f32", 2, 1024, 1024, 32, 8, 112, torch.float32, True, 0),
+    ("D=32 f32", 2, 1024, 1024, 32, 8, 32, torch.float32, True, 0),
 )
+# --parent: the f32 flash cases above that a tree takes, and
+# gossip_adam_mix at SHAPE on the ring, timed in one process per turn of
+# parent (P) and change (C)
+AB_ORDER = "PCCP"
 # serving: llama3.2-1b at full width over two buckets; the prompts fill
 # the (8, 1024) bucket (1024 x 5), pad it in seq and take the rewind
 # (1000 x 2, 700), split a group over the (1, 128) bucket (128 x 2) and
@@ -214,8 +238,9 @@ WKV_CASES = (
 NO_WKV_LIBRARY = "none: no PyTorch call computes the WKV recurrence"
 # the CUDA functions each serving kernel's wrapper launches, as the
 # profiler names them (bf16 and f32 flash are two designs)
-KERNEL_FUNCTIONS = {"flash_attention": ("flash_wgmma_kernel",
-                                        "flash_attention_kernel"),
+FLASH_FUNCTION = {torch.bfloat16: "flash_wgmma_kernel",
+                  torch.float32: "flash_tf32x3_kernel"}
+KERNEL_FUNCTIONS = {"flash_attention": tuple(FLASH_FUNCTION.values()),
                     "rwkv_scan": ("rwkv_scan_kernel",)}
 SERVE_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 SERVE_BF16_RATIO = 1.25
@@ -349,6 +374,27 @@ def phase_env():
     return name, smi
 
 
+def kernel_label(mangled: str) -> str:
+    """``name<dtype,D>`` of a mangled kernel: the name is the one
+    "<length><name>" that ends in ``_kernel``, then its template args
+    ("I...E"; the dtype where the template takes one, the head dim)."""
+    for at in range(len(mangled)):
+        digits = re.match(r"\d+", mangled[at:])
+        if not digits:
+            continue
+        start = at + digits.end()
+        name = mangled[start:start + int(digits.group())]
+        if re.fullmatch(r"[a-z_][a-z0-9_]*_kernel", name):
+            args = re.match(r"I.*?E", mangled[start + len(name):])
+            if not args:
+                return name
+            dt = ("bf16," if "bfloat16" in args.group() else
+                  "f32," if args.group().startswith("If") else "")
+            d = re.search(r"Li(\d+)E", args.group())
+            return f"{name}<{dt}{d.group(1) if d else '?'}>"
+    return "?"
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -362,18 +408,9 @@ def phase_build():
         log = (lib.parent / f"lib{name}.log").read_text()
         entry = "?"
         for ln in log.splitlines():
-            found = re.search(r"entry function '.*?\d+([a-z_]+_kernel)"
-                              r"(I.*?E)?E", ln)
+            found = re.search(r"entry function '(\w+)'", ln)
             if found:
-                entry = found.group(1)
-                args = found.group(2)
-                if args:
-                    # the dtype where the template takes one (the wgmma
-                    # kernel is bf16 only and takes the head dim alone)
-                    dt = ("bf16," if "bfloat16" in args else
-                          "f32," if args.startswith("If") else "")
-                    d = re.search(r"Li(\d+)E", args)
-                    entry += f"<{dt}{d.group(1) if d else '?'}>"
+                entry = kernel_label(found.group(1))
             elif "Used" in ln:
                 regs[f"{name}:{entry}"] = ln.split("ptxas info    : ")[-1]
     emit({"phase": "build", "seconds": round(seconds, 3),
@@ -414,10 +451,27 @@ def phase_kernels():
     # first round's view
     union = one_peer_exponential(K).union_views()[0]
     deg = len(topo.offsets)
-    adam = dict(eta=ETA, beta1=0.9, beta2=0.999, tau=1e-6, weight_decay=0.0)
+    adam = ADAM
     W = torch.as_tensor(topo.weights, dtype=torch.float32, device="cuda")
     buf_bytes = p.numel() * p.element_size()
     n = p.numel()
+    # torch._fused_adam_ computes the same update (weight decay as L2 on
+    # g; with tau as eps) once its bias corrections are 1: a step of 1e7
+    # rounds 1 - beta^step to 1. It updates in place, so it runs on copies.
+    lib_p, lib_m, lib_v = p.clone(), m.clone(), v.clone()
+    lib_step = torch.tensor(1e7, device="cuda")
+
+    def fused_adam_library():
+        torch._fused_adam_(
+            [lib_p], [g], [lib_m], [lib_v], [], [lib_step], lr=adam["eta"],
+            beta1=adam["beta1"], beta2=adam["beta2"],
+            weight_decay=adam["weight_decay"], eps=adam["tau"],
+            amsgrad=False, maximize=False)
+        return lib_p, lib_m, lib_v
+
+    fused_adam_library_err = compare(
+        fused_adam_library(), fa.fused_adam_plain(p, g, m, v, **adam),
+        KERNEL_TOL, "torch._fused_adam_ against fused_adam_plain")[0]
     # f32 operations per element: Adam half-step 12 (3 for m, 4 for v, 4
     # for the step incl. sqrt and division, 1 for p); mix 1 + 2 per offset
     cases = [
@@ -425,19 +479,25 @@ def phase_kernels():
              replaces="src/repro/kernels/fused_adam.py:66",
              kernel=lambda: fa.fused_adam(p, g, m, v, **adam),
              plain=lambda: fa.fused_adam_plain(p, g, m, v, **adam),
-             library=None, bytes=7 * buf_bytes, ops=12 * n),
+             library=fused_adam_library,
+             library_desc="torch._fused_adam_ (state_steps 1e7: bias "
+                          "corrections 1; checked against the plain "
+                          "version within KERNEL_TOL)",
+             library_err=fused_adam_library_err,
+             bytes=7 * buf_bytes, ops=12 * n),
         dict(name="gossip_mix", source="src/repro_torch/csrc/gossip.cu",
              replaces="src/repro/kernels/gossip.py:124",
              kernel=lambda: (gk.gossip_mix(p, *mix),),
              plain=lambda: (gk.gossip_mix_plain(p, *mix),),
              library=lambda: torch.einsum("kj,jrc->krc", W, p),
+             library_desc="torch.einsum('kj,jrc->krc', W, x)",
              bytes=2 * buf_bytes, ops=(1 + 2 * deg) * n),
         dict(name="gossip_adam_mix", source="src/repro_torch/csrc/gossip.cu",
              replaces="src/repro/kernels/gossip.py:258",
              kernel=lambda: gk.gossip_adam_mix(p, g, m, v, *mix, **adam),
              plain=lambda: gk.gossip_adam_mix_plain(p, g, m, v, *mix,
                                                     **adam),
-             library=None, bytes=7 * buf_bytes,
+             tol=BIT_EQUAL, library=None, bytes=7 * buf_bytes,
              ops=((deg + 1) * 12 + 1 + 2 * deg) * n),
         # consensus: per offset a subtraction, a product and a sum, then
         # gamma's product and the sum with x
@@ -527,9 +587,10 @@ def phase_kernels():
                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": c["bytes"], "library_ms": library_ms,
-               "library": ("torch.einsum('kj,jrc->krc', W, x)"
-                           if c["library"] is not None else
-                           c.get("library_note", NO_LIBRARY))}
+               "library": (c["library_desc"] if c["library"] is not None
+                           else c.get("library_note", NO_LIBRARY))}
+        if "library_err" in c:
+            rec["library_max_abs_err"] = c["library_err"]
         if "variant" in c:
             rec["variant"] = c["variant"]
         emit({"phase": "kernel", **rec})
@@ -548,7 +609,8 @@ def phase_kernels():
     emit({"phase": "torch_ops", "name": "cdadam.update_nbr_hats",
           "ms": nbr_ms, "bound_ms": nbr_bytes / MEM_RATE * 1e3,
           "bytes": nbr_bytes, "offsets": deg})
-    del p, g, m, v, x, hs, hn1, hn2, xs, hs1, q, scales
+    del p, g, m, v, x, hs, hn1, hn2, xs, hs1, q, scales, cases
+    del lib_p, lib_m, lib_v
     torch.cuda.empty_cache()
     return records + flash_records() + rwkv_records()
 
@@ -604,7 +666,8 @@ def flash_records():
     same function: its distance from the plain version is recorded, not
     held) and the bound: q, k, v read and the output written once over
     the memory rate, against 4 * D operations per kept (query, key) pair
-    (the two products) over the peak for the operands' type."""
+    (the two products) over the bf16 tensor-core peak, or in f32 three
+    times as many over the TF32 peak."""
     from repro_torch.kernels import flash_attention as fa
 
     records = []
@@ -626,20 +689,24 @@ def flash_records():
         torch.cuda.empty_cache()
         ms = median_ms(lambda: fa.flash_attention(q, k, v, **kw))
         device_ms = device_kernel_ms(
-            lambda: fa.flash_attention(q, k, v, **kw),
-            "flash_wgmma_kernel" if dt == torch.bfloat16
-            else "flash_attention_kernel")
+            lambda: fa.flash_attention(q, k, v, **kw), FLASH_FUNCTION[dt])
         plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v, **kw))
         torch.cuda.empty_cache()
         library_ms = median_ms(library)
+        library_kernels = launched_kernels(library)
         del library
         size = q.element_size()
         n_bytes = (2 * q.numel() + k.numel() + v.numel()) * size
         ops = 4 * D * B * Hq * attention_pairs(S, T, causal, window)
-        rate = BF16_RATE if dt == torch.bfloat16 else F32_RATE
-        t_bytes, t_ops = n_bytes / MEM_RATE * 1e3, ops / rate * 1e3
+        # bf16: the two products on the tensor cores; f32: each as three
+        # TF32 products (3xTF32), the fastest f32-accurate product the card
+        # has, so 3 * ops at the TF32 peak
+        t_ops = (ops / BF16_RATE if dt == torch.bfloat16
+                 else 3 * ops / TF32_RATE) * 1e3
+        t_bytes = n_bytes / MEM_RATE * 1e3
         rec = {"name": "flash_attention", "route": "cuda",
-               "design": "wgmma" if dt == torch.bfloat16 else "simt",
+               "design": ("wgmma" if dt == torch.bfloat16
+                          else "mma.sync 3xTF32"),
                "source": "src/repro_torch/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention.py:114",
                "launches": None, "max_abs_err": max_abs,
@@ -650,10 +717,16 @@ def flash_records():
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": n_bytes, "operations": ops,
                "library_ms": library_ms, "library": library_desc,
+               "library_kernels": library_kernels,
                "library_max_abs_err": library_err,
                "variant": f"{name}: B={B} S={S} T={T} Hq={Hq} Hk={Hk} "
                           f"D={D} {str(dt).split('.')[-1]} causal={causal} "
                           f"window={window}"}
+        if dt == torch.float32:
+            # the same work on the CUDA cores at the f32 peak outside the
+            # tensor cores (the bound of the earlier CUDA-core design): a note
+            # only
+            rec["bound_f32_cores_ms"] = max(t_bytes, ops / F32_RATE * 1e3)
         emit({"phase": "kernel", **rec})
         records.append(rec)
         del q, k, v
@@ -672,6 +745,19 @@ def wkv_inputs(B, S, H, D, dt, seed=0):
     r, k, v = (n((B, S, H, D), 0.3).to(dt) for _ in range(3))
     w = torch.exp(-torch.exp(-5.0 + n((B, S, H, D), 0.5)))
     return r, k, v, w, n((H, D), 0.1), n((B, H, D, D), 0.1)
+
+
+def launched_kernels(fn) -> list:
+    """The names (their first 60 characters) of the CUDA kernels one call
+    of ``fn`` launched (one profile): what a library call runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:60] for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")})
 
 
 def matched_device_us(prof, names) -> tuple[float, int]:
@@ -711,6 +797,70 @@ def device_kernel_ms(fn, kernel: str, reps: int = REPS,
     raise AssertionError(f"the profiler recorded {calls} launches of "
                          f"{kernel} ({us} µs) in {reps} calls, {attempts} "
                          f"times")
+
+
+def ab_side(src: str) -> dict:
+    """One turn of ``--parent``: the ``repro_torch`` under ``src`` timed
+    on the f32 flash cases whose head dim it takes and on
+    ``gossip_adam_mix`` at SHAPE over the ring, on the inputs
+    ``flash_records`` and ``phase_kernels`` make; CUDA-event and device ms
+    of each."""
+    sys.path.insert(0, src)
+    from repro_torch.core.topology import make_topology
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gossip as gk
+
+    def timed(fn, kernel):
+        return {"ms": median_ms(fn), "device_ms": device_kernel_ms(fn, kernel)}
+
+    out = {}
+    for name, B, S, T, Hq, Hk, D, dt, causal, window in FLASH_CASES:
+        if dt != torch.float32 or D not in fa.HEAD_DIMS[dt]:
+            continue
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q = torch.randn((B, S, Hq, D), generator=gen, device="cuda")
+        k = torch.randn((B, T, Hk, D), generator=gen, device="cuda")
+        v = torch.randn((B, T, Hk, D), generator=gen, device="cuda")
+        out[name] = timed(lambda: fa.flash_attention(
+            q, k, v, causal=causal, window=window), "flash_")
+        del q, k, v
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = torch.randn(SHAPE, generator=gen, device="cuda")
+    g = torch.randn(SHAPE, generator=gen, device="cuda") * 0.1
+    m = torch.randn(SHAPE, generator=gen, device="cuda") * 0.01
+    v = torch.rand(SHAPE, generator=gen, device="cuda") * 0.01
+    topo = make_topology("ring", K)
+    out["gossip_adam_mix"] = timed(lambda: gk.gossip_adam_mix(
+        p, g, m, v, topo.offsets, topo.offset_weights, topo.self_weight,
+        **ADAM), "gossip_adam_mix_kernel")
+    return out
+
+
+def phase_parent_ab(parent: str):
+    """``--parent``: ``ab_side`` of the tree at ``parent`` and of this
+    one, each turn of AB_ORDER a process of its own; one line per turn,
+    then the median of each side per case (None where a side lacks it)."""
+    trees = {"P": Path(parent).resolve(), "C": ROOT}
+    runs = {"P": [], "C": []}
+    for side in AB_ORDER:
+        res = subprocess.run(
+            [sys.executable, __file__, "--ab-side", str(trees[side] / "src")],
+            capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise AssertionError(f"the {side} turn failed:\n{res.stdout}"
+                                 f"{res.stderr}")
+        rec = json.loads(res.stdout.strip().splitlines()[-1])
+        runs[side].append(rec)
+        emit({"phase": "parent_ab", "side": side, "tree": str(trees[side]),
+              "times": rec})
+    median = {case: {name: ({key: statistics.median(r[case][key]
+                                                     for r in runs[side])
+                             for key in ("ms", "device_ms")}
+                            if case in runs[side][0] else None)
+                     for side, name in (("P", "parent"), ("C", "change"))}
+              for case in runs["C"][0]}
+    emit({"phase": "parent_ab", "order": AB_ORDER, "median": median})
 
 
 def wkv_work(B, S, H, D, itemsize):
@@ -1593,7 +1743,21 @@ def phase_serve_rwkv(cfg=None, buckets=SERVE_BUCKETS,
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="an earlier tree to time the f32 "
+                    "flash and gossip_adam_mix kernels against")
+    ap.add_argument("--ab-side", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.ab_side:
+        emit(ab_side(args.ab_side))
+        return 0
     card, smi = phase_env()
+    if args.parent:
+        phase_parent_ab(args.parent)
+        print(smi, flush=True)
+        return 0
     phase_build()
     records = phase_kernels()
     by_path = {}

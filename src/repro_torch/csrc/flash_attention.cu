@@ -52,23 +52,53 @@
 //     tile i - 1's P V, and tile i's softmax runs while that P V is on the
 //     tensor cores; O is rescaled once it has landed.
 //
-// f32, D in {32, 64, 128}: CUDA cores (flash_attention_kernel). Tensor
-// cores would need TF32 (a 10-bit mantissa), which the f32 tolerance
-// forbids. It keeps everything but the K/V tiles out of device memory:
-//   - one block per (64-row query tile, head, batch row); the tiles of a
-//     head run heaviest (latest, under a causal mask) first;
-//   - one thread per query row holds its q row, m, l and acc[D] in
-//     registers (two threads per row, each half of D, for D = 128, whose
-//     partial dot products meet in one warp shuffle);
-//   - each 64-key (32 for D = 128) K and V tile is staged in shared
-//     memory, read by all rows as broadcasts; a row's scores for the tile
-//     wait in shared memory between the max and the exp pass;
-//   - key tiles wholly outside the causal / window band are skipped, and
-//     the ragged last query and key tiles are masked by bounds checks.
+// f32, D in {32, 64, 96, 112, 128}: tensor cores in 3xTF32
+// (flash_tf32x3_kernel). One TF32 product keeps 11 bits of each operand,
+// too coarse for the f32 tolerance. Each operand is split as x = hi + lo,
+// hi = x with its low 13 mantissa bits cleared (a TF32 value) and
+// lo = x - hi (exact in f32), and each product is the three TF32 products
+// hi.hi + hi.lo + lo.hi on an f32 accumulator: the dropped lo.lo and the
+// tensor core's reading of lo as TF32 leave about 2^-21 of each product.
+// Both products, S = Q K^T and O = P V, take that split. Bound: 3 TF32
+// products of 2 D operations per kept (query, key) pair at the tensor
+// cores' 495 TFLOP/s, against 67 TFLOP/s for one f32 product on the CUDA
+// cores.
+//   - Why mma.sync and not wgmma: wgmma takes .tf32 operands from shared
+//     memory only K-major (the transpose flags are for 16-bit types), so
+//     P V would need a transposed V tile, and the split copies (K lo, V^T
+//     hi and lo, Q hi and lo) beside the raw ring would take ~160 KB per
+//     stage at D = 128 with 64-key tiles: no multi-stage ring fits in 227
+//     KB. mma.sync.m16n8k8 takes fragments that the threads load
+//     themselves, so one raw f32 copy of each tile serves, and each
+//     fragment is split in registers as it is loaded: a mask and a
+//     subtraction (cvt.rna.tf32.f32 in place of the mask ran 13-16%
+//     slower on the H100).
+//   - One block per (128-row query tile, query head, batch row), the tiles
+//     of a head heaviest (latest, under a causal mask) first; 8 warps of
+//     16 query rows. Registers hold the S and O accumulators; the Q tile
+//     waits raw in shared memory and its fragments are split at each use
+//     (Q beside O in registers spilled at every D). Two 16-row tiles a
+//     warp, sharing each K and V fragment, took 246 registers at D = 64
+//     and ran slower for the halved warps.
+//   - The Q tile and the K and V tiles of 64 keys arrive by 16-byte
+//     cp.async; K and V go through a two-stage ring (zero-filled past T;
+//     a tile's copies overlap the previous tile's products), with padded
+//     rows (D + 8 floats for Q and K, D + 4 for V) so that every fragment
+//     load is free of bank conflicts. cp.async needs 16-byte-aligned bases
+//     and strides; the wrapper raises on anything else.
+//   - No shuffles between the products: the k index of each m16n8k8 is
+//     permuted. In Q K^T logical k (t, t + 4) is head dims (2t, 2t + 1),
+//     so a K fragment is one 8-byte load; in P V it is keys (2t, 2t + 1),
+//     which is where the S accumulator holds them, so P's A fragment is
+//     the accumulator itself.
+//   - Softmax in registers on the accumulator fragment, as in the bf16
+//     kernel: log2 units, ex2.approx (relative error ~1e-6, inside the
+//     2e-5 budget with the split's ~2^-21), the mask only on tiles that
+//     cross an edge of the band for the warp's rows; a warp skips a key
+//     tile that holds no valid key for any of its rows.
 //
-// Both write their products as explicit fmaf / wgmma, so -fmad=false does
-// not split them; the division stays IEEE, and so does the f32 kernel's
-// expf (no fast math).
+// Both write their products as explicit wgmma / mma, so -fmad=false does
+// not split them; the division stays IEEE (no fast math).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -77,10 +107,23 @@
 
 namespace {
 
-constexpr int kRows = 64;          // query rows per block
+// 2^x by the special-function unit (ex2.approx, about 2 ulp)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
 
-struct Params {
+// ---- f32: 3xTF32 on the tensor cores --------------------------------------
+
+constexpr int kFRows = 128;    // query rows per block
+constexpr int kFKeys = 64;     // keys per tile
+constexpr int kFStages = 2;    // K/V ring depth
+
+struct FParams {
   int S, T, Hq, group, causal, window;
   long long qs_b, qs_s, qs_h;  // element strides; the head dim is unit
   long long ks_b, ks_s, ks_h;
@@ -88,148 +131,320 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float x, float* y) { *y = x; }
-
-// Per head dim: the key tile, the threads per query row and the dynamic
-// shared memory (K and V tiles, then the tile's scores), all <= 48 KB.
+// Per head dim: the padded row strides (floats; Q's rows as K's), the
+// dynamic shared memory of the Q tile and the ring, and two blocks an SM
+// where D <= 64 leaves room.
 template <int D>
-struct Tile {
-  static constexpr int BK = D > 64 ? 32 : 64;
-  static constexpr int TPR = D > 64 ? 2 : 1;
-  static constexpr int SMEM = (2 * BK * D + BK * kRows) * 4;
+struct FCfg {
+  static constexpr int THREADS = 32 * kFRows / 16;  // a warp per 16 rows
+  static constexpr int KS = D + 8;
+  static constexpr int VS = D + 4;
+  static constexpr int Q_TILE = kFRows * KS;        // floats
+  static constexpr int STAGE = kFKeys * (KS + VS);  // floats
+  static constexpr int SMEM = (Q_TILE + kFStages * STAGE) * 4;
+  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
+  static_assert(kFKeys * D / 4 % THREADS == 0 &&
+                    kFRows * D / 4 % THREADS == 0,
+                "every thread copies the same number of 16-byte chunks");
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kRows * Tile<D>::TPR)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           Params p) {
-  constexpr int BK = Tile<D>::BK;
-  constexpr int TPR = Tile<D>::TPR;
-  constexpr int DP = D / TPR;  // head dims per thread
-  constexpr int THREADS = kRows * TPR;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // [BK][D]
-  float* Vs = Ks + BK * D;                      // [BK][D]
-  float* Ss = Vs + BK * D;                      // [BK][kRows]
+// x = hi + lo: hi = x with its low 13 mantissa bits cleared (a TF32
+// value), lo = x - hi, exact in f32; the tensor core reads lo as TF32, an
+// error of at most 2^-21 of x. Two instructions, a mask and a subtraction.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D (16 x 8, f32) += A (16 x 8, tf32) * B (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the three products of the split, the small ones first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+// 16 bytes from global to shared memory; zero-filled when !ok
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// `rows` rows of D floats from a strided view into shared memory rows of
+// `stride` floats, 16 bytes a copy; rows from `limit` on are zeros (their
+// address clamped to row 0, which exists)
+template <int D, int THREADS>
+__device__ __forceinline__ void load_rows(float* dst, int stride,
+                                          const float* src, long long s_row,
+                                          int first, int rows, int limit) {
+  constexpr int CH = D / 4;  // 16-byte chunks of a row
+#pragma unroll
+  for (int it = 0; it < rows * CH / THREADS; ++it) {
+    const int c = threadIdx.x + it * THREADS;
+    const int r = c / CH;
+    const int col = (c - r * CH) * 4;
+    const bool ok = first + r < limit;
+    const long long row = ok ? first + r : 0;
+    cp_async16(dst + r * stride + col, src + row * s_row + col, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FCfg<D>::THREADS, FCfg<D>::MIN_BLOCKS)
+    flash_tf32x3_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        FParams p) {
+  using C = FCfg<D>;
+  constexpr int BN = kFKeys;
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
 
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int r = tid / TPR;
-  const int part = tid % TPR;
-  const int q0 = qt * kRows;
-  const int qpos = q0 + r;
-  const bool row_ok = qpos < p.S;
+  const int q0 = qt * kFRows;
+  const int q_hi = min(q0 + kFRows, p.S) - 1;
+  const int n_kt = (p.T + BN - 1) / BN;
+  const int kt_end = p.causal ? min(n_kt, q_hi / BN + 1) : n_kt;
+  const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / BN : 0;
+  const int n_tiles = kt_end - kt_begin;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // the fragments' row (group) and column index
+  const int t = lane % 4;
   const int hk = h / p.group;
-  const T* kb = k + b * p.ks_b + hk * p.ks_h;
-  const T* vb = v + b * p.vs_b + hk * p.vs_h;
+  const float* kb = k + b * p.ks_b + hk * p.ks_h;
+  const float* vb = v + b * p.vs_b + hk * p.vs_h;
+  auto load_tile = [&](int kt, int slot) {
+    float* ks = smem + C::Q_TILE + slot * C::STAGE;
+    load_rows<D, C::THREADS>(ks, C::KS, kb, p.ks_s, kt * BN, BN, p.T);
+    load_rows<D, C::THREADS>(ks + BN * C::KS, C::VS, vb, p.vs_s, kt * BN, BN,
+                             p.T);
+  };
 
-  float qr[DP];
-  float acc[DP];
-  const T* qrow = q + b * p.qs_b + (long long)qpos * p.qs_s + h * p.qs_h +
-                  part * DP;
-#pragma unroll
-  for (int d = 0; d < DP; ++d) {
-    qr[d] = row_ok ? to_f32(qrow[d]) : 0.f;
-    acc[d] = 0.f;
+  // the Q tile with the first key tile, then the rest of the ring
+  load_rows<D, C::THREADS>(smem, C::KS, q + b * p.qs_b + h * p.qs_h, p.qs_s,
+                           q0, kFRows, p.S);
+  for (int s = 0; s < kFStages - 1; ++s) {
+    if (s < n_tiles) load_tile(kt_begin + s, s);
+    cp_async_commit();
   }
-  float m = kNegInf;
-  float l = 0.f;
 
-  const int q_hi = min(q0 + kRows, p.S) - 1;
-  const int n_kt = (p.T + BK - 1) / BK;
-  const int kt_end = p.causal ? min(n_kt, q_hi / BK + 1) : n_kt;
-  const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / BK : 0;
+  // this warp's rows w_lo .. w_lo + 15; this thread's rows row_a and
+  // row_a + 8 ("half" 0 and 1)
+  const int w_lo = q0 + warp * 16;
+  const int w_hi = w_lo + 15;
+  const int row_a = w_lo + g;
+  // Q's A fragments at k step kk: columns 8 kk + 2t, 8 kk + 2t + 1
+  // (logical k t, t + 4) of both rows, an 8-byte load each
+  const float* qa = smem + (warp * 16 + g) * C::KS + 2 * t;
+  float oacc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  // scores and maxima in log2 units: s * scale * log2 e, so that
+  // p = 2^(x - m) is exp(s * scale - m'); masked scores are -1e30 there
+  const float scale_log2e = p.scale * kLog2e;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int kv0 = kt * BK;
-    const int n = min(BK, p.T - kv0);
-    __syncthreads();  // every row is done with the previous tile
-    for (int i = tid; i < n * D; i += THREADS) {
-      const int j = i / D;
-      const int d = i - j * D;
-      Ks[i] = to_f32(kb[(long long)(kv0 + j) * p.ks_s + d]);
-      Vs[i] = to_f32(vb[(long long)(kv0 + j) * p.vs_s + d]);
-    }
-    __syncthreads();
-    // pass 1: this row's masked scores and their max (rows past S run on
-    // a zero q so that the warp's shuffles stay converged; they store
-    // nothing)
-    float tile_max = kNegInf;
-    for (int j = 0; j < n; ++j) {
-      const float* kj = Ks + j * D + part * DP;
-      float s = 0.f;
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kFStages - 2>();
+    __syncthreads();  // tile i has landed; every warp is done with i - 1
+    if (i + kFStages - 1 < n_tiles)
+      load_tile(kt_begin + i + kFStages - 1, (i + kFStages - 1) % kFStages);
+    cp_async_commit();
+    const int kv0 = (kt_begin + i) * BN;
+    // a tile with no valid key for any of this warp's rows (or a warp
+    // wholly past S) adds nothing
+    if (w_lo >= p.S || (p.causal && kv0 > w_hi) ||
+        (p.window > 0 && w_lo - (kv0 + BN - 1) >= p.window))
+      continue;
+    const float* ks = smem + C::Q_TILE + (i % kFStages) * C::STAGE;
+    const float* vs = ks + BN * C::KS;
+
+    // S = Q K^T: key block j of 8 keys, k steps of 8 head dims
+    float sacc[BN / 8][4];
 #pragma unroll
-      for (int d = 0; d < DP; d += 4) {
-        const float4 k4 = *reinterpret_cast<const float4*>(kj + d);
-        s = fmaf(qr[d], k4.x, s);
-        s = fmaf(qr[d + 1], k4.y, s);
-        s = fmaf(qr[d + 2], k4.z, s);
-        s = fmaf(qr[d + 3], k4.w, s);
-      }
-      if (TPR == 2) s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s *= p.scale;
-      const int kpos = kv0 + j;
-      bool ok = true;
-      if (p.causal) ok = kpos <= qpos;
-      if (p.window > 0) ok = ok && (qpos - kpos < p.window);
-      s = ok ? s : kNegInf;
-      if (part == 0) Ss[j * kRows + r] = s;
-      tile_max = fmaxf(tile_max, s);
-    }
-    __syncwarp();  // the row's other thread reads what part 0 wrote
-    // pass 2: rescale, then accumulate p * v
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = expf(m - m_new);
-    l *= corr;
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-    for (int d = 0; d < DP; ++d) acc[d] *= corr;
-    for (int j = 0; j < n; ++j) {
-      const float pj = expf(Ss[j * kRows + r] - m_new);
-      l += pj;
-      const float* vj = Vs + j * D + part * DP;
+      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
 #pragma unroll
-      for (int d = 0; d < DP; d += 4) {
-        const float4 v4 = *reinterpret_cast<const float4*>(vj + d);
-        acc[d] = fmaf(pj, v4.x, acc[d]);
-        acc[d + 1] = fmaf(pj, v4.y, acc[d + 1]);
-        acc[d + 2] = fmaf(pj, v4.z, acc[d + 2]);
-        acc[d + 3] = fmaf(pj, v4.w, acc[d + 3]);
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float2 x0 = *reinterpret_cast<const float2*>(qa + 8 * kk);
+      const float2 x1 =
+          *reinterpret_cast<const float2*>(qa + 8 * C::KS + 8 * kk);
+      uint32_t ah[4], al[4];
+      split_tf32(x0.x, ah[0], al[0]);
+      split_tf32(x1.x, ah[1], al[1]);
+      split_tf32(x0.y, ah[2], al[2]);
+      split_tf32(x1.y, ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float2 kx = *reinterpret_cast<const float2*>(
+            ks + (8 * j + g) * C::KS + 8 * kk + 2 * t);
+        uint32_t bh[2], bl[2];
+        split_tf32(kx.x, bh[0], bl[0]);
+        split_tf32(kx.y, bh[1], bl[1]);
+        mma_3xtf32(sacc[j], ah, al, bh, bl);
       }
     }
-    m = m_new;
+
+    // scale, the mask where the tile crosses an edge of the band for this
+    // warp's rows, then the online softmax (p in place of s)
+    const bool edge = kv0 + BN > p.T || (p.causal && kv0 + BN - 1 > w_lo) ||
+                      (p.window > 0 && w_hi - kv0 >= p.window);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sacc[j][e] * scale_log2e;
+        if (edge) {
+          const int col = kv0 + 8 * j + 2 * t + (e & 1);
+          const int row = row_a + 8 * (e >> 1);
+          bool ok = col < p.T;
+          if (p.causal) ok = ok && col <= row;
+          if (p.window > 0) ok = ok && (row - col < p.window);
+          x = ok ? x : kNegInf;
+        }
+        sacc[j][e] = x;
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sacc[j][2 * half], sacc[j][2 * half + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[half], mx);
+      corr[half] = fast_exp2(m[half] - m_new);
+      m[half] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 2 * half; e < 2 * half + 2; ++e) {
+          const float pv = fast_exp2(sacc[j][e] - m_new);
+          sacc[j][e] = pv;
+          sum += pv;
+        }
+      }
+      l[half] = l[half] * corr[half] + sum;
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      oacc[n][0] *= corr[0];
+      oacc[n][1] *= corr[0];
+      oacc[n][2] *= corr[1];
+      oacc[n][3] *= corr[1];
+    }
+
+    // O += P V: k step j is keys 8 j .. 8 j + 7 with logical k (t, t + 4)
+    // = keys (8 j + 2t, 8 j + 2t + 1), so P's A fragment is sacc[j] as it
+    // stands: a0..a3 = c0, c2, c1, c3
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      uint32_t ph[4], pl[4];
+      split_tf32(sacc[j][0], ph[0], pl[0]);
+      split_tf32(sacc[j][2], ph[1], pl[1]);
+      split_tf32(sacc[j][1], ph[2], pl[2]);
+      split_tf32(sacc[j][3], ph[3], pl[3]);
+      const float* v0 = vs + (8 * j + 2 * t) * C::VS + g;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        uint32_t bh[2], bl[2];
+        split_tf32(v0[8 * n], bh[0], bl[0]);
+        split_tf32(v0[C::VS + 8 * n], bh[1], bl[1]);
+        mma_3xtf32(oacc[n], ph, pl, bh, bl);
+      }
+    }
   }
-  if (!row_ok) return;
-  const float denom = fmaxf(l, 1e-30f);
-  T* orow = o + (((long long)b * p.S + qpos) * p.Hq + h) * D + part * DP;
+
 #pragma unroll
-  for (int d = 0; d < DP; ++d) store(acc[d] / denom, orow + d);
+  for (int half = 0; half < 2; ++half) {
+    float lt = l[half] + __shfl_xor_sync(0xffffffffu, l[half], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float denom = fmaxf(lt, 1e-30f);
+    const int row = row_a + 8 * half;
+    if (row >= p.S) continue;
+    float* orow = o + (((long long)b * p.S + row) * p.Hq + h) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(oacc[n][2 * half] / denom,
+                      oacc[n][2 * half + 1] / denom);
+  }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.S + kRows - 1) / kRows, p.Hq, B);
-  flash_attention_kernel<T, D>
-      <<<grid, kRows * Tile<D>::TPR, Tile<D>::SMEM, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(o), p);
+// the dynamic shared memory past 48 KB, once per device and kernel
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, uint64_t* set) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (*set >> dev & 1) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  *set |= uint64_t(1) << dev;
+  return 0;
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               const FParams& p, cudaStream_t stream) {
+  static uint64_t attr_set = 0;
+  const int e = allow_smem(flash_tf32x3_kernel<D>, FCfg<D>::SMEM, &attr_set);
+  if (e != 0) return e;
+  const dim3 grid((p.S + kFRows - 1) / kFRows, p.Hq, B);
+  flash_tf32x3_kernel<D>
+      <<<grid, FCfg<D>::THREADS, FCfg<D>::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int D, const Params& p, cudaStream_t stream) {
+int launch_f32_d(const void* q, const void* k, const void* v, void* o, int B,
+                 int D, const FParams& p, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, p, stream);
+      return launch_f32<32>(q, k, v, o, B, p, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, p, stream);
+      return launch_f32<64>(q, k, v, o, B, p, stream);
+    case 96:
+      return launch_f32<96>(q, k, v, o, B, p, stream);
+    case 112:
+      return launch_f32<112>(q, k, v, o, B, p, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, p, stream);
+      return launch_f32<128>(q, k, v, o, B, p, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -237,7 +452,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// ---- bf16: the tensor-core kernel -----------------------------------------
+// ---- bf16: wgmma + TMA ----------------------------------------------------
 
 namespace {
 
@@ -266,15 +481,6 @@ struct WCfg {
   // + 1024 to align the tiles to the swizzle's repeat
   static constexpr int SMEM = BAR_OFF + 8 * (2 * kStages + 1) + 1024;
 };
-
-// 2^x by the special-function unit (ex2.approx, about 2 ulp)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -585,17 +791,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
       !encode(&tv, v, B, p.T, Hk, D, st[6], st[7], st[8], C::CW, C::BN,
               C::SW))
     return (int)cudaErrorInvalidValue;
-  // the dynamic shared memory past 48 KB, once per device
   static uint64_t attr_set = 0;
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (!(attr_set >> dev & 1)) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    attr_set |= uint64_t(1) << dev;
-  }
+  const int e = allow_smem(flash_wgmma_kernel<D>, C::SMEM, &attr_set);
+  if (e != 0) return e;
   const dim3 grid((p.S + kBM - 1) / kBM, p.Hq, B);
   flash_wgmma_kernel<D><<<grid, kThreads, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), p);
@@ -623,10 +821,11 @@ int launch_wgmma_d(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = f32 (the CUDA-core kernel), 1 = bf16 (the tensor-core
-// kernel; the wrapper has checked TMA's rule: 16-byte-aligned bases and
-// strides). q, k, v and the output share the dtype. Returns
-// cudaGetLastError() after the launch (0 when it was accepted), or
+// dtype: 0 = f32 (the 3xTF32 kernel), 1 = bf16 (the wgmma kernel); the
+// wrapper has checked the 16-byte rule of their copies (cp.async, TMA):
+// 16-byte-aligned bases and strides. q, k, v and the output share the
+// dtype. Returns cudaGetLastError() after the launch (0 when it was
+// accepted), or
 // cudaErrorInvalidValue for a dtype or head dim it has no instance of or a
 // view the tensor maps refuse.
 extern "C" int flash_attention_fwd(
@@ -639,9 +838,9 @@ extern "C" int flash_attention_fwd(
   if (T <= 0 || Hk <= 0 || Hq % Hk != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    Params p{S,    T,    Hq,   Hq / Hk, causal, window, qs_b, qs_s,
-             qs_h, ks_b, ks_s, ks_h,    vs_b,   vs_s,   vs_h, scale};
-    return launch_d<float>(q, k, v, o, B, D, p, st);
+    FParams p{S,    T,    Hq,   Hq / Hk, causal, window, qs_b, qs_s,
+              qs_h, ks_b, ks_s, ks_h,    vs_b,   vs_s,   vs_h, scale};
+    return launch_f32_d(q, k, v, o, B, D, p, st);
   }
   if (dtype == 1) {
     const long long strides[9] = {qs_b, qs_s, qs_h, ks_b, ks_s,

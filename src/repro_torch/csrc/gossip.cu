@@ -7,9 +7,17 @@
 //
 // gossip_adam_mix replaces src/repro/kernels/gossip.py:gossip_adam_mix
 // (_gossip_adam_kernel, pallas_call at line 258): the Adam half-step of
-// worker k and of every source worker src_j(k), recomputed from their
-// (p, g, m, v), each rounded to p's dtype (f32 here), then mixed as above;
-// it writes the mixed p and worker k's own m and v.
+// every worker from its (p, g, m, v), rounded to p's dtype (f32 here), then
+// mixed as above; it writes the mixed p and each worker's own m and v.
+// Bound: bytes, p, g, m, v read once and p, m, v written once (7 buffers).
+// One block owns a tile of n float4 columns of every worker, the same
+// index range in each: it takes the K half-steps of the tile once, writes
+// m and v at once and keeps the half-step p in shared memory ([K][n],
+// K * n * 16 B, at most kAdamTileBytes), then after one barrier writes
+// out[k] = w_self * p'[k] + sum_j w_j * p'[src_j(k)] from there, in
+// gossip_mix's order. So every buffer crosses memory once, and the result
+// is the plain version's to the bit (the same operations in the same
+// order, no FMA contraction).
 //
 // consensus_mix replaces src/repro/kernels/gossip.py:consensus_mix
 // (_consensus_kernel, pallas_call at line 307), CD-Adam's line 8:
@@ -32,15 +40,15 @@
 // The source table src is a (deg, K) int32 device array built once per
 // topology from topology.offset_perm, so ring offsets and torus GridShifts
 // take one code path; the weights are a (1 + deg,) f32 device array, self
-// weight first. A block serves one worker (blockIdx.y) and loads its deg
-// source indices and weights into shared memory once.
+// weight first. A gossip_mix block serves one worker (blockIdx.y) and loads
+// its deg source indices and weights into shared memory once;
+// gossip_adam_mix reads the table and the weights through the read-only
+// cache.
 //
 // Bound on the H100: bytes. gossip_mix must read x once and write out once;
 // this design reads x[k] and x[src_j(k)], (1 + deg) reads per output, and
-// relies on the 50 MB L2 only by chance. gossip_adam_mix must read p, g, m,
-// v once and write p, m, v once (7 buffers); this design reads 4 * (1 + deg)
-// operand buffers, 15 buffers on the ring. The least traffic needs one block
-// to serve all K workers of a row tile; that is left for a later change.
+// relies on the 50 MB L2 only by chance. gossip_adam_mix reads and writes
+// the 7 buffers once (above).
 // consensus_mix must read x, hat_self and the deg neighbour copies once and
 // write out once, and this design does exactly that: (3 + deg) buffers, 5 on
 // the ring, with 2 + 3 deg f32 operations per element. payload_mix must read
@@ -58,6 +66,11 @@ constexpr int kThreads = 256;
 constexpr int kMaxMixDegree = 32;        // kernels.gossip.MAX_FUSED_DEGREE
 constexpr int kMaxGossipAdamDegree = 8;  // kernels.gossip.MAX_GOSSIP_ADAM_DEGREE
 constexpr int kMaxConsensusDegree = 32;  // kernels.gossip.MAX_CONSENSUS_DEGREE
+// gossip_adam_mix's shared memory per block: the most a block may take
+// without opting in, static and dynamic together. The kernel has no static
+// shared memory (its weights come through the read-only cache), so the
+// dynamic tile may take all of it.
+constexpr int kAdamTileBytes = 48 * 1024;
 
 struct ConsensusNbrs {
   const float4* hat[kMaxConsensusDegree];
@@ -151,34 +164,49 @@ __device__ __forceinline__ float4 half_step4(const float4* __restrict__ p,
   return PO;
 }
 
-__global__ void gossip_adam_mix_kernel(
+__global__ void __launch_bounds__(kThreads) gossip_adam_mix_kernel(
     const float4* __restrict__ p, const float4* __restrict__ g,
     const float4* __restrict__ m, const float4* __restrict__ v,
     float4* __restrict__ po, float4* __restrict__ mo, float4* __restrict__ vo,
     const int* __restrict__ src, const float* __restrict__ weights, int K,
-    int deg, long long per_worker, AdamConsts c) {
-  __shared__ int s_src[kMaxGossipAdamDegree];
-  __shared__ float s_w[kMaxGossipAdamDegree + 1];
-  const int k = blockIdx.y;
-  if (threadIdx.x < deg) s_src[threadIdx.x] = src[threadIdx.x * K + k];
-  if (threadIdx.x <= deg) s_w[threadIdx.x] = weights[threadIdx.x];
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long base = (long long)k * per_worker;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < per_worker; i += stride) {
-    float4 m_self, v_self, m_nbr, v_nbr;
-    float4 acc = scale4(s_w[0], half_step4(p, g, m, v, base + i, c, &m_self,
-                                           &v_self));
-    for (int j = 0; j < deg; ++j) {
-      const long long at = (long long)s_src[j] * per_worker + i;
-      acc = add4(acc, scale4(s_w[j + 1],
-                             half_step4(p, g, m, v, at, c, &m_nbr, &v_nbr)));
+    int deg, long long per_worker, int n, AdamConsts c) {
+  extern __shared__ float4 s_half[];  // [K][n]: the tile's half-step p
+  const long long i0 = (long long)blockIdx.x * n;
+  const int total = K * n;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int kw = e / n;
+    const long long i = i0 + (e - kw * n);
+    if (i < per_worker) {
+      const long long at = (long long)kw * per_worker + i;
+      float4 m_new, v_new;
+      s_half[e] = half_step4(p, g, m, v, at, c, &m_new, &v_new);
+      mo[at] = m_new;
+      vo[at] = v_new;
     }
-    po[base + i] = acc;
-    mo[base + i] = m_self;
-    vo[base + i] = v_self;
   }
+  __syncthreads();
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int kw = e / n;
+    const int ii = e - kw * n;
+    const long long i = i0 + ii;
+    if (i < per_worker) {
+      float4 acc = scale4(__ldg(weights), s_half[e]);
+      for (int j = 0; j < deg; ++j) {
+        acc = add4(acc, scale4(__ldg(weights + j + 1),
+                               s_half[__ldg(src + j * K + kw) * n + ii]));
+      }
+      po[(long long)kw * per_worker + i] = acc;
+    }
+  }
+}
+
+// the float4 columns of a gossip_adam_mix tile: the widest power of two
+// up to kThreads whose [K][n] half-steps fit in kAdamTileBytes (0 when
+// not even one column does)
+int adam_tile_cols(int K) {
+  int n = kThreads;
+  while (n > 0 && (long long)K * n * 16 > kAdamTileBytes) n /= 2;
+  return n;
 }
 
 int sm_count() {
@@ -211,8 +239,9 @@ dim3 grid_for(long long per_worker, int K) {
 }  // namespace
 
 // Both entry points take n_per_worker = rows * 128 f32 elements (a multiple
-// of 4) and return cudaGetLastError() after the launch; 1 marks a degree
-// outside the kernel's table (cudaErrorInvalidValue).
+// of 4) and return cudaGetLastError() after the launch; 1
+// (cudaErrorInvalidValue) marks a degree outside the kernel's table, or a
+// K whose gossip_adam_mix tile would not fit in shared memory (K > 3072).
 extern "C" int gossip_mix_f32(const float* x, float* out, const int* src,
                               const float* weights, int K, int deg,
                               long long n_per_worker, void* stream) {
@@ -238,14 +267,17 @@ extern "C" int gossip_adam_mix_f32(const float* p, const float* g,
   if (deg < 1 || deg > kMaxGossipAdamDegree) return (int)cudaErrorInvalidValue;
   const long long per_worker = n_per_worker / 4;
   if (per_worker == 0 || K == 0) return 0;
+  const int n = adam_tile_cols(K);
+  if (n == 0) return (int)cudaErrorInvalidValue;
   AdamConsts c{eta, beta1, one_minus_beta1, beta2, one_minus_beta2, tau,
                weight_decay};
-  gossip_adam_mix_kernel<<<grid_for(per_worker, K), kThreads, 0,
+  const long long blocks = (per_worker + n - 1) / n;
+  gossip_adam_mix_kernel<<<(unsigned)blocks, kThreads, (size_t)K * n * 16,
                            static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(p), reinterpret_cast<const float4*>(g),
       reinterpret_cast<const float4*>(m), reinterpret_cast<const float4*>(v),
       reinterpret_cast<float4*>(po), reinterpret_cast<float4*>(mo),
-      reinterpret_cast<float4*>(vo), src, weights, K, deg, per_worker, c);
+      reinterpret_cast<float4*>(vo), src, weights, K, deg, per_worker, n, c);
   return (int)cudaGetLastError();
 }
 

@@ -16,11 +16,14 @@ get an output that depends on how the TPU kernel tiles the keys; both
 versions here raise ``ValueError`` for such shapes instead.
 
 :func:`flash_attention` launches ``csrc/flash_attention.cu`` and counts
-each launch in ``flash_attention.launches``: bf16 operands (D in 32 / 64 /
-96 / 112 / 128) go to the tensor-core kernel, which loads them with TMA
-and so needs 16-byte-aligned bases and strides (it raises on anything
-else: no copy, no fallback); f32 operands (D in 32 / 64 / 128) go to the
-CUDA-core kernel. Both read the operands through their strides.
+each launch in ``flash_attention.launches``. Both dtypes take head dims
+32 / 64 / 96 / 112 / 128 and run on the tensor cores: bf16 operands go to
+the ``wgmma`` kernel, which loads them with TMA; f32 operands to the
+3xTF32 kernel (each product split as hi·hi + hi·lo + lo·hi of TF32
+halves, ``mma.sync``), which loads them with 16-byte ``cp.async``. Either
+copy needs 16-byte-aligned bases and (batch, seq, head) strides: the
+wrapper raises on anything else (no copy, no fallback). Both read the
+operands through their strides.
 :func:`flash_attention_plain` materialises the f32 scores, as
 ``repro.kernels.ref.flash_attention_ref`` does. ``kernels.ops`` picks
 between them by the operands' device. Neither has a backward: the TPU
@@ -40,10 +43,12 @@ from repro_torch.kernels.fused_adam import f32
 
 NEG_INF = -1e30
 # the kernels' instances per operand dtype
-HEAD_DIMS = {torch.float32: (32, 64, 128),
+HEAD_DIMS = {torch.float32: (32, 64, 96, 112, 128),
              torch.bfloat16: (32, 64, 96, 112, 128)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TMA_ALIGN = 16  # bytes: TMA's rule for a tensor map's base and strides
+# bytes: the rule of both kernels' copies (a TMA tensor map's base and
+# strides; a 16-byte cp.async's source address)
+COPY_ALIGN = 16
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -105,25 +110,27 @@ def _entry():
     return fn
 
 
-def _check_tma(t: torch.Tensor) -> None:
-    """Raise ``ValueError`` unless a bf16 operand's base and (batch, seq,
-    head) strides are multiples of 16 bytes, as its tensor map needs."""
-    if t.data_ptr() % TMA_ALIGN:
-        raise ValueError(f"flash_attention (bf16) loads its operands with "
-                         f"TMA, which needs a {TMA_ALIGN}-byte-aligned base; "
-                         f"got a view at {t.data_ptr() % TMA_ALIGN} bytes "
-                         "past one")
-    if any(st * t.element_size() % TMA_ALIGN for st in t.stride()[:3]):
-        raise ValueError(f"flash_attention (bf16) loads its operands with "
-                         f"TMA, which needs strides that are multiples of "
-                         f"{TMA_ALIGN} bytes; got strides {tuple(t.stride())}")
+def _check_aligned(t: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless an operand's base and (batch, seq, head)
+    strides are multiples of 16 bytes, as the kernels' copies need."""
+    how = "TMA" if t.dtype == torch.bfloat16 else "16-byte cp.async"
+    if t.data_ptr() % COPY_ALIGN:
+        raise ValueError(f"flash_attention ({t.dtype}) loads its operands "
+                         f"with {how}, which needs a {COPY_ALIGN}-byte-"
+                         f"aligned base; got a view at "
+                         f"{t.data_ptr() % COPY_ALIGN} bytes past one")
+    if any(st * t.element_size() % COPY_ALIGN for st in t.stride()[:3]):
+        raise ValueError(f"flash_attention ({t.dtype}) loads its operands "
+                         f"with {how}, which needs strides that are "
+                         f"multiples of {COPY_ALIGN} bytes; got strides "
+                         f"{tuple(t.stride())}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors of one dtype with a
-    unit-stride head dim: bf16 with D in 32 / 64 / 96 / 112 / 128 and TMA's
-    16-byte alignment, or f32 with D in 32 / 64 / 128. Returns a new
+    """Launch the CUDA kernel on CUDA tensors of one dtype, f32 or bf16,
+    with D in 32 / 64 / 96 / 112 / 128, a unit-stride head dim and
+    16-byte-aligned bases and (batch, seq, head) strides. Returns a new
     contiguous ``(B, S, Hq, D)`` tensor. Raises on anything the kernel
     does not take."""
     B, S, Hq, D, T, Hk = check_shapes(q, k, v, window=window)
@@ -141,9 +148,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if D not in HEAD_DIMS[q.dtype]:
         raise ValueError(f"flash_attention has {q.dtype} kernels for head "
                          f"dims {HEAD_DIMS[q.dtype]}; got {D}")
-    if q.dtype == torch.bfloat16:
-        for t in (q, k, v):
-            _check_tma(t)
+    for t in (q, k, v):
+        _check_aligned(t)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     status = _build.launch(_entry(), q.device, q.data_ptr(), k.data_ptr(),

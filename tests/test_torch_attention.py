@@ -61,6 +61,8 @@ def qkv(B, S, T, Hq, Hk, D, dt="f32", seed=0):
     (128, 4, 2, 64, 64, 32),     # GQA 2:1
     (256, 8, 1, 64, 128, 128),   # MQA
     (192, 4, 2, 128, 64, 64),    # 128-lane head dim
+    (128, 4, 2, 96, 64, 64),     # phi-3-vision's head dim
+    (128, 4, 2, 112, 64, 64),    # zamba2's head dim
 ])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_flash_plain_matches_jax_kernel_and_ref(S, Hq, Hk, D, bq, bkv, dt):

@@ -72,19 +72,32 @@ def test_cuda_fused_adam_matches_plain(cuda, n, variant):
         close(got, want, **CARD_TOL)
 
 
+# (graph, K): the elastic resize's K=6, the main path's K=8 (every graph
+# of degree <= MAX_GOSSIP_ADAM_DEGREE), K=12, whose 256-column
+# gossip_adam_mix tile fills the 48 KB a block may take without opting in,
+# K=32, whose tile narrows to 64 columns, and K=3072, one column
+GOSSIP_CASES = ([(name, 6) for name in GRAPHS] + [(name, 8) for name in GRAPHS]
+                + [("ring", 12), ("torus", 12), ("ring", 32), ("torus", 32),
+                   ("ring", 3072)])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", GRAPHS)
-def test_cuda_gossip_kernels_match_plain(cuda, name):
-    topo = make_topology(name, K)
+@pytest.mark.parametrize("name,workers", GOSSIP_CASES)
+def test_cuda_gossip_kernels_match_plain(cuda, name, workers):
+    """gossip_adam_mix does the plain version's f32 operations in its
+    order: equal to it element for element. 12 rows a worker leave the
+    last 256-column tile half full."""
+    topo = make_topology(name, workers)
     args = (topo.offsets, topo.offset_weights, topo.self_weight)
-    p, g, m, v = adam_inputs((K, ROWS, 128), seed=3)
+    p, g, m, v = adam_inputs((workers, 12, 128), seed=3)
     got = tgossip.gossip_mix(p, *args)
     close([got], [tgossip.gossip_mix_plain(p, *args)], **CARD_TOL)
     kw = dict(eta=1e-2, weight_decay=1e-4)
     got = tgossip.gossip_adam_mix(p, g, m, v, *args, **kw)
     want = tgossip.gossip_adam_mix_plain(p, g, m, v, *args, **kw)
     torch.cuda.synchronize()
-    close(got, want, **CARD_TOL)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -188,9 +201,10 @@ def test_cuda_wrappers_count_launches_and_reject_bad_operands(cuda):
 
 # The flash kernels sum the dot products and the softmax-weighted values
 # in another order than the plain version's einsums (one key tile at a
-# time), so in f32 they are held to tests/test_kernels.py's 2e-5; the
-# bf16 tensor-core kernel also carries p as bf16 hi + lo (to ~2**-17)
-# and takes its exponentials by ex2.approx (~1e-6). In bf16 both round
+# time), so in f32 they are held to tests/test_kernels.py's 2e-5; both
+# take their exponentials by ex2.approx (~1e-6), the bf16 kernel carries
+# p as bf16 hi + lo (to ~2**-17) and the f32 kernel each product as three
+# TF32 products, hi.hi + hi.lo + lo.hi (to ~2**-21). In bf16 both round
 # nearly the same f32 value once: at most one bf16 ulp apart, at most
 # 2**-7 of the value (rtol 8e-3), plus the f32 difference where the
 # output is near zero (atol 2e-5).
@@ -209,6 +223,11 @@ FLASH_CASES = {
     "d112_bf16": (2, 1024, 1024, 32, 8, 112, torch.bfloat16, True, 0),
     "non_causal_bf16_s_ne_t": (2, 300, 700, 8, 2, 64, torch.bfloat16,
                                False, 0),
+    "serve_bucket_f32": (8, 1024, 1024, 32, 8, 64, torch.float32, True, 0),
+    "d96_f32": (2, 1024, 1024, 32, 8, 96, torch.float32, True, 0),
+    "d112_f32": (2, 1024, 1024, 32, 8, 112, torch.float32, True, 0),
+    "ragged_1021_f32": (2, 1021, 1021, 32, 8, 64, torch.float32, True, 0),
+    "s_ne_t_window_f32": (2, 300, 700, 8, 2, 128, torch.float32, True, 100),
 }
 
 
@@ -258,6 +277,23 @@ def test_cuda_flash_attention_rejects_unaligned_bf16_views(cuda):
     wide = torch.zeros((1, 64, 2, 68), dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="multiples of 16 bytes"):
         tflash.flash_attention(q, wide[..., :64], q)
+    assert tflash.flash_attention.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_rejects_unaligned_f32_views(cuda):
+    """The f32 kernel loads k and v with 16-byte cp.async: a view whose
+    base is 4 bytes past a 16-byte boundary, or whose seq stride is not a
+    multiple of 16 bytes, raises instead of launching."""
+    q = torch.zeros((1, 64, 2, 64), device="cuda")
+    flat = torch.zeros(64 * 2 * 64 + 1, device="cuda")
+    shifted = flat[1:].view(1, 64, 2, 64)
+    before = tflash.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        tflash.flash_attention(q, shifted, q)
+    wide = torch.zeros((1, 64, 1, 130), device="cuda")
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        tflash.flash_attention(q[:, :, :1], wide[..., :64], wide[..., :64])
     assert tflash.flash_attention.launches == before
 
 
