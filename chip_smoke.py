@@ -67,9 +67,30 @@ script exits non-zero without the final ``ok`` line:
    the CUDA WKV kernel once per layer and no other kernel runs; then the
    times per bucket, tokens/s, peak memory and a profile of one batch;
 12. serve_rwkv card vs CPU: as 9, for rwkv6-3b cut to 2 layers, one
-   (2, 128) prefill and 4 decode steps.
+   (2, 128) prefill and 4 decode steps;
+13. lm_train: llama3.2-1b at full width (16 layers, d_model 2048, GQA
+   32/8, d_ff 8192, vocab 128,256; 1,235,814,400 parameters a worker)
+   trained through the port's CLI as a user runs it
+   (``repro_torch.launch.train.main``: K=2 ring, packed D-Adam, p=4, 2 x
+   1024 tokens a worker, 8 steps): 6 ``fused_adam`` and 2
+   ``gossip_adam_mix`` launches and no other kernel, the loss falling from
+   near ln 128,256; the peak memory, step times (local and comm apart), a
+   profile of one period, and both Adam kernels timed on the trained
+   (2, R, 128) state;
+14. lm_train_bf16: the same run through ``make_optimizer(moment_dtype=
+   torch.bfloat16)`` and ``DecentralizedTrainer.fit``: the same launches,
+   a peak below lm_train's, the same timings;
+15. lm_train_cd: CD-Adam (sign, gamma 0.4) on llama3.2-1b at full width
+   cut to 4 layers: one ``sign_compress_stacked`` (one scale per worker
+   and leaf) and one ``consensus_mix`` per comm step;
+16. lm card vs CPU: llama3.2-1b and rwkv6-3b at full width cut to 2
+   layers, f32 compute, three packed D-Adam steps at p=3 in lock step on
+   both, from one init: step 1 within LM_STEP1_TOL, step 3 as in 7.
 
-The kernels phase also holds ``flash_attention`` against its plain
+The kernels phase holds ``fused_adam`` and ``gossip_adam_mix`` with
+bf16 moments too (m and v within one bf16 ulp, p within 2e-5), and takes
+the profiler's device time of every kernel beside its CUDA-event time. It
+also holds ``flash_attention`` against its plain
 version at eleven shapes: the serve bucket's prefill, an 8192-token
 prompt, a 512-key window, a non-causal f32 D=128 case, a ragged S=1021,
 bf16 head dims 96 and 112, and in f32 the serve bucket and head dims 96,
@@ -85,9 +106,10 @@ Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 
     python3 chip_smoke.py --parent DIR
 
-times the f32 ``flash_attention`` cases and ``gossip_adam_mix`` of the
-tree at DIR (an earlier commit unpacked by ``git archive <commit> | tar
--x -C DIR``, its kernels built in its own tree) against this tree's, one
+times the f32 ``flash_attention`` cases, ``gossip_adam_mix`` and one
+D-Adam period of full-width DeepFM (device and wall ms) of the tree at
+DIR (an earlier commit unpacked by ``git archive <commit> | tar -x -C
+DIR``, its kernels built in its own tree) against this tree's, one
 process per turn in the order parent, change, change, parent, then prints
 the medians of each side and the ``nvidia-smi`` line; it runs no other
 phase and prints no ``ok`` line.
@@ -150,6 +172,13 @@ F32_RATE = 67e12
 # differ by that scale error on top of KERNEL_TOL.
 SCALE_RTOL = 1e-5
 BIT_EQUAL = dict(rtol=0.0, atol=0.0)
+# bf16 moments: the kernels and the plain versions compute in f32 and round
+# m and v once to bf16, to nearest-even: m and v within one bf16 ulp (equal
+# but where a tie would break the other way), p, which stays f32, within
+# the f32 tolerance of tests/test_kernels.py
+BF16_MOMENT_P_TOL = dict(rtol=2e-5, atol=2e-5)
+# the three kernels of one sign_compress[_stacked] call
+SIGN_KERNELS = ("absmean_kernel", "scale_kernel", "apply_kernel")
 NO_LIBRARY = "none: no single PyTorch call computes this update"
 NO_STACKED_SUM = ("none: no single PyTorch call sums these operands "
                   "without first stacking them")
@@ -271,6 +300,45 @@ PATHS = {
                             launches={"fused_adam": 24, "consensus_mix": 6,
                                       "sign_compress_stacked": 6}),
 }
+# LM training: llama3.2-1b at full width (16 layers, d_model 2048, GQA
+# 32/8, d_ff 8192, vocab 128,256) on a K=2 ring, packed D-Adam at p=4,
+# 2 sequences of 1024 tokens per worker, 8 steps: fused_adam on the 6
+# local steps, gossip_adam_mix on the 2 comm steps. K=2 is cut from the
+# CLI's 4 (at K=4 one f32 buffer is 19.8 GB and the state alone 59 GB).
+# eta is 1e-4: at the CLI's default 1e-3 (no warm-up, no bias correction)
+# the full-width loss climbed from 12.18 to 14.01 in 8 steps (NVIDIA H100
+# 80GB HBM3, 700 W).
+LM_ARCH = "llama3.2-1b"
+LM_K, LM_PERIOD, LM_BATCH, LM_SEQ, LM_STEPS = 2, 4, 2, 1024, 8
+LM_ETA = 1e-4
+LM_ARGS = ["--arch", LM_ARCH, "--full", "--workers", str(LM_K),
+           "--backend", "packed", "--optimizer", "d-adam",
+           "--period", str(LM_PERIOD), "--batch", str(LM_BATCH),
+           "--seq", str(LM_SEQ), "--steps", str(LM_STEPS),
+           "--eta", str(LM_ETA), "--log-every", "1", "--device", DEVICE]
+LM_PARAMS = 1_235_814_400
+LM_LAUNCHES = {"fused_adam": 6, "gossip_adam_mix": 2}
+# CD-Adam at full width cut to 4 layers (16 would take about 100 GB):
+# fused_adam on all 8 steps, sign_compress_stacked and consensus_mix once
+# per comm step
+LM_CD_LAYERS = 4
+LM_CD_LAUNCHES = {"fused_adam": 8, "sign_compress_stacked": 2,
+                  "consensus_mix": 2}
+# the first loss of random weights lies near ln(vocab): the logits' spread
+# at init adds about half its square
+LM_LOSS0_SLACK = 1.5
+# calls per timing at the LM shape (each moves 50-70 GB)
+LM_REPS = 5
+# card against CPU after the first LM step: summation orders only (f32
+# compute, no TF32). Adam's first step is about eta * 3.16 * g / (|g| +
+# 3.2e-5), so a gradient that is itself a cancellation near f32's
+# rounding floor (rwkv6's embedding grads pass the layer norm over a
+# 0.02-scale embedding) moves its element by a share of eta that the two
+# devices' roundings change: at most LM_STEP1_MAX_SHARE of the elements
+# may lie outside LM_STEP1_TOL (on an NVIDIA H100 80GB HBM3 at 700 W: 1
+# element of rwkv6's 1.01e9 at step 1, none of llama's).
+LM_STEP1_TOL = dict(rtol=2e-5, atol=2e-5)
+LM_STEP1_MAX_SHARE = 1e-8
 # per-worker bytes of full-width DeepFM on the wire per round (the list
 # over one schedule cycle): D-Adam sends the f32 params to each neighbour
 # (ring: 2; one-peer-exponential with buffers: its union of 5 offsets
@@ -335,6 +403,23 @@ def compare_compressed(got, want, what: str):
                         dict(rtol=KERNEL_TOL["rtol"],
                              atol=KERNEL_TOL["atol"] + slack), f"{what} hat"))
     return max(e[0] for e in errs), errs[0][1]
+
+
+def compare_bf16_moments(got, want, what: str):
+    """p within BF16_MOMENT_P_TOL, bf16 m and v within one bf16 ulp (the
+    bits read as integers; both round one f32 value to nearest-even).
+    Returns the max abs error over the three and p's max rel error."""
+    max_abs, max_rel = compare(got[:1], want[:1], BF16_MOMENT_P_TOL,
+                               f"{what} p")
+    for name, a, b in zip("mv", got[1:], want[1:]):
+        if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+            raise AssertionError(f"{what} {name}: {a.dtype} / {b.dtype}")
+        ulps = int((a.view(torch.int16).int() - b.view(torch.int16).int())
+                   .abs().max())
+        if ulps > 1:
+            raise AssertionError(f"{what} {name}: {ulps} bf16 ulps apart")
+        max_abs = max(max_abs, float((a.float() - b.float()).abs().max()))
+    return max_abs, max_rel
 
 
 def full_width_spec():
@@ -472,6 +557,9 @@ def phase_kernels():
     fused_adam_library_err = compare(
         fused_adam_library(), fa.fused_adam_plain(p, g, m, v, **adam),
         KERNEL_TOL, "torch._fused_adam_ against fused_adam_plain")[0]
+    # bf16 moments (make_optimizer(moment_dtype=torch.bfloat16)): p and g
+    # f32, m and v bf16; 20 bytes an element
+    mb, vb = m.to(torch.bfloat16), v.to(torch.bfloat16)
     # f32 operations per element: Adam half-step 12 (3 for m, 4 for v, 4
     # for the step incl. sqrt and division, 1 for p); mix 1 + 2 per offset
     cases = [
@@ -484,21 +572,37 @@ def phase_kernels():
                           "corrections 1; checked against the plain "
                           "version within KERNEL_TOL)",
              library_err=fused_adam_library_err,
-             bytes=7 * buf_bytes, ops=12 * n),
+             bytes=7 * buf_bytes, ops=12 * n, device="fused_adam_kernel"),
+        dict(name="fused_adam", source="src/repro_torch/csrc/fused_adam.cu",
+             replaces="src/repro/kernels/fused_adam.py:66",
+             kernel=lambda: fa.fused_adam(p, g, mb, vb, **adam),
+             plain=lambda: fa.fused_adam_plain(p, g, mb, vb, **adam),
+             bf16_moments=True, library=None, bytes=20 * n, ops=12 * n,
+             device="fused_adam_kernel", variant="bf16 m and v"),
         dict(name="gossip_mix", source="src/repro_torch/csrc/gossip.cu",
              replaces="src/repro/kernels/gossip.py:124",
              kernel=lambda: (gk.gossip_mix(p, *mix),),
              plain=lambda: (gk.gossip_mix_plain(p, *mix),),
              library=lambda: torch.einsum("kj,jrc->krc", W, p),
              library_desc="torch.einsum('kj,jrc->krc', W, x)",
-             bytes=2 * buf_bytes, ops=(1 + 2 * deg) * n),
+             bytes=2 * buf_bytes, ops=(1 + 2 * deg) * n,
+             device="gossip_mix_kernel"),
         dict(name="gossip_adam_mix", source="src/repro_torch/csrc/gossip.cu",
              replaces="src/repro/kernels/gossip.py:258",
              kernel=lambda: gk.gossip_adam_mix(p, g, m, v, *mix, **adam),
              plain=lambda: gk.gossip_adam_mix_plain(p, g, m, v, *mix,
                                                     **adam),
              tol=BIT_EQUAL, library=None, bytes=7 * buf_bytes,
-             ops=((deg + 1) * 12 + 1 + 2 * deg) * n),
+             ops=((deg + 1) * 12 + 1 + 2 * deg) * n,
+             device="gossip_adam_mix_kernel"),
+        dict(name="gossip_adam_mix", source="src/repro_torch/csrc/gossip.cu",
+             replaces="src/repro/kernels/gossip.py:258",
+             kernel=lambda: gk.gossip_adam_mix(p, g, mb, vb, *mix, **adam),
+             plain=lambda: gk.gossip_adam_mix_plain(p, g, mb, vb, *mix,
+                                                    **adam),
+             bf16_moments=True, library=None, bytes=20 * n,
+             ops=((deg + 1) * 12 + 1 + 2 * deg) * n,
+             device="gossip_adam_mix_kernel", variant="bf16 m and v"),
         # consensus: per offset a subtraction, a product and a sum, then
         # gamma's product and the sum with x
         dict(name="consensus_mix", source="src/repro_torch/csrc/gossip.cu",
@@ -508,7 +612,7 @@ def phase_kernels():
              plain=lambda: (gk.consensus_mix_plain(
                  x, hs, (hn1, hn2), topo.offset_weights, GAMMA),),
              tol=BIT_EQUAL, library=None, bytes=(3 + deg) * buf_bytes,
-             ops=(2 + 3 * deg) * n),
+             ops=(2 + 3 * deg) * n, device="consensus_mix_kernel"),
         # sign compress: read x and hat, write hat and the int8 q (13 bytes
         # an element); d, |d|, the sum, sign (two compares and a
         # subtraction), scale * sign and the sum with hat
@@ -520,6 +624,7 @@ def phase_kernels():
              plain=lambda: sc.sign_compress_stacked_plain(
                  x, hs, n_true=spec.sizes, row_ranges=ranges),
              compressed=True, library=None, bytes=13 * n, ops=8 * n,
+             device=SIGN_KERNELS,
              variant="scales='leaf': DeepFM's 11 leaf segments, (K, 11) "
                      "scales"),
         dict(name="sign_compress_stacked",
@@ -529,6 +634,7 @@ def phase_kernels():
              plain=lambda: sc.sign_compress_stacked_plain(x, hs,
                                                           n_true=spec.n),
              compressed=True, library=None, bytes=13 * n, ops=8 * n,
+             device=SIGN_KERNELS,
              variant="scales='worker': one segment, (K,) scales"),
         dict(name="sign_compress",
              source="src/repro_torch/csrc/sign_compress.cu",
@@ -536,7 +642,7 @@ def phase_kernels():
              kernel=lambda: sc.sign_compress(xs, hs1),
              plain=lambda: sc.sign_compress_plain(xs, hs1),
              compressed=True, library=None, bytes=13 * PARAMS,
-             ops=8 * PARAMS,
+             ops=8 * PARAMS, device=SIGN_KERNELS,
              variant="one worker's 11,202,602 elements, flat"),
         # payload mix: read x and each payload, write out; per element a
         # product, then a product and a sum per payload
@@ -548,7 +654,7 @@ def phase_kernels():
                  p, (g, m), topo.offset_weights, topo.self_weight),),
              tol=BIT_EQUAL, library=None, bytes=(2 + deg) * buf_bytes,
              ops=(1 + 2 * deg) * n, library_note=NO_STACKED_SUM,
-             variant="ring: 2 payloads"),
+             device="payload_mix_kernel", variant="ring: 2 payloads"),
         dict(name="payload_mix", source="src/repro_torch/csrc/gossip.cu",
              replaces="src/repro/kernels/gossip.py:161",
              kernel=lambda: (gk.payload_mix(p, (g, m, v, hn1, hn2),
@@ -559,6 +665,7 @@ def phase_kernels():
                  union.self_weight),),
              tol=BIT_EQUAL, library=None, bytes=7 * buf_bytes,
              ops=(1 + 2 * 5) * n, library_note=NO_STACKED_SUM,
+             device="payload_mix_kernel",
              variant="one-peer-exponential union: 5 payloads"),
     ]
     records = []
@@ -571,10 +678,14 @@ def phase_kernels():
             tol = {"q": "equal", "scale_rtol": SCALE_RTOL,
                    "hat": f"{KERNEL_TOL} + max scale * {SCALE_RTOL}"}
             max_abs, max_rel = compare_compressed(got, want, c["name"])
+        elif c.get("bf16_moments"):
+            tol = {"p": BF16_MOMENT_P_TOL, "m, v": "within 1 bf16 ulp"}
+            max_abs, max_rel = compare_bf16_moments(got, want, c["name"])
         else:
             max_abs, max_rel = compare(got, want, tol, c["name"])
         del got, want
         ms = median_ms(c["kernel"])
+        device_ms = device_kernel_ms(c["kernel"], c["device"])
         plain_ms = median_ms(c["plain"])
         library_ms = (median_ms(c["library"])
                       if c["library"] is not None else None)
@@ -584,6 +695,7 @@ def phase_kernels():
                "replaces": c["replaces"], "launches": None,
                "max_abs_err": max_abs, "max_rel_err": max_rel,
                "tol": tol, "ms": ms, "kernel_ms": ms,
+               "kernel_device_ms": device_ms,
                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": c["bytes"], "library_ms": library_ms,
@@ -609,7 +721,7 @@ def phase_kernels():
     emit({"phase": "torch_ops", "name": "cdadam.update_nbr_hats",
           "ms": nbr_ms, "bound_ms": nbr_bytes / MEM_RATE * 1e3,
           "bytes": nbr_bytes, "offsets": deg})
-    del p, g, m, v, x, hs, hn1, hn2, xs, hs1, q, scales, cases
+    del p, g, m, v, mb, vb, x, hs, hn1, hn2, xs, hs1, q, scales, cases
     del lib_p, lib_m, lib_v
     torch.cuda.empty_cache()
     return records + flash_records() + rwkv_records()
@@ -773,16 +885,18 @@ def matched_device_us(prof, names) -> tuple[float, int]:
     return us, calls
 
 
-def device_kernel_ms(fn, kernel: str, reps: int = REPS,
+def device_kernel_ms(fn, kernel, reps: int = REPS,
                      attempts: int = 3) -> float:
     """Device time per call of ``fn`` of the CUDA kernels whose name holds
-    ``kernel``, from a profile of ``reps`` calls: the kernel alone, where
-    CUDA events around one call also count the host time before its
-    launch. A profile that recorded fewer than ``reps`` such kernels, or
-    no time for them, is taken again; after ``attempts`` of them this
-    raises, so no time is reported that was not measured."""
+    ``kernel`` (one name, or a tuple of the names of one call's kernels),
+    from a profile of ``reps`` calls: the kernels alone, where CUDA events
+    around one call also count the host time before its launch. A profile
+    that recorded fewer than ``reps`` such kernels, or no time for them,
+    is taken again; after ``attempts`` of them this raises, so no time is
+    reported that was not measured."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
@@ -791,7 +905,7 @@ def device_kernel_ms(fn, kernel: str, reps: int = REPS,
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us, calls = matched_device_us(prof, (kernel,))
+        us, calls = matched_device_us(prof, names)
         if calls >= reps and us > 0:
             return us / 1e3 / reps
     raise AssertionError(f"the profiler recorded {calls} launches of "
@@ -834,7 +948,32 @@ def ab_side(src: str) -> dict:
     out["gossip_adam_mix"] = timed(lambda: gk.gossip_adam_mix(
         p, g, m, v, topo.offsets, topo.offset_weights, topo.self_weight,
         **ADAM), "gossip_adam_mix_kernel")
+    del p, g, m, v
+    torch.cuda.empty_cache()
+    out["d-adam period"] = deepfm_period_times()
     return out
+
+
+def deepfm_period_times() -> dict:
+    """One D-Adam communication period (3 local steps, 1 comm step) of
+    full-width DeepFM through the tree's own trainer: wall and device ms
+    (``device_profile``), after one period of warm-up."""
+    from repro_torch.launch import deepfm_ctr
+
+    period = 4
+    res = deepfm_ctr.run("parent_ab", "deepfm", "d-adam", period,
+                         backend="packed", device=DEVICE, period=period,
+                         **FULL)
+    batches = [next(res.batches) for _ in range(period)]
+
+    def run_period():
+        st = res.state
+        for b in batches:
+            st, _ = res.trainer.step(st, b)
+
+    run_period()
+    prof = device_profile(run_period)
+    return {"ms": prof["wall_ms"], "device_ms": prof["device_ms"]}
 
 
 def phase_parent_ab(parent: str):
@@ -1742,6 +1881,384 @@ def phase_serve_rwkv(cfg=None, buckets=SERVE_BUCKETS,
     return rec["launches"]
 
 
+# ------------------------------ LM training --------------------------------
+
+
+def lm_batches(cfg, seed: int, steps: int, batch: int = 1, seq: int = 64):
+    """``steps`` batches ``{"tokens": (LM_K, batch, seq + 1)}`` on the CPU,
+    uniform tokens from numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [{"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_K, batch, seq + 1)).astype(np.int32))}
+            for _ in range(steps)]
+
+
+def check_lm_losses(phase: str, losses, vocab: int) -> None:
+    """Finite, starting near ln(vocab) (random weights guess uniformly,
+    give or take the logits' spread at init) and lower at the end."""
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{phase}: non-finite loss in {losses}")
+    if abs(losses[0] - math.log(vocab)) > LM_LOSS0_SLACK:
+        raise AssertionError(f"{phase}: first loss {losses[0]} is not "
+                             f"near ln {vocab} = {math.log(vocab):.3f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: loss did not fall: {losses}")
+
+
+def check_launches(phase: str, launches, want) -> None:
+    want = {n: want.get(n, 0) for n in launches}
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches} != {want}")
+
+
+def lm_step_times(phase: str, trainer, box: list, batches, period: int,
+                  timed: int = 8) -> dict:
+    """Synchronised host stamps around ``timed`` more steps (local and
+    comm medians apart), then a device profile of one period. The state
+    travels in ``box`` (a one-element list, replaced by the state after),
+    and every step is a ``fit`` call of its own: a caller's name for a
+    state keeps it alive through the call, and at full width one extra
+    state (up to 29.7 GB) does not fit beside a step."""
+    state = box.pop()
+    stamps, log = [], None
+    torch.cuda.synchronize()
+    stamps.append((state.count, time.perf_counter()))
+    for _ in range(timed):
+        state, log = trainer.fit(state, batches, 1, log_every=1, log=log)
+        torch.cuda.synchronize()
+        stamps.append((state.count, time.perf_counter()))
+    dts = [(c, (t - t0) * 1e3) for (_, t0), (c, t) in zip(stamps,
+                                                            stamps[1:])]
+    one = [next(batches) for _ in range(period)]
+
+    def run_period():
+        nonlocal state
+        for b in one:
+            state, _ = trainer.step(state, b)
+
+    prof = device_profile(run_period)
+    box.append(state)
+    del state
+    emit({"phase": "profile", "path": phase, "steps": period, **prof})
+    return {"step_ms_median": statistics.median(d for _, d in dts),
+            "local_step_ms_median": statistics.median(
+                d for c, d in dts if c % period),
+            "comm_step_ms_median": statistics.median(
+                d for c, d in dts if c % period == 0),
+            "timed_steps": timed,
+            "period_device_ms": prof["device_ms"],
+            "period_wall_ms": prof["wall_ms"]}
+
+
+def lm_shape_times(phase: str, state, moment: str):
+    """``fused_adam`` and ``gossip_adam_mix`` (K=2 ring) timed on the
+    trained state's own resident buffers, (2, R, 128) f32 params with
+    ``moment`` m and v, and a gradient drawn to their shape: the median
+    CUDA-event time of LM_REPS calls each (the wrapper's host time, tens
+    of µs, is under 0.5% of a call here; the profiler dropped launches of
+    these 20-30 ms calls), beside the byte bound. Seven buffers of this
+    size leave no room for the plain version's temporaries; the
+    comparison with it stays at SHAPE."""
+    from repro_torch.core.topology import make_topology
+    from repro_torch.kernels import fused_adam as fa
+    from repro_torch.kernels import gossip as gk
+
+    p, m, v = state.buf, state.m, state.v
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g = torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+    topo = make_topology("ring", LM_K)
+    mix = (topo.offsets, topo.offset_weights, topo.self_weight)
+    n = p.numel()
+    n_bytes = n * (3 * 4 + 4 * m.element_size())
+    bound_ms = n_bytes / MEM_RATE * 1e3
+    out = {"shape": list(p.shape), "rows": int(p.shape[1]),
+           "moments": moment, "bytes": n_bytes, "bound_ms": bound_ms}
+    for name, fn in (
+            ("fused_adam", lambda: fa.fused_adam(p, g, m, v, **ADAM)),
+            ("gossip_adam_mix", lambda: gk.gossip_adam_mix(
+                p, g, m, v, *mix, **ADAM))):
+        ms = median_ms(fn, reps=LM_REPS, warmup=1)
+        out[name] = {"ms": ms, "share_of_bound": bound_ms / ms}
+    emit({"phase": "lm_shape_kernels", "path": phase, **out})
+    del g
+    return out
+
+
+def phase_lm_train():
+    """llama3.2-1b at full width through the training CLI as a user runs
+    it: ``repro_torch.launch.train.main(LM_ARGS)``, the launch counters
+    zeroed just before and read just after, the peak memory of the run;
+    then step times, a profile of one period and the LM-shape kernel
+    times on its state. Returns (launches, record)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run, wall_ms = synced(lambda: train.main(LM_ARGS))
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_launches("lm_train", launches, LM_LAUNCHES)
+    cfg = get_arch(LM_ARCH).model
+    if run.n_params != LM_PARAMS or run.state.spec.n != LM_PARAMS:
+        raise AssertionError(f"lm_train: {run.n_params} params per worker")
+    check_lm_losses("lm_train", run.log.loss, cfg.vocab_size)
+    if not bool(torch.isfinite(run.state.buf).all()):
+        raise AssertionError("lm_train: non-finite params")
+    rec = {"phase": "lm_train", "argv": LM_ARGS,
+           "params_per_worker": run.n_params,
+           "buffer_shape": list(run.state.buf.shape),
+           "buffer_gb": run.state.buf.numel() * 4 / 1e9,
+           "moments": "float32", "losses": run.log.loss,
+           "ln_vocab": math.log(cfg.vocab_size),
+           "consensus": run.log.consensus, "comm_mb": run.log.comm_mb,
+           "main_wall_ms": wall_ms, "peak_mem_gb": peak_gb,
+           "launches": launches}
+    trainer, batches, box = run.trainer, run.batches, [run.state]
+    del run
+    rec.update(lm_step_times("lm_train", trainer, box, batches, LM_PERIOD))
+    del trainer, batches
+    state = box.pop()
+    rec["lm_shape"] = lm_shape_times("lm_train", state, "float32")
+    emit(rec)
+    del state
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def lm_library_trainer(cfg, kind: str, device=None, period=LM_PERIOD,
+                       **opt_kw):
+    """The library path of the LM phases: ``build_model``, the stacked-loss
+    adapter, ``make_optimizer`` (packed, K=2 ring) and the trainer."""
+    from repro_torch.core.api import make_optimizer
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import DecentralizedTrainer, stacked_loss
+
+    api = build_model(cfg)
+    opt = make_optimizer(kind, K=LM_K, eta=LM_ETA, period=period,
+                         topology="ring", backend="packed",
+                         device=device or DEVICE, **opt_kw)
+    return api, DecentralizedTrainer(stacked_loss(api.loss), opt)
+
+
+def lm_library_run(phase: str, cfg, kind: str, want, **opt_kw):
+    """Init from the CLI's seed and ``LM_STEPS`` steps on the CLI's
+    stream, one ``fit`` call a step (as the CLI's ``--log-every 1``), the
+    counters zeroed before and read after, the peak memory of init and
+    the steps. Returns (trainer, [state], log, batches, launches, peak
+    GB)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    api, trainer = lm_library_trainer(cfg, kind, **opt_kw)
+    state = trainer.init(api.init(torch.Generator(
+        device=DEVICE).manual_seed(train.PARAM_SEED)))
+    batches = train.make_batch_iter(cfg, LM_K, LM_BATCH, LM_SEQ, 0.5,
+                                    torch.device(DEVICE))
+    log = None
+    for _ in range(LM_STEPS):
+        state, log = trainer.fit(state, batches, 1, log_every=1, log=log)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_launches(phase, launches, want)
+    check_lm_losses(phase, log.loss, cfg.vocab_size)
+    box = [state]
+    del state
+    return trainer, box, log, batches, launches, peak_gb
+
+
+def phase_lm_train_bf16(f32_rec):
+    """``lm_train``'s run through the library API with bf16 Adam moments
+    (``make_optimizer(moment_dtype=torch.bfloat16)``; the CLI has no
+    moment flag): the same launches, its peak memory against the f32
+    run's, the same step times, profile and LM-shape kernel times."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(LM_ARCH).model
+    trainer, box, log, batches, launches, peak_gb = lm_library_run(
+        "lm_train_bf16", cfg, "d-adam", LM_LAUNCHES,
+        moment_dtype=torch.bfloat16)
+    if box[0].m.dtype != torch.bfloat16 or box[0].v.dtype != torch.bfloat16:
+        raise AssertionError(f"lm_train_bf16: moments {box[0].m.dtype}")
+    if not peak_gb < f32_rec["peak_mem_gb"]:
+        raise AssertionError(f"lm_train_bf16: peak {peak_gb} GB not below "
+                             f"f32's {f32_rec['peak_mem_gb']}")
+    rec = {"phase": "lm_train_bf16", "moments": "bfloat16",
+           "buffer_shape": list(box[0].buf.shape), "losses": log.loss,
+           "losses_f32_moments": f32_rec["losses"],
+           "peak_mem_gb": peak_gb, "peak_mem_gb_f32": f32_rec["peak_mem_gb"],
+           "peak_saved_gb": f32_rec["peak_mem_gb"] - peak_gb,
+           "launches": launches}
+    rec.update(lm_step_times("lm_train_bf16", trainer, box, batches,
+                             LM_PERIOD))
+    del trainer, batches
+    state = box.pop()
+    rec["lm_shape"] = lm_shape_times("lm_train_bf16", state, "bfloat16")
+    emit(rec)
+    del state
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def phase_lm_train_cd():
+    """CD-Adam (sign, gamma 0.4) on llama3.2-1b at full width cut to
+    LM_CD_LAYERS layers, through the library path: one
+    ``sign_compress_stacked`` and one ``consensus_mix`` per comm step, the
+    compressor's scales one per (worker, leaf)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH).model,
+                              n_layers=LM_CD_LAYERS)
+    shapes = []
+    compress = ops.sign_compress_stacked
+
+    def recorded(*args, **kw):
+        out = compress(*args, **kw)
+        shapes.append(tuple(out[1].shape))
+        return out
+
+    ops.sign_compress_stacked = recorded
+    try:
+        trainer, box, log, batches, launches, peak_gb = lm_library_run(
+            "lm_train_cd", cfg, "cd-adam", LM_CD_LAUNCHES, **CD_ADAM)
+    finally:
+        ops.sign_compress_stacked = compress
+    state = box.pop()
+    want = [(LM_K, len(state.spec.sizes))] * LM_CD_LAUNCHES[
+        "sign_compress_stacked"]
+    if shapes != want:
+        raise AssertionError(f"lm_train_cd: scales {shapes} != {want}")
+    rec = {"phase": "lm_train_cd", "n_layers": cfg.n_layers,
+           "params_per_worker": state.spec.n,
+           "buffer_shape": list(state.buf.shape), "losses": log.loss,
+           "consensus": log.consensus, "comm_mb": log.comm_mb,
+           "scales_shapes": shapes, "peak_mem_gb": peak_gb,
+           "launches": launches}
+    emit(rec)
+    del trainer, state, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def adam_part_cap(steps: int, eta: float = LM_ETA, beta1: float = 0.9,
+                  beta2: float = 0.999) -> float:
+    """How far two runs of Adam (no bias correction) from one start can
+    move an element apart in ``steps`` steps: by Cauchy-Schwarz step t
+    moves it by at most eta * (1 - beta1) / sqrt(1 - beta2) *
+    sqrt(sum_{j<t} (beta1^2 / beta2)^j), each run either way (3.16 eta at
+    step 1, 4.97 at step 3); a mix is a convex combination and adds
+    nothing."""
+    lead = (1 - beta1) / math.sqrt(1 - beta2)
+    r = beta1 * beta1 / beta2
+    return 2 * eta * lead * sum(math.sqrt(sum(r ** j for j in range(t)))
+                                for t in range(1, steps + 1))
+
+
+def lm_outside(a, b, tol, spec, chunk: int = 1 << 26):
+    """(max abs difference, share of elements outside ``tol``, the share
+    in each leaf) of two resident buffers of layout ``spec``, worker by
+    worker and leaf by leaf in f32 chunks (the buffers are GBs)."""
+    from repro_torch.kernels import pack as packing
+
+    max_abs, outside, per_leaf = 0.0, 0, []
+    for r0, r1 in packing.leaf_row_ranges(spec):
+        n_out = 0
+        for k in range(a.shape[0]):
+            fa, fb = a[k, r0:r1].reshape(-1), b[k, r0:r1].reshape(-1)
+            for i in range(0, fa.numel(), chunk):
+                x, y = fa[i:i + chunk].float(), fb[i:i + chunk].float()
+                d = (x - y).abs()
+                max_abs = max(max_abs, float(d.max()))
+                n_out += int((d > tol["atol"] + tol["rtol"] * y.abs()).sum())
+        per_leaf.append(n_out / (a.shape[0] * (r1 - r0) * a.shape[-1]))
+        outside += n_out
+    return max_abs, outside / a.numel(), per_leaf
+
+
+def phase_lm_card_vs_cpu(arch: str):
+    """``arch`` at full width cut to 2 layers, f32 compute, three steps of
+    packed D-Adam at period 3 on the card and on the CPU in lock step,
+    from one init (drawn on the CPU) and one set of batches (seq 64),
+    through the library path: params and moments within LM_STEP1_TOL
+    after step 1 but for LM_STEP1_MAX_SHARE of them, and after step 3 at
+    most CARD_CPU_MAX_SHARE of them outside CARD_CPU_TOL, as
+    ``card_vs_cpu`` holds DeepFM's, in every leaf too. The params that
+    part lie within ``adam_part_cap``: unlike DeepFM's (within eta), an
+    LM's can part by more than eta (rwkv6's by 1.86 eta at step 3 on the
+    H100, 1.1e-5 of them), as far as Adam's normalised steps reach; a
+    wrong leaf, worker or neighbour shows as whole leaves apart."""
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(arch).model, n_layers=2,
+                              compute_dtype=torch.float32)
+    batches = lm_batches(cfg, seed=3, steps=3)
+    runs, states, logs = {}, {}, {}
+    seconds = {DEVICE: 0.0, "cpu": 0.0}
+    step_rec = []
+    for dev in (DEVICE, "cpu"):
+        api, runs[dev] = lm_library_trainer(cfg, "d-adam", device=dev,
+                                            period=3)
+    params = api.init(torch.Generator().manual_seed(0))
+    for dev in (DEVICE, "cpu"):
+        states[dev], logs[dev] = runs[dev].init(params), None
+    del params
+    for t in range(3):
+        for dev in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            states[dev], logs[dev] = runs[dev].fit(
+                states[dev], iter(batches[t:t + 1]), 1, log_every=1,
+                log=logs[dev])
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+            seconds[dev] += time.perf_counter() - t0
+        got = {}
+        spec = states["cpu"].spec
+        for name in ("buf", "m", "v"):
+            # compared on the card: the CPU's buffer is copied over
+            card = getattr(states[DEVICE], name)
+            cpu = getattr(states["cpu"], name).to(card.device)
+            tol = LM_STEP1_TOL if t == 0 else CARD_CPU_TOL
+            max_abs, share, per_leaf = lm_outside(card, cpu, tol, spec)
+            got[name] = {"max_abs_err": max_abs, "share_outside": share,
+                         "outside": round(share * card.numel()),
+                         "max_leaf_share": max(per_leaf)}
+            del cpu
+            share_cap = LM_STEP1_MAX_SHARE if t == 0 else CARD_CPU_MAX_SHARE
+            bad = share > share_cap or (t and max(per_leaf) > share_cap)
+            if name == "buf":
+                got[name]["cap"] = adam_part_cap(t + 1)
+                bad = bad or max_abs > got[name]["cap"]
+            if t in (0, 2) and bad:
+                raise AssertionError(f"{arch} step {t + 1} {name}: "
+                                     f"{got[name]} past share {share_cap}")
+        step_rec.append({"step": t + 1, **got})
+    loss_err = compare([torch.tensor(logs[DEVICE].loss)],
+                       [torch.tensor(logs["cpu"].loss)], CARD_CPU_TOL,
+                       f"{arch} losses")[0]
+    emit({"phase": "lm_card_vs_cpu", "arch": arch, "n_layers": 2,
+          "compute_dtype": "float32", "seq": 64, "period": 3,
+          "params_per_worker": states["cpu"].spec.n,
+          "losses_card": logs[DEVICE].loss, "losses_cpu": logs["cpu"].loss,
+          "loss_max_abs_err": loss_err, "steps": step_rec,
+          "step1_tol": LM_STEP1_TOL, "step1_max_share": LM_STEP1_MAX_SHARE,
+          "tol": CARD_CPU_TOL,
+          "max_share_outside": CARD_CPU_MAX_SHARE,
+          "seconds_card": seconds[DEVICE], "seconds_cpu": seconds["cpu"]})
+    del states, runs
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import argparse
 
@@ -1782,10 +2299,25 @@ def main() -> int:
     phase_serve_card_vs_cpu(
         cfg=dataclasses.replace(get_arch(SERVE_RWKV_ARCH).model, n_layers=2),
         seq=128, new_tokens=5, batch=2, phase="serve_rwkv_card_vs_cpu")
+    by_path["lm_train"], f32_rec = phase_lm_train()
+    by_path["lm_train_bf16"], bf16_rec = phase_lm_train_bf16(f32_rec)
+    by_path["lm_train_cd"] = phase_lm_train_cd()
+    phase_lm_card_vs_cpu(LM_ARCH)
+    phase_lm_card_vs_cpu(SERVE_RWKV_ARCH)
+    lm_shape = {"float32": f32_rec["lm_shape"],
+                "bfloat16": bf16_rec["lm_shape"]}
     for rec in records:
         rec["launches_by_path"] = {k: c[rec["name"]]
                                    for k, c in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
+        if rec["name"] in ("fused_adam", "gossip_adam_mix"):
+            # the same kernel at the LM shape, on lm_train's (f32) and
+            # lm_train_bf16's (bf16) state
+            moment = ("bfloat16" if rec.get("variant") == "bf16 m and v"
+                      else "float32")
+            lm = lm_shape[moment]
+            rec["lm_shape"] = {"shape": lm["shape"], "bound_ms":
+                               lm["bound_ms"], **lm[rec["name"]]}
     emit({"kernels": records})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

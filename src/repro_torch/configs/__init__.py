@@ -4,7 +4,7 @@ Lists only the architectures the port can build (llama3.2-1b, rwkv6-3b).
 The JAX package's other configs (qwen1.5-32b, starcoder2-15b, phi3.5-moe,
 whisper-large-v3, zamba2-7b, yi-6b, llama4-maverick, phi-3-vision) belong
 to the model zoo, not ported yet: asking for one raises
-``NotImplementedError`` (ROADMAP queue 1, item 11).
+``NotImplementedError`` (ROADMAP queue 1: model zoo).
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ def list_archs() -> List[str]:
 def _module(arch_id: str):
     if arch_id in _NOT_PORTED:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP queue 1, item 11: "
+            f"arch {arch_id!r} is not ported yet (ROADMAP queue 1: "
             f"model zoo); the port builds {list_archs()}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; have {list_archs()}")

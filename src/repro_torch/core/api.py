@@ -149,6 +149,7 @@ def make_optimizer(
     compressor: "str | Compressor" = "sign",
     scales: str = "leaf",
     mixing: str = "roll",
+    moment_dtype: Optional[torch.dtype] = None,
     backend: str = "reference",
     comm: str = "stacked",
     staleness: Optional[int] = None,
@@ -182,6 +183,10 @@ def make_optimizer(
         (one scale per worker; packed only).
       mixing: ``"roll"`` mixes by one shift per offset, ``"dense"`` by
         the mixing matrix.
+      moment_dtype: storage dtype of the Adam moments (``torch.bfloat16``
+        for big models); ``None`` keeps the param dtype. The reference
+        backend computes the update in this dtype, as the JAX package's
+        does; the packed kernels compute in f32 and round m and v to it.
       backend: ``"reference"`` (tree math) or ``"packed"`` (resident
         ``(K, rows, 128)`` state and the CUDA kernels).
       comm: ``"stacked"`` (all workers on one device).
@@ -212,7 +217,8 @@ def make_optimizer(
         kind=kind, K=K, topology=topology, period=period, eta=eta,
         beta1=beta1, beta2=beta2, tau=tau, weight_decay=weight_decay,
         bias_correction=bias_correction, gamma=gamma, compressor=compressor,
-        scales=scales, mixing=mixing, backend=backend, comm=comm,
+        scales=scales, mixing=mixing, moment_dtype=moment_dtype,
+        backend=backend, comm=comm,
         staleness=staleness, straggler_rate=straggler_rate,
         straggler_seed=straggler_seed, overlap=overlap, arrival=arrival,
         device=device, **comp_kw)
@@ -234,7 +240,8 @@ def make_optimizer(
                 "schedules are wired for d-adam / cd-adam")
     adam = dict(eta=eta, beta1=beta1, beta2=beta2, tau=tau, period=period,
                 weight_decay=weight_decay, bias_correction=bias_correction,
-                mixing=mixing, backend=backend, comm=comm,
+                mixing=mixing, moment_dtype=moment_dtype, backend=backend,
+                comm=comm,
                 staleness=staleness, straggler_rate=straggler_rate,
                 straggler_seed=straggler_seed, overlap=overlap)
     comp = None

@@ -245,8 +245,8 @@ def init(params_stacked: PyTree, cfg: CDAdamConfig,
     zeros = tree_map(torch.zeros_like, params_stacked)
     hat_nbrs = tuple(tree_map(torch.zeros_like, params_stacked)
                      for _ in offs)
-    state = CDAdamState(params_stacked, init_moments(params_stacked), zeros,
-                        hat_nbrs)
+    state = CDAdamState(params_stacked, init_moments(params_stacked, cfg),
+                        zeros, hat_nbrs)
     if cfg.backend == "packed":
         packed = PackedCDAdamState.from_unpacked(state)
         if tau > 0:

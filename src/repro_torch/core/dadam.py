@@ -71,6 +71,8 @@ class DAdamConfig:
     weight_decay: float = 0.0   # L2 (paper: 1e-4 for CIFAR-10)
     bias_correction: bool = False  # paper's Alg. 1 has none; optional extra
     mixing: str = "roll"        # 'dense' | 'roll'
+    moment_dtype: Optional[torch.dtype] = None  # e.g. torch.bfloat16 for
+    #                             big models; None keeps the param dtype
     backend: str = "reference"  # 'reference' (tree math) | 'packed'
     #                             (resident (K, rows, 128) state + kernels)
     comm: str = "stacked"       # 'stacked' only in this port so far
@@ -95,10 +97,14 @@ class DAdamConfig:
             raise ValueError(f"unknown mixing {self.mixing!r}")
         if self.backend not in ("reference", "packed"):
             raise ValueError(f"unknown backend {self.backend!r}")
+        if self.moment_dtype is not None and \
+                not self.moment_dtype.is_floating_point:
+            raise ValueError(f"moment_dtype must be a float dtype, got "
+                             f"{self.moment_dtype}")
         if self.comm == "axis":
             raise NotImplementedError(
                 "comm='axis' (one worker per GPU over torch.distributed) is "
-                "not ported yet (ROADMAP queue 1, item 10: multi-GPU comm)")
+                "not ported yet (ROADMAP queue 1: multi-GPU comm)")
         if self.comm != "stacked":
             raise ValueError(f"unknown comm {self.comm!r}")
         if self.backend == "packed" and self.bias_correction:
@@ -141,34 +147,51 @@ class AdamMoments(NamedTuple):
     count: int  # host step counter
 
 
-def init_moments(params: PyTree) -> AdamMoments:
-    zeros = tree_map(torch.zeros_like, params)
+def init_moments(params: PyTree,
+                 cfg: Optional[DAdamConfig] = None) -> AdamMoments:
+    """Zero m and v in ``cfg.moment_dtype``, or in each param's dtype."""
+    dt = cfg.moment_dtype if cfg is not None else None
+    zeros = tree_map(lambda x: torch.zeros_like(x, dtype=dt or x.dtype),
+                     params)
     return AdamMoments(m=zeros, v=tree_map(torch.zeros_like, zeros),
                        count=0)
 
 
+def _const(x: float, dtype: torch.dtype) -> float:
+    """A Python-float constant rounded to ``dtype``, as JAX rounds a weakly
+    typed scalar to the dtype of the array it meets."""
+    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
+
+
 def local_update(params: PyTree, grads: PyTree, mom: AdamMoments,
                  cfg: DAdamConfig) -> Tuple[PyTree, AdamMoments]:
-    """Lines 3-6 of Alg. 1 on trees: elementwise, stacked-K transparent."""
+    """Lines 3-6 of Alg. 1 on trees: elementwise, stacked-K transparent.
+    The update is computed in the moments' dtype, one rounding per op, as
+    the JAX package's reference does: with bf16 moments the grad is cast
+    to bf16, weight decay and the step are bf16 and the constants are
+    rounded to bf16 (beta2 = 0.999 becomes 1.0); only the subtraction
+    from the params is in their dtype. (The kernel path computes in f32.)
+    """
     count = mom.count + 1
-    b1, b2 = f32(cfg.beta1), f32(cfg.beta2)
-    omb1, omb2 = f32(1.0 - cfg.beta1), f32(1.0 - cfg.beta2)
     if cfg.bias_correction:
         t = np.float32(count)
         bc1 = float(np.float32(1.0) - np.float32(cfg.beta1) ** t)
         bc2 = float(np.float32(1.0) - np.float32(cfg.beta2) ** t)
 
     def upd(x, g, m, v):
-        g = g.to(m.dtype)
+        dt = m.dtype
+        g = g.to(dt)
         if cfg.weight_decay:
-            g = g + f32(cfg.weight_decay) * x.to(m.dtype)
-        m_new = b1 * m + omb1 * g
-        v_new = b2 * v + omb2 * (g * g)
+            g = g + _const(cfg.weight_decay, dt) * x.to(dt)
+        m_new = _const(cfg.beta1, dt) * m + _const(1.0 - cfg.beta1, dt) * g
+        v_new = (_const(cfg.beta2, dt) * v
+                 + _const(1.0 - cfg.beta2, dt) * (g * g))
         if cfg.bias_correction:
             m_hat, v_hat = m_new / bc1, v_new / bc2
         else:
             m_hat, v_hat = m_new, v_new
-        step = f32(cfg.eta) * m_hat / (torch.sqrt(v_hat) + f32(cfg.tau))
+        step = (_const(cfg.eta, dt) * m_hat
+                / (torch.sqrt(v_hat) + _const(cfg.tau, dt)))
         return x - step.to(x.dtype), m_new, v_new
 
     leaves, td = tree_flatten(params)
@@ -579,7 +602,7 @@ def init(params_stacked: PyTree, cfg: DAdamConfig,
             "cfg.staleness/cfg.overlap buffer one payload per topology "
             "offset; init needs the topology (pass topo=, as "
             "make_optimizer does)")
-    state = DAdamState(params_stacked, init_moments(params_stacked))
+    state = DAdamState(params_stacked, init_moments(params_stacked, cfg))
     if cfg.backend == "packed":
         packed = PackedDAdamState.from_unpacked(state)
         if needs_bufs:

@@ -9,7 +9,10 @@
 // (_gossip_adam_kernel, pallas_call at line 258): the Adam half-step of
 // every worker from its (p, g, m, v), rounded to p's dtype (f32 here), then
 // mixed as above; it writes the mixed p and each worker's own m and v.
-// Bound: bytes, p, g, m, v read once and p, m, v written once (7 buffers).
+// The moments are f32 or bf16 (computed in f32, rounded at the store:
+// adam_math.cuh); p and g are f32.
+// Bound: bytes, p, g, m, v read once and p, m, v written once (7 buffers:
+// 28 bytes an element, 20 with bf16 moments).
 // One block owns a tile of n float4 columns of every worker, the same
 // index range in each: it takes the K half-steps of the tile once, writes
 // m and v at once and keeps the half-step p in shared memory ([K][n],
@@ -150,24 +153,27 @@ __global__ void consensus_mix_kernel(const float4* __restrict__ x,
   }
 }
 
+template <typename M>
 __device__ __forceinline__ float4 half_step4(const float4* __restrict__ p,
                                              const float4* __restrict__ g,
-                                             const float4* __restrict__ m,
-                                             const float4* __restrict__ v,
+                                             const M* __restrict__ m,
+                                             const M* __restrict__ v,
                                              long long i, const AdamConsts& c,
                                              float4* mo, float4* vo) {
-  float4 P = p[i], G = g[i], M = m[i], V = v[i], PO;
-  adam_half_step(P.x, G.x, M.x, V.x, c, &PO.x, &mo->x, &vo->x);
-  adam_half_step(P.y, G.y, M.y, V.y, c, &PO.y, &mo->y, &vo->y);
-  adam_half_step(P.z, G.z, M.z, V.z, c, &PO.z, &mo->z, &vo->z);
-  adam_half_step(P.w, G.w, M.w, V.w, c, &PO.w, &mo->w, &vo->w);
+  float4 P = p[i], G = g[i], M4 = load_moment4(m, i),
+         V = load_moment4(v, i), PO;
+  adam_half_step(P.x, G.x, M4.x, V.x, c, &PO.x, &mo->x, &vo->x);
+  adam_half_step(P.y, G.y, M4.y, V.y, c, &PO.y, &mo->y, &vo->y);
+  adam_half_step(P.z, G.z, M4.z, V.z, c, &PO.z, &mo->z, &vo->z);
+  adam_half_step(P.w, G.w, M4.w, V.w, c, &PO.w, &mo->w, &vo->w);
   return PO;
 }
 
+template <typename M>
 __global__ void __launch_bounds__(kThreads) gossip_adam_mix_kernel(
     const float4* __restrict__ p, const float4* __restrict__ g,
-    const float4* __restrict__ m, const float4* __restrict__ v,
-    float4* __restrict__ po, float4* __restrict__ mo, float4* __restrict__ vo,
+    const M* __restrict__ m, const M* __restrict__ v,
+    float4* __restrict__ po, M* __restrict__ mo, M* __restrict__ vo,
     const int* __restrict__ src, const float* __restrict__ weights, int K,
     int deg, long long per_worker, int n, AdamConsts c) {
   extern __shared__ float4 s_half[];  // [K][n]: the tile's half-step p
@@ -180,8 +186,8 @@ __global__ void __launch_bounds__(kThreads) gossip_adam_mix_kernel(
       const long long at = (long long)kw * per_worker + i;
       float4 m_new, v_new;
       s_half[e] = half_step4(p, g, m, v, at, c, &m_new, &v_new);
-      mo[at] = m_new;
-      vo[at] = v_new;
+      store_moment4(mo, at, m_new);
+      store_moment4(vo, at, v_new);
     }
   }
   __syncthreads();
@@ -236,10 +242,30 @@ dim3 grid_for(long long per_worker, int K) {
   return dim3((unsigned)bx, (unsigned)K);
 }
 
+template <typename M>
+int launch_gossip_adam_mix(const float* p, const float* g, const M* m,
+                           const M* v, float* po, M* mo, M* vo,
+                           const int* src, const float* weights, int K,
+                           int deg, long long n_per_worker, AdamConsts c,
+                           void* stream) {
+  if (deg < 1 || deg > kMaxGossipAdamDegree) return (int)cudaErrorInvalidValue;
+  const long long per_worker = n_per_worker / 4;
+  if (per_worker == 0 || K == 0) return 0;
+  const int n = adam_tile_cols(K);
+  if (n == 0) return (int)cudaErrorInvalidValue;
+  const long long blocks = (per_worker + n - 1) / n;
+  gossip_adam_mix_kernel<M><<<(unsigned)blocks, kThreads, (size_t)K * n * 16,
+                              static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(p), reinterpret_cast<const float4*>(g),
+      m, v, reinterpret_cast<float4*>(po), mo, vo, src, weights, K, deg,
+      per_worker, n, c);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Both entry points take n_per_worker = rows * 128 f32 elements (a multiple
-// of 4) and return cudaGetLastError() after the launch; 1
+// The gossip_mix and gossip_adam_mix entry points take n_per_worker =
+// rows * 128 elements (a multiple of 4) and return cudaGetLastError() after the launch; 1
 // (cudaErrorInvalidValue) marks a degree outside the kernel's table, or a
 // K whose gossip_adam_mix tile would not fit in shared memory (K > 3072).
 extern "C" int gossip_mix_f32(const float* x, float* out, const int* src,
@@ -264,21 +290,26 @@ extern "C" int gossip_adam_mix_f32(const float* p, const float* g,
                                    float beta2, float one_minus_beta2,
                                    float tau, float weight_decay,
                                    void* stream) {
-  if (deg < 1 || deg > kMaxGossipAdamDegree) return (int)cudaErrorInvalidValue;
-  const long long per_worker = n_per_worker / 4;
-  if (per_worker == 0 || K == 0) return 0;
-  const int n = adam_tile_cols(K);
-  if (n == 0) return (int)cudaErrorInvalidValue;
-  AdamConsts c{eta, beta1, one_minus_beta1, beta2, one_minus_beta2, tau,
-               weight_decay};
-  const long long blocks = (per_worker + n - 1) / n;
-  gossip_adam_mix_kernel<<<(unsigned)blocks, kThreads, (size_t)K * n * 16,
-                           static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(p), reinterpret_cast<const float4*>(g),
-      reinterpret_cast<const float4*>(m), reinterpret_cast<const float4*>(v),
-      reinterpret_cast<float4*>(po), reinterpret_cast<float4*>(mo),
-      reinterpret_cast<float4*>(vo), src, weights, K, deg, per_worker, n, c);
-  return (int)cudaGetLastError();
+  return launch_gossip_adam_mix(
+      p, g, m, v, po, mo, vo, src, weights, K, deg, n_per_worker,
+      AdamConsts{eta, beta1, one_minus_beta1, beta2, one_minus_beta2, tau,
+                 weight_decay},
+      stream);
+}
+
+// f32 p and g, bf16 m and v (8-byte aligned).
+extern "C" int gossip_adam_mix_f32_bf16m(
+    const float* p, const float* g, const __nv_bfloat16* m,
+    const __nv_bfloat16* v, float* po, __nv_bfloat16* mo, __nv_bfloat16* vo,
+    const int* src, const float* weights, int K, int deg,
+    long long n_per_worker, float eta, float beta1, float one_minus_beta1,
+    float beta2, float one_minus_beta2, float tau, float weight_decay,
+    void* stream) {
+  return launch_gossip_adam_mix(
+      p, g, m, v, po, mo, vo, src, weights, K, deg, n_per_worker,
+      AdamConsts{eta, beta1, one_minus_beta1, beta2, one_minus_beta2, tau,
+                 weight_decay},
+      stream);
 }
 
 // n is the element count of each (K, rows, 128) buffer, a multiple of 4;

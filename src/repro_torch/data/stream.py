@@ -43,7 +43,7 @@ def prefetch_to_device(it: Iterator[PyTree], size: int = 2, *,
     """Wrap a batch iterator with a transfer window of ``size`` batches
     (2: one in use, one in flight) to ``device``. JAX's ``sharding=`` /
     ``placer=`` belong to the worker mesh, not ported yet (ROADMAP queue
-    1, item 10)."""
+    1: multi-GPU comm)."""
     if size < 1:
         raise ValueError(f"prefetch size must be >= 1, got {size}")
     dev = resolve_device(device)

@@ -1,21 +1,101 @@
-"""Synthetic non-IID CTR data, the port of ``repro.data.synthetic``'s CTR
-generator.
+"""Synthetic non-IID data, the port of ``repro.data.synthetic``'s LM token
+streams and CTR generator.
 
-K workers, each with its own data distribution D^(k) (Section 3.1): sparse
-categorical fields with a planted factorization-machine teacher, so AUC is
-meaningful. :func:`make_ctr_task` is numpy and equal to the JAX package's;
-the batches are drawn from a ``torch.Generator`` on the target device with
-the same non-IID skew formula, so they are not the JAX package's bits.
+K workers, each with its own data distribution D^(k) (Section 3.1):
+
+* token streams for LM training (:func:`lm_batch`,
+  :func:`lm_batches_stacked`): uniform tokens of which a share is moved
+  into the worker's own vocab band. The draws (the uniform ``base`` tokens
+  and the band ``mask``) come from a ``torch.Generator`` or are given:
+  handed JAX's draws, the tokens equal JAX's;
+* sparse categorical CTR fields with a planted factorization-machine
+  teacher, so AUC is meaningful. :func:`make_ctr_task` is numpy and equal
+  to the JAX package's; the batches are drawn from a ``torch.Generator``
+  on the target device with the same non-IID skew formula, so they are
+  not the JAX package's bits.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+
+# (t, worker) -> (base, mask): the draws of step t's batch of one worker
+LMDraws = Callable[[int, int], Tuple[torch.Tensor, torch.Tensor]]
+
+
+# ----------------------------- LM token streams -----------------------------
+
+
+def lm_draws(gen: torch.Generator, batch: int, seq_len: int, vocab: int,
+             skew: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One worker's draws on ``gen.device``: ``base`` (batch, seq_len+1)
+    int64 uniform in [0, vocab) and ``mask`` of the same shape, true with
+    probability ``0.5 * min(skew, 1)`` (JAX's ``randint`` and
+    ``bernoulli``, from torch's stream)."""
+    shape = (batch, seq_len + 1)
+    base = torch.randint(0, vocab, shape, generator=gen, device=gen.device)
+    mask = torch.rand(shape, generator=gen,
+                      device=gen.device) < 0.5 * min(skew, 1.0)
+    return base, mask
+
+
+def lm_tokens(base: torch.Tensor, mask: torch.Tensor, vocab: int,
+              worker: int = 0, n_workers: int = 1,
+              skew: float = 1.0) -> torch.Tensor:
+    """The tokens of ``lm_batch`` from its draws: where ``mask`` holds, the
+    base token moves into the worker's band ``[worker * band, (worker + 1)
+    * band)``, ``band = vocab // n_workers``; IID (``base``) when ``skew <=
+    0`` or with one worker. int32, as JAX's."""
+    if skew <= 0 or n_workers <= 1:
+        return base.to(torch.int32)
+    band = vocab // n_workers
+    banded = worker * band + torch.remainder(base, max(band, 1))
+    return torch.where(mask, banded, base).to(torch.int32)
+
+
+def lm_batch(gen: Optional[torch.Generator], batch: int, seq_len: int,
+             vocab: int, worker: int = 0, n_workers: int = 1,
+             skew: float = 1.0, *, base: Optional[torch.Tensor] = None,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(batch, seq_len+1) int32 tokens of one worker: JAX's ``lm_batch``.
+    The draws come from ``gen`` (:func:`lm_draws`) unless ``base`` and
+    ``mask`` are given."""
+    if base is None or mask is None:
+        base, mask = lm_draws(gen, batch, seq_len, vocab, skew)
+    if tuple(base.shape) != (batch, seq_len + 1) or \
+            tuple(mask.shape) != tuple(base.shape):
+        raise ValueError(f"draws of shape {tuple(base.shape)} / "
+                         f"{tuple(mask.shape)}, expected "
+                         f"{(batch, seq_len + 1)}")
+    return lm_tokens(base, mask, vocab, worker, n_workers, skew)
+
+
+def lm_batches_stacked(gen: Optional[torch.Generator], p: int, K: int,
+                       per_worker: int, seq_len: int, vocab: int,
+                       skew: float = 1.0, *,
+                       draws: Optional[LMDraws] = None) -> torch.Tensor:
+    """(p, K, per_worker, seq_len+1) int32: one communication round of
+    batches, step by step and worker by worker, as JAX's. ``draws(t, k)``
+    gives the (base, mask) of step t and worker k; by default they come
+    from ``gen``, in that order."""
+    out = []
+    for t in range(p):
+        row = []
+        for k in range(K):
+            base, mask = (draws(t, k) if draws is not None else
+                          lm_draws(gen, per_worker, seq_len, vocab, skew))
+            row.append(lm_batch(None, per_worker, seq_len, vocab, k, K,
+                                skew, base=base, mask=mask))
+        out.append(torch.stack(row))
+    return torch.stack(out)
+
+
+# --------------------------- CTR sparse features -----------------------------
 
 
 @dataclasses.dataclass(frozen=True)

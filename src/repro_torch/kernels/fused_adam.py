@@ -2,9 +2,12 @@
 
 Replaces the TPU kernel ``src/repro/kernels/fused_adam.py:fused_adam``
 (``_adam_kernel``, ``pallas_call`` at line 66): Alg. 1 lines 4-6, no bias
-correction, in one pass that reads p, g, m, v and writes p, m, v. On the
-H100 it is bound by those bytes (28 per element); the kernel
-(``csrc/fused_adam.cu``) streams them once with 16-byte loads.
+correction, in one pass that reads p, g, m, v and writes p, m, v. p and g
+are f32; m and v are f32 or bf16 (``make_optimizer(moment_dtype=)``), the
+step computed in f32 and the moments rounded to their dtype at the store,
+as the TPU kernel does. On the H100 it is bound by those bytes (28 per
+element, 20 with bf16 moments); the kernel (``csrc/fused_adam.cu``)
+streams them once, four elements a thread.
 
 :func:`fused_adam` launches the kernel and counts each launch in
 ``fused_adam.launches``; :func:`fused_adam_plain` repeats the kernel's
@@ -66,9 +69,14 @@ def fused_adam_plain(p, g, m, v, *, eta: float, beta1: float = 0.9,
     return po.to(p.dtype), mo.to(m.dtype), vo.to(v.dtype)
 
 
+# the moment dtypes the kernels take, by the C entry's suffix
+MOMENT_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16m"}
+
+
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = _build.load("fused_adam").fused_adam_f32
+def _entry(moment_dtype: torch.dtype):
+    fn = getattr(_build.load("fused_adam"),
+                 "fused_adam_f32" + MOMENT_DTYPES[moment_dtype])
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int]
                    + [ctypes.c_float] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -94,17 +102,38 @@ def check_f32_cuda(*ts: torch.Tensor) -> None:
             raise ValueError("the CUDA kernels need contiguous operands")
 
 
+def check_adam_cuda(p, g, m, v) -> torch.dtype:
+    """The Adam kernels take contiguous CUDA tensors of one shape on one
+    device: f32 p and g, and m and v both f32 or both bf16. Returns the
+    moment dtype; raises on any other combination."""
+    check_f32_cuda(p, g)
+    if m.dtype != v.dtype or m.dtype not in MOMENT_DTYPES:
+        raise ValueError(f"the Adam kernels take f32 or bf16 moments of "
+                         f"one dtype; got m {m.dtype}, v {v.dtype}")
+    for t in (m, v):
+        if not t.is_cuda or t.shape != p.shape or t.device != p.device:
+            raise ValueError(f"moment {tuple(t.shape)} on {t.device} does "
+                             f"not match {tuple(p.shape)} on {p.device}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernels need contiguous operands")
+    return m.dtype
+
+
 def fused_adam(p, g, m, v, *, eta: float, beta1: float = 0.9,
                beta2: float = 0.999, tau: float = 1e-6,
                weight_decay: float = 0.0) -> Tensors3:
-    """Launch the CUDA kernel on f32 CUDA tensors of any one shape; the
-    outputs are new tensors. Raises on anything the kernel does not take."""
-    check_f32_cuda(p, g, m, v)
+    """Launch the CUDA kernel on CUDA tensors of any one shape: f32 p and
+    g, f32 or bf16 m and v (computed in f32, rounded to their dtype at the
+    store); the outputs are new tensors. Raises on anything the kernel
+    does not take."""
+    mdt = check_adam_cuda(p, g, m, v)
     po, mo, vo = (torch.empty_like(p), torch.empty_like(m),
                   torch.empty_like(v))
-    ptrs = [t.data_ptr() for t in (p, g, m, v, po, mo, vo)]
-    vec = int(all(x % 16 == 0 for x in ptrs))
-    status = _build.launch(_entry(), p.device, *ptrs, p.numel(), vec,
+    ts = (p, g, m, v, po, mo, vo)
+    # four elements per load or store: 16 bytes of f32, 8 of bf16
+    vec = int(all(t.data_ptr() % (4 * t.element_size()) == 0 for t in ts))
+    status = _build.launch(_entry(mdt), p.device,
+                           *(t.data_ptr() for t in ts), p.numel(), vec,
                            *adam_consts(eta, beta1, beta2, tau, weight_decay))
     _build.check(status, "fused_adam")
     fused_adam.launches += 1

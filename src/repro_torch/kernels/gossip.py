@@ -11,9 +11,10 @@ accumulated in f32, the self term first, then the offsets in order.
 ``gossip_adam_mix`` replaces ``src/repro/kernels/gossip.py:gossip_adam_mix``
 (``_gossip_adam_kernel``, ``pallas_call`` at line 258): the Adam half-step
 of worker k and of each source worker, each rounded to p's dtype, mixed as
-above; returns (mixed p, worker k's own m, v). It agrees with the two-pass
-``fused_adam`` -> ``gossip_mix`` sequence within f32 rounding; it is not
-held to be bit for bit equal.
+above; returns (mixed p, worker k's own m, v). p and g are f32, m and v
+f32 or bf16 (computed in f32, rounded to their dtype at the store). It
+agrees with the two-pass ``fused_adam`` -> ``gossip_mix`` sequence within
+f32 rounding; it is not held to be bit for bit equal.
 
 ``consensus_mix`` replaces ``src/repro/kernels/gossip.py:consensus_mix``
 (``_consensus_kernel``, ``pallas_call`` at line 307), CD-Adam's line 8::
@@ -53,8 +54,10 @@ import torch
 
 from repro_torch.core.topology import GridShift, offset_perm
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_adam import (adam_consts, adam_half_step_plain,
-                                            check_f32_cuda, f32)
+from repro_torch.kernels.fused_adam import (MOMENT_DTYPES, adam_consts,
+                                            adam_half_step_plain,
+                                            check_adam_cuda, check_f32_cuda,
+                                            f32)
 from repro_torch.kernels.pack import LANE
 
 # the shared-memory source table of gossip_mix holds this many offsets
@@ -216,9 +219,10 @@ def _check_gossip_adam(p, g, m, v, offsets, offset_weights) -> int:
 
 
 def _check_aligned(*ts: torch.Tensor) -> None:
-    if any(t.data_ptr() % 16 for t in ts):
-        raise ValueError("the gossip kernels load 16 bytes at a time and "
-                         "need 16-byte aligned buffers")
+    if any(t.data_ptr() % (4 * t.element_size()) for t in ts):
+        raise ValueError("the gossip kernels load four elements at a time "
+                         "and need buffers aligned to that: 16 bytes for "
+                         "f32, 8 for bf16")
 
 
 @functools.lru_cache(maxsize=None)
@@ -228,11 +232,14 @@ def _entries():
     mix.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
                     + [ctypes.c_longlong, ctypes.c_void_p])
     mix.restype = ctypes.c_int
-    gam = lib.gossip_adam_mix_f32
-    gam.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
-                    + [ctypes.c_longlong] + [ctypes.c_float] * 7
-                    + [ctypes.c_void_p])
-    gam.restype = ctypes.c_int
+    gam = {}
+    for dt, suffix in MOMENT_DTYPES.items():
+        fn = getattr(lib, "gossip_adam_mix_f32" + suffix)
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+                       + [ctypes.c_longlong] + [ctypes.c_float] * 7
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        gam[dt] = fn
     con = lib.consensus_mix_f32
     con.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
                                              ctypes.c_float, ctypes.c_void_p])
@@ -274,17 +281,19 @@ def gossip_adam_mix(p, g, m, v, offsets: Sequence,
                     eta: float, beta1: float = 0.9, beta2: float = 0.999,
                     tau: float = 1e-6, weight_decay: float = 0.0
                     ) -> Tensors3:
-    """Launch the fused Adam half-step + mix on contiguous f32
-    ``(K, rows, 128)`` CUDA buffers; the outputs are new tensors."""
+    """Launch the fused Adam half-step + mix on contiguous
+    ``(K, rows, 128)`` CUDA buffers: f32 p and g, f32 or bf16 m and v
+    (computed in f32, rounded to their dtype at the store); the outputs
+    are new tensors."""
     K = _check_gossip_adam(p, g, m, v, offsets, offset_weights)
     offs, weights = _offsets(offsets, offset_weights)
-    check_f32_cuda(p, g, m, v)
+    mdt = check_adam_cuda(p, g, m, v)
     src, w = mix_table(offs, weights, float(self_weight), K, p.device)
     po, mo, vo = (torch.empty_like(p), torch.empty_like(m),
                   torch.empty_like(v))
     _check_aligned(p, g, m, v, po, mo, vo)
     _, gam, _, _ = _entries()
-    status = _build.launch(gam, p.device, p.data_ptr(), g.data_ptr(),
+    status = _build.launch(gam[mdt], p.device, p.data_ptr(), g.data_ptr(),
                            m.data_ptr(), v.data_ptr(), po.data_ptr(),
                            mo.data_ptr(), vo.data_ptr(), src.data_ptr(),
                            w.data_ptr(), K, len(offs), p[0].numel(),

@@ -28,7 +28,7 @@ row block, or the mean over the worker dim taken in the packed domain.
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -92,7 +92,7 @@ def make_spec(tree: PyTree, *, stacked: bool = False,
     if row_shards > 1:
         raise NotImplementedError(
             "the row-sharded 2D layout (row_shards > 1) is not ported yet "
-            "(ROADMAP queue 1, item 10: multi-GPU comm)")
+            "(ROADMAP queue 1: multi-GPU comm)")
     leaves, treedef = tree_flatten(tree)
     if not leaves:
         raise ValueError("cannot pack an empty pytree")
@@ -155,14 +155,59 @@ def pack(tree: PyTree, spec: PackSpec,
     return buf
 
 
+def _leaf_views(buf: torch.Tensor, spec: PackSpec) -> List[torch.Tensor]:
+    """Each leaf's range of ``buf`` in the leaf's shape: a view of ``buf``
+    (cast to the leaf's dtype where it differs from the buffer's)."""
+    flat = buf.reshape(spec.k, -1) if spec.stacked else buf.reshape(-1)
+    return [flat[..., o:o + sz].reshape(shape).to(dt)
+            for o, sz, dt, shape in zip(spec.offsets, spec.sizes,
+                                        spec.dtypes, spec.shapes)]
+
+
+class _Unpack(torch.autograd.Function):
+    """The leaf views of :func:`_leaf_views`, with a backward that builds
+    the packed gradient in ONE buffer: each leaf's gradient is copied into
+    its range and only the padding (and the range of a leaf without a
+    gradient) is zeroed. Autograd through plain views would give every
+    leaf a zero-filled buffer of the whole packed size and then add them;
+    this is the counterpart of JAX's transpose of ``unpack``, one pad."""
+
+    @staticmethod
+    def forward(ctx, buf: torch.Tensor, spec: PackSpec):
+        ctx.spec, ctx.buf_dtype, ctx.buf_device = spec, buf.dtype, buf.device
+        ctx.set_materialize_grads(False)
+        return tuple(_leaf_views(buf, spec))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        spec = ctx.spec
+        out = torch.empty(spec.buf_shape(), dtype=ctx.buf_dtype,
+                          device=ctx.buf_device)
+        flat = out.view(spec.k, -1) if spec.stacked else out.view(-1)
+        ends = spec.offsets[1:] + (spec.padded,)
+        for g, o, sz, end, shape in zip(grads, spec.offsets, spec.sizes,
+                                        ends, spec.shapes):
+            dst = flat[..., o:o + sz]
+            if g is None:
+                dst.zero_()
+            else:
+                dst.view(shape).copy_(g)
+            if end > o + sz:
+                flat[..., o + sz:end].zero_()
+        return out, None
+
+
 def unpack(buf: torch.Tensor, spec: PackSpec) -> PyTree:
     """Inverse of :func:`pack`. Every leaf whose dtype is the buffer's is
-    a VIEW of ``buf``: the packed grad pipeline differentiates a loss
-    through these views, so the gradient arrives packed in ``buf.grad``."""
-    flat = buf.reshape(spec.k, -1) if spec.stacked else buf.reshape(-1)
-    leaves = [flat[..., o:o + sz].reshape(shape).to(dt)
-              for o, sz, dt, shape in zip(spec.offsets, spec.sizes,
-                                          spec.dtypes, spec.shapes)]
+    a VIEW of ``buf``. When autograd records the call (``buf`` requires
+    grad), the leaves come from one ``autograd.Function`` whose backward
+    writes the gradient of every leaf into one packed buffer, zero in the
+    padding: the packed grad pipeline differentiates a loss through these
+    leaves and gets the gradient packed."""
+    if torch.is_grad_enabled() and buf.requires_grad:
+        leaves = list(_Unpack.apply(buf, spec))
+    else:
+        leaves = _leaf_views(buf, spec)
     return tree_unflatten(spec.treedef, leaves)
 
 

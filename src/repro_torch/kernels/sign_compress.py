@@ -53,7 +53,7 @@ def _layout(x: torch.Tensor, hat: torch.Tensor, n_true, row_ranges,
     if reduce_axis is not None:
         raise NotImplementedError(
             "reduce_axis (the 2D worker x model mesh psum of the scale "
-            "partials) is not ported yet (ROADMAP queue 1, item 10: "
+            "partials) is not ported yet (ROADMAP queue 1: "
             "multi-GPU comm)")
     if x.dim() < 1:
         raise ValueError("stacked sign compress needs a leading worker dim")

@@ -9,13 +9,65 @@ statistics and RoPE in f32, the hidden tensor in its compute dtype.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
+
+from repro_torch._tree import tree_flatten, tree_unflatten
 
 PyTree = Any
+REMAT = ("none", "dots", "full")
+# the matrix products at dispatch: what JAX's checkpoint_dots saves
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The selective-recompute policy of ``remat="dots"``: keep the output
+    of every matrix product, recompute everything else in the backward."""
+    if op in _DOT_OPS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def layer_views(layers: PyTree) -> List[PyTree]:
+    """Every layer's params from the stacked ``layers`` tree: views of the
+    stack, one ``unbind`` per leaf. In the backward each leaf's per-layer
+    gradients are stacked once; indexing ``x[i]`` layer by layer would
+    zero-fill a gradient of the whole stack's size for every layer and
+    add them all up."""
+    leaves, td = tree_flatten(layers)
+    per = [x.unbind(0) for x in leaves]
+    return [tree_unflatten(td, [x[i] for x in per])
+            for i in range(len(per[0]))]
+
+
+def check_remat(remat: str) -> None:
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+
+
+def remat_call(fn: Callable, remat: str, *args):
+    """``fn(*args)`` under the activation-checkpoint policy ``remat``, the
+    port of the JAX models' ``jax.checkpoint`` around the layer: "none"
+    saves every activation the backward needs, "full" saves only the
+    inputs and recomputes the layer in the backward, "dots" saves the
+    matrix products' outputs and recomputes the rest (JAX's
+    ``checkpoint_policies.checkpoint_dots``). Without grad it is a plain
+    call."""
+    check_remat(remat)
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 # ------------------------------- init --------------------------------------

@@ -15,8 +15,8 @@ one choice for a config's family. The defaults are JAX's (``"auto"``,
 ``"scan"``); the serving engine asks for the kernels.
 
 The dense (llama) and ssm (rwkv6) families are ported; the others (moe,
-vlm, audio, hybrid) raise ``NotImplementedError`` (ROADMAP queue 1,
-item 11).
+vlm, audio, hybrid) raise ``NotImplementedError`` (ROADMAP queue 1:
+model zoo).
 """
 from __future__ import annotations
 
@@ -57,8 +57,8 @@ def impl_kwargs(cfg: ModelConfig, *, attn_impl: str = "auto",
 def build_model(cfg: ModelConfig) -> ModelAPI:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            f"item 11: model zoo); the port builds {FAMILIES}")
+            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1: "
+            f"model zoo); the port builds {FAMILIES}")
     if cfg.family == "ssm":
         return ModelAPI(
             cfg=cfg,

@@ -24,8 +24,8 @@ dtype copy of the params keeps them as they are.
 ``wkv_impl`` picks the recurrence: ``"scan"`` (JAX's ``"xla"``) the plain
 loop, ``"kernel"`` (JAX's ``"pallas"``) ``ops.rwkv_scan``, the CUDA kernel
 on a CUDA tensor and the same plain loop on a CPU one. The kernel has no
-backward, so training takes ``"scan"`` (LM training is a later slice;
-``loss_fn`` exists for parity with the JAX package).
+backward, so training (``loss_fn``, with the ``remat`` policy around each
+layer) takes ``"scan"``, as JAX's trains through ``"xla"``.
 
 Entry points:
   forward(params, tokens, cfg, ...)        -> (logits, RWKVCache)
@@ -106,11 +106,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
         "ln_out_b": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
         "lm_head": common.dense_init(gen, cfg.d_model, cfg.vocab_size, dt),
     }
-
-
-def layer_view(params: PyTree, i: int) -> PyTree:
-    """Layer ``i``'s params: views ``layers[leaf][i]`` of the stack."""
-    return {k: x[i] for k, x in params["layers"].items()}
 
 
 # ------------------------------ primitives ----------------------------------
@@ -241,10 +236,9 @@ def _backbone(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,
               cache: Optional[RWKVCache], remat: str, wkv_impl: str
               ) -> Tuple[torch.Tensor, RWKVCache]:
     """Embed, every layer, the final norm: (h (B, S, d), new cache)."""
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r}: activation checkpointing belongs to LM "
-            "training, not ported yet (ROADMAP queue 1)")
+    common.check_remat(remat)
+    # JAX checkpoints the whole scan body for any policy but "none"
+    policy = "none" if remat == "none" else "full"
     B, S = tokens.shape
     h = params["embed"][tokens.long()].to(cfg.compute_dtype)
     if cache is None:
@@ -252,10 +246,10 @@ def _backbone(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,
     tm: List[torch.Tensor] = []
     cm: List[torch.Tensor] = []
     wkv: List[torch.Tensor] = []
-    for i in range(cfg.n_layers):
-        h, tm_x, cm_x, st = _layer(layer_view(params, i), h, cfg,
-                                   cache.tm_x[i], cache.cm_x[i],
-                                   cache.wkv[i], wkv_impl)
+    for i, layer in enumerate(common.layer_views(params["layers"])):
+        h, tm_x, cm_x, st = common.remat_call(
+            _layer, policy, layer, h, cfg, cache.tm_x[i], cache.cm_x[i],
+            cache.wkv[i], wkv_impl)
         tm.append(tm_x)
         cm.append(cm_x)
         wkv.append(st)

@@ -4,8 +4,8 @@
 Layers are stacked as in JAX: every per-layer leaf carries a leading
 ``n_layers`` dim and the key names are JAX's, so ``convert.params_from_
 numpy`` carries a JAX param tree across as a plain copy. JAX's
-``lax.scan`` over the stack becomes a Python loop over the views
-``layers[leaf][i]``.
+``lax.scan`` over the stack becomes a Python loop over the layers' views
+(``common.layer_views``).
 
 Entry points:
   forward(params, tokens, cfg)           -> (logits, aux)  (parity only)
@@ -14,9 +14,10 @@ Entry points:
 
 ``prefill`` and ``forward`` take ``attn_impl`` for ``attention.sdpa``
 (default ``"auto"``, as JAX's); the serving engine passes ``"kernel"``.
-The MoE family is not ported yet (ROADMAP queue 1, item 11). ``forward``
-and ``loss_fn`` exist for parity with the JAX package: LM training is a
-later slice (the flash kernel has no backward).
+The MoE family is not ported yet (ROADMAP queue 1: model zoo).
+``loss_fn`` is what LM training differentiates: through ``sdpa``'s naive
+or chunked path, never the flash kernel (it has no backward), with the
+``remat`` policy around each layer.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ PyTree = Any
 def _no_moe(cfg: ModelConfig) -> None:
     if cfg.family == "moe" or (cfg.n_experts and cfg.experts_per_token):
         raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP queue 1, item 11: "
+            "MoE layers are not ported yet (ROADMAP queue 1: "
             "model zoo)")
 
 
@@ -87,11 +88,6 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
     return p
 
 
-def layer_view(params: PyTree, i: int) -> PyTree:
-    """Layer ``i``'s params: views ``layers[leaf][i]`` of the stack."""
-    return tree_map(lambda x: x[i], params["layers"])
-
-
 # ------------------------------- forward ------------------------------------
 
 
@@ -128,15 +124,13 @@ def backbone(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
              positions: torch.Tensor, remat: str = "none",
              attn_impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
     """Embed-space in, embed-space out. Returns (h, total_aux), the aux
-    loss 0 for the dense family. ``remat`` (activation checkpointing)
-    belongs to LM training, a later slice: only ``"none"`` is taken."""
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r}: activation checkpointing belongs to LM "
-            "training, not ported yet (ROADMAP queue 1)")
-    for i in range(cfg.n_layers):
-        h = _layer_forward(layer_view(params, i), h, cfg, positions,
-                           attn_impl)
+    loss 0 for the dense family. ``remat`` ("none", "dots", "full") is the
+    activation-checkpoint policy around each layer
+    (:func:`common.remat_call`), as JAX wraps its scan body."""
+    common.check_remat(remat)
+    for layer in common.layer_views(params["layers"]):
+        h = common.remat_call(_layer_forward, remat, layer, h, cfg,
+                              positions, attn_impl)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
@@ -231,9 +225,8 @@ def prefill(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig, *,
                 cfg.resolved_head_dim)
     ks = torch.zeros(kv_shape, dtype=h.dtype, device=h.device)
     vs = torch.zeros(kv_shape, dtype=h.dtype, device=h.device)
-    for i in range(cfg.n_layers):
-        h, k, v = _layer_prefill(layer_view(params, i), h, cfg, rope,
-                                 attn_impl)
+    for i, layer in enumerate(common.layer_views(params["layers"])):
+        h, k, v = _layer_prefill(layer, h, cfg, rope, attn_impl)
         if S <= cache_len:
             ks[i, :, :S] = k
             vs[i, :, :S] = v
@@ -266,8 +259,7 @@ def decode_step(params: PyTree, cache: attention.KVCache,
     mask = attention.decode_mask(cache.max_len, index,
                                  window=cfg.sliding_window,
                                  rotating=rotating, device=h.device)
-    for i in range(cfg.n_layers):
-        layer = layer_view(params, i)
+    for i, layer in enumerate(common.layer_views(params["layers"])):
         hn = _norm(h, layer["norm1"], layer.get("norm1_b"), cfg.norm_kind,
                    cfg.norm_eps)
         attn_out, _, _ = attention.decode_attention(

@@ -87,7 +87,7 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
     ``RWKVCache`` of :class:`TensorSpec` (the index: a host int, spec'd as
     JAX's int32 scalar). As in JAX, the ssm cache takes the compute dtype
     and f32, whatever ``cache_dtype`` says. The hybrid and encoder-decoder
-    caches are not ported yet (ROADMAP queue 1, item 11)."""
+    caches are not ported yet (ROADMAP queue 1: model zoo)."""
     L = cfg.n_layers
     idx = TensorSpec((), torch.int32)
     if cfg.family in ("dense", "moe", "vlm"):
@@ -102,8 +102,8 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
             x, x, TensorSpec((L, batch, d // hs, hs, hs), torch.float32),
             idx)
     raise NotImplementedError(
-        f"the {cfg.family!r} cache is not ported yet (ROADMAP queue 1, "
-        "item 11: model zoo)")
+        f"the {cfg.family!r} cache is not ported yet (ROADMAP queue 1: "
+        "model zoo)")
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:

@@ -9,10 +9,10 @@ a :class:`GradPipeline` in one of two modes:
   a stacked tree.
 * **packed**: packed-resident state (``backend='packed'``). The resident
   ``(K, rows, 128)`` buffer itself requires grad, the params are views of
-  it from ``packing.unpack``, and ``backward`` on the summed per-worker
-  losses leaves the gradient in ``buf.grad``: packed, with zero padding,
-  and no pack or unpack. This is the counterpart of differentiating
-  through ``unpack`` in the JAX package.
+  it from ``packing.unpack``, and the gradient of the summed per-worker
+  losses comes back as one packed buffer with zero padding, written leaf
+  by leaf by ``unpack``'s backward, with no pack. This is the counterpart
+  of differentiating through ``unpack`` in the JAX package.
 
 A loss here is ``loss(params_stacked, batch_stacked) -> (K,)``: the
 worker dim is written out. Workers do not share params, so the gradient of
@@ -110,15 +110,16 @@ def make_grad_pipeline(loss: Callable[[PyTree, PyTree], torch.Tensor],
 
 
 def _packed_vag(loss, microbatch: int):
-    """Differentiate through ``packing.unpack``'s views of the buffer."""
+    """Differentiate through ``packing.unpack``, whose backward writes
+    every leaf's gradient into one packed buffer."""
 
     def vag(state, batch):
         def one(b):
             with torch.enable_grad():
                 buf = state.buf.detach().requires_grad_(True)
                 losses = loss(packing.unpack(buf, state.spec), b)
-                losses.sum().backward()
-            return losses.detach(), buf.grad
+                (grad,) = torch.autograd.grad(losses.sum(), buf)
+            return losses.detach(), grad
 
         return _accumulate(one, batch, microbatch, torch.add,
                            lambda a, n: a / n)

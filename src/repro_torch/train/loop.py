@@ -13,7 +13,7 @@ from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
 
-from repro_torch._tree import tree_map
+from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.core.api import DecentralizedOptimizer
 from repro_torch.core.dadam import consensus_error, mean_params
 from repro_torch.train.grad import make_grad_pipeline
@@ -33,6 +33,31 @@ def stack_params(params: PyTree, K: int, *, same_init: bool = True,
             params)
     per = [init_fn(k) for k in range(K)]
     return tree_map(lambda *xs: torch.stack(xs), *per)
+
+
+def stacked_loss(loss: Callable[[PyTree, PyTree], torch.Tensor]
+                 ) -> Callable[[PyTree, PyTree], torch.Tensor]:
+    """Adapt a per-worker loss, ``loss(params, batch) -> scalar``
+    (``build_model(cfg).loss``, the function the JAX trainer vmaps over
+    the workers), to the trainer's ``(params_stacked, batch_stacked) ->
+    (K,)``: the loss runs once per worker on that worker's slices of the
+    stacked leaves. The slices are views (``unbind``), so no param is
+    copied; in the backward each leaf's per-worker gradients are stacked
+    once into one leaf-sized tensor (a per-worker ``x[k]`` would
+    zero-fill a leaf-sized tensor per worker)."""
+
+    def fn(params: PyTree, batch: PyTree) -> torch.Tensor:
+        leaves, td = tree_flatten(params)
+        bleaves, btd = tree_flatten(batch)
+        per_p = [x.unbind(0) for x in leaves]
+        per_b = [x.unbind(0) for x in bleaves]
+        K = len(per_p[0])
+        return torch.stack([
+            loss(tree_unflatten(td, [x[k] for x in per_p]),
+                 tree_unflatten(btd, [x[k] for x in per_b]))
+            for k in range(K)])
+
+    return fn
 
 
 @dataclasses.dataclass
@@ -75,15 +100,15 @@ class DecentralizedTrainer:
         if sharded_loss is not None or plan is not None:
             raise NotImplementedError(
                 "sharded_loss / plan belong to the 2D worker x model mesh, "
-                "not ported yet (ROADMAP queue 1, item 10: multi-GPU comm)")
+                "not ported yet (ROADMAP queue 1: multi-GPU comm)")
         if recompile_limit is not None:
             raise NotImplementedError(
                 "recompile_limit guards jit recompiles, which the eager port "
-                "does not have yet (ROADMAP queue 1, item 12)")
+                "does not have yet (ROADMAP queue 1: tooling)")
         if damping is not None:
             raise NotImplementedError(
-                "adaptive batch damping is not ported yet (ROADMAP queue 1, "
-                "item 8: damping and online training)")
+                "adaptive batch damping is not ported yet (ROADMAP queue 1: "
+                "damping)")
         self.loss_fn = loss_fn
         self._microbatch = microbatch
         self._build(opt)

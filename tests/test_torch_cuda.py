@@ -100,6 +100,84 @@ def test_cuda_gossip_kernels_match_plain(cuda, name, workers):
         assert torch.equal(a, b)
 
 
+# bf16 moments: the kernels compute in f32 and round m and v once, at the
+# store, to nearest-even, as the plain version's .to(bfloat16): m and v
+# within one bf16 ulp (equal but where a tie breaks the other way), p, which
+# stays f32, within the f32 tolerance of tests/test_kernels.py.
+BF16_P_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def bf16_ulps(a, b) -> int:
+    """The largest distance in bf16 ulps between two bf16 tensors of one
+    sign pattern (the bits read as integers)."""
+    ia = a.view(torch.int16).to(torch.int32)
+    ib = b.view(torch.int16).to(torch.int32)
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def close_bf16_moments(got, want):
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               **BF16_P_TOL)
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == b.dtype == torch.bfloat16
+        assert bf16_ulps(a, b) <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 128, 1000, 32768 + 17])
+@pytest.mark.parametrize("variant", sorted(ADAM_VARIANTS))
+def test_cuda_fused_adam_bf16_moments_match_plain(cuda, n, variant):
+    kw = dict(eta=1e-3, **ADAM_VARIANTS[variant])
+    p, g, m, v = adam_inputs((n + 1,), seed=5)
+    m, v = m.to(torch.bfloat16), v.to(torch.bfloat16)
+    for sl in (slice(0, n), slice(1, n + 1)):   # aligned and unaligned
+        args = [t[sl] for t in (p, g, m, v)]
+        got = tfa.fused_adam(*args, **kw)
+        want = tfa.fused_adam_plain(*args, **kw)
+        torch.cuda.synchronize()
+        close_bf16_moments(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,workers", [("ring", 2), ("ring", 8),
+                                          ("torus", 8), ("ring", 12),
+                                          ("torus", 12), ("ring", 3072)])
+def test_cuda_gossip_adam_mix_bf16_moments_match_plain(cuda, name, workers):
+    """K = 2 (the LM path), 8 (the main path) and K = 12 and 3072, where a
+    K * 256-column or one-column tile fills the block's shared memory:
+    the tile holds only the f32 half-steps, so bf16 moments change it
+    not."""
+    topo = make_topology(name, workers)
+    args = (topo.offsets, topo.offset_weights, topo.self_weight)
+    p, g, m, v = adam_inputs((workers, 12, 128), seed=6)
+    m, v = m.to(torch.bfloat16), v.to(torch.bfloat16)
+    kw = dict(eta=1e-2, weight_decay=1e-4)
+    got = tgossip.gossip_adam_mix(p, g, m, v, *args, **kw)
+    want = tgossip.gossip_adam_mix_plain(p, g, m, v, *args, **kw)
+    torch.cuda.synchronize()
+    close_bf16_moments(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_adam_kernels_reject_other_moment_dtypes(cuda):
+    p, g, m, v = adam_inputs((K, ROWS, 128), seed=7)
+    topo = make_topology("ring", K)
+    mix = (topo.offsets, topo.offset_weights, topo.self_weight)
+    for mm, vv in ((m.to(torch.bfloat16), v), (m.half(), v.half()),
+                   (m.double(), v.double())):
+        with pytest.raises(ValueError, match="moments"):
+            tfa.fused_adam(p, g, mm, vv, eta=1e-3)
+        with pytest.raises(ValueError, match="moments"):
+            tgossip.gossip_adam_mix(p, g, mm, vv, *mix, eta=1e-3)
+    with pytest.raises(ValueError, match="f32"):
+        tfa.fused_adam(p.to(torch.bfloat16), g, m.to(torch.bfloat16),
+                       v.to(torch.bfloat16), eta=1e-3)
+    bad = torch.zeros(K * ROWS * 128 + 1, dtype=torch.bfloat16,
+                      device="cuda")[1:].view(K, ROWS, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        tgossip.gossip_adam_mix(p, g, bad, bad, *mix, eta=1e-3)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", GRAPHS)
 def test_cuda_consensus_mix_matches_plain(cuda, name):

@@ -363,7 +363,7 @@ def test_sign_compress_edge_cases_and_rejections():
     assert q.shape == (K, 0) and q.dtype == torch.int8
     assert torch.equal(scale, torch.zeros(K)) and hat is x
     p, g, _, _ = to_t(*bufs())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="multi-GPU comm"):
         ops.sign_compress_stacked(p, g, reduce_axis="model")
     with pytest.raises(ValueError, match="out of range"):
         ops.sign_compress_stacked(p, g, n_true=ROWS * 128 + 1)

@@ -125,6 +125,49 @@ def test_unpack_returns_views_of_the_buffer():
     assert float(tpack.unpack(buf, spec)["w"].abs().sum()) == 0.0
 
 
+@pytest.mark.parametrize("seed", range(12))
+def test_unpack_gradient_is_one_buffer_equal_to_the_views(seed):
+    """The packed gradient through ``unpack`` (one buffer, written leaf by
+    leaf by its backward) equals, bit for bit, the gradient through plain
+    views of the buffer (autograd's zero-fill and sum per leaf), its
+    padding zero; a leaf the loss does not read gets zeros. The leaves
+    are views of the buffer also when autograd records the call."""
+    rng, stacked, k, block_rows, leaf_align = layout(seed)
+    _, ttree = both(random_tree(rng, k))
+    spec = tpack.make_spec(ttree, stacked=stacked, block_rows=block_rows,
+                           leaf_align=leaf_align)
+    base = tpack.pack(ttree, spec)
+    coefs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for s in spec.shapes]
+    # the leaf the loss does not read; len(coefs): every leaf is read
+    skip = int(rng.integers(0, len(coefs) + 1)) if len(coefs) > 1 else 1
+
+    def loss(leaves):
+        return sum(torch.sum(c * x.to(torch.float32) ** 2)
+                   for i, (c, x) in enumerate(zip(coefs, leaves))
+                   if i != skip)
+
+    buf = base.clone().requires_grad_(True)
+    leaves = _tree.tree_leaves(tpack.unpack(buf, spec))
+    for x, dt in zip(leaves, spec.dtypes):
+        if dt == buf.dtype:
+            assert x.untyped_storage().data_ptr() == \
+                buf.untyped_storage().data_ptr()
+    (got,) = torch.autograd.grad(loss(leaves), buf)
+    old = base.clone().requires_grad_(True)
+    loss(tpack._leaf_views(old, spec)).backward()
+    assert got.shape == old.grad.shape and got.dtype == old.grad.dtype
+    assert torch.equal(got.view(torch.uint8), old.grad.view(torch.uint8))
+    flat = got.reshape(spec.k or 1, -1)
+    mask = torch.zeros(flat.shape[1], dtype=torch.bool)
+    for o, sz in zip(spec.offsets, spec.sizes):
+        mask[o:o + sz] = True
+    assert torch.all(flat[:, ~mask] == 0)
+    if skip < len(coefs):
+        o, sz = spec.offsets[skip], spec.sizes[skip]
+        assert torch.all(flat[:, o:o + sz] == 0)
+
+
 def test_tree_flatten_sorts_dict_keys_like_jax():
     tree = {"z": 1.0, "a": [2.0, {"y": 3.0, "b": 4.0}], "m": (5.0, 6.0)}
     leaves, td = _tree.tree_flatten(tree)

@@ -40,6 +40,7 @@ from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwkv_scan as twkv
+from repro_torch.models import common
 from repro_torch.models import rwkv6 as trwkv
 from repro_torch.models.registry import build_model
 from repro_torch.serve import cache_spec
@@ -102,7 +103,7 @@ def tokens(shape, vocab=512, seed=1):
 
 def layer0(jp, tp):
     return (jax.tree_util.tree_map(lambda x: x[0], jp["layers"]),
-            trwkv.layer_view(tp, 0))
+            common.layer_views(tp["layers"])[0])
 
 
 def hidden(shape, dt, seed=2):
@@ -377,8 +378,14 @@ def test_loss_matches_jax(lm):
     assert w_k.grad is not None and bool(w_k.grad.abs().sum() > 0)
     with pytest.raises(RuntimeError, match="no backward"):
         trwkv.forward(tp2, torch.from_numpy(toks), tcfg, wkv_impl="kernel")
-    with pytest.raises(NotImplementedError, match="remat"):
-        trwkv.forward(tp, torch.from_numpy(toks), tcfg, remat="dots")
+    # remat is the activation-checkpoint policy of training: the forward
+    # is the same, and an unknown policy raises
+    with torch.no_grad():
+        plain, _ = trwkv.forward(tp, torch.from_numpy(toks), tcfg)
+    full, _ = trwkv.forward(tp2, torch.from_numpy(toks), tcfg, remat="full")
+    assert torch.equal(full.detach(), plain)
+    with pytest.raises(ValueError, match="remat"):
+        trwkv.forward(tp, torch.from_numpy(toks), tcfg, remat="some")
     with pytest.raises(ValueError, match="wkv_impl"):
         trwkv.forward(tp, torch.from_numpy(toks), tcfg, wkv_impl="pallas")
 

@@ -116,16 +116,16 @@ def test_param_count_matches_jax():
 
 def test_config_registry():
     assert list_archs() == [ARCH, "rwkv6-3b"]
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="model zoo"):
         get_arch("zamba2-7b")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="model zoo"):
         get_reduced("phi3.5-moe-42b-a6.6b")
     with pytest.raises(KeyError):
         get_arch("gpt-2")
     moe = dataclasses.replace(get_reduced(ARCH).model, family="moe")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="model zoo"):
         build_model(moe)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="model zoo"):
         transformer.init_params(torch.Generator().manual_seed(0), moe)
 
 
@@ -235,8 +235,13 @@ def test_forward_and_loss_match_jax(lm):
     build_model(tcfg).loss(tp32, {"tokens": torch.from_numpy(toks)}
                            ).backward()
     assert tp32["final_norm"].grad is not None
-    with pytest.raises(NotImplementedError, match="remat"):
-        transformer.forward(tp, torch.from_numpy(toks), tcfg, remat="dots")
+    # remat is the activation-checkpoint policy of training: the forward
+    # is the same, and an unknown policy raises
+    dots, _ = transformer.forward(tp, torch.from_numpy(toks[:, :-1]), tcfg,
+                                  remat="dots")
+    assert torch.equal(dots, tlogits)
+    with pytest.raises(ValueError, match="remat"):
+        transformer.forward(tp, torch.from_numpy(toks), tcfg, remat="some")
 
 
 def test_cache_spec_matches_actual_prefill(lm32):
@@ -250,7 +255,7 @@ def test_cache_spec_matches_actual_prefill(lm32):
     assert spec.k.dtype == cache.k.dtype
     windowed = dataclasses.replace(tcfg, sliding_window=8)
     assert cache_spec(windowed, 1, 524288).k.shape[2] == 8
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="model zoo"):
         cache_spec(dataclasses.replace(tcfg, family="hybrid"), 1, 16)
 
 
