@@ -8,7 +8,8 @@ phases, each printing one JSON line; a failing phase raises, and the
 script exits non-zero without the final ``ok`` line:
 
 1. env: the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a);
+2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a); the
+   sign_compress library must hold one kernel, ``sign_compress_kernel``;
 3. kernels: each CUDA kernel against its plain PyTorch version at the main
    path's shape, the resident ``(8, 89344, 128)`` f32 state of full-width
    DeepFM on a K=8 ring (``fused_adam`` beside ``torch._fused_adam_``,
@@ -17,8 +18,10 @@ script exits non-zero without the final ``ok`` line:
    over one worker's 11,202,602 elements; ``payload_mix`` with the ring's
    2 payloads and one-peer-exponential's union of 5), with CUDA-event times
    (median of 20 after warm-up) beside the least time the card's memory
-   rate allows; then the CD-Adam neighbour-copy update, plain torch ops,
-   timed alone;
+   rate allows; each sign record also holds one launch of the persistent
+   kernel a call, none of the three it replaced, and a second call equal
+   to the first to the bit; then the CD-Adam neighbour-copy update, plain
+   torch ops, timed alone;
 4. slice, once per path: the paper's experiment through the user's entry
    points, ``launch.deepfm_ctr.run`` (DeepFM 39 fields x 25,000 features,
    embed 10, MLP 400-400-400, K=8, packed, p=4, 512 examples per worker,
@@ -76,13 +79,15 @@ script exits non-zero without the final ``ok`` line:
    ``gossip_adam_mix`` launches and no other kernel, the loss falling from
    near ln 128,256; the peak memory, step times (local and comm apart), a
    profile of one period, and both Adam kernels timed on the trained
-   (2, R, 128) state;
+   (2, R, 128) state, ``torch._fused_adam_`` beside them;
 14. lm_train_bf16: the same run through ``make_optimizer(moment_dtype=
    torch.bfloat16)`` and ``DecentralizedTrainer.fit``: the same launches,
    a peak below lm_train's, the same timings;
 15. lm_train_cd: CD-Adam (sign, gamma 0.4) on llama3.2-1b at full width
    cut to 4 layers: one ``sign_compress_stacked`` (one scale per worker
-   and leaf) and one ``consensus_mix`` per comm step;
+   and leaf) and one ``consensus_mix`` per comm step; then a kernel record
+   of ``sign_compress_stacked`` on its trained (2, R, 128) state over the
+   model's leaves, held to the plain version worker by worker;
 16. lm card vs CPU: llama3.2-1b and rwkv6-3b at full width cut to 2
    layers, f32 compute, three packed D-Adam steps at p=3 in lock step on
    both, from one init: step 1 within LM_STEP1_TOL, step 3 as in 7.
@@ -106,13 +111,14 @@ Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 
     python3 chip_smoke.py --parent DIR
 
-times the f32 ``flash_attention`` cases, ``gossip_adam_mix`` and one
-D-Adam period of full-width DeepFM (device and wall ms) of the tree at
-DIR (an earlier commit unpacked by ``git archive <commit> | tar -x -C
-DIR``, its kernels built in its own tree) against this tree's, one
-process per turn in the order parent, change, change, parent, then prints
-the medians of each side and the ``nvidia-smi`` line; it runs no other
-phase and prints no ``ok`` line.
+times the f32 ``flash_attention`` cases, ``gossip_adam_mix``,
+``sign_compress_stacked`` over DeepFM's leaves and over lm_train_cd's
+layout, and one D-Adam and one CD-Adam period of full-width DeepFM
+(device and wall ms) of the tree at DIR (an earlier commit unpacked by
+``git archive <commit> | tar -x -C DIR``, its kernels built in its own
+tree) against this tree's, one process per turn in the order parent,
+change, change, parent, then prints the medians of each side and the
+``nvidia-smi`` line; it runs no other phase and prints no ``ok`` line.
 """
 from __future__ import annotations
 
@@ -177,8 +183,17 @@ BIT_EQUAL = dict(rtol=0.0, atol=0.0)
 # but where a tie would break the other way), p, which stays f32, within
 # the f32 tolerance of tests/test_kernels.py
 BF16_MOMENT_P_TOL = dict(rtol=2e-5, atol=2e-5)
-# the three kernels of one sign_compress[_stacked] call
-SIGN_KERNELS = ("absmean_kernel", "scale_kernel", "apply_kernel")
+# the one kernel of a sign_compress[_stacked] call, and the three of the
+# design it replaced: a profile of this tree that records one of those
+# fails its phase; --parent matches either tree's names
+SIGN_KERNELS = ("sign_compress_kernel",)
+OLD_SIGN_KERNELS = ("absmean_kernel", "scale_kernel", "apply_kernel")
+OLD_SIGN_KERNEL = re.compile(r"\b(" + "|".join(OLD_SIGN_KERNELS)
+                             + r")\(float const\*")
+# the persistent sign_compress kernel reads x and hat and writes q in its
+# first pass, then reads hat and q and writes hat in its second: 18 bytes
+# an element when the 50 MB L2 serves none of the second pass
+SIGN_NO_REUSE_BYTES = 18
 NO_LIBRARY = "none: no single PyTorch call computes this update"
 NO_STACKED_SUM = ("none: no single PyTorch call sums these operands "
                   "without first stacking them")
@@ -216,9 +231,9 @@ FLASH_CASES = (
     ("D=112 f32", 2, 1024, 1024, 32, 8, 112, torch.float32, True, 0),
     ("D=32 f32", 2, 1024, 1024, 32, 8, 32, torch.float32, True, 0),
 )
-# --parent: the f32 flash cases above that a tree takes, and
-# gossip_adam_mix at SHAPE on the ring, timed in one process per turn of
-# parent (P) and change (C)
+# --parent: the f32 flash cases above that a tree takes, gossip_adam_mix
+# and sign_compress_stacked at SHAPE and the DeepFM periods (ab_side),
+# timed in one process per turn of parent (P) and change (C)
 AB_ORDER = "PCCP"
 # serving: llama3.2-1b at full width over two buckets; the prompts fill
 # the (8, 1024) bucket (1024 x 5), pad it in seq and take the rewind
@@ -405,6 +420,25 @@ def compare_compressed(got, want, what: str):
     return max(e[0] for e in errs), errs[0][1]
 
 
+def check_bitwise_repeat(got, kernel, what: str) -> None:
+    """A second call of ``kernel`` on the same inputs must give ``got``
+    to the bit (the sign_compress scales are summed in a fixed order and
+    its counters zeroed at every call)."""
+    again = kernel()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: a second call differs from the "
+                             f"first")
+
+
+def sign_extra(elements: int) -> dict:
+    """The sign_compress record's 18-byte figure beside its 13-byte
+    bound, and its launch and equality checks."""
+    return {"bytes_no_reuse": SIGN_NO_REUSE_BYTES * elements,
+            "no_reuse_ms": SIGN_NO_REUSE_BYTES * elements / MEM_RATE * 1e3,
+            "launches_per_call": 1, "second_call_bit_equal": True}
+
+
 def compare_bf16_moments(got, want, what: str):
     """p within BF16_MOMENT_P_TOL, bf16 m and v within one bf16 ulp (the
     bits read as integers; both round one f32 value to nearest-even).
@@ -439,6 +473,35 @@ def full_width_spec():
     if spec.buf_shape() != SHAPE or spec.n != PARAMS:
         raise AssertionError(f"layout {spec.buf_shape()}, {spec.n} params")
     return spec
+
+
+def resident_mask(spec):
+    """True on the elements of the resident layout ``spec`` that hold a
+    parameter, False on its padding; shaped to broadcast over workers."""
+    true = torch.zeros(spec.padded, dtype=torch.bool, device="cuda")
+    for o, sz in zip(spec.offsets, spec.sizes):
+        true[o:o + sz] = True
+    return true.reshape(1, *spec.buf_shape()[1:])
+
+
+def lm_cd_layout():
+    """The resident layout of lm_train_cd's state: llama3.2-1b at full
+    width cut to LM_CD_LAYERS layers, LM_K workers, leaf-aligned (one
+    worker's params are drawn on the card for their shapes and freed)."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import pack as packing
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH).model,
+                              n_layers=LM_CD_LAYERS)
+    one = build_model(cfg).init(torch.Generator(device=DEVICE).manual_seed(0))
+    stacked = tree_map(lambda x: torch.empty((LM_K,) + tuple(x.shape),
+                                             device="meta"), one)
+    del one
+    torch.cuda.empty_cache()
+    return packing.make_spec(stacked, stacked=True,
+                             block_rows=packing.BLOCK_ROWS, leaf_align=True)
 
 
 def phase_env():
@@ -498,6 +561,9 @@ def phase_build():
                 entry = kernel_label(found.group(1))
             elif "Used" in ln:
                 regs[f"{name}:{entry}"] = ln.split("ptxas info    : ")[-1]
+    sign = sorted(k for k in regs if k.startswith("sign_compress:"))
+    if sign != ["sign_compress:sign_compress_kernel"]:
+        raise AssertionError(f"the sign_compress library holds {sign}")
     emit({"phase": "build", "seconds": round(seconds, 3),
           "libs": {n: str(p.relative_to(ROOT)) for n, p in libs.items()},
           "ptxas": regs})
@@ -522,10 +588,7 @@ def phase_kernels():
     # zero in the layout's padding as on the main path
     spec = full_width_spec()
     ranges = packing.leaf_row_ranges(spec)
-    true = torch.zeros(spec.padded, dtype=torch.bool, device="cuda")
-    for o, sz in zip(spec.offsets, spec.sizes):
-        true[o:o + sz] = True
-    true = true.reshape(1, *SHAPE[1:])
+    true = resident_mask(spec)
     x, hs, hn1, hn2 = (torch.randn(SHAPE, generator=gen, device="cuda")
                        * true for _ in range(4))
     xs = torch.randn(PARAMS, generator=gen, device="cuda")
@@ -615,7 +678,8 @@ def phase_kernels():
              ops=(2 + 3 * deg) * n, device="consensus_mix_kernel"),
         # sign compress: read x and hat, write hat and the int8 q (13 bytes
         # an element); d, |d|, the sum, sign (two compares and a
-        # subtraction), scale * sign and the sum with hat
+        # subtraction), scale * sign and the sum with hat. One launch a
+        # call, and a second call equal to the first to the bit.
         dict(name="sign_compress_stacked",
              source="src/repro_torch/csrc/sign_compress.cu",
              replaces="src/repro/kernels/sign_compress.py:174",
@@ -624,7 +688,7 @@ def phase_kernels():
              plain=lambda: sc.sign_compress_stacked_plain(
                  x, hs, n_true=spec.sizes, row_ranges=ranges),
              compressed=True, library=None, bytes=13 * n, ops=8 * n,
-             device=SIGN_KERNELS,
+             device=SIGN_KERNELS, per_call=1, elements=n,
              variant="scales='leaf': DeepFM's 11 leaf segments, (K, 11) "
                      "scales"),
         dict(name="sign_compress_stacked",
@@ -634,7 +698,7 @@ def phase_kernels():
              plain=lambda: sc.sign_compress_stacked_plain(x, hs,
                                                           n_true=spec.n),
              compressed=True, library=None, bytes=13 * n, ops=8 * n,
-             device=SIGN_KERNELS,
+             device=SIGN_KERNELS, per_call=1, elements=n,
              variant="scales='worker': one segment, (K,) scales"),
         dict(name="sign_compress",
              source="src/repro_torch/csrc/sign_compress.cu",
@@ -642,7 +706,8 @@ def phase_kernels():
              kernel=lambda: sc.sign_compress(xs, hs1),
              plain=lambda: sc.sign_compress_plain(xs, hs1),
              compressed=True, library=None, bytes=13 * PARAMS,
-             ops=8 * PARAMS, device=SIGN_KERNELS,
+             ops=8 * PARAMS, device=SIGN_KERNELS, per_call=1,
+             elements=PARAMS,
              variant="one worker's 11,202,602 elements, flat"),
         # payload mix: read x and each payload, write out; per element a
         # product, then a product and a sum per payload
@@ -678,6 +743,7 @@ def phase_kernels():
             tol = {"q": "equal", "scale_rtol": SCALE_RTOL,
                    "hat": f"{KERNEL_TOL} + max scale * {SCALE_RTOL}"}
             max_abs, max_rel = compare_compressed(got, want, c["name"])
+            check_bitwise_repeat(got, c["kernel"], c["name"])
         elif c.get("bf16_moments"):
             tol = {"p": BF16_MOMENT_P_TOL, "m, v": "within 1 bf16 ulp"}
             max_abs, max_rel = compare_bf16_moments(got, want, c["name"])
@@ -685,7 +751,8 @@ def phase_kernels():
             max_abs, max_rel = compare(got, want, tol, c["name"])
         del got, want
         ms = median_ms(c["kernel"])
-        device_ms = device_kernel_ms(c["kernel"], c["device"])
+        device_ms = device_kernel_ms(c["kernel"], c["device"],
+                                     per_call=c.get("per_call"))
         plain_ms = median_ms(c["plain"])
         library_ms = (median_ms(c["library"])
                       if c["library"] is not None else None)
@@ -703,6 +770,8 @@ def phase_kernels():
                            else c.get("library_note", NO_LIBRARY))}
         if "library_err" in c:
             rec["library_max_abs_err"] = c["library_err"]
+        if c.get("compressed"):
+            rec.update(sign_extra(c["elements"]))
         if "variant" in c:
             rec["variant"] = c["variant"]
         emit({"phase": "kernel", **rec})
@@ -872,6 +941,17 @@ def launched_kernels(fn) -> list:
                    if str(e.device_type).endswith("CUDA")})
 
 
+def check_no_old_sign_kernel(prof, what: str) -> None:
+    """Raise if the profile recorded a launch of one of the three kernels
+    that the persistent sign_compress kernel replaced."""
+    old = sorted({e.key[:60] for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")
+                  and OLD_SIGN_KERNEL.search(e.key)})
+    if old:
+        raise AssertionError(f"{what}: the profile recorded {old}, kernels "
+                             f"of the replaced sign_compress design")
+
+
 def matched_device_us(prof, names) -> tuple[float, int]:
     """(device µs, calls) of the profiled CUDA kernels whose name holds
     one of ``names``."""
@@ -885,15 +965,19 @@ def matched_device_us(prof, names) -> tuple[float, int]:
     return us, calls
 
 
-def device_kernel_ms(fn, kernel, reps: int = REPS,
-                     attempts: int = 3) -> float:
+def device_kernel_ms(fn, kernel, reps: int = REPS, attempts: int = 3,
+                     per_call: int | None = None,
+                     old_ok: bool = False) -> float:
     """Device time per call of ``fn`` of the CUDA kernels whose name holds
     ``kernel`` (one name, or a tuple of the names of one call's kernels),
     from a profile of ``reps`` calls: the kernels alone, where CUDA events
     around one call also count the host time before its launch. A profile
     that recorded fewer than ``reps`` such kernels, or no time for them,
     is taken again; after ``attempts`` of them this raises, so no time is
-    reported that was not measured."""
+    reported that was not measured. With ``per_call``, a profile that
+    recorded more than ``per_call`` launches a call raises, and unless
+    ``old_ok`` one that recorded a kernel of the replaced sign_compress
+    design does."""
     from torch.profiler import ProfilerActivity, profile
 
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
@@ -905,7 +989,12 @@ def device_kernel_ms(fn, kernel, reps: int = REPS,
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        if not old_ok:
+            check_no_old_sign_kernel(prof, str(kernel))
         us, calls = matched_device_us(prof, names)
+        if per_call is not None and calls > per_call * reps:
+            raise AssertionError(f"{kernel}: {calls} launches in {reps} "
+                                 f"calls, not {per_call} a call")
         if calls >= reps and us > 0:
             return us / 1e3 / reps
     raise AssertionError(f"the profiler recorded {calls} launches of "
@@ -915,14 +1004,20 @@ def device_kernel_ms(fn, kernel, reps: int = REPS,
 
 def ab_side(src: str) -> dict:
     """One turn of ``--parent``: the ``repro_torch`` under ``src`` timed
-    on the f32 flash cases whose head dim it takes and on
-    ``gossip_adam_mix`` at SHAPE over the ring, on the inputs
-    ``flash_records`` and ``phase_kernels`` make; CUDA-event and device ms
-    of each."""
+    on the f32 flash cases whose head dim it takes, on
+    ``gossip_adam_mix`` at SHAPE over the ring and on
+    ``sign_compress_stacked`` at SHAPE over DeepFM's leaves, on the inputs
+    ``flash_records`` and ``phase_kernels`` make (CUDA-event and device ms
+    of each; the sign kernels of either tree's design), then on
+    ``sign_compress_stacked`` over lm_train_cd's leaves on random buffers
+    of its state's shape (CUDA events), and one D-Adam and one CD-Adam
+    period of full-width DeepFM (device and wall ms)."""
     sys.path.insert(0, src)
     from repro_torch.core.topology import make_topology
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gossip as gk
+    from repro_torch.kernels import pack as packing
+    from repro_torch.kernels import sign_compress as sc
 
     def timed(fn, kernel):
         return {"ms": median_ms(fn), "device_ms": device_kernel_ms(fn, kernel)}
@@ -949,21 +1044,46 @@ def ab_side(src: str) -> dict:
         p, g, m, v, topo.offsets, topo.offset_weights, topo.self_weight,
         **ADAM), "gossip_adam_mix_kernel")
     del p, g, m, v
+    spec = full_width_spec()
+    ranges = packing.leaf_row_ranges(spec)
+    true = resident_mask(spec)
+    x, hs = (torch.randn(SHAPE, generator=gen, device="cuda") * true
+             for _ in range(2))
+
+    def sign():
+        return sc.sign_compress_stacked(x, hs, n_true=spec.sizes,
+                                        row_ranges=ranges)
+
+    out["sign_compress_stacked"] = {
+        "ms": median_ms(sign), "device_ms": device_kernel_ms(
+            sign, SIGN_KERNELS + OLD_SIGN_KERNELS, old_ok=True)}
+    del x, hs, true
+    lm = lm_cd_layout()
+    x, hs = (torch.randn(lm.buf_shape(), generator=gen, device="cuda")
+             for _ in range(2))
+    lm_ranges = packing.leaf_row_ranges(lm)
+    out["sign_compress_stacked, lm_train_cd layout"] = {
+        "ms": median_ms(lambda: sc.sign_compress_stacked(
+            x, hs, n_true=lm.sizes, row_ranges=lm_ranges), reps=LM_REPS,
+            warmup=1), "device_ms": None}
+    del x, hs
     torch.cuda.empty_cache()
-    out["d-adam period"] = deepfm_period_times()
+    out["d-adam period"] = deepfm_period_times("d-adam")
+    out["cd-adam period"] = deepfm_period_times("cd-adam")
     return out
 
 
-def deepfm_period_times() -> dict:
-    """One D-Adam communication period (3 local steps, 1 comm step) of
-    full-width DeepFM through the tree's own trainer: wall and device ms
-    (``device_profile``), after one period of warm-up."""
+def deepfm_period_times(path: str) -> dict:
+    """One communication period (3 local steps, 1 comm step) of ``path``
+    ("d-adam" or "cd-adam" on the ring) at full-width DeepFM through the
+    tree's own trainer: wall and device ms (``device_profile``), after
+    one period of warm-up."""
     from repro_torch.launch import deepfm_ctr
 
     period = 4
-    res = deepfm_ctr.run("parent_ab", "deepfm", "d-adam", period,
+    res = deepfm_ctr.run("parent_ab", "deepfm", PATHS[path]["kind"], period,
                          backend="packed", device=DEVICE, period=period,
-                         **FULL)
+                         **PATHS[path]["opt"], **FULL)
     batches = [next(res.batches) for _ in range(period)]
 
     def run_period():
@@ -972,8 +1092,11 @@ def deepfm_period_times() -> dict:
             st, _ = res.trainer.step(st, b)
 
     run_period()
-    prof = device_profile(run_period)
-    return {"ms": prof["wall_ms"], "device_ms": prof["device_ms"]}
+    prof = device_profile(run_period, old_ok=True)
+    out = {"ms": prof["wall_ms"], "device_ms": prof["device_ms"]}
+    del res
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_parent_ab(parent: str):
@@ -993,8 +1116,12 @@ def phase_parent_ab(parent: str):
         runs[side].append(rec)
         emit({"phase": "parent_ab", "side": side, "tree": str(trees[side]),
               "times": rec})
-    median = {case: {name: ({key: statistics.median(r[case][key]
-                                                     for r in runs[side])
+
+    def med(side, case, key):
+        vals = [r[case][key] for r in runs[side]]
+        return None if None in vals else statistics.median(vals)
+
+    median = {case: {name: ({key: med(side, case, key)
                              for key in ("ms", "device_ms")}
                             if case in runs[side][0] else None)
                      for side, name in (("P", "parent"), ("C", "change"))}
@@ -1202,12 +1329,14 @@ def phase_profile(path, trainer, state, batches):
           **device_profile(period)})
 
 
-def device_profile(fn, kernel_names=()):
+def device_profile(fn, kernel_names=(), old_ok: bool = False):
     """Profile ``fn()``: its wall time (synchronised), the device time
     summed over kernels, the busy share, the torch calls made from Python
     (top-level ``aten::`` ops, each a host round trip), the port's named
     ranges, the top kernels by device time, and the device ms and calls of
-    the CUDA kernels whose name holds one of ``kernel_names``."""
+    the CUDA kernels whose name holds one of ``kernel_names``. Unless
+    ``old_ok``, a profile that recorded a kernel of the replaced
+    sign_compress design raises."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1217,6 +1346,8 @@ def device_profile(fn, kernel_names=()):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    if not old_ok:
+        check_no_old_sign_kernel(prof, "device_profile")
     rows, ranges = [], {}
     for e in prof.key_averages():
         if e.key.startswith("repro_torch."):
@@ -1960,7 +2091,10 @@ def lm_shape_times(phase: str, state, moment: str):
     of µs, is under 0.5% of a call here; the profiler dropped launches of
     these 20-30 ms calls), beside the byte bound. Seven buffers of this
     size leave no room for the plain version's temporaries; the
-    comparison with it stays at SHAPE."""
+    comparison with it stays at SHAPE. With f32 moments, then
+    ``torch._fused_adam_`` the same way, the library call beside
+    ``fused_adam`` (in place on p, m and v, one tensor a worker, after the
+    kernels' timings; phase_kernels holds it to the plain version)."""
     from repro_torch.core.topology import make_topology
     from repro_torch.kernels import fused_adam as fa
     from repro_torch.kernels import gossip as gk
@@ -1981,6 +2115,15 @@ def lm_shape_times(phase: str, state, moment: str):
                 p, g, m, v, *mix, **ADAM))):
         ms = median_ms(fn, reps=LM_REPS, warmup=1)
         out[name] = {"ms": ms, "share_of_bound": bound_ms / ms}
+    if m.dtype == torch.float32:
+        step = torch.tensor(1e7, device="cuda")
+        ms = median_ms(lambda: torch._fused_adam_(
+            list(p), list(g), list(m), list(v), [], [step] * p.shape[0],
+            lr=ADAM["eta"], beta1=ADAM["beta1"], beta2=ADAM["beta2"],
+            weight_decay=ADAM["weight_decay"], eps=ADAM["tau"],
+            amsgrad=False, maximize=False), reps=LM_REPS, warmup=1)
+        out["fused_adam"].update(library_ms=ms,
+                                 library="torch._fused_adam_, in place")
     emit({"phase": "lm_shape_kernels", "path": phase, **out})
     del g
     return out
@@ -2114,7 +2257,9 @@ def phase_lm_train_cd():
     """CD-Adam (sign, gamma 0.4) on llama3.2-1b at full width cut to
     LM_CD_LAYERS layers, through the library path: one
     ``sign_compress_stacked`` and one ``consensus_mix`` per comm step, the
-    compressor's scales one per (worker, leaf)."""
+    compressor's scales one per (worker, leaf). Then the kernel record of
+    ``sign_compress_stacked`` on the trained state (``lm_sign_record``).
+    Returns (launches, that record)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
 
@@ -2139,6 +2284,11 @@ def phase_lm_train_cd():
         "sign_compress_stacked"]
     if shapes != want:
         raise AssertionError(f"lm_train_cd: scales {shapes} != {want}")
+    layout = lm_cd_layout()
+    if (layout.buf_shape() != state.spec.buf_shape()
+            or layout.sizes != state.spec.sizes):
+        raise AssertionError(f"lm_train_cd: layout {state.spec.buf_shape()}"
+                             f" is not lm_cd_layout's {layout.buf_shape()}")
     rec = {"phase": "lm_train_cd", "n_layers": cfg.n_layers,
            "params_per_worker": state.spec.n,
            "buffer_shape": list(state.buf.shape), "losses": log.loss,
@@ -2146,9 +2296,95 @@ def phase_lm_train_cd():
            "scales_shapes": shapes, "peak_mem_gb": peak_gb,
            "launches": launches}
     emit(rec)
-    del trainer, state, batches
+    del trainer, batches
     torch.cuda.empty_cache()
-    return launches
+    sign = lm_sign_record(state)
+    del state
+    torch.cuda.empty_cache()
+    return launches, sign
+
+
+def lm_sign_record(state) -> dict:
+    """``sign_compress_stacked`` on lm_train_cd's trained state: x its
+    params, hat its own xhat, (2, R, 128) f32 over the model's leaf
+    segments. Held to the plain version worker by worker (the plain
+    version's temporaries for both workers would take about 25 GB), and a
+    second call to the first to the bit; the median CUDA-event time of
+    LM_REPS single calls, the device time per call from events around
+    LM_REPS calls queued back to back (the profiler drops launches at
+    this size: ``lm_shape_times``), the plain version's time over both
+    workers, the 13-byte bound and the 18-byte figure. One launch a call:
+    the wrapper's counter must count each call once, and the build found
+    ``sign_compress_kernel`` the library's only kernel."""
+    from repro_torch.kernels import pack as packing
+    from repro_torch.kernels import sign_compress as sc
+
+    x, hat = state.buf, state.hat_buf
+    kw = dict(n_true=state.spec.sizes,
+              row_ranges=packing.leaf_row_ranges(state.spec))
+
+    calls = [0]
+
+    def kernel():
+        calls[0] += 1
+        return sc.sign_compress_stacked(x, hat, **kw)
+
+    def plain():
+        return [sc.sign_compress_stacked_plain(x[k:k + 1], hat[k:k + 1],
+                                               **kw)
+                for k in range(x.shape[0])]
+
+    launched = sc.sign_compress_stacked.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    max_abs = max_rel = 0.0
+    for k in range(x.shape[0]):
+        want = sc.sign_compress_stacked_plain(x[k:k + 1], hat[k:k + 1],
+                                              **kw)
+        err = compare_compressed(tuple(t[k:k + 1] for t in got), want,
+                                 f"lm_train_cd sign_compress_stacked, "
+                                 f"worker {k}")
+        max_abs, max_rel = max(max_abs, err[0]), max(max_rel, err[1])
+        del want
+    check_bitwise_repeat(got, kernel, "lm_train_cd sign_compress_stacked")
+    del got
+    torch.cuda.empty_cache()
+    n = x.numel()
+    ms = median_ms(kernel, reps=LM_REPS, warmup=1)
+    kernel()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(LM_REPS):
+        kernel()
+    end.record()
+    end.synchronize()
+    device_ms = start.elapsed_time(end) / LM_REPS
+    launched = sc.sign_compress_stacked.launches - launched
+    if launched != calls[0]:
+        raise AssertionError(f"lm_train_cd sign_compress_stacked: "
+                             f"{launched} launches in {calls[0]} calls")
+    plain_ms = median_ms(plain, reps=LM_REPS, warmup=1)
+    t_bytes, t_ops = 13 * n / MEM_RATE * 1e3, 8 * n / F32_RATE * 1e3
+    rec = {"name": "sign_compress_stacked", "route": "cuda",
+           "source": "src/repro_torch/csrc/sign_compress.cu",
+           "replaces": "src/repro/kernels/sign_compress.py:174",
+           "launches": None, "max_abs_err": max_abs, "max_rel_err": max_rel,
+           "tol": {"q": "equal", "scale_rtol": SCALE_RTOL,
+                   "hat": f"{KERNEL_TOL} + max scale * {SCALE_RTOL}"},
+           "ms": ms, "kernel_ms": ms, "kernel_device_ms": device_ms,
+           "kernel_device_ms_by": f"CUDA events around {LM_REPS} calls "
+                                  f"back to back",
+           "plain_ms": plain_ms, "plain": "worker by worker",
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": 13 * n, "library_ms": None, "library": NO_LIBRARY,
+           "variant": f"lm_train_cd's trained state {list(x.shape)}, "
+                      f"{len(kw['n_true'])} leaf segments",
+           **sign_extra(n)}
+    emit({"phase": "kernel", **rec})
+    return rec
 
 
 def adam_part_cap(steps: int, eta: float = LM_ETA, beta1: float = 0.9,
@@ -2264,7 +2500,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="an earlier tree to time the f32 "
-                    "flash and gossip_adam_mix kernels against")
+                    "flash, gossip_adam_mix and sign_compress_stacked "
+                    "kernels and the DeepFM periods against")
     ap.add_argument("--ab-side", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.ab_side:
@@ -2301,7 +2538,8 @@ def main() -> int:
         seq=128, new_tokens=5, batch=2, phase="serve_rwkv_card_vs_cpu")
     by_path["lm_train"], f32_rec = phase_lm_train()
     by_path["lm_train_bf16"], bf16_rec = phase_lm_train_bf16(f32_rec)
-    by_path["lm_train_cd"] = phase_lm_train_cd()
+    by_path["lm_train_cd"], lm_sign = phase_lm_train_cd()
+    records.append(lm_sign)
     phase_lm_card_vs_cpu(LM_ARCH)
     phase_lm_card_vs_cpu(SERVE_RWKV_ARCH)
     lm_shape = {"float32": f32_rec["lm_shape"],

@@ -11,32 +11,89 @@
 // with sign(d) = (d > 0) - (d < 0), so zeros (and the zero padding of the
 // resident buffer) stay zero in q and hat_out.
 //
-// Each segment is cut into tiles of at most kernels.sign_compress.TILE
-// elements; the host tables give each tile's element bounds and segment, and
-// each segment's first tile. Three launches, no atomics:
-//   1. absmean_kernel, grid (tiles, K): one block sums one tile of |x - hat|
-//      (each thread in a fixed stride order, then a fixed tree over the
-//      block) into partials[k, t];
-//   2. scale_kernel, one thread per (k, s): sums the segment's partials in
-//      tile order and divides by the f32 true count;
-//   3. apply_kernel, grid (tiles, K): writes q and hat_out with the scale of
-//      the tile's segment.
-// The scale is thus the same in every run.
-//
 // Bound on the H100: bytes. The function must read x and hat once and write
-// q (1 byte) and hat_out (4 bytes) once, 13 bytes per element; this design
-// reads x and hat twice, 21 bytes. A single pass would have to hold each
-// segment's sum before any q can be scaled; that is left for a later change.
-// Loads are 16 bytes (float4) and q stores 4 (char4) when vec != 0; the last
-// (b - a) % 4 elements of a tile then take the scalar path.
+// q (1 byte) and hat_out (4 bytes) once: 13 bytes an element. No q can be
+// scaled before its segment's sum is known, a sum over up to 9.75 M
+// elements a worker (DeepFM's embedding leaf), so hat is read twice. But
+// q = sign(x - hat) needs no scale: the first pass writes it, and the
+// second pass reads hat and q (5 bytes) in place of x and hat (8 bytes).
+// That is 18 bytes an element with no reuse at all, against the 21 of the
+// three launches this kernel replaces (absmean_kernel, scale_kernel and
+// apply_kernel, which read x and hat twice); whatever of hat and q the
+// second pass finds in the 50 MB L2 brings it closer to 13.
+//
+// One launch. A persistent grid (occupancy x SMs blocks) walks a fixed list
+// of work items built on the host (kernels/sign_compress.py:schedule),
+// taking items in list order from an atomic counter; each item is one tile
+// (at most TILE elements of one segment of one worker):
+//   A (first pass): reads x and hat in 16-byte loads, kUnroll of each in
+//     flight per thread, writes q and the tile's sum |x - hat| into
+//     partials[k, t] (each thread in a fixed order, then a fixed tree over
+//     the block), then publishes its arrival on the segment's counter (a
+//     fence, then an atomic add). The A item that brings the counter to the
+//     segment's tile count sums the segment's partials in a fixed order
+//     (thread i its tiles i, i + kThreads, ... in tile order, then the same
+//     tree), writes scale[k, s] and, after a fence, adds one more: the
+//     scale is taken once per segment and is the same in every run.
+//   B (second pass): thread 0 waits until the counter reaches tile count +
+//     1 (acquire), reads the scale, and the block reads hat and q and
+//     writes hat_out.
+// No deadlock: the list puts every A item of a segment before any B item
+// of it, and blocks claim items in list order, each finishing its item
+// before it starts the next (the next index is claimed one item ahead,
+// so each block's claims rise). So the claimed, unfinished item of lowest
+// index is always running (were it a block's claim ahead, that block's
+// current item would be unfinished and lower): an A item never waits, and
+// for a B item every A item of its segment has a lower index, is finished,
+// and the last of them has published the scale. The kernel thus finishes
+// even if not every block is resident. The list orders the
+// work by worker; a segment's B items run in descending tile order, so the
+// tiles read last in the first pass are read first in the second, and
+// start two grids' worth of items after the segment's last A item, so that
+// a block rarely finds its segment unfinished.
+// Cache hints: x is read once (L2 evict_first) and hat and q are read
+// last in the second pass (evict_first); hat_out is a streaming store.
+// Marking hat and q evict_last in the first pass changed nothing
+// measurable on the H100, and an L2 set-aside for persisting lines made
+// the kernel slower, so neither is used: the times stay near the 18-byte
+// floor. The counters are zeroed on the stream at every call; nothing
+// persists between calls.
+// Loads are 16 bytes (float4) and q accesses 4 (char4) when vec != 0; the
+// last (b - a) % 4 elements of a tile then take the scalar path.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+// float4 loads of each operand in flight per thread; with 256 threads and
+// at most 80 registers a thread, 3 blocks fit on an SM (78 on sm_90a)
+constexpr int kUnroll = 4;
 
+struct Args {
+  const float* x;
+  const float* hat;
+  signed char* q;
+  float* hat_out;
+  float* scales;
+  float* partials;
+  // counters[0]: the next item; counters[1 + k * L + s]: segment (k, s)
+  unsigned* counters;
+  const long long* tile_start;
+  const long long* tile_end;
+  const int* tile_seg;
+  const int* seg_first;
+  const float* n_true;
+  const int* items;
+  int n_items, K, T, L;
+  long long n;
+  int vec;
+};
+
+// A fixed tree over the block; the sum is valid in thread 0. The leading
+// barrier lets one block call it twice in a row.
 __device__ __forceinline__ float block_sum(float v) {
   __shared__ float warp_sums[kThreads / 32];
+  __syncthreads();
   for (int off = 16; off > 0; off >>= 1) {
     v += __shfl_down_sync(0xffffffffu, v, off);
   }
@@ -52,127 +109,254 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-__global__ void absmean_kernel(const float* __restrict__ x,
-                               const float* __restrict__ hat,
-                               const long long* __restrict__ tile_start,
-                               const long long* __restrict__ tile_end,
-                               long long n, int T, int vec,
-                               float* __restrict__ partials) {
-  const int t = blockIdx.x, k = blockIdx.y;
-  const long long a = tile_start[t], b = tile_end[t];
-  const float* xk = x + (long long)k * n;
-  const float* hk = hat + (long long)k * n;
+__device__ __forceinline__ int sgn(float d) { return (d > 0.f) - (d < 0.f); }
+
+__device__ __forceinline__ unsigned long long evict_first_policy() {
+  unsigned long long p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
+// x and hat are not written by the kernel: the non-coherent path, not
+// allocated in L1; ld_hint adds an L2 priority
+__device__ __forceinline__ float4 ld_in(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_hint(const float4* p,
+                                          unsigned long long pol) {
+  float4 v;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, "
+      "[%4], %5;"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p), "l"(pol));
+  return v;
+}
+
+// q is written by other blocks of this launch: read at L2 (.cg)
+__device__ __forceinline__ char4 ld_q(const char4* p,
+                                      unsigned long long pol) {
+  unsigned u;
+  asm volatile("ld.global.cg.L2::cache_hint.b32 %0, [%1], %2;"
+               : "=r"(u)
+               : "l"(p), "l"(pol));
+  return *reinterpret_cast<char4*>(&u);
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The first pass over [a, b) of the worker at base: writes q, returns this
+// thread's sum of |x - hat|.
+__device__ __forceinline__ float first_pass(const Args& g, long long base,
+                                            long long a, long long b) {
+  const unsigned long long stream = evict_first_policy();
   float acc = 0.f;
   long long tail = a;
-  if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(xk);
-    const float4* h4 = reinterpret_cast<const float4*>(hk);
-    for (long long i = a / 4 + threadIdx.x; i < b / 4; i += blockDim.x) {
-      const float4 X = x4[i], H = h4[i];
-      acc += fabsf(X.x - H.x);
-      acc += fabsf(X.y - H.y);
-      acc += fabsf(X.z - H.z);
-      acc += fabsf(X.w - H.w);
+  if (g.vec) {
+    const float4* x4 = reinterpret_cast<const float4*>(g.x + base);
+    const float4* h4 = reinterpret_cast<const float4*>(g.hat + base);
+    char4* q4 = reinterpret_cast<char4*>(g.q + base);
+    const long long e = b / 4;
+    for (long long i0 = a / 4 + threadIdx.x; i0 < e;
+         i0 += kThreads * kUnroll) {
+      float4 X[kUnroll], H[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long i = i0 + (long long)u * kThreads;
+        if (i < e) {
+          X[u] = ld_hint(x4 + i, stream);
+          H[u] = ld_in(h4 + i);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long i = i0 + (long long)u * kThreads;
+        if (i < e) {
+          const float dx = X[u].x - H[u].x, dy = X[u].y - H[u].y,
+                      dz = X[u].z - H[u].z, dw = X[u].w - H[u].w;
+          acc += fabsf(dx);
+          acc += fabsf(dy);
+          acc += fabsf(dz);
+          acc += fabsf(dw);
+          q4[i] = make_char4((signed char)sgn(dx), (signed char)sgn(dy),
+                             (signed char)sgn(dz), (signed char)sgn(dw));
+        }
+      }
     }
     tail = b / 4 * 4;
   }
-  for (long long i = tail + threadIdx.x; i < b; i += blockDim.x) {
-    acc += fabsf(xk[i] - hk[i]);
+  for (long long i = tail + threadIdx.x; i < b; i += kThreads) {
+    const float d = g.x[base + i] - g.hat[base + i];
+    acc += fabsf(d);
+    g.q[base + i] = (signed char)sgn(d);
   }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) partials[(long long)k * T + t] = acc;
+  return acc;
 }
 
-__global__ void scale_kernel(const float* __restrict__ partials,
-                             const int* __restrict__ seg_first,
-                             const float* __restrict__ n_true, int K, int T,
-                             int L, float* __restrict__ scales) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= K * L) return;
-  const int k = idx / L, s = idx % L;
-  float sum = 0.f;
-  for (int t = seg_first[s]; t < seg_first[s + 1]; ++t) {
-    sum += partials[(long long)k * T + t];
-  }
-  scales[idx] = sum / n_true[s];
-}
-
-__device__ __forceinline__ float sgn(float d) {
-  return (float)((d > 0.f) - (d < 0.f));
-}
-
-__global__ void apply_kernel(const float* __restrict__ x,
-                             const float* __restrict__ hat,
-                             const long long* __restrict__ tile_start,
-                             const long long* __restrict__ tile_end,
-                             const int* __restrict__ tile_seg,
-                             const float* __restrict__ scales, int L,
-                             long long n, int vec,
-                             signed char* __restrict__ q,
-                             float* __restrict__ hat_out) {
-  const int t = blockIdx.x, k = blockIdx.y;
-  const long long a = tile_start[t], b = tile_end[t];
-  const long long base = (long long)k * n;
-  const float sc = scales[k * L + tile_seg[t]];
+// The second pass over [a, b): hat_out = hat + sc * q.
+__device__ __forceinline__ void second_pass(const Args& g, long long base,
+                                            long long a, long long b,
+                                            float sc) {
+  const unsigned long long drop = evict_first_policy();
   long long tail = a;
-  if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(x + base);
-    const float4* h4 = reinterpret_cast<const float4*>(hat + base);
-    float4* o4 = reinterpret_cast<float4*>(hat_out + base);
-    char4* q4 = reinterpret_cast<char4*>(q + base);
-    for (long long i = a / 4 + threadIdx.x; i < b / 4; i += blockDim.x) {
-      const float4 X = x4[i], H = h4[i];
-      const float sx = sgn(X.x - H.x), sy = sgn(X.y - H.y),
-                  sz = sgn(X.z - H.z), sw = sgn(X.w - H.w);
-      q4[i] = make_char4((signed char)sx, (signed char)sy, (signed char)sz,
-                         (signed char)sw);
-      o4[i] = make_float4(H.x + sc * sx, H.y + sc * sy, H.z + sc * sz,
-                          H.w + sc * sw);
+  if (g.vec) {
+    const float4* h4 = reinterpret_cast<const float4*>(g.hat + base);
+    const char4* q4 = reinterpret_cast<const char4*>(g.q + base);
+    float4* o4 = reinterpret_cast<float4*>(g.hat_out + base);
+    const long long e = b / 4;
+    for (long long i0 = a / 4 + threadIdx.x; i0 < e;
+         i0 += kThreads * kUnroll) {
+      float4 H[kUnroll];
+      char4 Q[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long i = i0 + (long long)u * kThreads;
+        if (i < e) {
+          H[u] = ld_hint(h4 + i, drop);
+          Q[u] = ld_q(q4 + i, drop);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long i = i0 + (long long)u * kThreads;
+        if (i < e) {
+          __stcs(o4 + i, make_float4(H[u].x + sc * (float)Q[u].x,
+                                     H[u].y + sc * (float)Q[u].y,
+                                     H[u].z + sc * (float)Q[u].z,
+                                     H[u].w + sc * (float)Q[u].w));
+        }
+      }
     }
     tail = b / 4 * 4;
   }
-  for (long long i = tail + threadIdx.x; i < b; i += blockDim.x) {
-    const float H = hat[base + i];
-    const float s = sgn(x[base + i] - H);
-    q[base + i] = (signed char)s;
-    hat_out[base + i] = H + sc * s;
+  for (long long i = tail + threadIdx.x; i < b; i += kThreads) {
+    g.hat_out[base + i] =
+        g.hat[base + i] + sc * (float)__ldcg(g.q + base + i);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+    sign_compress_kernel(const Args g) {
+  __shared__ int next_item;
+  __shared__ int last_arrival;
+  __shared__ float seg_scale;
+  // an empty segment has no tile and no A item: its scale is 0
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < g.K * g.L;
+       i += gridDim.x * kThreads) {
+    const int s = i % g.L;
+    if (g.seg_first[s + 1] == g.seg_first[s]) g.scales[i] = 0.f;
+  }
+  if (threadIdx.x == 0) next_item = (int)atomicAdd(g.counters, 1u);
+  __syncthreads();
+  int item = next_item;
+  while (item < g.n_items) {
+    int ahead = 0;
+    if (threadIdx.x == 0) ahead = (int)atomicAdd(g.counters, 1u);
+    const int code = g.items[item];
+    const int kt = code >> 1;
+    const int k = kt / g.T, t = kt % g.T, s = g.tile_seg[t];
+    const long long base = (long long)k * g.n;
+    const long long a = g.tile_start[t], b = g.tile_end[t];
+    unsigned* seg_count = g.counters + 1 + k * g.L + s;
+    const unsigned tiles = (unsigned)(g.seg_first[s + 1] - g.seg_first[s]);
+    if ((code & 1) == 0) {
+      const float sum = block_sum(first_pass(g, base, a, b));
+      if (threadIdx.x == 0) {
+        g.partials[(long long)k * g.T + t] = sum;
+        __threadfence();
+        const unsigned before = atomicAdd(seg_count, 1u);
+        if (before == tiles - 1) __threadfence();
+        last_arrival = before == tiles - 1;
+      }
+      __syncthreads();
+      if (last_arrival) {
+        const float* part = g.partials + (long long)k * g.T + g.seg_first[s];
+        float acc = 0.f;
+        for (unsigned i = threadIdx.x; i < tiles; i += kThreads) {
+          acc += __ldcg(part + i);
+        }
+        acc = block_sum(acc);
+        if (threadIdx.x == 0) {
+          g.scales[k * g.L + s] = acc / g.n_true[s];
+          __threadfence();
+          atomicAdd(seg_count, 1u);
+        }
+      }
+    } else {
+      if (threadIdx.x == 0) {
+        while (ld_acquire(seg_count) < tiles + 1) __nanosleep(64);
+        seg_scale = __ldcg(g.scales + k * g.L + s);
+      }
+      __syncthreads();
+      second_pass(g, base, a, b, seg_scale);
+    }
+    if (threadIdx.x == 0) next_item = ahead;
+    __syncthreads();
+    item = next_item;
   }
 }
 
 }  // namespace
 
+// Blocks of the persistent grid on `device`: resident blocks per SM by
+// occupancy times the SM count; a negative cudaError_t on failure.
+extern "C" int sign_compress_grid(int device) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sign_compress_kernel, kThreads, 0);
+  }
+  if (err != cudaSuccess) return -(int)err;
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
 // x, hat, hat_out: K * n f32; q: K * n int8; scales: K * L f32; partials:
-// K * T f32 scratch. tile_start / tile_end (int64), tile_seg (int32, T
-// entries), seg_first (int32, L + 1 entries) and n_true (f32, L entries)
-// are device tables. vec != 0 promises that every tile starts at a multiple
-// of 4 within its worker, that every worker starts 16 bytes aligned (K == 1
-// or n a multiple of 4) and that x, hat, q and hat_out are 16-byte aligned.
-// Returns the first non-zero cudaGetLastError() of the three launches.
+// K * T f32 scratch; counters: 1 + K * L uint32 scratch, zeroed here on the
+// stream. tile_start / tile_end (int64), tile_seg (int32, T entries),
+// seg_first (int32, L + 1 entries), n_true (f32, L entries) and items
+// (int32, n_items = 2 K T entries: ((k * T + t) << 1) | pass) are device
+// tables. vec != 0 promises that every tile starts at a multiple of 4
+// within its worker, that every worker starts 16 bytes aligned (K == 1 or
+// n a multiple of 4) and that x, hat, q and hat_out are 16-byte aligned.
+// Launches min(grid, n_items) blocks. Returns the first non-zero
+// cudaError_t of the memset and the launch.
 extern "C" int sign_compress_f32(const float* x, const float* hat,
                                  signed char* q, float* hat_out,
                                  float* scales, float* partials,
+                                 unsigned* counters,
                                  const long long* tile_start,
                                  const long long* tile_end,
                                  const int* tile_seg, const int* seg_first,
-                                 const float* n_true, int K, int T, int L,
-                                 long long n, int vec, void* stream) {
-  if (K <= 0 || L <= 0 || n <= 0) return 0;
-  if (K > 65535) return (int)cudaErrorInvalidValue;
+                                 const float* n_true, const int* items,
+                                 int n_items, int K, int T, int L,
+                                 long long n, int vec, int grid,
+                                 void* stream) {
+  if (K <= 0 || L <= 0 || n <= 0 || n_items <= 0) return 0;
+  if (K > 65535 || grid <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
-  if (T > 0) {
-    absmean_kernel<<<dim3((unsigned)T, (unsigned)K), kThreads, 0, s>>>(
-        x, hat, tile_start, tile_end, n, T, vec, partials);
-    if ((err = (int)cudaGetLastError()) != 0) return err;
-  }
-  const int kl = K * L;
-  scale_kernel<<<(kl + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      partials, seg_first, n_true, K, T, L, scales);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  if (T > 0) {
-    apply_kernel<<<dim3((unsigned)T, (unsigned)K), kThreads, 0, s>>>(
-        x, hat, tile_start, tile_end, tile_seg, scales, L, n, vec, q,
-        hat_out);
-  }
+  cudaError_t err = cudaMemsetAsync(
+      counters, 0, sizeof(unsigned) * (1 + (size_t)K * L), s);
+  if (err != cudaSuccess) return (int)err;
+  const Args g{x,        hat,        q,        hat_out,  scales,
+               partials, counters,   tile_start, tile_end, tile_seg,
+               seg_first, n_true,    items,    n_items,  K,
+               T,        L,          n,        vec};
+  sign_compress_kernel<<<grid < n_items ? grid : n_items, kThreads, 0, s>>>(
+      g);
   return (int)cudaGetLastError();
 }

@@ -18,29 +18,38 @@ per worker over the whole worker, divided by ``n_true``.
 at lines 65 and 78): one scale over a whole tensor, divided by its element
 count. It is the K = 1, one-segment case of the same CUDA code.
 
-The CUDA code (``csrc/sign_compress.cu``) splits every segment into tiles
-of ``TILE`` elements. One kernel writes each tile's ``sum|d|`` without
-atomics, a second sums each segment's tiles in order and divides by the
-true count, and a third writes ``q`` and the new ``hat``. The scale is the
-same from run to run; it differs from the plain version's ``torch.sum`` by
-the order of the sum only. ``sign(d)`` is ``(d > 0) - (d < 0)``: zero,
-including the buffer's zero padding, maps to zero in ``q`` and in ``hat``.
+The CUDA code (``csrc/sign_compress.cu``) is one persistent launch that
+walks a list of work items built here (:func:`schedule`): each segment is
+cut into tiles of at most ``TILE`` elements, and each tile is an A item
+(the first pass: write ``q``, sum ``|d|`` into the tile's partial) and a B
+item (the second pass: ``hat += scale * q``, once the segment's scale is
+known). The A item that completes a segment sums its partials in a fixed
+order and divides by the true count, so the scale is the same from run to
+run; it differs from the plain version's ``torch.sum`` by the order of the
+sum only. ``sign(d)`` is ``(d > 0) - (d < 0)``: zero, including the
+buffer's zero padding, maps to zero in ``q`` and in ``hat``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_adam import check_f32_cuda, f32
-from repro_torch.kernels.pack import BLOCK_ROWS, LANE
+from repro_torch.kernels.pack import LANE
 
-# elements per tile of the reduction: one leaf-aligned block of the
-# resident layout
-TILE = BLOCK_ROWS * LANE
+# elements per work item: four sweeps of the kernel's 256 threads x 4
+# float4 loads; a leaf-aligned block of the resident layout (BLOCK_ROWS x
+# LANE) is two tiles
+TILE = 16384
+# a segment's B items start this many grids' worth of items after its last
+# A item: about the time the last A item takes to finish, and its scale to
+# be summed, while the grid streams other tiles
+LAG_GRIDS = 2
 
 Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 Bounds = Tuple[Tuple[int, int], ...]
@@ -126,13 +135,33 @@ def sign_compress_plain(x: torch.Tensor, hat: torch.Tensor) -> Tensors3:
     return q.reshape(x.shape), scale[0], hat_new.reshape(hat.shape)
 
 
-@functools.lru_cache(maxsize=64)
-def tile_table(bounds: Bounds, n_trues: Tuple[int, ...],
-               device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """Device tables of the tiles: ``(start, end)`` int64 element bounds
-    within a worker, the segment of each tile (int32), each segment's first
-    tile (int32, L + 1 entries) and the segments' true counts (f32; 1 for
-    an empty segment, whose sum is 0). Built once per layout and device."""
+class Schedule(NamedTuple):
+    """The tiles of one layout and the kernel's work list.
+
+    Tile ``t`` covers elements ``[tile_start[t], tile_end[t])`` of every
+    worker and lies in segment ``tile_seg[t]``; segment ``s`` holds tiles
+    ``seg_first[s]:seg_first[s + 1]``, which is also the count its
+    counter must reach before its scale is taken. ``items[i]`` is
+    ``((k * T + t) << 1) | p``: pass ``p`` (0 = A, the first pass; 1 = B,
+    the second) of tile ``t`` of worker ``k``."""
+    tile_start: Tuple[int, ...]
+    tile_end: Tuple[int, ...]
+    tile_seg: Tuple[int, ...]
+    seg_first: Tuple[int, ...]
+    items: Tuple[int, ...]
+
+
+def schedule(bounds: Bounds, K: int, lag: int) -> Schedule:
+    """Cut each segment of ``bounds`` into tiles of at most ``TILE``
+    elements and order the work items of K workers.
+
+    Workers come in order, and each worker's segments in order, with their
+    A items in ascending tile order. A segment's B items come together, in
+    descending tile order (the tiles read last in the first pass are read
+    first in the second), at least ``lag`` items after its last A item, or
+    as soon as no A item is left to put between them. Every A item of a
+    segment thus precedes every B item of it, which keeps the kernel free of
+    deadlock: blocks take items in list order and an A item never waits."""
     start, end, seg, first = [], [], [], [0]
     for s, (a, b) in enumerate(bounds):
         for t0 in range(a, b, TILE):
@@ -140,45 +169,97 @@ def tile_table(bounds: Bounds, n_trues: Tuple[int, ...],
             end.append(min(t0 + TILE, b))
             seg.append(s)
         first.append(len(start))
+    T = len(start)
+    if K * T >= 1 << 30:
+        raise ValueError(f"{K} workers x {T} tiles overflow the int32 work "
+                         f"items")
+    a_items = [(k, s, t) for k in range(K) for s in range(len(bounds))
+               for t in range(first[s], first[s + 1])]
+    items = []
+    ready = collections.deque()    # (k, s, position its B items wait for)
+    at = 0
+    while at < len(a_items) or ready:
+        if ready and (at == len(a_items) or len(items) >= ready[0][2]):
+            k, s, _ = ready.popleft()
+            items.extend(((k * T + t) << 1) | 1
+                         for t in reversed(range(first[s], first[s + 1])))
+            continue
+        k, s, t = a_items[at]
+        at += 1
+        items.append((k * T + t) << 1)
+        if t == first[s + 1] - 1:
+            ready.append((k, s, len(items) + lag))
+    return Schedule(tuple(start), tuple(end), tuple(seg), tuple(first),
+                    tuple(items))
+
+
+@functools.lru_cache(maxsize=64)
+def device_tables(bounds: Bounds, n_trues: Tuple[int, ...], K: int,
+                  device: torch.device, grid: int) -> Tuple:
+    """``(tile_start, tile_end, tile_seg, seg_first, n_true, items)`` on
+    ``device`` for K workers and a grid of ``grid`` blocks (the B items lag
+    ``LAG_GRIDS * grid`` items), with ``T`` and ``n_items``: built once per
+    layout, device and grid. ``n_true`` is f32, 1 for an empty segment
+    (whose sum is 0)."""
+    sch = schedule(bounds, K, LAG_GRIDS * grid)
     div = [f32(max(t, 1)) for t in n_trues]
-    return (torch.tensor(start, dtype=torch.int64, device=device),
-            torch.tensor(end, dtype=torch.int64, device=device),
-            torch.tensor(seg, dtype=torch.int32, device=device),
-            torch.tensor(first, dtype=torch.int32, device=device),
-            torch.tensor(div, dtype=torch.float32, device=device))
+    tabs = (torch.tensor(sch.tile_start, dtype=torch.int64, device=device),
+            torch.tensor(sch.tile_end, dtype=torch.int64, device=device),
+            torch.tensor(sch.tile_seg, dtype=torch.int32, device=device),
+            torch.tensor(sch.seg_first, dtype=torch.int32, device=device),
+            torch.tensor(div, dtype=torch.float32, device=device),
+            torch.tensor(sch.items, dtype=torch.int32, device=device))
+    return tabs, len(sch.tile_start), len(sch.items)
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = _build.load("sign_compress").sign_compress_f32
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("sign_compress")
+    lib.sign_compress_f32.argtypes = (
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.sign_compress_f32.restype = ctypes.c_int
+    lib.sign_compress_grid.argtypes = [ctypes.c_int]
+    lib.sign_compress_grid.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def grid_blocks(device: torch.device) -> int:
+    """The persistent grid on ``device``: resident blocks per SM (by the
+    kernel's occupancy) times the SM count."""
+    with torch.cuda.device(device):
+        got = _lib().sign_compress_grid(device.index)
+    if got <= 0:
+        raise RuntimeError(f"sign_compress_grid failed with cudaError_t "
+                           f"{-got}")
+    return got
 
 
 def _launch(x: torch.Tensor, hat: torch.Tensor, K: int, n: int,
             bounds: Bounds, n_trues: Tuple[int, ...]) -> Tensors3:
-    """Run the CUDA kernels on ``x``, ``hat`` viewed as ``(K, n)``; returns
+    """Run the CUDA kernel on ``x``, ``hat`` viewed as ``(K, n)``; returns
     (q shaped like x, scales (K, L), hat_new shaped like hat)."""
     check_f32_cuda(x, hat)
-    start, end, seg, first, div = tile_table(bounds, n_trues, x.device)
-    T, L = start.numel(), len(bounds)
+    grid = grid_blocks(x.device)
+    tabs, T, n_items = device_tables(bounds, n_trues, K, x.device, grid)
+    L = len(bounds)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     hat_new = torch.empty_like(hat)
-    scales = torch.empty((K, L), dtype=torch.float32, device=x.device)
-    partials = torch.empty((K, max(T, 1)), dtype=torch.float32,
-                           device=x.device)
+    # scales (K, L), partials (K, T), then 1 + K * L counters
+    scratch = torch.empty(2 * K * L + K * T + 1, dtype=torch.float32,
+                          device=x.device)
+    at = scratch.data_ptr()
     # 16-byte accesses when every tile of every worker starts aligned
     vec = int((K == 1 or n % 4 == 0) and all(a % 4 == 0 for a, _ in bounds)
               and all(t.data_ptr() % 16 == 0 for t in (x, hat, q, hat_new)))
-    status = _build.launch(_entry(), x.device, x.data_ptr(), hat.data_ptr(),
-                           q.data_ptr(), hat_new.data_ptr(),
-                           scales.data_ptr(), partials.data_ptr(),
-                           start.data_ptr(), end.data_ptr(), seg.data_ptr(),
-                           first.data_ptr(), div.data_ptr(), K, T, L, n, vec)
+    status = _build.launch(
+        _lib().sign_compress_f32, x.device, x.data_ptr(), hat.data_ptr(),
+        q.data_ptr(), hat_new.data_ptr(), at, at + 4 * K * L,
+        at + 4 * (K * L + K * T), *(t.data_ptr() for t in tabs), n_items, K,
+        T, L, n, vec, grid)
     _build.check(status, "sign_compress")
-    return q, scales, hat_new
+    return q, scratch[:K * L].view(K, L), hat_new
 
 
 def sign_compress_stacked(x: torch.Tensor, hat: torch.Tensor, *,
@@ -193,7 +274,7 @@ def sign_compress_stacked(x: torch.Tensor, hat: torch.Tensor, *,
     signature. With ``row_ranges`` (one ``(row_start, row_end)`` per
     segment of a ``(K, rows, 128)`` buffer, covering its rows in order)
     and ``n_true`` one true count per segment, ``scale`` is ``(K, L)``.
-    One call launches the kernels once, whatever the segment count."""
+    One call launches the kernel once, whatever the segment count."""
     K, n, bounds, n_trues = _layout(x, hat, n_true, row_ranges, reduce_axis)
     if n == 0 or K == 0:
         return _zeros(x, hat, K, None if row_ranges is None else len(bounds))

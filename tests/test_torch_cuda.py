@@ -46,8 +46,8 @@ def close(got, want, **tol):
 # to the last bit except where rsqrtf's approximation (tau = 0) enters.
 CARD_TOL = dict(rtol=1e-6, atol=1e-6)
 # The sign-compression scale is a sum taken in another order by the kernel
-# (tiles, then a fixed tree) and by torch.sum; hat moves by scale * sign,
-# so it inherits that error.
+# (tiles, then the segment's tiles in a fixed order) and by torch.sum; hat
+# moves by scale * sign, so it inherits that error.
 SCALE_TOL = dict(rtol=1e-5, atol=0)
 
 
@@ -219,31 +219,57 @@ def compressed_close(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["whole", "n_true", "table", "flat_odd",
-                                  "unaligned"])
+                                  "unaligned", "k12", "many_segments",
+                                  "repeat_bitwise", "side_stream",
+                                  "many_items"])
 def test_cuda_sign_compress_matches_plain(cuda, case):
+    """The persistent kernel against its plain version. ``many_segments``:
+    70 segments of 3 rows at K = 2 make fewer items than the grid's lag,
+    so B items wait for their segment's last A item; ``many_items``: each
+    block of the grid walks many items; ``repeat_bitwise``: a second call
+    gives the first one's outputs to the bit (the counters are zeroed at
+    every call, the scales summed in a fixed order); ``side_stream``: the
+    call runs on a stream that is not the default one."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    x = torch.randn((K, 3 * 256 + 8, 128), generator=gen, device="cuda")
+    shape = {"k12": (12, 776, 128), "many_segments": (2, 210, 128),
+             "many_items": (K, 32768, 128)}.get(case, (K, 3 * 256 + 8, 128))
+    x = torch.randn(shape, generator=gen, device="cuda")
     hat = torch.randn(x.shape, generator=gen, device="cuda")
-    if case == "whole":
+    table = dict(row_ranges=((0, 256), (256, 768), (768, 768), (768, 776)),
+                 n_true=(32768, 40_000, 0, 5))
+    if case in ("whole", "many_items"):
         kw = {}
     elif case == "n_true":
         x.reshape(K, -1)[:, 70_000:] = 0
         hat.reshape(K, -1)[:, 70_000:] = 0
         kw = dict(n_true=70_000)
-    elif case == "table":
-        kw = dict(row_ranges=((0, 256), (256, 768), (768, 768), (768, 776)),
-                  n_true=(32768, 40_000, 0, 5))
-    if case in ("whole", "n_true", "table"):
-        got = tsc.sign_compress_stacked(x, hat, **kw)
-        want = tsc.sign_compress_stacked_plain(x, hat, **kw)
-    else:   # the scalar path: an odd element count or a shifted pointer
+    elif case == "many_segments":
+        kw = dict(row_ranges=tuple((3 * i, 3 * i + 3) for i in range(70)),
+                  n_true=tuple(3 * 128 - i for i in range(70)))
+    else:
+        kw = table
+    if case in ("flat_odd", "unaligned"):   # the scalar path
         n = 100_001 if case == "flat_odd" else 40_000
         sl = slice(0, n) if case == "flat_odd" else slice(1, n + 1)
         xs, hs = x.reshape(-1)[sl], hat.reshape(-1)[sl]
         got = tsc.sign_compress(xs, hs)
         want = tsc.sign_compress_plain(xs, hs)
+    elif case == "side_stream":
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            got = tsc.sign_compress_stacked(x, hat, **kw)
+        side.synchronize()
+        want = tsc.sign_compress_stacked_plain(x, hat, **kw)
+    else:
+        got = tsc.sign_compress_stacked(x, hat, **kw)
+        want = tsc.sign_compress_stacked_plain(x, hat, **kw)
     torch.cuda.synchronize()
     compressed_close(got, want)
+    if case == "repeat_bitwise":
+        again = tsc.sign_compress_stacked(x, hat, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.gpu
