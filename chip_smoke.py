@@ -90,10 +90,27 @@ script exits non-zero without the final ``ok`` line:
    model's leaves, held to the plain version worker by worker;
 16. lm card vs CPU: llama3.2-1b and rwkv6-3b at full width cut to 2
    layers, f32 compute, three packed D-Adam steps at p=3 in lock step on
-   both, from one init: step 1 within LM_STEP1_TOL, step 3 as in 7.
+   both, from one init: step 1 within LM_STEP1_TOL, step 3 as in 7;
+17. damped: adaptive batch damping (AdaDamp, 8 chunks of the 512
+   examples, one signal per worker) on full-width DeepFM, K=8 packed
+   D-Adam at p=4, 20 steps through ``DecentralizedTrainer(damping=)``:
+   the D-Adam launches, every worker's chunk count non-decreasing in
+   [1, 8], the evaluations their sum, the loss falling; step times, a
+   profile of one period, the peak; then card vs CPU as in 7, damped,
+   the per-worker counts equal on both devices and parting between
+   workers;
+18. vision: ResNet-20 at width 16 on CIFAR-shaped images, K=8 packed
+   D-Adam at p=8 with weight decay 1e-4, 128 images a worker, 20 steps:
+   the launches, the loss falling, held-out accuracy of the consensus
+   mean, step times, a profile, the peak; then card vs CPU at 8 images a
+   worker (``VISION_M_TOL``);
+19. lm_train_damped (after lm_train_bf16): lm_train through the CLI with
+   ``--damping geodamp:2:2:2``: lm_train's launches, 28 worker-chunk
+   evaluations, a peak within 2 GB of lm_train's, a profile of one period.
 
 The kernels phase holds ``fused_adam`` and ``gossip_adam_mix`` with
-bf16 moments too (m and v within one bf16 ulp, p within 2e-5), and takes
+bf16 moments too (m and v within one bf16 ulp, p within 2e-5) and at the
+vision phase's weight decay 1e-4, and takes
 the profiler's device time of every kernel beside its CUDA-event time. It
 also holds ``flash_attention`` against its plain
 version at eleven shapes: the serve bucket's prefill, an 8192-token
@@ -354,6 +371,46 @@ LM_REPS = 5
 # element of rwkv6's 1.01e9 at step 1, none of llama's).
 LM_STEP1_TOL = dict(rtol=2e-5, atol=2e-5)
 LM_STEP1_MAX_SHARE = 1e-8
+# adaptive batch damping on the paper's experiment: benchmarks/damping.py's
+# ctr task (CTR_CHUNKS = 8 chunks of the per-worker batch, per-worker
+# AdaDamp signals) at the paper's width, K=8 ring, packed D-Adam at p=4,
+# 20 fit steps: fused_adam on the 15 local steps, gossip_adam_mix on the 5
+# comm steps, whatever the chunk counts (every step runs all 8 chunks)
+DAMPING = dict(policy="adadamp", max_chunks=8, per_worker=True)
+DAMPED_STEPS, DAMPED_PERIOD = 20, 4
+DAMPED_LAUNCHES = {"fused_adam": 15, "gossip_adam_mix": 5}
+# lm_train through the CLI with --damping geodamp:2:2:2: chunk counts 1, 1,
+# 2, 2, 2, 2, 2, 2 a worker, so 2 x 14 = 28 worker-chunk evaluations; the
+# same launches as lm_train. Its peak may pass lm_train's by at most
+# LM_DAMPED_PEAK_SLACK_GB: the Adam step's seven buffers set both (the
+# damped backward holds p, m, v, the accumulator and one chunk's gradient
+# with half the activations).
+LM_DAMPED_ARGS = LM_ARGS + ["--damping", "geodamp:2:2:2"]
+LM_DAMPED_EVALS = LM_K * (1 + 1 + 2 * 6)
+LM_DAMPED_PEAK_SLACK_GB = 2.0
+# the paper's CIFAR experiment: ResNet-20 at He et al.'s width 16
+# (272,250 parameters a worker) on CIFAR-shaped synthetic images, K=8
+# ring, packed D-Adam at p=8, eta 1e-3, weight decay 1e-4
+# (benchmarks/vision_resnet.py's D-Adam row, width 8 -> 16, 8 -> 128
+# images a worker), 20 fit steps: fused_adam on 18, gossip_adam_mix on 2
+VISION = dict(width=16, per_worker=128, period=8, steps=20,
+              weight_decay=1e-4)
+VISION_PARAMS = 272_250
+VISION_LAUNCHES = {"fused_adam": 18, "gossip_adam_mix": 2}
+# ResNet-20 card against CPU. cuDNN's algorithms (Winograd transforms
+# among them in the vision profile) sum otherwise than the CPU's direct
+# convolutions: the step-1 weight gradients lay up to 2.29e-5 and, in
+# another run, 9.14e-5 of their leaf's largest apart on an NVIDIA H100
+# 80GB HBM3 at 700 W (the CPU holds 2e-5 against JAX); a wrong leaf or
+# worker lies O(1) apart. Adam's first step is +-3.16 eta wherever |g|
+# passes 3.2e-5, so a gradient near zero whose sign the two devices round
+# apart moves its element 6.3 eta apart (5.8 eta in that run, in 0.16% of
+# the elements), and group norm's backward makes such gradients common.
+# So: step 1's loss within CARD_CPU_TOL, its m (the gradient plus the
+# decay) within VISION_M_TOL of each leaf's largest; every step's params
+# within adam_part_cap, the most two Adam runs from one start can part;
+# the later losses and the shares outside CARD_CPU_TOL are recorded.
+VISION_M_TOL = 1e-3
 # per-worker bytes of full-width DeepFM on the wire per round (the list
 # over one schedule cycle): D-Adam sends the f32 params to each neighbour
 # (ring: 2; one-peer-exponential with buffers: its union of 5 offsets
@@ -600,6 +657,7 @@ def phase_kernels():
     union = one_peer_exponential(K).union_views()[0]
     deg = len(topo.offsets)
     adam = ADAM
+    adam_wd = dict(ADAM, weight_decay=VISION["weight_decay"])
     W = torch.as_tensor(topo.weights, dtype=torch.float32, device="cuda")
     buf_bytes = p.numel() * p.element_size()
     n = p.numel()
@@ -642,6 +700,14 @@ def phase_kernels():
              plain=lambda: fa.fused_adam_plain(p, g, mb, vb, **adam),
              bf16_moments=True, library=None, bytes=20 * n, ops=12 * n,
              device="fused_adam_kernel", variant="bf16 m and v"),
+        # ResNet-20's weight decay (the paper's CIFAR setting): the
+        # kernels' weight-decay operand, off on every other path
+        dict(name="fused_adam", source="src/repro_torch/csrc/fused_adam.cu",
+             replaces="src/repro/kernels/fused_adam.py:66",
+             kernel=lambda: fa.fused_adam(p, g, m, v, **adam_wd),
+             plain=lambda: fa.fused_adam_plain(p, g, m, v, **adam_wd),
+             library=None, bytes=7 * buf_bytes, ops=14 * n,
+             device="fused_adam_kernel", variant="weight decay 1e-4"),
         dict(name="gossip_mix", source="src/repro_torch/csrc/gossip.cu",
              replaces="src/repro/kernels/gossip.py:124",
              kernel=lambda: (gk.gossip_mix(p, *mix),),
@@ -666,6 +732,14 @@ def phase_kernels():
              bf16_moments=True, library=None, bytes=20 * n,
              ops=((deg + 1) * 12 + 1 + 2 * deg) * n,
              device="gossip_adam_mix_kernel", variant="bf16 m and v"),
+        dict(name="gossip_adam_mix", source="src/repro_torch/csrc/gossip.cu",
+             replaces="src/repro/kernels/gossip.py:258",
+             kernel=lambda: gk.gossip_adam_mix(p, g, m, v, *mix, **adam_wd),
+             plain=lambda: gk.gossip_adam_mix_plain(p, g, m, v, *mix,
+                                                    **adam_wd),
+             tol=BIT_EQUAL, library=None, bytes=7 * buf_bytes,
+             ops=((deg + 1) * 14 + 1 + 2 * deg) * n,
+             device="gossip_adam_mix_kernel", variant="weight decay 1e-4"),
         # consensus: per offset a subtraction, a product and a sum, then
         # gamma's product and the sum with x
         dict(name="consensus_mix", source="src/repro_torch/csrc/gossip.cu",
@@ -1224,6 +1298,30 @@ def rwkv_records():
     return records
 
 
+def stamped_steps(trainer, state, batches, timed: int, period: int):
+    """``timed`` more ``fit`` steps with a synchronised stamp after each
+    (they log only at their end): the new state and the step medians,
+    local and comm apart."""
+    stamps = []
+
+    def hook(step, st):
+        torch.cuda.synchronize()
+        stamps.append((st.count, time.perf_counter()))
+
+    torch.cuda.synchronize()
+    stamps.append((state.count, time.perf_counter()))
+    state, _ = trainer.fit(state, batches, timed, log_every=timed,
+                           hook=hook, hook_every=1)
+    dts = [(c, (t - t0) * 1e3) for (_, t0), (c, t) in zip(stamps,
+                                                            stamps[1:])]
+    return state, {"step_ms_median": statistics.median(d for _, d in dts),
+                   "local_step_ms_median": statistics.median(
+                       d for c, d in dts if c % period),
+                   "comm_step_ms_median": statistics.median(
+                       d for c, d in dts if c % period == 0),
+                   "timed_steps": timed}
+
+
 def phase_slice(path: str):
     """The paper's experiment at full width through the entry points,
     with the launch counters zeroed just before and read just after; then
@@ -1275,20 +1373,7 @@ def phase_slice(path: str):
         res.teacher, trainer.averaged_params(state),
         deepfm_ctr.MODELS["deepfm"][2])
 
-    # step times: a synchronised stamp after each of a few more steps,
-    # which log only at their end (after the last stamp)
-    stamps = []
-
-    def hook(step, st):
-        torch.cuda.synchronize()
-        stamps.append((st.count, time.perf_counter()))
-
-    torch.cuda.synchronize()
-    stamps.append((state.count, time.perf_counter()))
-    state, _ = trainer.fit(state, res.batches, timed, log_every=timed,
-                           hook=hook, hook_every=1)
-    dts = [((c, (t - t0) * 1e3)) for (_, t0), (c, t) in
-           zip(stamps, stamps[1:])]
+    state, times = stamped_steps(trainer, state, res.batches, timed, period)
     stale = getattr(state, "stale", None)
     emit({"phase": "slice", "path": path, "kind": spec["kind"],
           "config": {"K": K, "topology": spec["opt"].get("topology", "ring"),
@@ -1296,13 +1381,7 @@ def phase_slice(path: str):
                      "hidden": list(FULL["hidden"])},
           "buffer_shape": list(state.buf.shape),
           "params_per_worker": state.spec.n,
-          "losses": losses,
-          "step_ms_median": statistics.median(d for _, d in dts),
-          "local_step_ms_median": statistics.median(
-              d for c, d in dts if c % period),
-          "comm_step_ms_median": statistics.median(
-              d for c, d in dts if c % period == 0),
-          "timed_steps": timed,
+          "losses": losses, **times,
           "auc_after_fit": res.auc, "auc_after_round": auc_after_round,
           "comm_mb_fit": res.log.comm_mb[-1],
           "comm_mb_per_round": trainer.comm_mb_per_round(state),
@@ -1597,16 +1676,20 @@ def hat_check(path, card, cpu, opt, spec, period):
             "max_slack": float(slack.max())}, slack
 
 
-def phase_card_vs_cpu(path: str, period: int = 3):
+def phase_card_vs_cpu(path: str, period: int = 3, damping=None):
     """Three steps from one init and one set of batches, on the card and
     on the CPU: at period 3 two fused_adam steps, then a communication
     step; at period 1 three rounds, the later ones mixing buffered
     payloads on the straggler-tolerant paths. The straggler draw is made
-    on the host from its seed, so both devices see the same arrivals."""
+    on the host from its seed, so both devices see the same arrivals.
+    With ``damping`` (a DampingConfig's fields) the trainer is damped: the
+    chunk counts of every step must be equal on both devices, and differ
+    between workers at some step."""
     from repro_torch.core.api import make_optimizer
     from repro_torch.data.synthetic import (ctr_batch_stacked, ctr_teacher,
                                             make_ctr_task)
     from repro_torch.models.deepfm import deepfm_loss, init_deepfm
+    from repro_torch.train.damping import DampingConfig, chunks_of
     from repro_torch.train.loop import DecentralizedTrainer
 
     task = make_ctr_task(seed=0, n_fields=FULL["n_fields"],
@@ -1621,16 +1704,20 @@ def phase_card_vs_cpu(path: str, period: int = 3):
     spec = PATHS[path]
     kind, opt_kw = spec["kind"], dict(spec["opt"])
     topology = opt_kw.pop("topology", "ring")
-    out, ages = {}, {}
+    dcfg = DampingConfig(**damping) if damping is not None else None
+    out, ages, counts = {}, {}, {}
     for dev in (DEVICE, "cpu"):
         t0 = time.perf_counter()
         opt = make_optimizer(kind, K, eta=ETA, period=period,
                              topology=topology, backend="packed",
                              device=dev, **opt_kw)
-        tr = DecentralizedTrainer(deepfm_loss, opt)
+        tr = DecentralizedTrainer(deepfm_loss, opt, damping=dcfg)
         it = iter(batches)
         state, log, snaps = tr.init(params), None, []
         for _ in range(3):
+            if dcfg is not None:
+                counts.setdefault(dev, []).append(
+                    chunks_of(tr.damp_state, dcfg, K).tolist())
             state, log = tr.fit(state, it, 1, log_every=1, log=log)
             snaps.append(state_tensors(state))
         out[dev] = (snaps, log.loss, time.perf_counter() - t0)
@@ -1651,7 +1738,13 @@ def phase_card_vs_cpu(path: str, period: int = 3):
              for n in card[2] if not n.startswith("hat")}
     if ages[DEVICE] != ages["cpu"]:
         raise AssertionError(f"{path}: stale ages {ages}")
+    if dcfg is not None and (counts[DEVICE] != counts["cpu"] or not any(
+            len(set(c)) > 1 for c in counts["cpu"])):
+        raise AssertionError(f"{path} damped: chunk counts {counts}: not "
+                             f"equal on both devices, or equal between "
+                             f"workers at every step")
     emit({"phase": "card_vs_cpu", "path": path, "steps": 3,
+          "damping": damping, "chunk_counts": counts.get("cpu"),
           "period": period, "stale_age": ages["cpu"],
           "losses_card": closs, "losses_cpu": hloss, "loss_max_abs_err":
           loss_err, "step1_max_abs_err": step1, "step3": step3,
@@ -2012,6 +2105,275 @@ def phase_serve_rwkv(cfg=None, buckets=SERVE_BUCKETS,
     return rec["launches"]
 
 
+# ------------------------- damping and vision --------------------------------
+
+
+def phase_damped():
+    """Adaptive batch damping on the paper's experiment at full width
+    through ``DecentralizedTrainer(damping=...).fit``: the launch counters
+    zeroed just before and read just after; every worker's chunk count
+    non-decreasing within [1, 8], the evaluations their sum, finite
+    losses, and the loss falling: the consensus mean's on a fixed
+    held-out batch of 512 examples a worker (a step's own loss is the
+    mean over its live chunks, 64 examples at count 1, whose spread
+    between batches exceeds what 20 steps take off it); then step times
+    and a profile of one period. Returns the launch counts."""
+    from repro_torch._tree import tree_map
+    from repro_torch.core.api import make_optimizer
+    from repro_torch.data.synthetic import (ctr_batch_stacked, ctr_teacher,
+                                            make_ctr_task)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import deepfm_ctr
+    from repro_torch.models.deepfm import (deepfm_logits, deepfm_loss,
+                                           init_deepfm)
+    from repro_torch.train.damping import DampingConfig, chunks_of
+    from repro_torch.train.loop import DecentralizedTrainer
+
+    dcfg = DampingConfig(**DAMPING)
+    task = make_ctr_task(seed=0, n_fields=FULL["n_fields"],
+                         features_per_field=FULL["features_per_field"],
+                         embed_dim=FULL["embed_dim"])
+    teacher = ctr_teacher(task, DEVICE)
+    test = ctr_batch_stacked(teacher, torch.Generator(
+        device=DEVICE).manual_seed(99), K, FULL["per_worker"])
+    test = {"feat_ids": test["feat_ids"].reshape(1, -1, task.n_fields),
+            "label": test["label"].reshape(1, -1)}
+
+    def heldout_loss(params):
+        with torch.no_grad():
+            return float(deepfm_loss(tree_map(lambda x: x[None], params),
+                                     test)[0])
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_optimizer("d-adam", K=K, eta=ETA, period=DAMPED_PERIOD,
+                         backend="packed", device=DEVICE)
+    trainer = DecentralizedTrainer(deepfm_loss, opt, damping=dcfg)
+    state = trainer.init(init_deepfm(
+        torch.Generator(device=DEVICE).manual_seed(0), task.n_features,
+        task.n_fields, FULL["embed_dim"], FULL["hidden"]))
+    heldout = [heldout_loss(trainer.averaged_params(state))]
+    batches = deepfm_ctr.batch_stream(teacher, FULL["per_worker"])
+    ops.reset_launches()
+    # each step's counts, taken on the device before it (no sync)
+    counts = [chunks_of(trainer.damp_state, dcfg, K)]
+    state, log = trainer.fit(
+        state, batches, DAMPED_STEPS, log_every=1,
+        hook=lambda step, st: counts.append(chunks_of(trainer.damp_state,
+                                                      dcfg, K)),
+        hook_every=1)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_launches("damped", launches, DAMPED_LAUNCHES)
+    per_step = torch.stack(counts[:DAMPED_STEPS]).tolist()
+    flat = [c for row in per_step for c in row]
+    if (min(flat) < 1 or max(flat) > dcfg.max_chunks
+            or any(b < a for prev, row in zip(per_step, per_step[1:])
+                   for a, b in zip(prev, row))):
+        raise AssertionError(f"damped: chunk counts {per_step}")
+    if log.grad_evals[-1] != sum(flat):
+        raise AssertionError(f"damped: {log.grad_evals[-1]} evaluations, "
+                             f"counts sum to {sum(flat)}")
+    if not all(math.isfinite(x) for x in log.loss):
+        raise AssertionError(f"damped: non-finite loss in {log.loss}")
+    heldout.append(heldout_loss(trainer.averaged_params(state)))
+    if not heldout[1] < heldout[0]:
+        raise AssertionError(f"damped: held-out loss did not fall: "
+                             f"{heldout}")
+    auc = deepfm_ctr.heldout_auc(teacher, trainer.averaged_params(state),
+                                 deepfm_logits)
+    state, times = stamped_steps(trainer, state, batches, 8, DAMPED_PERIOD)
+    one = [next(batches) for _ in range(DAMPED_PERIOD)]
+
+    def run_period():
+        st = state
+        for b in one:
+            st, _ = trainer.step(st, b)
+
+    prof = device_profile(run_period)
+    emit({"phase": "profile", "path": "damped", "steps": DAMPED_PERIOD,
+          **prof})
+    emit({"phase": "damped", "damping": DAMPING, "K": K,
+          "period": DAMPED_PERIOD, "steps": DAMPED_STEPS, **FULL,
+          "hidden": list(FULL["hidden"]),
+          "chunk_counts": per_step, "losses": log.loss,
+          "heldout_loss_before_after": heldout,
+          "grad_evals": log.grad_evals, "auc_after_fit": auc,
+          "comm_mb": log.comm_mb[-1], "peak_mem_gb": peak_gb,
+          "period_device_ms": prof["device_ms"],
+          "period_wall_ms": prof["wall_ms"],
+          "busy_share": prof["busy_share"], **times,
+          "counts_after_timing": chunks_of(trainer.damp_state, dcfg,
+                                           K).tolist(),
+          "launches": launches})
+    del trainer, state, batches, one
+    torch.cuda.empty_cache()
+    return launches
+
+
+def image_stream(device, per_worker: int, seed: int = 11):
+    """An endless stream of K workers' image batches drawn on ``device``
+    from ``seed``, and the class patterns they share."""
+    from repro_torch.data.synthetic import (PATTERN_SEED, class_patterns,
+                                            image_batch_stacked)
+
+    patterns = class_patterns(torch.Generator(device=device).manual_seed(
+        PATTERN_SEED))
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def stream():
+        while True:
+            yield image_batch_stacked(gen, K, per_worker, patterns=patterns)
+
+    return stream(), patterns
+
+
+def vision_trainer(device, period: int):
+    """ResNet-20 at VISION's width, packed D-Adam on a K=8 ring on
+    ``device``: (trainer, state), the init drawn on the CPU."""
+    from repro_torch.core.api import make_optimizer
+    from repro_torch.models.deepfm import init_resnet20, resnet20_loss
+    from repro_torch.train.loop import DecentralizedTrainer
+
+    opt = make_optimizer("d-adam", K=K, eta=ETA, period=period,
+                         weight_decay=VISION["weight_decay"],
+                         topology="ring", backend="packed", device=device)
+    trainer = DecentralizedTrainer(resnet20_loss, opt)
+    return trainer, trainer.init(init_resnet20(
+        torch.Generator().manual_seed(0), width=VISION["width"]))
+
+
+def phase_vision():
+    """ResNet-20 (the paper's CIFAR task) at He et al.'s width through
+    ``DecentralizedTrainer.fit``: the launch counters zeroed just before
+    and read just after, the loss falling; held-out accuracy of the
+    consensus mean, step times, a profile of one period, the peak memory.
+    Returns the launch counts."""
+    from repro_torch._tree import tree_map
+    from repro_torch.data.synthetic import image_batch_stacked
+    from repro_torch.kernels import ops
+    from repro_torch.models.deepfm import resnet20_logits, resnet20_loss
+    from repro_torch.train.metrics import accuracy
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, state = vision_trainer(DEVICE, VISION["period"])
+    batches, patterns = image_stream(DEVICE, VISION["per_worker"])
+    test = image_batch_stacked(torch.Generator(device=DEVICE).manual_seed(99),
+                               K, VISION["per_worker"], patterns=patterns)
+    test = {"images": test["images"].reshape((1, -1) + test["images"]
+                                             .shape[2:]),
+            "label": test["label"].reshape(1, -1)}
+
+    def heldout():
+        """The consensus mean as one worker on all K workers' held-out
+        images: (loss, accuracy)."""
+        mean = tree_map(lambda x: x[None], trainer.averaged_params(state))
+        with torch.no_grad():
+            logits = resnet20_logits(mean, test["images"])
+            return (float(resnet20_loss(mean, test)[0]),
+                    accuracy(logits[0], test["label"][0]))
+
+    before = heldout()
+    ops.reset_launches()
+    (state, log), wall_ms = synced(lambda: trainer.fit(
+        state, batches, VISION["steps"], log_every=1))
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_launches("vision", launches, VISION_LAUNCHES)
+    if state.spec.n != VISION_PARAMS:
+        raise AssertionError(f"vision: {state.spec.n} params per worker")
+    if not all(math.isfinite(x) for x in log.loss):
+        raise AssertionError(f"vision: non-finite loss in {log.loss}")
+    after = heldout()
+    if not (log.loss[-1] < log.loss[0] and after[0] < before[0]):
+        raise AssertionError(f"vision: loss did not fall: {log.loss}, "
+                             f"held-out {before} -> {after}")
+    state, times = stamped_steps(trainer, state, batches, 8,
+                                 VISION["period"])
+    one = [next(batches) for _ in range(VISION["period"])]
+
+    def run_period():
+        st = state
+        for b in one:
+            st, _ = trainer.step(st, b)
+
+    prof = device_profile(run_period)
+    emit({"phase": "profile", "path": "vision", "steps": VISION["period"],
+          **prof})
+    emit({"phase": "vision", "K": K, **VISION, "eta": ETA,
+          "params_per_worker": state.spec.n,
+          "buffer_shape": list(state.buf.shape), "losses": log.loss,
+          "heldout_loss_accuracy_before_after": [before, after],
+          "heldout_images": K * VISION["per_worker"],
+          "comm_mb": log.comm_mb[-1], "fit_wall_ms": wall_ms,
+          "peak_mem_gb": peak_gb, "period_device_ms": prof["device_ms"],
+          "period_wall_ms": prof["wall_ms"],
+          "busy_share": prof["busy_share"], **times, "launches": launches})
+    del trainer, state, batches, one
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vision_card_vs_cpu(per_worker: int = 8, period: int = 3):
+    """ResNet-20 at VISION's width, 8 images a worker, three packed D-Adam
+    steps at period 3 (two fused_adam steps, then gossip_adam_mix, all with
+    weight decay 1e-4) on the card and on the CPU from one init and one set
+    of batches drawn on the CPU, held as VISION_M_TOL's comment says; the
+    record is printed before the bounds are checked."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.kernels import pack as packing
+
+    stream, _ = image_stream("cpu", per_worker)
+    batches = [next(stream) for _ in range(3)]
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        trainer, state = vision_trainer(dev, period)
+        log, snaps = None, []
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            for b in batches:
+                state, log = trainer.fit(state, iter([b]), 1, log_every=1,
+                                         log=log)
+                snaps.append({n: getattr(state, n).cpu()
+                              for n in ("buf", "m")})
+        out[dev] = (snaps, log.loss, time.perf_counter() - t0, state.spec)
+        del trainer, state
+        torch.cuda.empty_cache()
+    (card, closs, ct, spec), (cpu, hloss, ht, _) = out[DEVICE], out["cpu"]
+    # step 1's loss comes from one init on one batch; the later ones from
+    # params that have parted as VISION_M_TOL's comment says
+    loss_err = abs(closs[0] - hloss[0])
+    m_err = [float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+             for a, b in zip(tree_leaves(packing.unpack(card[0]["m"], spec)),
+                             tree_leaves(packing.unpack(cpu[0]["m"], spec)))]
+    steps = []
+    for t in range(3):
+        d, outside = outside_tol(card[t]["buf"], cpu[t]["buf"])
+        steps.append({"step": t + 1, "loss_abs_err": abs(closs[t] - hloss[t]),
+                      "buf_max_abs_err": float(d.max()),
+                      "buf_share_outside": float(outside.double().mean()),
+                      "cap": adam_part_cap(t + 1, eta=ETA)})
+    steps[0].update(m_max_err_of_leaf_max=max(m_err),
+                    m_worst_leaf=m_err.index(max(m_err)))
+    emit({"phase": "vision_card_vs_cpu", "width": VISION["width"],
+          "per_worker": per_worker, "period": period,
+          "losses_card": closs, "losses_cpu": hloss, "steps": steps,
+          "tol": CARD_CPU_TOL, "m_tol_of_leaf_max": VISION_M_TOL,
+          "seconds_card": ct, "seconds_cpu": ht})
+    bad = [what for what, fails in (
+        ("step 1 loss", loss_err > CARD_CPU_TOL["atol"]
+         + CARD_CPU_TOL["rtol"] * abs(hloss[0])),
+        ("step 1 m", max(m_err) > VISION_M_TOL),
+        ("params", any(r["buf_max_abs_err"] > r["cap"] for r in steps)))
+        if fails]
+    if bad:
+        raise AssertionError(f"vision card vs CPU: {bad} past their bounds")
+
+
 # ------------------------------ LM training --------------------------------
 
 
@@ -2251,6 +2613,50 @@ def phase_lm_train_bf16(f32_rec):
     del state
     torch.cuda.empty_cache()
     return launches, rec
+
+
+def phase_lm_train_damped(f32_rec):
+    """lm_train through the CLI with ``--damping geodamp:2:2:2``: the
+    launch counters zeroed just before and read just after, the same
+    launches as lm_train, LM_DAMPED_EVALS worker-chunk evaluations, finite
+    losses, and a peak within LM_DAMPED_PEAK_SLACK_GB of lm_train's; then
+    the step times and a profile of one period. Returns (launches,
+    record)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run, wall_ms = synced(lambda: train.main(LM_DAMPED_ARGS))
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_launches("lm_train_damped", launches, LM_LAUNCHES)
+    evals = (run.log.grad_evals[-1], int(run.trainer.damp_state.evals))
+    if evals != (LM_DAMPED_EVALS, LM_DAMPED_EVALS):
+        raise AssertionError(f"lm_train_damped: evaluations {evals}, not "
+                             f"{LM_DAMPED_EVALS}")
+    if not all(math.isfinite(x) for x in run.log.loss):
+        raise AssertionError(f"lm_train_damped: losses {run.log.loss}")
+    if peak_gb > f32_rec["peak_mem_gb"] + LM_DAMPED_PEAK_SLACK_GB:
+        raise AssertionError(f"lm_train_damped: peak {peak_gb} GB, "
+                             f"lm_train's {f32_rec['peak_mem_gb']}")
+    rec = {"phase": "lm_train_damped", "argv": LM_DAMPED_ARGS,
+           "losses": run.log.loss, "losses_undamped": f32_rec["losses"],
+           "grad_evals": run.log.grad_evals, "main_wall_ms": wall_ms,
+           "peak_mem_gb": peak_gb,
+           "peak_mem_gb_undamped": f32_rec["peak_mem_gb"],
+           "launches": launches}
+    trainer, batches, box = run.trainer, run.batches, [run.state]
+    del run
+    rec.update(lm_step_times("lm_train_damped", trainer, box, batches,
+                             LM_PERIOD))
+    rec["period_device_ms_undamped"] = f32_rec["period_device_ms"]
+    emit(rec)
+    del trainer, batches, box
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_lm_train_cd():
@@ -2528,6 +2934,10 @@ def main() -> int:
     phase_card_vs_cpu("cd-adam")
     phase_card_vs_cpu("d-adam-straggler", period=1)
     phase_card_vs_cpu("cd-adam-overlap", period=1)
+    by_path["damped"] = phase_damped()
+    phase_card_vs_cpu("d-adam", damping=DAMPING)
+    by_path["vision"] = phase_vision()
+    phase_vision_card_vs_cpu()
     by_path["serve"] = phase_serve()
     phase_serve_card_vs_cpu()
     by_path["online"] = phase_online()
@@ -2538,6 +2948,7 @@ def main() -> int:
         seq=128, new_tokens=5, batch=2, phase="serve_rwkv_card_vs_cpu")
     by_path["lm_train"], f32_rec = phase_lm_train()
     by_path["lm_train_bf16"], bf16_rec = phase_lm_train_bf16(f32_rec)
+    by_path["lm_train_damped"] = phase_lm_train_damped(f32_rec)
     by_path["lm_train_cd"], lm_sign = phase_lm_train_cd()
     records.append(lm_sign)
     phase_lm_card_vs_cpu(LM_ARCH)

@@ -1,5 +1,5 @@
 """Synthetic non-IID data, the port of ``repro.data.synthetic``'s LM token
-streams and CTR generator.
+streams, CTR generator and CIFAR-shaped images.
 
 K workers, each with its own data distribution D^(k) (Section 3.1):
 
@@ -12,7 +12,12 @@ K workers, each with its own data distribution D^(k) (Section 3.1):
   teacher, so AUC is meaningful. :func:`make_ctr_task` is numpy and equal
   to the JAX package's; the batches are drawn from a ``torch.Generator``
   on the target device with the same non-IID skew formula, so they are
-  not the JAX package's bits.
+  not the JAX package's bits;
+* CIFAR-shaped images (:func:`image_batch`, :func:`image_batch_stacked`):
+  class-conditional patterns plus noise, with the labels skewed towards
+  each worker's own classes. The draws (the labels, the noise and the
+  class patterns) come from ``torch.Generator`` s or are given: handed
+  JAX's draws, the batch equals JAX's.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from repro_torch._device import resolve_device
 
 # (t, worker) -> (base, mask): the draws of step t's batch of one worker
 LMDraws = Callable[[int, int], Tuple[torch.Tensor, torch.Tensor]]
+# worker -> (label, noise): the draws of one worker's image batch
+ImageDraws = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
 
 
 # ----------------------------- LM token streams -----------------------------
@@ -197,3 +204,96 @@ def ctr_batch_stacked(teacher: CTRTeacher, gen: torch.Generator, K: int,
     if K > 1 and skew > 0:
         centers = (torch.arange(K, device=teacher.embed.device) + 0.5) / K
     return _draw(teacher, gen, per_worker, centers, K, skew)
+
+
+# ------------------------------ vision images --------------------------------
+
+IMAGE_SHAPE = (32, 32, 3)
+# the JAX package draws the class patterns from PRNGKey(7); the port's
+# come from a generator seeded 7
+PATTERN_SEED = 7
+
+
+def class_logits(n_classes: int, worker: int, skew: float,
+                 device: "str | torch.device" = "cpu") -> torch.Tensor:
+    """Worker ``worker``'s label logits: classes near ``worker %
+    n_classes`` (cyclically) over-sampled, ``-2 skew d**2`` at cyclic
+    distance d, in f32 as JAX computes them."""
+    d = torch.remainder(
+        torch.arange(n_classes, device=device, dtype=torch.int32)
+        - (worker % n_classes) + n_classes / 2, n_classes) - n_classes / 2
+    return -skew * 2.0 * torch.square(d)
+
+
+def class_patterns(gen: torch.Generator, n_classes: int = 10
+                   ) -> torch.Tensor:
+    """``(n_classes, 32, 32, 3)`` class-mean patterns, N(0, 0.25), on
+    ``gen.device``."""
+    return torch.randn((n_classes,) + IMAGE_SHAPE, generator=gen,
+                       device=gen.device) * 0.5
+
+
+def image_draws(gen: torch.Generator, batch: int, n_classes: int = 10,
+                worker: int = 0, n_workers: int = 1, skew: float = 0.5
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One worker's draws on ``gen.device``: the labels, ``(batch,)`` int64
+    from the categorical over :func:`class_logits` (uniform when IID: one
+    worker or ``skew <= 0``), and the noise ``(batch, 32, 32, 3)`` N(0, 1)
+    (JAX's ``categorical`` / ``randint`` and ``normal``, from torch's
+    stream)."""
+    dev = gen.device
+    if n_workers > 1 and skew > 0:
+        probs = torch.softmax(class_logits(n_classes, worker, skew, dev), 0)
+        label = torch.multinomial(probs, batch, replacement=True,
+                                  generator=gen)
+    else:
+        label = torch.randint(0, n_classes, (batch,), generator=gen,
+                              device=dev)
+    noise = torch.randn((batch,) + IMAGE_SHAPE, generator=gen, device=dev)
+    return label, noise
+
+
+def image_batch(gen: Optional[torch.Generator], batch: int,
+                n_classes: int = 10, worker: int = 0, n_workers: int = 1,
+                skew: float = 0.5, *, label: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None,
+                patterns: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+    """CIFAR-shaped synthetic classification with class-prior skew per
+    worker: ``{'images': (batch, 32, 32, 3) f32, 'label': (batch,)
+    int32}``, the images ``patterns[label] + noise``. The label and noise
+    come from ``gen`` (:func:`image_draws`) unless given, the patterns
+    from a generator seeded ``PATTERN_SEED`` on the draws' device unless
+    given."""
+    if label is None or noise is None:
+        label, noise = image_draws(gen, batch, n_classes, worker,
+                                   n_workers, skew)
+    if tuple(label.shape) != (batch,) or \
+            tuple(noise.shape) != (batch,) + IMAGE_SHAPE:
+        raise ValueError(f"draws of shape {tuple(label.shape)} / "
+                         f"{tuple(noise.shape)}, expected {(batch,)} / "
+                         f"{(batch,) + IMAGE_SHAPE}")
+    if patterns is None:
+        patterns = class_patterns(torch.Generator(
+            device=noise.device).manual_seed(PATTERN_SEED), n_classes)
+    return {"images": patterns[label.long()] + noise,
+            "label": label.to(torch.int32)}
+
+
+def image_batch_stacked(gen: Optional[torch.Generator], K: int,
+                        per_worker: int, skew: float = 0.5, *,
+                        draws: Optional[ImageDraws] = None,
+                        patterns: Optional[torch.Tensor] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """All K workers' batches, 10 classes: ``(K, per_worker, 32, 32, 3)``
+    images and ``(K, per_worker)`` labels. ``draws(k)`` gives worker k's
+    (label, noise); by default they come from ``gen``, worker by worker."""
+    batches = []
+    for k in range(K):
+        label, noise = (draws(k) if draws is not None else
+                        image_draws(gen, per_worker, 10, k, K, skew))
+        batches.append(image_batch(None, per_worker, 10, k, K, skew,
+                                   label=label, noise=noise,
+                                   patterns=patterns))
+    return {name: torch.stack([b[name] for b in batches])
+            for name in ("images", "label")}

@@ -12,10 +12,12 @@ JAX package's ``pallas``: the resident ``(K, rows, 128)`` state and the
 CUDA kernels. The per-worker loss is ``build_model(cfg).loss`` run once
 per worker on views of the stacked params (``train.loop.stacked_loss``),
 through sdpa's naive or chunked path and the RWKV scan: the flash and WKV
-kernels have no backward, as the TPU kernels have none. ``--comm axis``,
-``--model-parallel > 1`` and ``--damping`` raise ``NotImplementedError``.
-Checkpoints go through ``repro_torch.checkpoint`` in the JAX package's
-format.
+kernels have no backward, as the TPU kernels have none. ``--damping``
+grows the gradient-accumulation chunk count as the loss falls
+(``train.damping``): every step evaluates all of its ``max_chunks`` chunks
+and masks each worker's chunks past its count. ``--comm axis`` and
+``--model-parallel > 1`` raise ``NotImplementedError``. Checkpoints go
+through ``repro_torch.checkpoint`` in the JAX package's format.
 
 Memory: the packed step is out of place (the Adam kernels write new
 buffers), and a ``fit`` call keeps the state it was handed alive until it
@@ -39,6 +41,7 @@ from repro_torch.configs import get_arch, get_reduced, list_archs
 from repro_torch.core.api import make_optimizer
 from repro_torch.data.synthetic import lm_batch
 from repro_torch.models.registry import build_model
+from repro_torch.train.damping import make_damping
 from repro_torch.train.loop import (DecentralizedTrainer, TrainLog,
                                     stacked_loss)
 
@@ -120,11 +123,23 @@ def parser() -> argparse.ArgumentParser:
                     help="gradient-accumulation microbatches per step "
                          "(must divide --batch)")
     ap.add_argument("--damping", default="",
-                    help="adaptive batch damping policy spec; not ported "
-                         "yet")
-    ap.add_argument("--damping-per-worker", action="store_true")
-    ap.add_argument("--damping-lr-decay", type=float, default=0.5)
-    ap.add_argument("--damping-lr-decay-every", type=int, default=0)
+                    help="adaptive batch damping policy spec: "
+                         "'adadamp:MAX[:EMA]', 'padadamp:MAX[:RATE]' or "
+                         "'geodamp:MAX[:FACTOR[:DELAY]]': grows the "
+                         "gradient-accumulation chunk count as the loss "
+                         "falls (MAX must divide --batch); every step runs "
+                         "all MAX chunks and masks those past a worker's "
+                         "count. Mutually exclusive with --microbatch > 1")
+    ap.add_argument("--damping-per-worker", action="store_true",
+                    help="one damping signal per worker (non-IID shards) "
+                         "instead of the global mean-loss signal")
+    ap.add_argument("--damping-lr-decay", type=float, default=0.5,
+                    help="eta decay factor applied once the batch hits "
+                         "the damping ceiling (with --damping-lr-decay-"
+                         "every > 0)")
+    ap.add_argument("--damping-lr-decay-every", type=int, default=0,
+                    help="decay eta every N steps spent with every "
+                         "worker at max_chunks (0 = off)")
     ap.add_argument("--skew", type=float, default=0.5,
                     help="non-IID-ness of worker shards")
     ap.add_argument("--ckpt", default="")
@@ -144,10 +159,6 @@ def check_ported(args: argparse.Namespace) -> None:
             "--comm axis and --model-parallel > 1 run one worker (or one "
             "model-parallel group) per GPU over torch.distributed, not "
             "ported yet (ROADMAP queue 1: multi-GPU comm)")
-    if args.damping:
-        raise NotImplementedError(
-            "--damping: adaptive batch damping is not ported yet (ROADMAP "
-            "queue 1: damping)")
 
 
 def main(argv: Optional[List[str]] = None) -> TrainRun:
@@ -165,8 +176,20 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
                          straggler_rate=args.straggler_rate,
                          straggler_seed=args.straggler_seed,
                          overlap=args.overlap, device=dev)
+    damping = None
+    if args.damping:
+        damping = dataclasses.replace(
+            make_damping(args.damping),
+            per_worker=args.damping_per_worker,
+            lr_decay=args.damping_lr_decay,
+            lr_decay_every=args.damping_lr_decay_every)
+        if args.batch % damping.max_chunks:
+            raise SystemExit(
+                f"--damping max_chunks {damping.max_chunks} must divide "
+                f"--batch {args.batch}")
     trainer = DecentralizedTrainer(stacked_loss(api.loss), opt,
-                                   microbatch=args.microbatch)
+                                   microbatch=args.microbatch,
+                                   damping=damping)
     params = api.init(torch.Generator(device=dev).manual_seed(PARAM_SEED))
     n_params = sum(x.numel() for x in tree_leaves(params))
     state = trainer.init(params)
@@ -187,6 +210,12 @@ def main(argv: Optional[List[str]] = None) -> TrainRun:
               f"worker, {spec.n / 1e6:.2f}M live; "
               f"{(spec.rows * 128 - spec.n) / max(spec.rows * 128, 1):.1%} "
               f"tile padding)", flush=True)
+    if damping is not None:
+        print(f"[train] batch damping: {damping.policy} chunks "
+              f"{damping.min_chunks}..{damping.max_chunks} "
+              f"({'per-worker' if damping.per_worker else 'global'} "
+              f"signal); every step runs all {damping.max_chunks} chunks, "
+              f"masked past each worker's count", flush=True)
 
     it = make_batch_iter(cfg, args.workers, args.batch, args.seq, args.skew,
                          dev)

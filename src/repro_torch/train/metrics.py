@@ -1,8 +1,15 @@
-"""Evaluation metrics used by the paper: AUC (CTR). A numpy copy of
-``repro.train.metrics.auc``."""
+"""Evaluation metrics used by the paper: ACC (CIFAR) and AUC (CTR), the
+port of ``repro.train.metrics`` (``auc`` a numpy copy)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> float:
+    """Share of rows whose arg-max logit is the label (one host sync)."""
+    return float(torch.mean((torch.argmax(logits, -1) == labels)
+                            .to(torch.float32)))
 
 
 def auc(scores, labels) -> float:

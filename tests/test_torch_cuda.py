@@ -567,3 +567,112 @@ def test_cuda_engine_serves_rwkv_through_the_kernel(cuda):
         assert eng.compile_counts == {"prefill": 2, "decode": 2}
     for a, b in zip(outs["kernel"], outs["scan"]):
         assert a.is_cuda and torch.equal(a, b)
+
+
+# ------------------- damping, ResNet-20, the paper's weight decay -----------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 128, 32768 + 17])
+def test_cuda_adam_kernels_at_the_paper_weight_decay(cuda, n):
+    """fused_adam and gossip_adam_mix at ResNet-20's weight decay, 1e-4
+    (the paper's CIFAR setting), against their plain versions: the f32
+    operations of the plain version in its order."""
+    kw = dict(eta=1e-3, tau=1e-6, weight_decay=1e-4)
+    p, g, m, v = adam_inputs((n,), seed=9)
+    close(tfa.fused_adam(p, g, m, v, **kw),
+          tfa.fused_adam_plain(p, g, m, v, **kw), **CARD_TOL)
+    topo = make_topology("ring", K)
+    args = (topo.offsets, topo.offset_weights, topo.self_weight)
+    p, g, m, v = adam_inputs((K, 12, 128), seed=10)
+    got = tgossip.gossip_adam_mix(p, g, m, v, *args, **kw)
+    want = tgossip.gossip_adam_mix_plain(p, g, m, v, *args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def small_deepfm_pipelines(device, **kw):
+    """A small DeepFM (K=8, 4 fields x 16 features, embed 4, hidden
+    (16, 16)) on ``device``, packed D-Adam: (state, pipeline, batch), the
+    init and batch drawn on the CPU."""
+    from repro_torch.core.api import make_optimizer
+    from repro_torch.data.synthetic import (ctr_batch_stacked, ctr_teacher,
+                                            make_ctr_task)
+    from repro_torch.models import deepfm
+    from repro_torch.train.grad import make_grad_pipeline
+    from repro_torch.train.loop import stack_params
+
+    task = make_ctr_task(seed=0, n_fields=4, features_per_field=16,
+                         embed_dim=4)
+    params = deepfm.init_deepfm(torch.Generator().manual_seed(0),
+                                task.n_features, 4, 4, (16, 16))
+    batch = ctr_batch_stacked(ctr_teacher(task, "cpu"),
+                              torch.Generator().manual_seed(1), K, 32)
+    opt = make_optimizer("d-adam", K, backend="packed", device=device)
+    state = opt.init(stack_params(params, K))
+    return (state, make_grad_pipeline(deepfm.deepfm_loss, opt, **kw),
+            {k: x.to(device) for k, x in batch.items()})
+
+
+@pytest.mark.gpu
+def test_cuda_damped_packed_pipeline_matches_its_cpu_run(cuda):
+    """The damped packed pipeline at counts that differ between workers:
+    the card's losses and packed gradient against the CPU's (summation
+    orders only: the optimizer-state tolerance); with every chunk live,
+    equal to microbatch=4 on the card to the bit."""
+    n = torch.tensor([1, 2, 3, 4, 4, 3, 2, 1], dtype=torch.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state, pipe, batch = small_deepfm_pipelines(dev, damping_chunks=4)
+        out[dev] = pipe.value_and_grad(state, batch, n.to(dev))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.is_cuda
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=2e-5,
+                                   atol=2e-6)
+    state, damped, batch = small_deepfm_pipelines("cuda", damping_chunks=4)
+    _, plain, _ = small_deepfm_pipelines("cuda", microbatch=4)
+    dl, dg = damped.value_and_grad(state, batch,
+                                   torch.full((K,), 4, dtype=torch.int32,
+                                              device="cuda"))
+    pl, pg = plain.value_and_grad(state, batch)
+    assert torch.equal(dl, pl) and torch.equal(dg, pg)
+
+
+@pytest.mark.gpu
+def test_cuda_resnet20_grouped_convs_match_the_cpu(cuda):
+    """ResNet-20 at width 8 for K=2 workers, one grouped cuDNN convolution
+    per conv (TF32 off): logits and the per-worker losses within the f32
+    tolerance of the CPU's, each grad leaf within 1e-3 of its largest.
+    cuDNN's algorithms (Winograd transforms among them) sum otherwise than
+    the CPU's direct convolutions: at width 16 a weight gradient lay 9.1e-5
+    of its leaf's largest apart (chip_smoke.py's VISION_M_TOL); a wrong
+    leaf or worker lies O(1) apart."""
+    from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
+    from repro_torch.models import deepfm
+    from repro_torch.train.loop import stack_params
+
+    params = stack_params(deepfm.init_resnet20(
+        torch.Generator().manual_seed(0), width=8), 2)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"images": torch.randn((2, 4, 32, 32, 3), generator=gen),
+             "label": torch.randint(0, 10, (2, 4), generator=gen)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        leaves, td = tree_flatten(tree_map(lambda x: x.to(dev), params))
+        xs = [x.requires_grad_(True) for x in leaves]
+        p = tree_unflatten(td, xs)
+        b = {k: x.to(dev) for k, x in batch.items()}
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            logits = deepfm.resnet20_logits(p, b["images"])
+            losses = deepfm.resnet20_loss(p, b)
+            grads = torch.autograd.grad(losses.sum(), xs)
+        out[dev] = (logits.detach().cpu(), losses.detach().cpu(),
+                    [g.cpu() for g in grads])
+    for i in (0, 1):
+        np.testing.assert_allclose(out["cuda"][i].numpy(),
+                                   out["cpu"][i].numpy(), rtol=2e-5,
+                                   atol=2e-5)
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        atol = 1e-3 * max(1.0, float(b.abs().max()))
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=atol)

@@ -13,8 +13,10 @@ stacked-loss adapter, ``remat``, the trainer and the training CLI.
   'pallas' and 'reference' against 'reference', within the tolerances of
   ``tests/test_torch_train.py::test_fit_trajectory_tracks_jax``;
 * ``repro_torch.launch.train.main`` end to end on the CPU with ``--ckpt``,
-  the checkpoint restored by ``repro.checkpoint``; ``--damping``, ``--comm
-  axis`` and ``--model-parallel 2`` raise.
+  the checkpoint restored by ``repro.checkpoint``; ``--comm axis`` and
+  ``--model-parallel 2`` raise, and so does ``--damping`` beside
+  ``--model-parallel 2`` (the sharded damped path); ``--damping`` alone is
+  ``tests/test_torch_damping.py``'s.
 """
 import dataclasses
 
@@ -285,7 +287,8 @@ def test_train_cli_runs_and_its_checkpoint_loads_in_jax(tmp_path, capsys):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-@pytest.mark.parametrize("flags", [["--damping", "adadamp:2"],
+@pytest.mark.parametrize("flags", [["--damping", "adadamp:2",
+                                    "--model-parallel", "2"],
                                    ["--comm", "axis"],
                                    ["--model-parallel", "2"]])
 def test_train_cli_options_not_ported_raise(flags):

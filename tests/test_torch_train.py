@@ -194,10 +194,15 @@ def test_stack_params_with_an_injected_init():
 
 def test_trainer_options_not_ported_raise():
     opt = make_optimizer("d-adam", K, device="cpu")
-    for kw in (dict(damping="adadamp:4"), dict(recompile_limit=2),
-               dict(sharded_loss=lambda *a: 0.0)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(recompile_limit=2), dict(sharded_loss=lambda *a: 0.0),
+               dict(plan=object()),
+               dict(damping="adadamp:4", sharded_loss=lambda *a: 0.0)):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             DecentralizedTrainer(deepfm.deepfm_loss, opt, **kw)
+    # damping is ported (tests/test_torch_damping.py)
+    assert DecentralizedTrainer(deepfm.deepfm_loss, opt,
+                                damping="adadamp:4").pipeline.damping_chunks \
+        == 4
     # elastic resize is ported: the trainer rebinds to the new optimizer
     trainer = DecentralizedTrainer(deepfm.deepfm_loss, opt)
     small = make_optimizer("d-adam", K - 2, device="cpu")
