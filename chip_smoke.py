@@ -106,19 +106,41 @@ script exits non-zero without the final ``ok`` line:
    worker (``VISION_M_TOL``);
 19. lm_train_damped (after lm_train_bf16): lm_train through the CLI with
    ``--damping geodamp:2:2:2``: lm_train's launches, 28 worker-chunk
-   evaluations, a peak within 2 GB of lm_train's, a profile of one period.
+   evaluations, a peak within 2 GB of lm_train's, a profile of one period;
+20. serve_zamba2 (after serve_rwkv_card_vs_cpu): zamba2-7b whole (81
+   Mamba2 layers, d_model 3584, the shared attention block of 32 heads of
+   112 at its 5 sites; 6,751,130,832 parameters from a seed) served by
+   ``DecodeEngine`` over the same buckets at exact seq, 7 prompts (1024 x
+   5 in one batch, 128 x 2 in two calls), one version: one flash launch
+   per site per prefill and no other kernel, the f32 leaves kept, times
+   per bucket, tokens/s, peak memory, a profile with its flash launches;
+   then the decode contract at full depth (ZAMBA2_CONTRACT_RATIO);
+21. serve_zamba2_card_vs_cpu: as 9, for zamba2 cut to 2 layers with a
+   shared block after each;
+22. serve_moe: phi3.5-moe at full width cut to 4 of 32 layers (16
+   experts of d_ff 6400, top-2), llama's buckets and 11 prompts, one
+   version: one flash launch per layer per prefill, the router kept in
+   f32, the share of (token, choice) pairs the capacity dropped in each
+   layer of a full (8, 1024) prefill;
+23. lm card vs CPU for zamba2 (2 layers, a block after each) and
+   phi3.5-moe (2 layers, 4 of its 16 experts), as 16.
+
+Every phase's line holds ``elapsed_s``, the seconds since the script
+started.
 
 The kernels phase holds ``fused_adam`` and ``gossip_adam_mix`` with
 bf16 moments too (m and v within one bf16 ulp, p within 2e-5) and at the
 vision phase's weight decay 1e-4, and takes
 the profiler's device time of every kernel beside its CUDA-event time. It
 also holds ``flash_attention`` against its plain
-version at eleven shapes: the serve bucket's prefill, an 8192-token
+version at thirteen shapes: the serve bucket's prefill, an 8192-token
 prompt, a 512-key window, a non-causal f32 D=128 case, a ragged S=1021,
-bf16 head dims 96 and 112, and in f32 the serve bucket and head dims 96,
-112 and 32 (bf16 runs the wgmma kernel, f32 the 3xTF32 one; each record names
-its ``design``); at each it times the one SDPA call that computes the
-same function, and names the CUDA kernels that call launched. And it
+bf16 head dims 96 and 112, in f32 the serve bucket and head dims 96, 112
+and 32, and the (8, 1024) prefills of zamba2-7b (D=112, 32/32 heads) and
+phi3.5-moe (D=128, 32/8) (bf16 runs the wgmma kernel, f32 the 3xTF32 one;
+each record names its ``design``); at each it times the one SDPA call that
+computes the same function, and names the CUDA kernels that call launched.
+And it
 holds ``rwkv_scan`` against its plain version at the serve bucket's
 prefill, a (1, 128) prefill, a decode step, a ragged f32 D=32 S=1000 case
 and a 1024-step sequence cut into two calls that carry the state.
@@ -152,6 +174,7 @@ from pathlib import Path
 
 import torch
 
+T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -247,6 +270,10 @@ FLASH_CASES = (
     ("D=96 f32", 2, 1024, 1024, 32, 8, 96, torch.float32, True, 0),
     ("D=112 f32", 2, 1024, 1024, 32, 8, 112, torch.float32, True, 0),
     ("D=32 f32", 2, 1024, 1024, 32, 8, 32, torch.float32, True, 0),
+    ("zamba2-7b prefill: D=112, 32/32 heads", 8, 1024, 1024, 32, 32, 112,
+     torch.bfloat16, True, 0),
+    ("phi3.5-moe prefill: D=128, 32/8 heads", 8, 1024, 1024, 32, 8, 128,
+     torch.bfloat16, True, 0),
 )
 # --parent: the f32 flash cases above that a tree takes, gossip_adam_mix
 # and sign_compress_stacked at SHAPE and the DeepFM periods (ab_side),
@@ -297,6 +324,39 @@ WKV_CASES = (
     ("D=32 f32, ragged S=1000", 8, 1000, 80, 32, torch.float32),
 )
 NO_WKV_LIBRARY = "none: no PyTorch call computes the WKV recurrence"
+# serving zamba2-7b whole: 81 Mamba2 layers (d_model 3584, d_inner 7168,
+# 112 SSM heads of 64, state 64) and the shared attention block (32 heads
+# of 112, no GQA, d_ff 14,336) at its 5 sites; 6,751,130,832 parameters,
+# nothing cut. The same buckets at exact seq (the recurrent state would
+# fold pads in): five (8, 1024) rows in one batch (3 padding rows) and two
+# (1, 128) calls, 3 prefills, each one flash launch per site. One version
+# is served: a second would hold 27 GB more beside the first's 40.5.
+SERVE_ZAMBA2_ARCH = "zamba2-7b"
+SERVE_ZAMBA2_LENGTHS = (1024,) * 5 + (128,) * 2
+SERVE_ZAMBA2_PREFILLS = 3
+# zamba2's decode contract at full depth: a (1, 128) prompt's prefill and
+# ZAMBA2_CONTRACT_NEW decode steps through the engine's bf16 params against
+# one forward over the whole sequence. Through 81 layers two correct bf16
+# pipelines part by their roundings far past an elementwise 2e-2, so both
+# are measured against the f32 forward of the f32 params: the served path
+# may lie at most ZAMBA2_CONTRACT_RATIO times as far from it as the bf16
+# forward does, in the largest difference and in the RMS one. A wrong
+# state, site or position lies O(1) away.
+ZAMBA2_CONTRACT_NEW = 8
+ZAMBA2_CONTRACT_RATIO = 2.0
+# serving phi3.5-moe at full width (d_model 4096, GQA 32/8 of head dim
+# 128, 16 experts of d_ff 6400, top-2, vocab 32,064) cut to 4 of its 32
+# layers: 32 take 42B parameters, 168 GB in f32. llama's buckets and
+# padded prompts (a pad token takes expert capacity, as in JAX), 6
+# prefills, each one flash launch per layer; one version
+SERVE_MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+SERVE_MOE_LAYERS = 4
+# LM card against CPU at 2 layers: zamba2 with its shared block after each
+# layer (at period 14 two layers have none), phi3.5-moe with 4 of its 16
+# experts (all 16 make 2.9B parameters a worker, 23 GB a resident buffer
+# at K=2, more than the host holds for the CPU's plain Adam)
+LM_CARD_CPU_CUTS = {"zamba2-7b": dict(shared_attn_period=1),
+                    "phi3.5-moe-42b-a6.6b": dict(n_experts=4)}
 # the CUDA functions each serving kernel's wrapper launches, as the
 # profiler names them (bf16 and f32 flash are two designs)
 FLASH_FUNCTION = {torch.bfloat16: "flash_wgmma_kernel",
@@ -423,6 +483,10 @@ WIRE_BYTES = {"d-adam": [2 * 4 * PARAMS], "cd-adam": [2 * (PARAMS + 11 * 4)],
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's record also gets the seconds since the
+    script started (``elapsed_s``), the run's timeline."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1789,14 +1853,16 @@ def bucket_times(engine, cfg, buckets, new_tokens):
 
 
 def serve_full_width(phase, cfg, buckets, lengths, new_tokens, kernel,
-                     per_pass):
+                     per_pass, seeds=(None, 1), profile_tokens=8):
     """A model at full width through the port's serving entry points:
     weights from a seed published into a ParamStore, DecodeEngine over
-    the buckets, the prompts served, a second version published and the
-    prompts served again. The launch counters are zeroed just before and
-    read just after: ``kernel`` launched ``per_pass`` times a pass, no
-    other kernel. Then the per-bucket times and a profile of one batch of
-    the largest bucket. Returns the phase's record and the engine."""
+    the buckets, the prompts served; then for each further seed in
+    ``seeds`` a new version published and the prompts served again. The
+    launch counters are zeroed just before and read just after: ``kernel``
+    launched ``per_pass`` times a pass, no other kernel. Then the
+    per-bucket times and a profile of one batch of the largest bucket.
+    ``profile_tokens`` new tokens (at most ``new_tokens``) go into the
+    profile. Returns the phase's record and the engine."""
     from repro_torch._tree import tree_leaves
     from repro_torch.kernels import ops
     from repro_torch.models.registry import build_model
@@ -1825,21 +1891,21 @@ def serve_full_width(phase, cfg, buckets, lengths, new_tokens, kernel,
     prompts = serve_prompts(cfg, lengths)
     ops.reset_launches()
     outs, walls = [], []
-    for seed in (None, 1):
-        if seed is not None:   # hot-swap: version 2 from another seed
+    for seed in seeds:
+        if seed is not None:   # hot-swap: the next version, another seed
             store.publish(api.init(torch.Generator(device=DEVICE)
                                    .manual_seed(seed)))
-            mark("v2 published")
+            mark(f"v{len(walls) + 1} published")
         out, ms = synced(lambda: engine.generate(prompts, new_tokens))
         outs.append(out)
         walls.append(ms)
         mark(f"pass {len(walls)} served")
     launches = ops.launch_counts()
     want = {n: 0 for n in launches}
-    want[kernel] = per_pass * 2
+    want[kernel] = per_pass * len(seeds)
     if launches != want:
         raise AssertionError(f"{phase}: launches {launches} != {want}")
-    if engine.last_version != 2:
+    if engine.last_version != len(seeds):
         raise AssertionError(f"served version {engine.last_version}")
     if engine.compile_counts != {"prefill": len(buckets),
                                  "decode": len(buckets)}:
@@ -1849,14 +1915,14 @@ def serve_full_width(phase, cfg, buckets, lengths, new_tokens, kernel,
             if (o.shape != (new_tokens,) or o.dtype != torch.int32
                     or not bool(((o >= 0) & (o < cfg.vocab_size)).all())):
                 raise AssertionError(f"served tokens {o}")
-    if all(torch.equal(a, b) for a, b in zip(*outs)):
+    if len(outs) > 1 and all(torch.equal(a, b) for a, b in zip(*outs)):
         raise AssertionError("version 2 served the same tokens as 1")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_bucket = bucket_times(engine, cfg, buckets, new_tokens)
     B, S = max(buckets)
     toks = torch.randint(0, cfg.vocab_size, (B, S), device=DEVICE,
                          dtype=torch.int32)
-    n_prof = min(8, new_tokens)
+    n_prof = min(profile_tokens, new_tokens)
     before = ops.launch_counts()[kernel]
     prof = device_profile(lambda: engine.generate_batch(toks, n_prof),
                           KERNEL_FUNCTIONS[kernel])
@@ -1865,14 +1931,14 @@ def serve_full_width(phase, cfg, buckets, lengths, new_tokens, kernel,
     if prof.pop("kernel_calls") != profiled or (profiled and kernel_ms <= 0):
         raise AssertionError(f"{phase}: the profile holds no device time "
                              f"for {kernel}'s {profiled} launches")
-    n_out = sum(o.numel() for o in outs[1])
+    n_out = sum(o.numel() for o in outs[-1])
     rec = {"phase": phase, "arch": cfg.arch_id, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "params": n_params, "param_count": cfg.param_count(),
            "param_bytes_f32": 4 * n_params,
            "buckets": [list(b) for b in buckets], "new_tokens": new_tokens,
            "prompt_lengths": list(lengths), "init_ms": init_ms,
-           "serve_ms": walls, "tokens_per_s": n_out / walls[1] * 1e3,
+           "serve_ms": walls, "tokens_per_s": n_out / walls[-1] * 1e3,
            "per_bucket": per_bucket, "peak_mem_gb": peak_gb,
            "mem_gb_by_stage": mem, "last_version": engine.last_version,
            "compile_counts": engine.compile_counts, "launches": launches,
@@ -2092,14 +2158,153 @@ def phase_serve_rwkv(cfg=None, buckets=SERVE_BUCKETS,
     rec, engine = serve_full_width("serve_rwkv", cfg, buckets, lengths,
                                    new_tokens, "rwkv_scan",
                                    cfg.n_layers * new_tokens * batches)
-    kept = {n: str(x.dtype) for n, x in engine._params()[1]["layers"].items()
-            if x.dtype != cfg.compute_dtype}
-    if set(kept) != set(engine.api.f32_leaves) or set(kept.values()) != {
-            "torch.float32"}:
-        raise AssertionError(f"the recast kept {kept}, not the f32 leaves "
-                             f"{engine.api.f32_leaves}")
+    kept = check_f32_leaves_kept("serve_rwkv", engine,
+                                 engine._params()[1]["layers"])
     emit({**rec, "heads": cfg.d_model // cfg.rwkv_head_size,
-          "f32_leaves_kept": sorted(kept)})
+          "f32_leaves_kept": kept})
+    del engine
+    torch.cuda.empty_cache()
+    return rec["launches"]
+
+
+def check_f32_leaves_kept(phase, engine, layers):
+    """The engine's compute-dtype copy keeps the family's f32 leaves (of
+    ``layers``, a dict of stacked leaves) in f32 and casts the rest.
+    Returns their names."""
+    kept = {n: str(x.dtype) for n, x in layers.items()
+            if x.dtype != engine.cfg.compute_dtype}
+    if set(kept) != set(engine.api.f32_leaves) & set(layers) or set(
+            kept.values()) - {"torch.float32"}:
+        raise AssertionError(f"{phase}: the cast kept {kept}, not the f32 "
+                             f"leaves {engine.api.f32_leaves}")
+    return sorted(kept)
+
+
+def zamba2_contract(engine, cfg, new):
+    """The decode contract at full depth (ZAMBA2_CONTRACT_RATIO): a
+    (1, 128) prompt's prefill through the flash kernel and ``new`` decode
+    steps on the engine's bf16 params, against one bf16 and one f32
+    forward (the f32 params) over the whole sequence."""
+    from repro_torch.models import hybrid
+
+    _, p32 = engine._source.snapshot()
+    p16 = engine._params()[1]
+    seq = torch.randint(0, cfg.vocab_size, (1, 128 + new), device=DEVICE,
+                        generator=torch.Generator(device=DEVICE)
+                        .manual_seed(4), dtype=torch.int32)
+    with torch.no_grad():
+        logits, cache = engine.api.prefill(p16, {"tokens": seq[:, :128]},
+                                           cache_len=128 + new,
+                                           attn_impl="kernel")
+        steps = [logits[:, 0]]
+        for t in range(128, 128 + new):
+            logits, cache = engine.api.decode_step(p16, cache, seq[:, t])
+            steps.append(logits)
+        served = torch.stack(steps, 1).float()
+        fwd = {"bf16": hybrid.forward(p16, seq, cfg)[0],
+               "f32": hybrid.forward(p32, seq, dataclasses.replace(
+                   cfg, compute_dtype=torch.float32))[0]}
+    # positions 127 .. 127 + new: the prompt's last and each decoded one
+    ref = fwd["f32"][:, 127:].float()
+    errs = {"served": served - ref, "bf16_forward":
+            fwd["bf16"][:, 127:].float() - ref}
+    rec = {"prompt": 128, "decode_steps": new, "positions": new + 1,
+           "ratio_allowed": ZAMBA2_CONTRACT_RATIO,
+           "served_vs_bf16_forward_max_abs": float(
+               (served - fwd["bf16"][:, 127:].float()).abs().max())}
+    for k, e in errs.items():
+        rec[f"{k}_vs_f32_max_abs"] = float(e.abs().max())
+        rec[f"{k}_vs_f32_rms"] = float(e.pow(2).mean().sqrt())
+    if not bool(torch.isfinite(served).all()) or any(
+            rec[f"served_vs_f32_{m}"] > ZAMBA2_CONTRACT_RATIO
+            * rec[f"bf16_forward_vs_f32_{m}"] for m in ("max_abs", "rms")):
+        raise AssertionError(f"serve_zamba2: decode contract {rec}")
+    return rec
+
+
+def phase_serve_zamba2(cfg=None, buckets=SERVE_BUCKETS,
+                       lengths=SERVE_ZAMBA2_LENGTHS, new_tokens=SERVE_NEW,
+                       prefills=SERVE_ZAMBA2_PREFILLS,
+                       contract_new=ZAMBA2_CONTRACT_NEW):
+    """zamba2-7b whole (``serve_full_width``, one version; exact seq
+    buckets): one flash launch per attention site per prefill (D = 112),
+    the f32 leaves kept, the tree's parameter count, and the decode
+    contract (``zamba2_contract``). Returns the launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import hybrid
+
+    cfg = cfg or get_arch(SERVE_ZAMBA2_ARCH).model
+    sites = hybrid.n_attn_sites(cfg)
+    # the profile: the prefill and one decode step (~10,000 torch calls a
+    # step)
+    rec, engine = serve_full_width("serve_zamba2", cfg, buckets, lengths,
+                                   new_tokens, "flash_attention",
+                                   sites * prefills, seeds=(None,),
+                                   profile_tokens=2)
+    kept = check_f32_leaves_kept("serve_zamba2", engine,
+                                 engine._params()[1]["layers"])
+    # the analytic count leaves out each layer's norm, conv_b and D, and
+    # the shared block's two norms and the final one
+    di, N = cfg.d_inner, cfg.ssm_state
+    extra = (cfg.n_layers * (cfg.d_model + di + 2 * N
+                             + cfg.resolved_ssm_heads) + 3 * cfg.d_model)
+    if rec["params"] != cfg.param_count() + extra:
+        raise AssertionError(f"{rec['params']} params, config "
+                             f"{cfg.param_count()} + {extra}")
+    contract = zamba2_contract(engine, cfg, contract_new)
+    emit({**rec, "attention_sites": sites,
+          "head_dim": cfg.resolved_head_dim, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "f32_leaves_kept": kept,
+          "decode_contract": contract})
+    del engine
+    torch.cuda.empty_cache()
+    return rec["launches"]
+
+
+def phase_serve_moe(cfg=None, buckets=SERVE_BUCKETS, lengths=SERVE_LENGTHS,
+                    new_tokens=SERVE_NEW, prefills=SERVE_PREFILLS):
+    """phi3.5-moe at full width cut to SERVE_MOE_LAYERS layers
+    (``serve_full_width``, one version; llama's padded prompts): one flash
+    launch per layer per prefill (D = 128, GQA 32/8), the router kept in
+    f32; then the share of (token, choice) pairs the capacity dropped in
+    each layer of one full (8, 1024) prefill. Returns the launch
+    counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+
+    full = get_arch(SERVE_MOE_ARCH).model
+    cfg = cfg or dataclasses.replace(full, n_layers=SERVE_MOE_LAYERS)
+    rec, engine = serve_full_width("serve_moe", cfg, buckets, lengths,
+                                   new_tokens, "flash_attention",
+                                   cfg.n_layers * prefills, seeds=(None,))
+    kept = check_f32_leaves_kept("serve_moe", engine,
+                                 engine._params()[1]["layers"]["moe"])
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    if rec["params"] != cfg.param_count() + norms:
+        raise AssertionError(f"{rec['params']} params, config "
+                             f"{cfg.param_count()} + {norms} norm weights")
+    B, S = max(buckets)
+    shares, forward = [], moe.moe_forward
+
+    def spy(params, x, **routing):
+        shares.append(moe.dropped_share(params, x, **routing))
+        return forward(params, x, **routing)
+
+    moe.moe_forward = spy
+    try:
+        engine.generate_batch(torch.randint(
+            0, cfg.vocab_size, (B, S), device=DEVICE, dtype=torch.int32), 1)
+    finally:
+        moe.moe_forward = forward
+    group, cap = moe.capacity(B * S, cfg.experts_per_token, cfg.n_experts,
+                              cfg.capacity_factor, cfg.moe_group_size)
+    emit({**rec, "cut": {"n_layers": [cfg.n_layers, full.n_layers]},
+          "n_experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+          "d_ff": cfg.d_ff, "head_dim": cfg.resolved_head_dim,
+          "f32_leaves_kept": kept,
+          "prefill_group": [B, S, group, cap],
+          "dropped_share_by_layer": shares,
+          "dropped_share": sum(shares) / len(shares)})
     del engine
     torch.cuda.empty_cache()
     return rec["launches"]
@@ -2828,8 +3033,9 @@ def lm_outside(a, b, tol, spec, chunk: int = 1 << 26):
     return max_abs, outside / a.numel(), per_leaf
 
 
-def phase_lm_card_vs_cpu(arch: str):
-    """``arch`` at full width cut to 2 layers, f32 compute, three steps of
+def phase_lm_card_vs_cpu(arch: str, **cut):
+    """``arch`` at full width cut to 2 layers (and by ``cut``, config
+    fields replaced: LM_CARD_CPU_CUTS), f32 compute, three steps of
     packed D-Adam at period 3 on the card and on the CPU in lock step,
     from one init (drawn on the CPU) and one set of batches (seq 64),
     through the library path: params and moments within LM_STEP1_TOL
@@ -2843,7 +3049,7 @@ def phase_lm_card_vs_cpu(arch: str):
     from repro_torch.configs import get_arch
 
     cfg = dataclasses.replace(get_arch(arch).model, n_layers=2,
-                              compute_dtype=torch.float32)
+                              compute_dtype=torch.float32, **cut)
     batches = lm_batches(cfg, seed=3, steps=3)
     runs, states, logs = {}, {}, {}
     seconds = {DEVICE: 0.0, "cpu": 0.0}
@@ -2889,7 +3095,7 @@ def phase_lm_card_vs_cpu(arch: str):
                        [torch.tensor(logs["cpu"].loss)], CARD_CPU_TOL,
                        f"{arch} losses")[0]
     emit({"phase": "lm_card_vs_cpu", "arch": arch, "n_layers": 2,
-          "compute_dtype": "float32", "seq": 64, "period": 3,
+          "cut": cut, "compute_dtype": "float32", "seq": 64, "period": 3,
           "params_per_worker": states["cpu"].spec.n,
           "losses_card": logs[DEVICE].loss, "losses_cpu": logs["cpu"].loss,
           "loss_max_abs_err": loss_err, "steps": step_rec,
@@ -2946,6 +3152,12 @@ def main() -> int:
     phase_serve_card_vs_cpu(
         cfg=dataclasses.replace(get_arch(SERVE_RWKV_ARCH).model, n_layers=2),
         seq=128, new_tokens=5, batch=2, phase="serve_rwkv_card_vs_cpu")
+    by_path["serve_zamba2"] = phase_serve_zamba2()
+    phase_serve_card_vs_cpu(
+        cfg=dataclasses.replace(get_arch(SERVE_ZAMBA2_ARCH).model,
+                                n_layers=2, shared_attn_period=1),
+        seq=128, new_tokens=5, batch=2, phase="serve_zamba2_card_vs_cpu")
+    by_path["serve_moe"] = phase_serve_moe()
     by_path["lm_train"], f32_rec = phase_lm_train()
     by_path["lm_train_bf16"], bf16_rec = phase_lm_train_bf16(f32_rec)
     by_path["lm_train_damped"] = phase_lm_train_damped(f32_rec)
@@ -2953,6 +3165,8 @@ def main() -> int:
     records.append(lm_sign)
     phase_lm_card_vs_cpu(LM_ARCH)
     phase_lm_card_vs_cpu(SERVE_RWKV_ARCH)
+    for arch, cut in LM_CARD_CPU_CUTS.items():
+        phase_lm_card_vs_cpu(arch, **cut)
     lm_shape = {"float32": f32_rec["lm_shape"],
                 "bfloat16": bf16_rec["lm_shape"]}
     for rec in records:

@@ -95,6 +95,37 @@ def tree_leaves(tree: PyTree) -> List[Any]:
     return tree_flatten(tree)[0]
 
 
+def _paths(td: TreeDef, prefix: Tuple[str, ...],
+           out: List[Tuple[str, ...]]) -> None:
+    """The leaves' paths of ``td``, in its flattening order."""
+    if td.kind == "leaf":
+        out.append(prefix)
+        return
+    if td.kind in ("dict", "odict"):
+        names = [f"[{k!r}]" for k in td.keys]
+    elif td.kind == "namedtuple":
+        names = [f".{f}" for f in td.node_type._fields]
+    else:       # list, tuple; 'none' has no children
+        names = [f"[{i}]" for i in range(len(td.children))]
+    for name, child in zip(names, td.children):
+        _paths(child, prefix + (name,), out)
+
+
+def keystr(path: Tuple[str, ...]) -> str:
+    """A leaf's path as ``jax.tree_util.keystr`` writes it:
+    ``['a'][0].field``."""
+    return "".join(path)
+
+
+def tree_map_with_path(fn: Callable, tree: PyTree) -> PyTree:
+    """``fn(path, leaf)`` over the leaves, in flattening order; ``path`` is
+    a tuple of JAX's key entries (``['key']``, ``[index]``, ``.field``)."""
+    leaves, td = tree_flatten(tree)
+    paths: List[Tuple[str, ...]] = []
+    _paths(td, (), paths)
+    return tree_unflatten(td, [fn(p, x) for p, x in zip(paths, leaves)])
+
+
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     leaves, td = tree_flatten(tree)
     others = []

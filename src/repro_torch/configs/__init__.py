@@ -1,10 +1,11 @@
 """Architecture config registry: ``get_arch(id)`` / ``get_reduced(id)``.
 
-Lists only the architectures the port can build (llama3.2-1b, rwkv6-3b).
-The JAX package's other configs (qwen1.5-32b, starcoder2-15b, phi3.5-moe,
-whisper-large-v3, zamba2-7b, yi-6b, llama4-maverick, phi-3-vision) belong
-to the model zoo, not ported yet: asking for one raises
-``NotImplementedError`` (ROADMAP queue 1: model zoo).
+Lists the architectures the port can build: the dense (llama3.2-1b,
+yi-6b, qwen1.5-32b, starcoder2-15b), MoE (phi3.5-moe, llama4-maverick),
+ssm (rwkv6-3b) and hybrid (zamba2-7b) families. The JAX package's vlm
+(phi-3-vision) and audio (whisper-large-v3) configs are not ported yet:
+asking for one raises ``NotImplementedError`` (ROADMAP queue 1: model
+zoo).
 """
 from __future__ import annotations
 
@@ -16,12 +17,16 @@ from repro_torch.configs.base import (ArchConfig, INPUT_SHAPES, InputShape,
 
 _MODULES: Dict[str, str] = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "qwen1.5-32b": "repro_torch.configs.qwen1_5_32b",
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "yi-6b": "repro_torch.configs.yi_6b",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
 }
 # the JAX package's other architectures, by id
-_NOT_PORTED = ("qwen1.5-32b", "starcoder2-15b", "phi3.5-moe-42b-a6.6b",
-               "whisper-large-v3", "zamba2-7b", "yi-6b",
-               "llama4-maverick-400b-a17b", "phi-3-vision-4.2b")
+_NOT_PORTED = ("whisper-large-v3", "phi-3-vision-4.2b")
 
 
 def list_archs() -> List[str]:

@@ -6,21 +6,27 @@ the port of ``repro.launch.serve``.
         --buckets 1x128,8x1024 --batch 8 --prompt-len 1000
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --full --buckets 1x128,8x1024 --batch 5 --prompt-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --full --buckets 1x128,8x1024 --batch 8 --prompt-len 1024
 
-Serves the reduced config of ``--arch`` (``list_archs()``: llama3.2-1b,
-rwkv6-3b) unless ``--full`` is given, on ``cuda`` unless ``--device cpu``.
-The weights are drawn from ``--seed`` at the JAX package's init scales
-(no checkpoint is loaded) and served from a ParamStore; the prompt is
-padded into the tightest bucket. For llama the seq is right-padded, so
-``--prompt-len`` below the bucket's seq takes the rewind + re-feed path,
-and prefill attention runs the CUDA flash kernel; rwkv6's recurrent state
-would fold pads in, so ``--prompt-len`` must equal a bucket's seq, and
-prefill and every decode step run the CUDA WKV kernel. Prints JAX's two
-lines, then one JSON line: the prefill ms of a full bucket (no rewind
-step), the time to the first token of the prompt as given (with the
-rewind step when it is shorter than the bucket), decode ms per token,
-tokens/s, the engine's signature counts and the kernel launches
-(``flash_attention``, ``rwkv_scan`` among them).
+Serves the reduced config of ``--arch`` (``list_archs()``) unless
+``--full`` is given, on ``cuda`` unless ``--device cpu``. The weights are
+drawn from ``--seed`` at the JAX package's init scales (no checkpoint is
+loaded) and served from a ParamStore; the prompt is padded into the
+tightest bucket. For the dense and MoE families (llama3.2-1b,
+phi3.5-moe, ...) the seq is right-padded, so ``--prompt-len`` below the
+bucket's seq takes the rewind + re-feed path, and prefill attention runs
+the CUDA flash kernel; the recurrent state of rwkv6 and zamba2 would fold
+pads in, so ``--prompt-len`` must equal a bucket's seq. rwkv6's prefill
+and every decode step run the CUDA WKV kernel, zamba2's shared attention
+block the flash kernel in prefill. ``--full`` zamba2-7b (6.75B
+parameters: 27 GB in f32 and a 13.5 GB bf16 copy) fits one 80 GB card;
+phi3.5-moe (42B) does not. Prints JAX's two lines, then one JSON line:
+the prefill ms of a full bucket (no rewind step), the time to the first
+token of the prompt as given (with the rewind step when it is shorter
+than the bucket), decode ms per token, tokens/s, the engine's signature
+counts and the kernel launches (``flash_attention``, ``rwkv_scan`` among
+them).
 """
 from __future__ import annotations
 

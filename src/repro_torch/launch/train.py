@@ -11,8 +11,9 @@ the default; ``--full`` takes the published widths (llama3.2-1b at K=2 is
 JAX package's ``pallas``: the resident ``(K, rows, 128)`` state and the
 CUDA kernels. The per-worker loss is ``build_model(cfg).loss`` run once
 per worker on views of the stacked params (``train.loop.stacked_loss``),
-through sdpa's naive or chunked path and the RWKV scan: the flash and WKV
-kernels have no backward, as the TPU kernels have none. ``--damping``
+through sdpa's naive or chunked path, the RWKV scan and the chunked SSD
+scan: the flash and WKV kernels have no backward, as the TPU kernels have
+none. ``--damping``
 grows the gradient-accumulation chunk count as the loss falls
 (``train.damping``): every step evaluates all of its ``max_chunks`` chunks
 and masks each worker's chunks past its count. ``--comm axis`` and
@@ -63,8 +64,9 @@ def make_batch_iter(cfg, K: int, per_worker: int, seq: int, skew: float,
     """``{"tokens": (K, per_worker, seq + 1)}`` per step, every worker's
     ``lm_batch`` drawn from one generator on ``device`` seeded
     ``BATCH_SEED`` (the JAX driver folds the step into PRNGKey(42); the
-    tokens are torch's, not JAX's)."""
-    if cfg.family not in ("dense", "ssm"):
+    tokens are torch's, not JAX's). The dense, MoE, ssm and hybrid
+    families take tokens only, as in JAX."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"the {cfg.family!r} family's batches are not ported yet "
             "(ROADMAP queue 1: model zoo)")

@@ -8,15 +8,15 @@ over the model families the port can build.
     logits, cache = api.decode_step(params, cache, token[, <impl>=...])
 
 Each family names its kernel choice with its own keyword, the JAX
-package's: ``attn_impl`` for the dense family's prefill attention
-(decode attention has no kernel), ``wkv_impl`` for the ssm family's
-recurrence in prefill and in decode. ``impl_kwargs`` gives the keywords of
-one choice for a config's family. The defaults are JAX's (``"auto"``,
-``"scan"``); the serving engine asks for the kernels.
+package's: ``attn_impl`` for the prefill attention of the dense, MoE and
+hybrid families (decode attention has no kernel), ``wkv_impl`` for the
+ssm family's recurrence in prefill and in decode. ``impl_kwargs`` gives
+the keywords of one choice for a config's family. The defaults are JAX's
+(``"auto"``, ``"scan"``); the serving engine asks for the kernels.
 
-The dense (llama) and ssm (rwkv6) families are ported; the others (moe,
-vlm, audio, hybrid) raise ``NotImplementedError`` (ROADMAP queue 1:
-model zoo).
+The dense and MoE (``models.transformer``), ssm (``models.rwkv6``) and
+hybrid (``models.hybrid``) families are ported; vlm and audio raise
+``NotImplementedError`` (ROADMAP queue 1: model zoo).
 """
 from __future__ import annotations
 
@@ -26,10 +26,10 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import hybrid, moe, rwkv6, transformer
 
 PyTree = Any
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +72,18 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
                 p, c, t, cfg, wkv_impl=wkv_impl),
             f32_leaves=rwkv6.F32_LEAVES,
         )
+    if cfg.family == "hybrid":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen: hybrid.init_params(gen, cfg),
+            loss=lambda p, b, remat="none": hybrid.loss_fn(
+                p, b, cfg, remat=remat),
+            prefill=lambda p, b, cache_len=None, attn_impl="auto":
+                hybrid.prefill(p, b["tokens"], cfg, cache_len=cache_len,
+                               attn_impl=attn_impl),
+            decode_step=lambda p, c, t: hybrid.decode_step(p, c, t, cfg),
+            f32_leaves=hybrid.F32_LEAVES,
+        )
     return ModelAPI(
         cfg=cfg,
         init=lambda gen: transformer.init_params(gen, cfg),
@@ -81,4 +93,5 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             transformer.prefill(p, b["tokens"], cfg, cache_len=cache_len,
                                 attn_impl=attn_impl),
         decode_step=lambda p, c, t: transformer.decode_step(p, c, t, cfg),
+        f32_leaves=moe.F32_LEAVES,     # a MoE layer's router
     )

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family: the port of
+"""Decoder-only transformer LM, dense and MoE families: the port of
 ``repro.models.transformer``.
 
 Layers are stacked as in JAX: every per-layer leaf carries a leading
@@ -14,7 +14,9 @@ Entry points:
 
 ``prefill`` and ``forward`` take ``attn_impl`` for ``attention.sdpa``
 (default ``"auto"``, as JAX's); the serving engine passes ``"kernel"``.
-The MoE family is not ported yet (ROADMAP queue 1: model zoo).
+A MoE layer (``cfg.family == "moe"``, or experts set) has ``"moe"`` in
+place of ``"mlp"`` (``models.moe``); its Switch aux loss is summed over
+the layers and ``loss_fn`` adds ``router_aux_weight`` times it.
 ``loss_fn`` is what LM training differentiates: through ``sdpa``'s naive
 or chunked path, never the flash kernel (it has no backward), with the
 ``remat`` policy around each layer.
@@ -27,16 +29,9 @@ import torch
 
 from repro_torch._tree import tree_map
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, moe
 
 PyTree = Any
-
-
-def _no_moe(cfg: ModelConfig) -> None:
-    if cfg.family == "moe" or (cfg.n_experts and cfg.experts_per_token):
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP queue 1: "
-            "model zoo)")
 
 
 # ------------------------------- params -------------------------------------
@@ -44,8 +39,7 @@ def _no_moe(cfg: ModelConfig) -> None:
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
     """One layer's params, drawn from ``gen``: attention (wq, wk, wv, wo),
-    then the MLP."""
-    _no_moe(cfg)
+    then the MLP or the MoE block."""
     dt, dev = cfg.param_dtype, gen.device
     p = {
         "attn": attention.init_attention(
@@ -57,7 +51,10 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
     if cfg.norm_kind == "layer":
         p["norm1_b"] = torch.zeros((cfg.d_model,), dtype=dt, device=dev)
         p["norm2_b"] = torch.zeros((cfg.d_model,), dtype=dt, device=dev)
-    if cfg.mlp_kind == "gelu":
+    if cfg.family == "moe" or (cfg.n_experts and cfg.experts_per_token):
+        p["moe"] = moe.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                dt)
+    elif cfg.mlp_kind == "gelu":
         p["mlp"] = mlp.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, dt)
     else:
         p["mlp"] = mlp.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt)
@@ -97,17 +94,23 @@ def _norm(x, w, b, kind, eps):
     return common.rms_norm(x, w, eps)
 
 
-def _ffn(layer: PyTree, hn: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(layer: PyTree, hn: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(the feed-forward output, the MoE aux loss or ``None``)."""
     if "moe" in layer:
-        _no_moe(cfg)
+        return moe.moe_forward(layer["moe"], hn,
+                               top_k=cfg.experts_per_token,
+                               capacity_factor=cfg.capacity_factor,
+                               group_size=cfg.moe_group_size)
     if cfg.mlp_kind == "gelu":
-        return mlp.gelu_mlp_forward(layer["mlp"], hn)
-    return mlp.swiglu_forward(layer["mlp"], hn)
+        return mlp.gelu_mlp_forward(layer["mlp"], hn), None
+    return mlp.swiglu_forward(layer["mlp"], hn), None
 
 
 def _layer_forward(layer: PyTree, h: torch.Tensor, cfg: ModelConfig,
                    positions: torch.Tensor, attn_impl: str = "auto"
-                   ) -> torch.Tensor:
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (h, this layer's f32 aux loss, ``None`` without experts)."""
     hn = _norm(h, layer["norm1"], layer.get("norm1_b"), cfg.norm_kind,
                cfg.norm_eps)
     h = h + attention.attention_forward(
@@ -117,21 +120,27 @@ def _layer_forward(layer: PyTree, h: torch.Tensor, cfg: ModelConfig,
         impl=attn_impl)
     hn = _norm(h, layer["norm2"], layer.get("norm2_b"), cfg.norm_kind,
                cfg.norm_eps)
-    return h + _ffn(layer, hn, cfg)
+    out, aux = _ffn(layer, hn, cfg)
+    return h + out, aux
 
 
 def backbone(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
              positions: torch.Tensor, remat: str = "none",
              attn_impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Embed-space in, embed-space out. Returns (h, total_aux), the aux
-    loss 0 for the dense family. ``remat`` ("none", "dots", "full") is the
-    activation-checkpoint policy around each layer
+    """Embed-space in, embed-space out. Returns (h, total_aux), the sum of
+    the layers' aux losses (0 for the dense family). ``remat`` ("none",
+    "dots", "full") is the activation-checkpoint policy around each layer
     (:func:`common.remat_call`), as JAX wraps its scan body."""
     common.check_remat(remat)
+    auxes = []
     for layer in common.layer_views(params["layers"]):
-        h = common.remat_call(_layer_forward, remat, layer, h, cfg,
-                              positions, attn_impl)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+        h, aux = common.remat_call(_layer_forward, remat, layer, h, cfg,
+                                   positions, attn_impl)
+        if aux is not None:
+            auxes.append(aux)
+    if not auxes:
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, torch.sum(torch.stack(auxes))
 
 
 def embed_tokens(params: PyTree, tokens: torch.Tensor,
@@ -196,7 +205,7 @@ def _layer_prefill(layer: PyTree, h: torch.Tensor, cfg: ModelConfig,
     h = h + attn_out @ layer["attn"]["wo"].to(attn_out.dtype)
     hn = _norm(h, layer["norm2"], layer.get("norm2_b"), cfg.norm_kind,
                cfg.norm_eps)
-    return h + _ffn(layer, hn, cfg), k, v
+    return h + _ffn(layer, hn, cfg)[0], k, v
 
 
 def prefill(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -210,7 +219,6 @@ def prefill(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig, *,
     Slot i of the cache holds position i, zero past the prompt. Sliding-
     window archs get a rotating cache of ``sliding_window`` slots (slot =
     pos % window, as decode_step writes it)."""
-    _no_moe(cfg)
     h = embed_tokens(params, tokens, cfg)
     if extra_embeds is not None:
         h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
@@ -247,7 +255,6 @@ def decode_step(params: PyTree, cache: attention.KVCache,
                 ) -> Tuple[torch.Tensor, attention.KVCache]:
     """One-token decode. token: (B,) int; returns (logits (B, V), the
     cache with the new K/V written in place and its index advanced)."""
-    _no_moe(cfg)
     h = embed_tokens(params, token[:, None], cfg)
     rotating = bool(cfg.sliding_window)
     index = int(cache.index)
@@ -271,6 +278,6 @@ def decode_step(params: PyTree, cache: attention.KVCache,
         h = h + attn_out
         hn = _norm(h, layer["norm2"], layer.get("norm2_b"), cfg.norm_kind,
                    cfg.norm_eps)
-        h = h + _ffn(layer, hn, cfg)
+        h = h + _ffn(layer, hn, cfg)[0]
     logits = unembed(params, h, cfg)[:, 0, :]
     return logits, attention.KVCache(cache.k, cache.v, index + 1)

@@ -6,9 +6,10 @@ allocates nothing); ``make_serve_step`` / ``make_prefill_step`` the
 one-token decode and the prefill; :class:`DecodeEngine` is the serving
 path: padded-bucket batching over a fixed set of ``(batch, seq)`` shapes,
 batched prefill plus decode through the family's CUDA kernel (the flash
-kernel in the dense family's prefill, the WKV kernel in the ssm family's
-prefill and every decode step), optional bf16 cache storage, and
-lock-free param hot-swap through a ``serve.publish.ParamStore``.
+kernel in the prefill of the dense and MoE families and of the hybrid's
+shared attention block, the WKV kernel in the ssm family's prefill and
+every decode step), optional bf16 cache storage, and lock-free param
+hot-swap through a ``serve.publish.ParamStore``.
 
 **Why seq padding is exact** (JAX's bucket contract): decode attention
 masks cache slots with ``slot <= index`` and writes the new token at
@@ -19,8 +20,10 @@ recomputes slot L-1's K/V from the same token and rope position, attends
 only to slots <= L-1, and yields the logits of an unpadded prefill. Every
 later step overwrites one pad slot before the mask reaches it. This holds
 for positional, non-rotating KV caches; with a rotating window, and in
-the ssm family's recurrent state, pads fold into the cache, so the engine
-pads only the batch dim there.
+the recurrent state of the ssm and hybrid families, pads fold into the
+cache, so the engine pads only the batch dim there. A MoE layer routes
+the pad tokens too, which take expert capacity from the real ones, as in
+JAX.
 
 JAX states that contract bit for bit. On the card a ``(B, 1, d)`` and a
 ``(B, S, d)`` projection may take GEMM kernels that round differently, so
@@ -33,7 +36,8 @@ compute dtype (``cast_params``), where JAX writes ``x @ W.astype(bf16)``
 in every projection and XLA fuses the convert into the dot: eagerly that
 would re-read and re-write every f32 weight on every decode step. The
 leaves a family reads in f32 (``ModelAPI.f32_leaves``: RWKV6's decay,
-bonus and group-norm leaves) stay as they are, so the values are
+bonus and group-norm leaves, Mamba2's ``A_log``, ``D`` and ``dt_bias``,
+the MoE router) stay as they are, so the values are
 identical to a per-call cast; the copy costs half the f32 params' memory.
 
 The positions, the rewind and the rotating slot are host ints, so no
@@ -53,10 +57,13 @@ import torch
 
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.models import attention, rwkv6
+from repro_torch.models import attention, hybrid, rwkv6
 from repro_torch.models.registry import build_model, impl_kwargs
 
 PyTree = Any
+# a family's decode cache: attention.KVCache, rwkv6.RWKVCache or
+# hybrid.HybridCache
+Cache = Any
 
 
 class TensorSpec(NamedTuple):
@@ -82,24 +89,36 @@ def kv_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
                cache_dtype: torch.dtype = torch.bfloat16
-               ) -> "attention.KVCache | rwkv6.RWKVCache":
-    """The decode cache's shapes and dtypes as a ``KVCache`` or an
-    ``RWKVCache`` of :class:`TensorSpec` (the index: a host int, spec'd as
-    JAX's int32 scalar). As in JAX, the ssm cache takes the compute dtype
-    and f32, whatever ``cache_dtype`` says. The hybrid and encoder-decoder
-    caches are not ported yet (ROADMAP queue 1: model zoo)."""
+               ) -> Cache:
+    """The decode cache's shapes and dtypes as a ``KVCache``, an
+    ``RWKVCache`` or a ``HybridCache`` of :class:`TensorSpec` (the index:
+    a host int, spec'd as JAX's int32 scalar). As in JAX, the recurrent
+    states take the compute dtype and f32 whatever ``cache_dtype`` says
+    (the hybrid's KV sites take ``cache_dtype``). The encoder-decoder
+    cache is not ported yet (ROADMAP queue 1: model zoo)."""
     L = cfg.n_layers
+    hd = cfg.resolved_head_dim
     idx = TensorSpec((), torch.int32)
     if cfg.family in ("dense", "moe", "vlm"):
         S = kv_cache_len(cfg, seq_len)
-        kv = TensorSpec((L, batch, S, cfg.n_kv_heads,
-                         cfg.resolved_head_dim), cache_dtype)
+        kv = TensorSpec((L, batch, S, cfg.n_kv_heads, hd), cache_dtype)
         return attention.KVCache(kv, kv, idx)
     if cfg.family == "ssm":
         d, hs = cfg.d_model, cfg.rwkv_head_size
         x = TensorSpec((L, batch, d), cfg.compute_dtype)
         return rwkv6.RWKVCache(
             x, x, TensorSpec((L, batch, d // hs, hs, hs), torch.float32),
+            idx)
+    if cfg.family == "hybrid":
+        di, N = cfg.d_inner, cfg.ssm_state
+        H = cfg.resolved_ssm_heads
+        kv = TensorSpec((hybrid.n_attn_sites(cfg), batch,
+                         kv_cache_len(cfg, seq_len), cfg.n_kv_heads, hd),
+                        cache_dtype)
+        return hybrid.HybridCache(
+            TensorSpec((L, batch, cfg.ssm_conv - 1, di + 2 * N),
+                       cfg.compute_dtype),
+            TensorSpec((L, batch, H, di // H, N), torch.float32), kv, kv,
             idx)
     raise NotImplementedError(
         f"the {cfg.family!r} cache is not ported yet (ROADMAP queue 1: "
@@ -161,7 +180,8 @@ def greedy_generate(cfg: ModelConfig, params: PyTree, batch: PyTree,
                     ) -> torch.Tensor:
     """Batched greedy decoding: prefill the prompt, then n_new - 1 decode
     steps. Returns (B, n_new) int32 on the prompt's device. ``attn_impl``
-    (dense) or ``wkv_impl`` (ssm) picks the family's kernel path."""
+    (dense, MoE, hybrid) or ``wkv_impl`` (ssm) picks the family's kernel
+    path."""
     api = build_model(cfg)
     prefill_kw, decode_kw = impl_kwargs(cfg, attn_impl=attn_impl,
                                         wkv_impl=wkv_impl)
@@ -193,13 +213,12 @@ def greedy_generate(cfg: ModelConfig, params: PyTree, batch: PyTree,
 # --------------------------- batched decode engine ---------------------------
 
 
-def cast_cache(cache: "attention.KVCache | rwkv6.RWKVCache",
-               cache_dtype: Optional[torch.dtype]
-               ) -> "attention.KVCache | rwkv6.RWKVCache":
+def cast_cache(cache: Cache, cache_dtype: Optional[torch.dtype]) -> Cache:
     """Every float tensor of the cache in ``cache_dtype`` (bf16 halves the
-    cache's memory and decode read traffic): K/V, or the token shifts AND
-    the WKV state, as JAX casts every float leaf. The index passes
-    through. ``None`` is the identity."""
+    cache's memory and decode read traffic): K/V, the token shifts AND the
+    WKV state, or the conv and SSM states AND the K/V sites, as JAX casts
+    every float leaf. The index passes through. ``None`` is the
+    identity."""
     if cache_dtype is None:
         return cache
     return cache._replace(**{
@@ -278,8 +297,9 @@ class DecodeEngine:
         keeps the prefill's. Must not be wider than ``cfg.compute_dtype``.
       recompile_limit: distinct signatures per phase; default
         ``len(buckets)``.
-      attn_impl: the dense family's prefill ``sdpa`` impl, the CUDA
-        flash kernel by default (its plain version on a CPU tensor).
+      attn_impl: the prefill ``sdpa`` impl of the dense, MoE and hybrid
+        families, the CUDA flash kernel by default (its plain version on a
+        CPU tensor).
       wkv_impl: the ssm family's recurrence in prefill and decode, the
         CUDA WKV kernel by default (its plain version on a CPU tensor).
     """

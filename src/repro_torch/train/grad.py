@@ -29,6 +29,13 @@ are ``masked_fill`` (a NaN in a masked chunk stays out, where ``0 * nan``
 would not), the first chunk's gradient becomes the accumulator and later
 ones are masked and added in place, so no temporary of the packed
 buffer's size is made beyond the chunk's own gradient.
+
+The reference mode accumulates in f32, as JAX's per-worker loop does from
+its f32 zeros: a first chunk's gradient in another dtype (bf16 params)
+becomes an f32 copy before it is the accumulator, and the gradients come
+back in f32; an f32 gradient is taken as it is. The packed mode
+accumulates in the buffer's dtype in both packages. The loss sums are
+f32 in both modes.
 """
 from __future__ import annotations
 
@@ -37,7 +44,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch._tree import (keystr, tree_flatten, tree_map,
+                               tree_map_with_path, tree_unflatten)
 from repro_torch.kernels import pack as packing
 
 PyTree = Any
@@ -59,51 +67,62 @@ class GradPipeline:
 def _split_micro(batch: PyTree, microbatch: int, i: int) -> PyTree:
     """Chunk ``i`` of ``microbatch`` equal chunks of every leaf's
     per-worker batch dim (dim 1): ``(K, b, ...) -> (K, b/microbatch, ...)``."""
-    def chunk(x):
+    def chunk(path, x):
         b = x.shape[1]
         if b % microbatch:
             divisors = [d for d in range(1, b + 1) if b % d == 0]
             nearest = min(divisors, key=lambda d: (abs(d - microbatch), -d))
             raise ValueError(
+                f"batch leaf {keystr(path) or '<root>'}: "
                 f"per-worker batch dim {b} is not divisible into "
                 f"{microbatch} accumulation chunks (microbatch / damping "
                 f"max_chunks); nearest valid count is {nearest}")
         c = b // microbatch
         return x[:, i * c:(i + 1) * c]
 
-    return tree_map(chunk, batch)
+    return tree_map_with_path(chunk, batch)
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32: itself if it is, else an f32 copy."""
+    return x.to(torch.float32)
 
 
 def _accumulate(one: Callable[[PyTree], Any], batch: PyTree,
-                microbatch: int, add: Callable, scale: Callable):
-    """Average ``one``'s (losses, grads) over the microbatch chunks."""
+                microbatch: int, add: Callable, scale: Callable,
+                start: Callable = lambda g: g):
+    """Average ``one``'s (losses, grads) over the microbatch chunks; the
+    first chunk's ``start(grads)`` is the accumulator."""
     if microbatch <= 1:
         return one(batch)
     lsum, acc = None, None
     for i in range(microbatch):
         losses, g = one(_split_micro(batch, microbatch, i))
-        lsum = losses if lsum is None else lsum + losses
-        acc = g if acc is None else add(acc, g)
+        lsum = _f32(losses) if lsum is None else lsum + losses
+        acc = start(g) if acc is None else add(acc, g)
+        del g
     return lsum / microbatch, scale(acc, microbatch)
 
 
 def _accumulate_damped(one: Callable[[PyTree], Any], batch: PyTree,
                        chunks: int, n: torch.Tensor, mask: Callable,
-                       add: Callable, divide: Callable):
+                       add: Callable, divide: Callable,
+                       start: Callable = lambda g: g):
     """Average ``one``'s (losses, grads) over the first ``n[k]`` of
     ``chunks`` chunks of worker k's batch: every chunk is evaluated, and
     ``mask(g, off)`` zeroes the workers ``off`` ((K,) bool) whose count
-    the chunk is past. The sums run in ``_accumulate``'s order, so with
-    ``n`` equal to ``chunks`` everywhere the result is microbatch=chunks'
-    to the bit."""
+    the chunk is past; the first chunk's ``start(mask(g, off))`` is the
+    accumulator. The sums run in ``_accumulate``'s order, so with ``n``
+    equal to ``chunks`` everywhere the result is microbatch=chunks' to the
+    bit."""
     lsum, acc = None, None
     for i in range(chunks):
         losses, g = one(_split_micro(batch, chunks, i))
         off = n <= i
         losses = losses.masked_fill(off, 0.0)
         g = mask(g, off)
-        lsum = losses if lsum is None else lsum + losses
-        acc = g if acc is None else add(acc, g)
+        lsum = _f32(losses) if lsum is None else lsum + losses
+        acc = start(g) if acc is None else add(acc, g)
         del g   # the next chunk's backward must not find this one alive
     nf = n.to(lsum.dtype)
     return lsum / nf, divide(acc, nf)
@@ -165,9 +184,16 @@ def make_grad_pipeline(loss: Callable[[PyTree, PyTree], torch.Tensor],
 
 
 def _reference_vag(loss, opt, microbatch: int, damping_chunks: int):
-    """Autograd w.r.t. the stacked leaves. A leaf's gradient may be a
-    view autograd made (an expanded tensor), so the damped masks here are
-    out of place: the masked first chunk is the accumulator."""
+    """Autograd w.r.t. the stacked leaves, accumulated in f32 as JAX's
+    per-worker loop does: a first chunk's leaf gradient in another dtype
+    becomes an f32 copy (an f32 one is taken as it is), and the later
+    chunks' gradients are added into it. A leaf's gradient may be a view
+    autograd made (an expanded tensor), so the damped masks here are out
+    of place: the masked first chunk is the accumulator, and the undamped
+    sums are out of place."""
+
+    def start(g):
+        return tree_map(_f32, g)
 
     def one_of(state):
         leaves, td = tree_flatten(opt.params_of(state))
@@ -191,7 +217,7 @@ def _reference_vag(loss, opt, microbatch: int, damping_chunks: int):
                 one_of(state), batch, damping_chunks, n, mask,
                 lambda a, g: tree_map(torch.Tensor.add_, a, g),
                 lambda a, nf: tree_map(
-                    lambda x: x.div_(_worker_shaped(nf, x)), a))
+                    lambda x: x.div_(_worker_shaped(nf, x)), a), start)
 
         return damped_vag
 
@@ -199,7 +225,7 @@ def _reference_vag(loss, opt, microbatch: int, damping_chunks: int):
         return _accumulate(
             one_of(state), batch, microbatch,
             lambda a, g: tree_map(torch.add, a, g),
-            lambda a, n: tree_map(lambda x: x / n, a))
+            lambda a, n: tree_map(lambda x: x / n, a), start)
 
     return reference_vag
 

@@ -436,6 +436,54 @@ def test_cuda_engine_prefills_through_the_kernel(cuda):
         assert a.is_cuda and torch.equal(a, b)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["zamba2-7b", "phi3.5-moe-42b-a6.6b"])
+def test_cuda_hybrid_and_moe_prefill_match_the_cpu(cuda, arch):
+    """The reduced zamba2-7b (its shared block at each of its 2 sites) and
+    phi3.5-moe (one attention per layer) at f32 compute: a (2, 16) prefill
+    through the flash kernel on the card, one launch per site or layer,
+    and 3 decode steps, against the same on the CPU (the plain version):
+    logits and caches within f32 2e-5."""
+    import dataclasses
+
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import hybrid
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_reduced(arch).model,
+                              compute_dtype=torch.float32)
+    api = build_model(cfg)
+    params = {"cpu": api.init(torch.Generator().manual_seed(0))}
+    params["cuda"] = tree_map(lambda x: x.to("cuda"), params["cpu"])
+    toks = torch.randint(0, cfg.vocab_size, (2, 19),
+                         generator=torch.Generator().manual_seed(1))
+    sites = (hybrid.n_attn_sites(cfg) if cfg.family == "hybrid"
+             else cfg.n_layers)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = toks.to(dev)
+        ops.reset_launches()
+        with torch.no_grad():
+            logits, cache = api.prefill(params[dev], {"tokens": t[:, :16]},
+                                        cache_len=24, attn_impl="kernel")
+            steps = [logits[:, 0]]
+            for i in range(16, 19):
+                logits, cache = api.decode_step(params[dev], cache, t[:, i])
+                steps.append(logits)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = sites if dev == "cuda" else 0
+        assert counts == {**{n: 0 for n in counts}, "flash_attention": want}
+        out[dev] = (torch.stack(steps, 1),) + tuple(
+            x for x in cache if isinstance(x, torch.Tensor))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.is_cuda
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=2e-5,
+                                   atol=2e-5)
+
+
 # rwkv_scan against its plain version. Both compute each state element as
 # w * S rounded plus k * v rounded (the kernel is built without FMA
 # contraction), so the final state is bit-equal, and so is a sequence cut

@@ -287,6 +287,105 @@ def test_nan_in_a_masked_chunk_stays_out(backend):
     assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
 
 
+def f32_regression_loss(p, b):
+    """``regression_loss`` with the weight read in f32."""
+    return regression_loss({"w": p["w"].to(torch.float32)}, b)
+
+
+def jax_regression_loss(p, b):
+    """One worker's ``f32_regression_loss`` on the JAX side."""
+    return jnp.mean((b["x"] @ p["w"].astype(jnp.float32) - b["y"]) ** 2)
+
+
+def bf16_regression(seed=4, b=32):
+    """bf16 weights (K, 64, 2) and f32 data whose products and sums are
+    exact in f32 (small integers, weights in eighths), so each chunk's
+    bf16 gradient is the same on both sides and only the accumulation's
+    dtype can part them."""
+    rng = np.random.default_rng(seed)
+    w = (rng.integers(-16, 17, (K, 64, 2)) / 8).astype(np.float32)
+    x = rng.integers(-3, 4, (K, b, 64)).astype(np.float32)
+    y = rng.integers(-20, 21, (K, b, 2)).astype(np.float32)
+    return w, {"x": x, "y": y}
+
+
+@pytest.mark.parametrize("kind", ["microbatch", "damped"])
+def test_bf16_params_accumulate_in_f32_as_jax(kind):
+    """At bf16 params the reference pipeline returns f32 gradients and
+    f32 losses equal to JAX's (whose per-worker loop adds into f32
+    zeros) within 2e-5 of each leaf's largest entry; an accumulator in
+    bf16 misses by up to a bf16 ulp of the sums (2**-9 of them)."""
+    w, batch = bf16_regression()
+    jopt = jax_make_optimizer("d-adam", K, backend="reference")
+    jstate = jopt.init({"w": jnp.asarray(w).astype(jnp.bfloat16)})
+    topt = make_optimizer("d-adam", K, backend="reference", device="cpu")
+    tstate = topt.init({"w": torch.from_numpy(w).to(torch.bfloat16)})
+    jb = jax.tree_util.tree_map(jnp.asarray, batch)
+    tb = convert.params_from_numpy(batch, "cpu")
+    if kind == "microbatch":
+        jl, jg = jax_make_grad_pipeline(
+            jax_regression_loss, jopt, microbatch=C).value_and_grad(
+                jstate, jb)
+        tl, tg = make_grad_pipeline(
+            f32_regression_loss, topt, microbatch=C).value_and_grad(
+                tstate, tb)
+    else:
+        jl, jg = jax_make_grad_pipeline(
+            jax_regression_loss, jopt, damping_chunks=C).value_and_grad(
+                jstate, jb, jnp.asarray(MIXED_N, jnp.int32))
+        tl, tg = make_grad_pipeline(
+            f32_regression_loss, topt, damping_chunks=C).value_and_grad(
+                tstate, tb, torch.tensor(MIXED_N, dtype=torch.int32))
+    assert jg["w"].dtype == jnp.float32
+    assert tg["w"].dtype == torch.float32 and tl.dtype == torch.float32
+    want = np.asarray(jg["w"])
+    np.testing.assert_allclose(tg["w"].numpy(), want, rtol=0,
+                               atol=2e-5 * np.abs(want).max())
+    close(tl, jl)
+
+
+def test_split_micro_names_the_batch_leaf_as_jax():
+    """The error names the leaf's path in ``jax.tree_util.keystr``'s form,
+    as JAX's ``_split_micro`` does."""
+    from repro.train.grad import _split_micro as jax_split
+    from repro_torch.train.grad import _split_micro
+
+    tree = {"inner": {"x": np.zeros((6, 3), np.float32)},
+            "seq": [np.zeros((6, 2), np.float32)]}
+    with pytest.raises(ValueError) as je:
+        jax_split(jax.tree_util.tree_map(jnp.asarray, tree), 4, batch_dim=0)
+    # the port splits the per-worker dim of stacked (K, b, ...) leaves
+    stacked = jax.tree_util.tree_map(lambda a: torch.from_numpy(a[None]),
+                                     tree)
+    with pytest.raises(ValueError) as te:
+        _split_micro(stacked, 4, 0)
+    assert str(te.value) == str(je.value)
+    assert str(te.value).startswith("batch leaf ['inner']['x']: ")
+    with pytest.raises(ValueError, match=r"batch leaf \['seq'\]\[0\]: "):
+        _split_micro({"seq": stacked["seq"]}, 4, 0)
+
+
+def test_tree_paths_are_jax_keystr_paths():
+    """``_tree.tree_map_with_path`` names every leaf as
+    ``jax.tree_util.keystr`` does, over every node kind ``_tree`` has."""
+    import collections
+    from typing import NamedTuple
+
+    from repro_torch._tree import keystr, tree_map_with_path
+
+    class Pair(NamedTuple):
+        a: int
+        b: object
+
+    tree = {"z": [1, (2, None, 3)], "a": Pair(4, {"y": 5}),
+            "o": collections.OrderedDict([("q", 6), ("b", 7)])}
+    got, want = [], []
+    tree_map_with_path(lambda p, x: got.append((keystr(p), x)), tree)
+    jax.tree_util.tree_map_with_path(
+        lambda p, x: want.append((jax.tree_util.keystr(p), x)), tree)
+    assert got == want
+
+
 def test_damping_and_microbatch_are_not_both():
     opt = make_optimizer("d-adam", K, device="cpu")
     with pytest.raises(ValueError, match="not both"):

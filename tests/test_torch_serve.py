@@ -23,6 +23,7 @@ import torch
 
 from repro.configs import get_arch as jget_arch
 from repro.configs import get_reduced as jget_reduced
+from repro.configs import list_archs as jlist_archs
 from repro.models import attention as jattention
 from repro.models import build_model as jbuild_model
 from repro.models import transformer as jtransformer
@@ -115,18 +116,22 @@ def test_param_count_matches_jax():
 
 
 def test_config_registry():
-    assert list_archs() == [ARCH, "rwkv6-3b"]
+    """Every JAX arch but the vlm and audio ones is registered; those two
+    raise, and so do their families."""
+    assert list_archs() == sorted(
+        set(jlist_archs()) - {"phi-3-vision-4.2b", "whisper-large-v3"})
+    assert get_arch("zamba2-7b").model.family == "hybrid"
+    assert get_reduced("phi3.5-moe-42b-a6.6b").model.family == "moe"
     with pytest.raises(NotImplementedError, match="model zoo"):
-        get_arch("zamba2-7b")
+        get_arch("whisper-large-v3")
     with pytest.raises(NotImplementedError, match="model zoo"):
-        get_reduced("phi3.5-moe-42b-a6.6b")
+        get_reduced("phi-3-vision-4.2b")
     with pytest.raises(KeyError):
         get_arch("gpt-2")
-    moe = dataclasses.replace(get_reduced(ARCH).model, family="moe")
-    with pytest.raises(NotImplementedError, match="model zoo"):
-        build_model(moe)
-    with pytest.raises(NotImplementedError, match="model zoo"):
-        transformer.init_params(torch.Generator().manual_seed(0), moe)
+    for family in ("vlm", "audio"):
+        cfg = dataclasses.replace(get_reduced(ARCH).model, family=family)
+        with pytest.raises(NotImplementedError, match="model zoo"):
+            build_model(cfg)
 
 
 def test_init_params_tree_matches_jax():
@@ -256,7 +261,7 @@ def test_cache_spec_matches_actual_prefill(lm32):
     windowed = dataclasses.replace(tcfg, sliding_window=8)
     assert cache_spec(windowed, 1, 524288).k.shape[2] == 8
     with pytest.raises(NotImplementedError, match="model zoo"):
-        cache_spec(dataclasses.replace(tcfg, family="hybrid"), 1, 16)
+        cache_spec(dataclasses.replace(tcfg, family="audio"), 1, 16)
 
 
 def test_effective_config_substitutes_window():
