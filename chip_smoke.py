@@ -88,9 +88,10 @@ script exits non-zero without the final ``ok`` line:
    and leaf) and one ``consensus_mix`` per comm step; then a kernel record
    of ``sign_compress_stacked`` on its trained (2, R, 128) state over the
    model's leaves, held to the plain version worker by worker;
-16. lm card vs CPU: llama3.2-1b and rwkv6-3b at full width cut to 2
-   layers, f32 compute, three packed D-Adam steps at p=3 in lock step on
-   both, from one init: step 1 within LM_STEP1_TOL, step 3 as in 7;
+16. lm card vs CPU: llama3.2-1b and rwkv6-3b at full width cut to
+   LM_CARD_CPU_LAYERS (1) layer, f32 compute, three packed D-Adam steps
+   at p=3 in lock step on both, from one init: step 1 within
+   LM_STEP1_TOL, step 3 as in 7;
 17. damped: adaptive batch damping (AdaDamp, 8 chunks of the 512
    examples, one signal per worker) on full-width DeepFM, K=8 packed
    D-Adam at p=4, 20 steps through ``DecentralizedTrainer(damping=)``:
@@ -122,8 +123,34 @@ script exits non-zero without the final ``ok`` line:
    version: one flash launch per layer per prefill, the router kept in
    f32, the share of (token, choice) pairs the capacity dropped in each
    layer of a full (8, 1024) prefill;
-23. lm card vs CPU for zamba2 (2 layers, a block after each) and
-   phi3.5-moe (2 layers, 4 of its 16 experts), as 16.
+23. lm card vs CPU for zamba2 (a layer and its block) and phi3.5-moe (4
+   of its 16 experts), as 16;
+24. serve_vlm (after serve_moe): phi-3-vision whole (32 layers, d_model
+   3072, 32/32 heads of 96, d_ff 8192, vocab 32,064, the 1024 -> 3072
+   projector; 576 patch features a row from a seed) served by
+   ``DecodeEngine.generate_batch(extras=)`` on llama's buckets, one
+   version: a full (8, 1024) batch with 3 batch-padding rows, two
+   padded rows of 1000 (the rewind at L - 1 + 576), a full (1, 128) and a
+   padded 97: 32 flash launches (D = 96 over 576 + S positions) per
+   prefill, none in decode, no other kernel; times per bucket, tokens/s,
+   peak memory, a profile of one batch;
+25. serve_vlm_card_vs_cpu: as 9, phi-3-vision cut to 2 layers, the patch
+   features drawn on the CPU and copied;
+26. serve_whisper: whisper-large-v3 whole (32 encoder and 32 decoder
+   layers, d_model 1280, 20/20 heads of 64, d_ff 5120, vocab 51,866;
+   1500 frame embeddings a row from a seed) on buckets (1, 128) and (8,
+   384) at exact seq (a prompt and 32 new tokens within the published 448
+   positions): 96 flash launches per prefill (32 encoder, non-causal; 32
+   decoder, causal; 32 cross-attention, non-causal with S != T), none in
+   decode, no other kernel; the same records, then the decode contract
+   at full depth, as serve_zamba2's;
+27. serve_whisper_card_vs_cpu: as 9, at 2 encoder and 2 decoder layers;
+28. lm card vs CPU for whisper (2 + 2 layers), as 16: the
+   cross-attention's backward on the card;
+29. lm_example: the port of examples/decentralized_lm.py as a user runs
+   it (``repro_torch.launch.decentralized_lm``, the 100m preset, K=4
+   ring, packed D-Adam at p=4, 12 steps): 9 ``fused_adam`` and 3
+   ``gossip_adam_mix`` launches and no other kernel, the loss falling.
 
 Every phase's line holds ``elapsed_s``, the seconds since the script
 started.
@@ -133,13 +160,17 @@ bf16 moments too (m and v within one bf16 ulp, p within 2e-5) and at the
 vision phase's weight decay 1e-4, and takes
 the profiler's device time of every kernel beside its CUDA-event time. It
 also holds ``flash_attention`` against its plain
-version at thirteen shapes: the serve bucket's prefill, an 8192-token
+version at eighteen shapes: the serve bucket's prefill, an 8192-token
 prompt, a 512-key window, a non-causal f32 D=128 case, a ragged S=1021,
 bf16 head dims 96 and 112, in f32 the serve bucket and head dims 96, 112
-and 32, and the (8, 1024) prefills of zamba2-7b (D=112, 32/32 heads) and
-phi3.5-moe (D=128, 32/8) (bf16 runs the wgmma kernel, f32 the 3xTF32 one;
-each record names its ``design``); at each it times the one SDPA call that
-computes the same function, and names the CUDA kernels that call launched.
+and 32, the (8, 1024) prefills of zamba2-7b (D=112, 32/32 heads) and
+phi3.5-moe (D=128, 32/8), phi-3-vision's (8, 1600) prefill (D=96, 32/32),
+and whisper's encoder (8, 1500, non-causal), cross-attention (384 tokens
+against 1500 frames, non-causal) and decoder (8, 384) at D=64 20/20, the
+cross-attention in f32 too (bf16 runs the wgmma kernel, f32 the 3xTF32
+one; each record names its ``design``); at each it times the one SDPA call
+that computes the same function, and names the CUDA kernels that call
+launched.
 And it
 holds ``rwkv_scan`` against its plain version at the serve bucket's
 prefill, a (1, 128) prefill, a decode step, a ragged f32 D=32 S=1000 case
@@ -162,6 +193,7 @@ change, change, parent, then prints the medians of each side and the
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -186,6 +218,15 @@ FULL = dict(n_fields=39, features_per_field=25_000, embed_dim=10,
 ETA = 1e-3
 ADAM = dict(eta=ETA, beta1=0.9, beta2=0.999, tau=1e-6, weight_decay=0.0)
 REPS = 20
+# Late in a long run the profiler loses the first kernel records of each
+# window, more the more it has recorded before: five flash launches kept
+# all 5 records in a fresh process, then 4, 4, 3, 2, 2 and 1 after each of
+# six profiles of 30,000 small kernels, which lost their own first 0-3
+# (NVIDIA H100 80GB HBM3, 700 W; torch 2.11 with CUPTI 12.8). So every
+# profile window opens with PROFILE_PAD launches of PyTorch's spin kernel
+# (``torch.cuda._sleep(1)``), which no sum or list counts.
+PROFILE_PAD = 256
+PAD_KERNEL = "spin_kernel"
 # A kernel and its plain version run the same f32 operations in the same
 # order (the kernels are built without FMA contraction), so they agree to
 # the last bit but for rsqrtf's approximation, which the main path
@@ -254,6 +295,14 @@ TF32_RATE = 495e12
 # 2e-5).
 FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
              torch.bfloat16: dict(rtol=8e-3, atol=2e-5)}
+# f32 flash_attention against the same function in float64: its largest
+# error may be at most F32_FLASH_F64_RATIO times the plain version's. The
+# tensor core truncates as it adds into an accumulator; carried across the
+# keys, that put the 3xTF32 kernel 9.0e-6 from float64 at whisper's cross-
+# attention (8, 384, 1500, D=64, outputs up to 0.45), 15x the plain
+# version's 5.8e-7; summing each k step on a fresh fragment brought it to
+# 8.3e-7 (1.4x; NVIDIA H100 80GB HBM3, 700 W)
+F32_FLASH_F64_RATIO = 2.0
 # (name, B, S, T, Hq, Hk, D, dtype, causal, window)
 FLASH_CASES = (
     ("serve bucket prefill", 8, 1024, 1024, 32, 8, 64, torch.bfloat16, True,
@@ -274,6 +323,16 @@ FLASH_CASES = (
      torch.bfloat16, True, 0),
     ("phi3.5-moe prefill: D=128, 32/8 heads", 8, 1024, 1024, 32, 8, 128,
      torch.bfloat16, True, 0),
+    ("phi-3-vision prefill: 576 patches + 1024 tokens, D=96, 32/32 heads",
+     8, 1600, 1600, 32, 32, 96, torch.bfloat16, True, 0),
+    ("whisper encoder: non-causal over 1500 frames", 8, 1500, 1500, 20, 20,
+     64, torch.bfloat16, False, 0),
+    ("whisper cross-attention: 384 tokens against 1500 frames", 8, 384,
+     1500, 20, 20, 64, torch.bfloat16, False, 0),
+    ("whisper decoder self-attention", 8, 384, 384, 20, 20, 64,
+     torch.bfloat16, True, 0),
+    ("whisper cross-attention, f32", 8, 384, 1500, 20, 20, 64,
+     torch.float32, False, 0),
 )
 # --parent: the f32 flash cases above that a tree takes, gossip_adam_mix
 # and sign_compress_stacked at SHAPE and the DeepFM periods (ab_side),
@@ -303,6 +362,16 @@ SERVE_PREFILLS = 6
 # CPU's top-2 gap exceeds twice the step's largest card-CPU difference
 # (or 2e-2, if larger): past that no rounding can swap them.
 SERVE_F32_TOL = dict(rtol=2e-5, atol=2e-5)
+# phi-3-vision's f32 logits, card against CPU, take SERVE_F32_TOL's atol
+# times each position's largest |logit| (``f32_row_scale``; the rtol
+# unchanged). Its 576 patch positions enter at unit scale (N(0, 1)
+# features through a 1/sqrt(1024) projector, 50 times the 0.02 token
+# embeddings), so every hidden state is O(1) from the first layer, and
+# at d_model 3072 the two devices' f32 GEMMs (cuBLAS against the CPU's
+# BLAS, no TF32) part by up to 3.0e-5 at logits up to 4.39, 34 of 320,640
+# past the elementwise 2e-5, with the flash kernel out of both (naive
+# sdpa; NVIDIA H100 80GB HBM3, 700 W): a dot product's rounding scales
+# with its terms, not with its sum.
 # serving rwkv6-3b at full width over the same buckets: five full (8, 1024)
 # rows in one batch (3 padding rows) and two (1, 128) calls, 3 batches a
 # pass, each one WKV launch per layer per prefill and per decode step
@@ -351,12 +420,42 @@ ZAMBA2_CONTRACT_RATIO = 2.0
 # prefills, each one flash launch per layer; one version
 SERVE_MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 SERVE_MOE_LAYERS = 4
-# LM card against CPU at 2 layers: zamba2 with its shared block after each
-# layer (at period 14 two layers have none), phi3.5-moe with 4 of its 16
-# experts (all 16 make 2.9B parameters a worker, 23 GB a resident buffer
-# at K=2, more than the host holds for the CPU's plain Adam)
+# LM card against CPU at LM_CARD_CPU_LAYERS layers (2 until the vlm and
+# audio phases took the smoke past 1,000 of its 1,200 s on a slow host:
+# the CPU's side of these phases is the smoke's largest cost, and an
+# earlier path may run at a smaller depth): zamba2 with its shared block
+# after each layer (at period 14 the first 13 layers have none),
+# phi3.5-moe with 4 of its 16 experts (all 16 make 2.9B parameters a
+# worker at 2 layers, 23 GB a resident buffer at K=2, more than the host
+# holds for the CPU's plain Adam); whisper, the newest path, at 2 encoder
+# and 2 decoder layers
+LM_CARD_CPU_LAYERS = 1
 LM_CARD_CPU_CUTS = {"zamba2-7b": dict(shared_attn_period=1),
-                    "phi3.5-moe-42b-a6.6b": dict(n_experts=4)}
+                    "phi3.5-moe-42b-a6.6b": dict(n_experts=4),
+                    "whisper-large-v3": dict(n_layers=2,
+                                             n_encoder_layers=2)}
+# serving phi-3-vision whole: 32 layers (d_model 3072, 32/32 heads of 96,
+# d_ff 8192, vocab 32,064) and the projector, each request's 576 patch
+# features (1024 wide, from a seed) before its text; 3,820,879,872
+# parameters in the analytic count, nothing cut. llama's buckets, one
+# version. Requests (rows, prompt length), one generate_batch call each
+# on the tightest bucket: five full (8, 1024) rows (3 batch-padding
+# rows), two rows of 1000 (the rewind at L - 1 + 576; 6 padding rows), a
+# full (1, 128) and a padded 97 (the rewind): 4 prefills, each one flash
+# launch per layer over 576 + S positions
+SERVE_VLM_ARCH = "phi-3-vision-4.2b"
+SERVE_VLM_REQUESTS = ((5, 1024), (2, 1000), (1, 128), (1, 97))
+# serving whisper-large-v3 whole: 32 encoder and 32 decoder layers
+# (d_model 1280, 20/20 heads of 64, d_ff 5120, vocab 51,866), each
+# request's 1500 frame embeddings from a seed. Buckets (1, 128) and
+# (8, 384): a prompt and 32 new tokens stay within the published 448
+# text positions. Exact seq (JAX's engine pads no audio prompt): five
+# (8, 384) rows (3 padding rows) and two (1, 128) calls, 3 prefills, each
+# 96 flash launches (32 in the encoder, 32 decoder self-attention, 32
+# cross-attention: non-causal, 384 or 128 tokens against 1500 frames)
+SERVE_WHISPER_ARCH = "whisper-large-v3"
+SERVE_WHISPER_BUCKETS = ((1, 128), (8, 384))
+SERVE_WHISPER_REQUESTS = ((5, 384), (1, 128), (1, 128))
 # the CUDA functions each serving kernel's wrapper launches, as the
 # profiler names them (bf16 and f32 flash are two designs)
 FLASH_FUNCTION = {torch.bfloat16: "flash_wgmma_kernel",
@@ -410,6 +509,18 @@ LM_ARGS = ["--arch", LM_ARCH, "--full", "--workers", str(LM_K),
            "--eta", str(LM_ETA), "--log-every", "1", "--device", DEVICE]
 LM_PARAMS = 1_235_814_400
 LM_LAUNCHES = {"fused_adam": 6, "gossip_adam_mix": 2}
+# the LM example (the port of examples/decentralized_lm.py) as a user runs
+# it: the 100m preset (12 layers, d_model 768, GQA 12/4, d_ff 2048, vocab
+# 32,768, tied embeddings), K=4 ring, packed D-Adam at p=4, 4 x 128 tokens
+# a worker, 12 steps, one fit call a step: fused_adam on the 9 local steps,
+# gossip_adam_mix on the 3 comm steps. eta is LM_ETA: at the example's
+# 1e-3 the loss climbed from 10.561 to 10.878 in these 12 steps (NVIDIA
+# H100 80GB HBM3, 700 W), as the JAX example's does on its first tens of
+# steps (tests/test_torch_examples.py)
+LM_EXAMPLE_ARGS = ["--preset", "100m", "--workers", "4", "--period", "4",
+                   "--steps", "12", "--log-every", "1", "--eta", str(LM_ETA),
+                   "--device", DEVICE]
+LM_EXAMPLE_LAUNCHES = {"fused_adam": 9, "gossip_adam_mix": 3}
 # CD-Adam at full width cut to 4 layers (16 would take about 100 GB):
 # fused_adam on all 8 steps, sign_compress_stacked and consensus_mix once
 # per comm step
@@ -726,22 +837,33 @@ def phase_kernels():
     buf_bytes = p.numel() * p.element_size()
     n = p.numel()
     # torch._fused_adam_ computes the same update (weight decay as L2 on
-    # g; with tau as eps) once its bias corrections are 1: a step of 1e7
-    # rounds 1 - beta^step to 1. It updates in place, so it runs on copies.
-    lib_p, lib_m, lib_v = p.clone(), m.clone(), v.clone()
+    # g, as the TPU kernel adds wd * p to g; with tau as eps) once its bias
+    # corrections are 1: a step of 1e7 rounds 1 - beta^step to 1. It
+    # updates in place, so it runs on copies of p, m and v, one set for
+    # each hyperparameter set; the first call is held to the plain
+    # version, the later ones (the timing) step the copies on.
     lib_step = torch.tensor(1e7, device="cuda")
 
-    def fused_adam_library():
-        torch._fused_adam_(
-            [lib_p], [g], [lib_m], [lib_v], [], [lib_step], lr=adam["eta"],
-            beta1=adam["beta1"], beta2=adam["beta2"],
-            weight_decay=adam["weight_decay"], eps=adam["tau"],
-            amsgrad=False, maximize=False)
-        return lib_p, lib_m, lib_v
+    def fused_adam_library(hp):
+        lib = (p.clone(), m.clone(), v.clone())
 
-    fused_adam_library_err = compare(
-        fused_adam_library(), fa.fused_adam_plain(p, g, m, v, **adam),
-        KERNEL_TOL, "torch._fused_adam_ against fused_adam_plain")[0]
+        def call():
+            torch._fused_adam_(
+                [lib[0]], [g], [lib[1]], [lib[2]], [], [lib_step],
+                lr=hp["eta"], beta1=hp["beta1"], beta2=hp["beta2"],
+                weight_decay=hp["weight_decay"], eps=hp["tau"],
+                amsgrad=False, maximize=False)
+            return lib
+
+        err = compare(call(), fa.fused_adam_plain(p, g, m, v, **hp),
+                      KERNEL_TOL, "torch._fused_adam_ against "
+                      f"fused_adam_plain, weight decay {hp['weight_decay']}"
+                      )[0]
+        return call, err
+
+    fused_adam_lib, fused_adam_library_err = fused_adam_library(adam)
+    fused_adam_lib_wd, fused_adam_library_err_wd = fused_adam_library(
+        adam_wd)
     # bf16 moments (make_optimizer(moment_dtype=torch.bfloat16)): p and g
     # f32, m and v bf16; 20 bytes an element
     mb, vb = m.to(torch.bfloat16), v.to(torch.bfloat16)
@@ -752,7 +874,7 @@ def phase_kernels():
              replaces="src/repro/kernels/fused_adam.py:66",
              kernel=lambda: fa.fused_adam(p, g, m, v, **adam),
              plain=lambda: fa.fused_adam_plain(p, g, m, v, **adam),
-             library=fused_adam_library,
+             library=fused_adam_lib,
              library_desc="torch._fused_adam_ (state_steps 1e7: bias "
                           "corrections 1; checked against the plain "
                           "version within KERNEL_TOL)",
@@ -770,7 +892,12 @@ def phase_kernels():
              replaces="src/repro/kernels/fused_adam.py:66",
              kernel=lambda: fa.fused_adam(p, g, m, v, **adam_wd),
              plain=lambda: fa.fused_adam_plain(p, g, m, v, **adam_wd),
-             library=None, bytes=7 * buf_bytes, ops=14 * n,
+             library=fused_adam_lib_wd,
+             library_desc="torch._fused_adam_(weight_decay=1e-4) (state_"
+                          "steps 1e7; checked against the plain version "
+                          "within KERNEL_TOL)",
+             library_err=fused_adam_library_err_wd,
+             bytes=7 * buf_bytes, ops=14 * n,
              device="fused_adam_kernel", variant="weight decay 1e-4"),
         dict(name="gossip_mix", source="src/repro_torch/csrc/gossip.cu",
              replaces="src/repro/kernels/gossip.py:124",
@@ -929,7 +1056,7 @@ def phase_kernels():
           "ms": nbr_ms, "bound_ms": nbr_bytes / MEM_RATE * 1e3,
           "bytes": nbr_bytes, "offsets": deg})
     del p, g, m, v, mb, vb, x, hs, hn1, hn2, xs, hs1, q, scales, cases
-    del lib_p, lib_m, lib_v
+    del fused_adam_lib, fused_adam_lib_wd
     torch.cuda.empty_cache()
     return records + flash_records() + rwkv_records()
 
@@ -955,6 +1082,18 @@ def attention_keep(S: int, T: int, causal: bool, window: int,
     if window > 0:
         keep = keep & (q_pos - k_pos < window)
     return keep
+
+
+def attention_f64(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """The flash kernel's function in float64 on the operands' device, the
+    yardstick of the f32 versions' rounding."""
+    B, S, Hq, D = q.shape
+    T, G = k.shape[1], Hq // k.shape[2]
+    kk, vv = (t.double().repeat_interleave(G, dim=2) for t in (k, v))
+    s = torch.einsum("bshd,bthd->bhst", q.double(), kk) / math.sqrt(D)
+    s = s.masked_fill(~attention_keep(S, T, causal, window, q.device),
+                      -math.inf)
+    return torch.einsum("bhst,bthd->bshd", torch.softmax(s, dim=-1), vv)
 
 
 def sdpa_library(q, k, v, causal: bool, window: int):
@@ -1004,6 +1143,15 @@ def flash_records():
         max_abs, max_rel = compare([got.float()], [want.float()],
                                    FLASH_TOL[dt], f"flash_attention {name}")
         library_err = float((lib_out.float() - want.float()).abs().max())
+        f64_err = None
+        if dt == torch.float32:
+            ref = attention_f64(q, k, v, causal, window)
+            f64_err = {n: float((x.double() - ref).abs().max())
+                       for n, x in (("kernel", got), ("plain", want))}
+            del ref
+            if f64_err["kernel"] > F32_FLASH_F64_RATIO * f64_err["plain"]:
+                raise AssertionError(f"flash_attention {name}: {f64_err} "
+                                     "from float64")
         del got, want, lib_out
         torch.cuda.empty_cache()
         ms = median_ms(lambda: fa.flash_attention(q, k, v, **kw))
@@ -1038,6 +1186,7 @@ def flash_records():
                "library_ms": library_ms, "library": library_desc,
                "library_kernels": library_kernels,
                "library_max_abs_err": library_err,
+               "f64_max_abs_err": f64_err,
                "variant": f"{name}: B={B} S={S} T={T} Hq={Hq} Hk={Hk} "
                           f"D={D} {str(dt).split('.')[-1]} causal={causal} "
                           f"window={window}"}
@@ -1066,25 +1215,41 @@ def wkv_inputs(B, S, H, D, dt, seed=0):
     return r, k, v, w, n((H, D), 0.1), n((B, H, D, D), 0.1)
 
 
-def launched_kernels(fn) -> list:
-    """The names (their first 60 characters) of the CUDA kernels one call
-    of ``fn`` launched (one profile): what a library call runs."""
+@contextlib.contextmanager
+def card_profile():
+    """A profile of the CPU and the card whose window opens with
+    PROFILE_PAD spin kernels, done before the caller's work starts."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        yield prof
+
+
+def card_events(prof):
+    """The profile's aggregated CUDA kernel events, the pad left out."""
+    return [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and PAD_KERNEL not in e.key]
+
+
+def launched_kernels(fn) -> list:
+    """The names (their first 60 characters) of the CUDA kernels one call
+    of ``fn`` launched (one profile): what a library call runs."""
+    with card_profile() as prof:
         fn()
         torch.cuda.synchronize()
-    return sorted({e.key[:60] for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")})
+    return sorted({e.key[:60] for e in card_events(prof)})
 
 
 def check_no_old_sign_kernel(prof, what: str) -> None:
     """Raise if the profile recorded a launch of one of the three kernels
     that the persistent sign_compress kernel replaced."""
-    old = sorted({e.key[:60] for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA")
-                  and OLD_SIGN_KERNEL.search(e.key)})
+    old = sorted({e.key[:60] for e in card_events(prof)
+                  if OLD_SIGN_KERNEL.search(e.key)})
     if old:
         raise AssertionError(f"{what}: the profile recorded {old}, kernels "
                              f"of the replaced sign_compress design")
@@ -1094,9 +1259,8 @@ def matched_device_us(prof, names) -> tuple[float, int]:
     """(device µs, calls) of the profiled CUDA kernels whose name holds
     one of ``names``."""
     us, calls = 0.0, 0
-    for e in prof.key_averages():
-        if (str(e.device_type).endswith("CUDA")
-                and any(n in e.key for n in names)):
+    for e in card_events(prof):
+        if any(n in e.key for n in names):
             t = getattr(e, "self_device_time_total", None)
             us += e.self_cuda_time_total if t is None else t
             calls += e.count
@@ -1116,14 +1280,11 @@ def device_kernel_ms(fn, kernel, reps: int = REPS, attempts: int = 3,
     recorded more than ``per_call`` launches a call raises, and unless
     ``old_ok`` one that recorded a kernel of the replaced sign_compress
     design does."""
-    from torch.profiler import ProfilerActivity, profile
-
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with card_profile() as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -1480,11 +1641,8 @@ def device_profile(fn, kernel_names=(), old_ok: bool = False):
     the CUDA kernels whose name holds one of ``kernel_names``. Unless
     ``old_ok``, a profile that recorded a kernel of the replaced
     sign_compress design raises."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with card_profile() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1501,7 +1659,7 @@ def device_profile(fn, kernel_names=(), old_ok: bool = False):
             got["device_ms"] = max(got["device_ms"], total / 1e3)
             got["calls"] = max(got["calls"], e.count)
             continue
-        if not str(e.device_type).endswith("CUDA"):
+        if not str(e.device_type).endswith("CUDA") or PAD_KERNEL in e.key:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1679,7 +1837,7 @@ def hat_check(path, card, cpu, opt, spec, period):
     weights = [float(w) for w in topo.offset_weights]
     nbrs = [f"hat_nbr_bufs[{i}]" for i in range(len(topo.offsets))]
     zeros = torch.zeros_like(card[0]["hat_buf"])
-    leaf, n_true = leaf_rows(spec)
+    leaf, n_true = (x.to(zeros.device) for x in leaf_rows(spec))
     signs, rule_err = {}, {}
     for dev, snaps in (("card", card), ("cpu", cpu)):
         prev = zeros.double()
@@ -1697,7 +1855,7 @@ def hat_check(path, card, cpu, opt, spec, period):
             if (t + 1) % period == 0:
                 resid = snaps[t]["buf"].double() - prev
                 scale = (torch.zeros((topo.K, len(n_true)),
-                                     dtype=torch.float64)
+                                     dtype=torch.float64, device=hat.device)
                          .index_add_(1, leaf, resid.abs().sum(-1))
                          / n_true)[:, leaf, None]
                 sign = torch.sign(resid)
@@ -1714,8 +1872,8 @@ def hat_check(path, card, cpu, opt, spec, period):
                     f"{float(err.max())} off scale * sign(x - hat)")
             signs[dev].append(sign)
             prev = hat
-    disputed = torch.zeros(zeros.shape, dtype=torch.bool)
-    slack = torch.zeros(zeros.shape, dtype=torch.float64)
+    disputed = torch.zeros_like(zeros, dtype=torch.bool)
+    slack = torch.zeros_like(zeros, dtype=torch.float64)
     steps = []
     for t in range(len(card)):
         sc, sh = signs["card"][t], signs["cpu"][t]
@@ -1791,6 +1949,10 @@ def phase_card_vs_cpu(path: str, period: int = 3, damping=None):
         del tr, state
         torch.cuda.empty_cache()
     (card, closs, ct), (cpu, hloss, ht) = out[DEVICE], out["cpu"]
+    # the checks run in f64 on the card, both runs' snapshots copied there:
+    # the same comparisons, without the host's minutes over 91M elements
+    card, cpu = ([{n: x.to(DEVICE) for n, x in snap.items()}
+                  for snap in snaps] for snaps in (card, cpu))
     step1 = {n: compare([card[0][n]], [cpu[0][n]], CARD_CPU_TOL,
                         f"step 1 {n}")[0] for n in card[0]}
     loss_err = compare([torch.tensor(closs)], [torch.tensor(hloss)],
@@ -1832,17 +1994,28 @@ def synced(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def device_extras(cfg, batch: int, seed: int = 5) -> dict:
+    """The family's prefill inputs besides the tokens (``family_extras``:
+    patch features, frame embeddings), drawn on the card from a seed."""
+    from repro_torch.models.registry import family_extras
+
+    return family_extras(cfg, batch,
+                         torch.Generator(device=DEVICE).manual_seed(seed))
+
+
 def bucket_times(engine, cfg, buckets, new_tokens):
     """Per bucket: a full prompt's prefill (n_new = 1: no decode step),
     then n_new tokens, each synchronised, median of 3; decode ms per token
-    from the difference."""
+    from the difference. The family's extras come with each batch."""
     per_bucket = {}
     for B, S in buckets:
         toks = torch.randint(0, cfg.vocab_size, (B, S), device=DEVICE,
                              dtype=torch.int32)
-        pre = [synced(lambda: engine.generate_batch(toks, 1))[1]
+        ex = device_extras(cfg, B) or None
+        pre = [synced(lambda: engine.generate_batch(toks, 1, extras=ex))[1]
                for _ in range(3)]
-        full = [synced(lambda: engine.generate_batch(toks, new_tokens))[1]
+        full = [synced(lambda: engine.generate_batch(toks, new_tokens,
+                                                     extras=ex))[1]
                 for _ in range(3)]
         pre_ms, full_ms = statistics.median(pre), statistics.median(full)
         per_bucket[f"{B}x{S}"] = {
@@ -1852,17 +2025,46 @@ def bucket_times(engine, cfg, buckets, new_tokens):
     return per_bucket
 
 
+def request_batches(engine, cfg, requests, seed=1):
+    """One bucket batch per request ``(rows, prompt length)``: the
+    tightest bucket, the prompts right-padded to its seq (an exact seq
+    where the engine pads none), batch-padding rows repeating row 0, and
+    the family's extras for the real rows, repeated likewise. Returns
+    ``[(tokens, true_len, rows, extras)]``."""
+    from repro_torch.models.registry import family_extras
+    from repro_torch.serve import select_bucket
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    out = []
+    for rows, L in requests:
+        B, S = select_bucket(engine.buckets, rows, L, pad_seq=engine.pad_seq)
+        if rows > B:
+            raise ValueError(f"{rows} rows exceed the bucket ({B}, {S})")
+        pad = [0] * (B - rows)
+        toks = torch.randint(0, cfg.vocab_size, (rows, L), generator=gen,
+                             device=DEVICE, dtype=torch.int32)
+        toks = torch.nn.functional.pad(toks, (0, S - L))
+        ex = {k: torch.cat([x, x[pad]])
+              for k, x in family_extras(cfg, rows, gen).items()}
+        out.append((torch.cat([toks, toks[pad]]), L, rows, ex))
+    return out
+
+
 def serve_full_width(phase, cfg, buckets, lengths, new_tokens, kernel,
-                     per_pass, seeds=(None, 1), profile_tokens=8):
+                     per_pass, seeds=(None, 1), profile_tokens=8,
+                     requests=None):
     """A model at full width through the port's serving entry points:
     weights from a seed published into a ParamStore, DecodeEngine over
     the buckets, the prompts served; then for each further seed in
     ``seeds`` a new version published and the prompts served again. The
-    launch counters are zeroed just before and read just after: ``kernel``
-    launched ``per_pass`` times a pass, no other kernel. Then the
-    per-bucket times and a profile of one batch of the largest bucket.
-    ``profile_tokens`` new tokens (at most ``new_tokens``) go into the
-    profile. Returns the phase's record and the engine."""
+    prompts are ``lengths`` through ``engine.generate``, or, for a family
+    with extras (``generate`` passes none, as JAX's), ``requests`` through
+    ``generate_batch(extras=)`` (``request_batches``). The launch counters
+    are zeroed just before and read just after: ``kernel`` launched
+    ``per_pass`` times a pass, no other kernel. Then the per-bucket times
+    and a profile of one batch of the largest bucket. ``profile_tokens``
+    new tokens (at most ``new_tokens``) go into the profile. Returns the
+    phase's record and the engine."""
     from repro_torch._tree import tree_leaves
     from repro_torch.kernels import ops
     from repro_torch.models.registry import build_model
@@ -1888,7 +2090,19 @@ def serve_full_width(phase, cfg, buckets, lengths, new_tokens, kernel,
     n_params = sum(x.numel() for x in tree_leaves(store.snapshot()[1]))
     engine = DecodeEngine(cfg, store, buckets=buckets,
                           max_new_tokens=new_tokens)
-    prompts = serve_prompts(cfg, lengths)
+    if requests is None:
+        prompts = serve_prompts(cfg, lengths)
+
+        def serve_pass():
+            return engine.generate(prompts, new_tokens)
+    else:
+        prompts = request_batches(engine, cfg, requests)
+        lengths = [L for rows, L in requests for _ in range(rows)]
+
+        def serve_pass():
+            return [o for toks, L, rows, ex in prompts
+                    for o in engine.generate_batch(
+                        toks, new_tokens, true_len=L, extras=ex)[:rows]]
     ops.reset_launches()
     outs, walls = [], []
     for seed in seeds:
@@ -1896,7 +2110,7 @@ def serve_full_width(phase, cfg, buckets, lengths, new_tokens, kernel,
             store.publish(api.init(torch.Generator(device=DEVICE)
                                    .manual_seed(seed)))
             mark(f"v{len(walls) + 1} published")
-        out, ms = synced(lambda: engine.generate(prompts, new_tokens))
+        out, ms = synced(serve_pass)
         outs.append(out)
         walls.append(ms)
         mark(f"pass {len(walls)} served")
@@ -1923,21 +2137,35 @@ def serve_full_width(phase, cfg, buckets, lengths, new_tokens, kernel,
     toks = torch.randint(0, cfg.vocab_size, (B, S), device=DEVICE,
                          dtype=torch.int32)
     n_prof = min(profile_tokens, new_tokens)
-    before = ops.launch_counts()[kernel]
-    prof = device_profile(lambda: engine.generate_batch(toks, n_prof),
-                          KERNEL_FUNCTIONS[kernel])
-    profiled = ops.launch_counts()[kernel] - before
-    kernel_ms = prof.pop("kernel_ms")
-    if prof.pop("kernel_calls") != profiled or (profiled and kernel_ms <= 0):
-        raise AssertionError(f"{phase}: the profile holds no device time "
-                             f"for {kernel}'s {profiled} launches")
+    ex = device_extras(cfg, B) or None
+    # the profiler may drop events of a large profile: take it again when
+    # it recorded fewer of the kernel's launches than were made (at most 3
+    # profiles, as device_kernel_ms)
+    for _ in range(3):
+        before = ops.launch_counts()[kernel]
+        prof = device_profile(lambda: engine.generate_batch(toks, n_prof,
+                                                            extras=ex),
+                              KERNEL_FUNCTIONS[kernel])
+        profiled = ops.launch_counts()[kernel] - before
+        kernel_ms = prof.pop("kernel_ms")
+        calls = prof.pop("kernel_calls")
+        if calls == profiled and (kernel_ms > 0 or not profiled):
+            break
+    else:
+        raise AssertionError(
+            f"{phase}: the profile holds {calls} launches and {kernel_ms} "
+            f"device ms for {kernel}'s {profiled} launches; its top "
+            f"kernels {prof['top'][:6]}")
     n_out = sum(o.numel() for o in outs[-1])
     rec = {"phase": phase, "arch": cfg.arch_id, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "params": n_params, "param_count": cfg.param_count(),
            "param_bytes_f32": 4 * n_params,
            "buckets": [list(b) for b in buckets], "new_tokens": new_tokens,
-           "prompt_lengths": list(lengths), "init_ms": init_ms,
+           "prompt_lengths": list(lengths),
+           "requests": None if requests is None else [list(r)
+                                                      for r in requests],
+           "init_ms": init_ms,
            "serve_ms": walls, "tokens_per_s": n_out / walls[-1] * 1e3,
            "per_bucket": per_bucket, "peak_mem_gb": peak_gb,
            "mem_gb_by_stage": mem, "last_version": engine.last_version,
@@ -1973,16 +2201,19 @@ def phase_serve(cfg=None, buckets=SERVE_BUCKETS, lengths=SERVE_LENGTHS,
 
 
 def phase_serve_card_vs_cpu(cfg=None, seq=128, new_tokens=4, batch=1,
-                            phase="serve_card_vs_cpu"):
+                            phase="serve_card_vs_cpu", f32_row_scale=False):
     """The same weights on the card and on the CPU (full width, depth cut
     to 2): greedy tokens of a (batch, seq) request through the engine on
     each, at f32 and at bf16 compute; then the logits of both devices
     teacher-forced along the card's tokens of that compute dtype (the
     prefill and new_tokens - 1 decode steps, through the family's
-    kernels). See SERVE_F32_TOL for what each dtype is held to."""
+    kernels). The family's extras (patch features, frame embeddings) are
+    drawn on the CPU and copied to the card. See SERVE_F32_TOL for what
+    each dtype is held to."""
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_arch
-    from repro_torch.models.registry import build_model, impl_kwargs
+    from repro_torch.models.registry import (build_model, family_extras,
+                                             impl_kwargs)
     from repro_torch.serve import DecodeEngine, cast_params
 
     cfg = cfg or dataclasses.replace(get_arch(SERVE_ARCH).model, n_layers=2)
@@ -1994,14 +2225,17 @@ def phase_serve_card_vs_cpu(cfg=None, seq=128, new_tokens=4, batch=1,
     prompt = torch.randint(0, cfg.vocab_size, (batch, seq),
                            generator=torch.Generator().manual_seed(3),
                            dtype=torch.int32)
+    extras = family_extras(cfg, batch, torch.Generator().manual_seed(4))
+    extras = {dev: {k: x.to(dev) for k, x in extras.items()}
+              for dev in ("cpu", DEVICE)}
     toks, secs = {}, {}
     for dt, c in cfgs.items():
         for dev in ("cpu", DEVICE):
             eng = DecodeEngine(c, params[dev], buckets=((batch, seq),),
                                max_new_tokens=new_tokens)
             t0 = time.perf_counter()
-            toks[dev, dt] = eng.generate_batch(prompt.to(dev),
-                                               new_tokens).cpu()
+            toks[dev, dt] = eng.generate_batch(
+                prompt.to(dev), new_tokens, extras=extras[dev] or None).cpu()
             secs[dev, dt] = time.perf_counter() - t0
 
     def forced(dev, c, along):
@@ -2011,9 +2245,9 @@ def phase_serve_card_vs_cpu(cfg=None, seq=128, new_tokens=4, batch=1,
         pre_kw, dec_kw = impl_kwargs(c, attn_impl="kernel",
                                      wkv_impl="kernel")
         with torch.no_grad():
-            logits, cache = api_c.prefill(p, {"tokens": prompt.to(dev)},
-                                          cache_len=seq + new_tokens,
-                                          **pre_kw)
+            logits, cache = api_c.prefill(
+                p, {"tokens": prompt.to(dev), **extras[dev]},
+                cache_len=eng_cache_len(c, seq, new_tokens), **pre_kw)
             out = [logits[:, -1]]
             for t in range(new_tokens - 1):
                 logits, cache = api_c.decode_step(
@@ -2052,7 +2286,11 @@ def phase_serve_card_vs_cpu(cfg=None, seq=128, new_tokens=4, batch=1,
     bf16 = {d: forced(d, cfg, toks[DEVICE, "bf16"]) for d in devs}
     # the CPU's f32 logits along the bf16 tokens: the bf16 yardstick
     ref = forced("cpu", cfgs["f32"], toks[DEVICE, "bf16"])
-    f32_err = compare([f32[DEVICE]], [f32["cpu"]], SERVE_F32_TOL,
+    f32_tol = SERVE_F32_TOL
+    if f32_row_scale:
+        f32_tol = dict(SERVE_F32_TOL, atol=SERVE_F32_TOL["atol"] * f32[
+            "cpu"].abs().amax(dim=-1, keepdim=True).double())
+    f32_err = compare([f32[DEVICE]], [f32["cpu"]], f32_tol,
                       "teacher-forced logits, f32")
     card_dev = float((bf16[DEVICE] - ref).abs().max())
     cpu_dev = float((bf16["cpu"] - ref).abs().max())
@@ -2069,6 +2307,8 @@ def phase_serve_card_vs_cpu(cfg=None, seq=128, new_tokens=4, batch=1,
                      "bf16": tokens_equal("bf16", bf16,
                                           SERVE_BF16_TOL["atol"])},
           "f32_max_abs_err": f32_err[0], "f32_tol": SERVE_F32_TOL,
+          "f32_atol_times_row_max": f32_row_scale,
+          "f32_row_max": float(f32["cpu"].abs().max()),
           "bf16_max_abs_err": float(diff.max()),
           "bf16_share_outside_2e-2": float(outside.double().mean()),
           "bf16_from_f32_card": card_dev, "bf16_from_f32_cpu": cpu_dev,
@@ -2077,6 +2317,14 @@ def phase_serve_card_vs_cpu(cfg=None, seq=128, new_tokens=4, batch=1,
           "seconds_cpu": {dt: secs["cpu", dt] for dt in cfgs}})
     del params
     torch.cuda.empty_cache()
+
+
+def eng_cache_len(cfg, seq: int, new_tokens: int) -> int:
+    """The cache length of a (batch, seq) bucket's engine with
+    ``new_tokens`` of headroom (the vlm prefix included)."""
+    from repro_torch.serve.engine import kv_cache_len
+
+    return kv_cache_len(cfg, seq + (cfg.n_patches or 0) + new_tokens)
 
 
 def phase_online():
@@ -2180,20 +2428,22 @@ def check_f32_leaves_kept(phase, engine, layers):
     return sorted(kept)
 
 
-def zamba2_contract(engine, cfg, new):
+def decode_contract(phase, engine, cfg, new, forward):
     """The decode contract at full depth (ZAMBA2_CONTRACT_RATIO): a
     (1, 128) prompt's prefill through the flash kernel and ``new`` decode
     steps on the engine's bf16 params, against one bf16 and one f32
-    forward (the f32 params) over the whole sequence."""
-    from repro_torch.models import hybrid
-
+    forward (the f32 params) over the whole sequence. ``forward(params,
+    tokens, extras, cfg)`` gives the family's (1, S, V) logits; the
+    family's extras are drawn on the card."""
     _, p32 = engine._source.snapshot()
     p16 = engine._params()[1]
     seq = torch.randint(0, cfg.vocab_size, (1, 128 + new), device=DEVICE,
                         generator=torch.Generator(device=DEVICE)
                         .manual_seed(4), dtype=torch.int32)
+    ex = device_extras(cfg, 1, seed=6)
     with torch.no_grad():
-        logits, cache = engine.api.prefill(p16, {"tokens": seq[:, :128]},
+        logits, cache = engine.api.prefill(p16, {"tokens": seq[:, :128],
+                                                 **ex},
                                            cache_len=128 + new,
                                            attn_impl="kernel")
         steps = [logits[:, 0]]
@@ -2201,9 +2451,9 @@ def zamba2_contract(engine, cfg, new):
             logits, cache = engine.api.decode_step(p16, cache, seq[:, t])
             steps.append(logits)
         served = torch.stack(steps, 1).float()
-        fwd = {"bf16": hybrid.forward(p16, seq, cfg)[0],
-               "f32": hybrid.forward(p32, seq, dataclasses.replace(
-                   cfg, compute_dtype=torch.float32))[0]}
+        fwd = {"bf16": forward(p16, seq, ex, cfg),
+               "f32": forward(p32, seq, ex, dataclasses.replace(
+                   cfg, compute_dtype=torch.float32))}
     # positions 127 .. 127 + new: the prompt's last and each decoded one
     ref = fwd["f32"][:, 127:].float()
     errs = {"served": served - ref, "bf16_forward":
@@ -2218,7 +2468,7 @@ def zamba2_contract(engine, cfg, new):
     if not bool(torch.isfinite(served).all()) or any(
             rec[f"served_vs_f32_{m}"] > ZAMBA2_CONTRACT_RATIO
             * rec[f"bf16_forward_vs_f32_{m}"] for m in ("max_abs", "rms")):
-        raise AssertionError(f"serve_zamba2: decode contract {rec}")
+        raise AssertionError(f"{phase}: decode contract {rec}")
     return rec
 
 
@@ -2251,7 +2501,9 @@ def phase_serve_zamba2(cfg=None, buckets=SERVE_BUCKETS,
     if rec["params"] != cfg.param_count() + extra:
         raise AssertionError(f"{rec['params']} params, config "
                              f"{cfg.param_count()} + {extra}")
-    contract = zamba2_contract(engine, cfg, contract_new)
+    contract = decode_contract(
+        "serve_zamba2", engine, cfg, contract_new,
+        lambda p, seq, ex, c: hybrid.forward(p, seq, c)[0])
     emit({**rec, "attention_sites": sites,
           "head_dim": cfg.resolved_head_dim, "n_heads": cfg.n_heads,
           "n_kv_heads": cfg.n_kv_heads, "f32_leaves_kept": kept,
@@ -2305,6 +2557,83 @@ def phase_serve_moe(cfg=None, buckets=SERVE_BUCKETS, lengths=SERVE_LENGTHS,
           "prefill_group": [B, S, group, cap],
           "dropped_share_by_layer": shares,
           "dropped_share": sum(shares) / len(shares)})
+    del engine
+    torch.cuda.empty_cache()
+    return rec["launches"]
+
+
+def phase_serve_vlm(cfg=None, buckets=SERVE_BUCKETS,
+                    requests=SERVE_VLM_REQUESTS, new_tokens=SERVE_NEW):
+    """phi-3-vision whole (``serve_full_width`` over ``requests``, one
+    version): 576 patch features a row from a seed, one flash launch per
+    layer per prefill (D = 96, 32/32 heads, over 576 + S positions) and
+    none in decode, the tree's parameter count (the projector and the
+    norms beside the analytic count). Returns the launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import vlm
+
+    cfg = cfg or get_arch(SERVE_VLM_ARCH).model
+    rec, engine = serve_full_width("serve_vlm", cfg, buckets, None,
+                                   new_tokens, "flash_attention",
+                                   cfg.n_layers * len(requests),
+                                   seeds=(None,), requests=requests)
+    extra = (2 * cfg.n_layers + 1) * cfg.d_model + vlm.CLIP_DIM * cfg.d_model
+    if rec["params"] != cfg.param_count() + extra:
+        raise AssertionError(f"{rec['params']} params, config "
+                             f"{cfg.param_count()} + {extra}")
+    emit({**rec, "n_patches": cfg.n_patches,
+          "head_dim": cfg.resolved_head_dim, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads,
+          "flash_per_prefill": cfg.n_layers})
+    del engine
+    torch.cuda.empty_cache()
+    return rec["launches"]
+
+
+def phase_serve_whisper(cfg=None, buckets=SERVE_WHISPER_BUCKETS,
+                        requests=SERVE_WHISPER_REQUESTS,
+                        new_tokens=SERVE_NEW,
+                        contract_new=ZAMBA2_CONTRACT_NEW):
+    """whisper-large-v3 whole (``serve_full_width`` over ``requests``, one
+    version, exact seq): 1500 frame embeddings a row from a seed; per
+    prefill one flash launch per encoder layer (non-causal), per decoder
+    layer (causal) and per cross-attention (non-causal, S != T), none in
+    decode; the tree's parameter count; then the decode contract at full
+    depth (``decode_contract``). Returns the launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import whisper
+
+    cfg = cfg or get_arch(SERVE_WHISPER_ARCH).model
+    per_prefill = cfg.n_encoder_layers + 2 * cfg.n_layers
+    if max(s for _, s in buckets) + new_tokens > 448:
+        raise AssertionError("whisper's buckets pass its 448 positions")
+    # the profile: the prefill and one decode step (~3,600 torch calls a
+    # step)
+    rec, engine = serve_full_width("serve_whisper", cfg, buckets, None,
+                                   new_tokens, "flash_attention",
+                                   per_prefill * len(requests),
+                                   seeds=(None,), profile_tokens=2,
+                                   requests=requests)
+    # the analytic count takes every attention block without its q/k/v
+    # biases, every MLP without its biases, no norms, and the vocab twice
+    # (an untied head); the tree ties the head to ``embed`` and adds the
+    # learned text positions
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    qkv_b = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+    mlp_b = cfg.d_ff + d
+    extra = (cfg.n_encoder_layers * (qkv_b + mlp_b + 4 * d)
+             + cfg.n_layers * (2 * qkv_b + mlp_b + 6 * d) + 4 * d
+             + whisper.MAX_TEXT_POSITIONS * d - cfg.vocab_size * d)
+    if rec["params"] != cfg.param_count() + extra:
+        raise AssertionError(f"{rec['params']} params, config "
+                             f"{cfg.param_count()} + {extra}")
+    contract = decode_contract(
+        "serve_whisper", engine, cfg, contract_new,
+        lambda p, seq, ex, c: whisper.forward(p, seq, ex["audio_embeds"], c))
+    emit({**rec, "n_audio_ctx": cfg.n_audio_ctx,
+          "n_encoder_layers": cfg.n_encoder_layers,
+          "head_dim": cfg.resolved_head_dim, "n_heads": cfg.n_heads,
+          "flash_per_prefill": per_prefill, "decode_contract": contract})
     del engine
     torch.cuda.empty_cache()
     return rec["launches"]
@@ -2584,13 +2913,22 @@ def phase_vision_card_vs_cpu(per_worker: int = 8, period: int = 3):
 
 def lm_batches(cfg, seed: int, steps: int, batch: int = 1, seq: int = 64):
     """``steps`` batches ``{"tokens": (LM_K, batch, seq + 1)}`` on the CPU,
-    uniform tokens from numpy."""
+    uniform tokens from numpy, and the family's extras (frame embeddings,
+    patch features) from a torch generator."""
     import numpy as np
 
+    from repro_torch.models.registry import family_extras
+
     rng = np.random.default_rng(seed)
-    return [{"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (LM_K, batch, seq + 1)).astype(np.int32))}
-            for _ in range(steps)]
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(steps):
+        b = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (LM_K, batch, seq + 1)).astype(np.int32))}
+        for k, x in family_extras(cfg, LM_K * batch, gen).items():
+            b[k] = x.reshape((LM_K, batch) + tuple(x.shape[1:]))
+        out.append(b)
+    return out
 
 
 def check_lm_losses(phase: str, losses, vocab: int) -> None:
@@ -2998,6 +3336,33 @@ def lm_sign_record(state) -> dict:
     return rec
 
 
+def phase_lm_example():
+    """The LM example as a user runs it (``repro_torch.launch.
+    decentralized_lm.main(LM_EXAMPLE_ARGS)``), the launch counters zeroed
+    just before and read just after: LM_EXAMPLE_LAUNCHES and no other
+    kernel, the losses finite, starting near ln(vocab) and lower at the
+    end. Returns the launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import decentralized_lm
+
+    cfg = decentralized_lm.PRESETS["100m"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    log, wall_ms = synced(lambda: decentralized_lm.main(LM_EXAMPLE_ARGS))
+    launches = ops.launch_counts()
+    check_launches("lm_example", launches, LM_EXAMPLE_LAUNCHES)
+    check_lm_losses("lm_example", log.loss, cfg.vocab_size)
+    emit({"phase": "lm_example", "args": LM_EXAMPLE_ARGS,
+          "losses": log.loss, "consensus": log.consensus,
+          "comm_mb_total": log.comm_mb_total, "wall_ms": wall_ms,
+          "step_ms": wall_ms / log.steps_total,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches})
+    return launches
+
+
 def adam_part_cap(steps: int, eta: float = LM_ETA, beta1: float = 0.9,
                   beta2: float = 0.999) -> float:
     """How far two runs of Adam (no bias correction) from one start can
@@ -3034,11 +3399,11 @@ def lm_outside(a, b, tol, spec, chunk: int = 1 << 26):
 
 
 def phase_lm_card_vs_cpu(arch: str, **cut):
-    """``arch`` at full width cut to 2 layers (and by ``cut``, config
-    fields replaced: LM_CARD_CPU_CUTS), f32 compute, three steps of
-    packed D-Adam at period 3 on the card and on the CPU in lock step,
-    from one init (drawn on the CPU) and one set of batches (seq 64),
-    through the library path: params and moments within LM_STEP1_TOL
+    """``arch`` at full width cut to LM_CARD_CPU_LAYERS layers (and by
+    ``cut``, config fields replaced: LM_CARD_CPU_CUTS), f32 compute, three
+    steps of packed D-Adam at period 3 on the card and on the CPU in lock
+    step, from one init (drawn on the CPU) and one set of batches (seq
+    64), through the library path: params and moments within LM_STEP1_TOL
     after step 1 but for LM_STEP1_MAX_SHARE of them, and after step 3 at
     most CARD_CPU_MAX_SHARE of them outside CARD_CPU_TOL, as
     ``card_vs_cpu`` holds DeepFM's, in every leaf too. The params that
@@ -3048,8 +3413,9 @@ def phase_lm_card_vs_cpu(arch: str, **cut):
     wrong leaf, worker or neighbour shows as whole leaves apart."""
     from repro_torch.configs import get_arch
 
-    cfg = dataclasses.replace(get_arch(arch).model, n_layers=2,
-                              compute_dtype=torch.float32, **cut)
+    cfg = dataclasses.replace(get_arch(arch).model, **{
+        "n_layers": LM_CARD_CPU_LAYERS, "compute_dtype": torch.float32,
+        **cut})
     batches = lm_batches(cfg, seed=3, steps=3)
     runs, states, logs = {}, {}, {}
     seconds = {DEVICE: 0.0, "cpu": 0.0}
@@ -3094,7 +3460,8 @@ def phase_lm_card_vs_cpu(arch: str, **cut):
     loss_err = compare([torch.tensor(logs[DEVICE].loss)],
                        [torch.tensor(logs["cpu"].loss)], CARD_CPU_TOL,
                        f"{arch} losses")[0]
-    emit({"phase": "lm_card_vs_cpu", "arch": arch, "n_layers": 2,
+    emit({"phase": "lm_card_vs_cpu", "arch": arch,
+          "n_layers": cfg.n_layers,
           "cut": cut, "compute_dtype": "float32", "seq": 64, "period": 3,
           "params_per_worker": states["cpu"].spec.n,
           "losses_card": logs[DEVICE].loss, "losses_cpu": logs["cpu"].loss,
@@ -3158,6 +3525,16 @@ def main() -> int:
                                 n_layers=2, shared_attn_period=1),
         seq=128, new_tokens=5, batch=2, phase="serve_zamba2_card_vs_cpu")
     by_path["serve_moe"] = phase_serve_moe()
+    by_path["serve_vlm"] = phase_serve_vlm()
+    phase_serve_card_vs_cpu(
+        cfg=dataclasses.replace(get_arch(SERVE_VLM_ARCH).model, n_layers=2),
+        seq=128, new_tokens=5, batch=2, phase="serve_vlm_card_vs_cpu",
+        f32_row_scale=True)
+    by_path["serve_whisper"] = phase_serve_whisper()
+    phase_serve_card_vs_cpu(
+        cfg=dataclasses.replace(get_arch(SERVE_WHISPER_ARCH).model,
+                                n_layers=2, n_encoder_layers=2),
+        seq=128, new_tokens=5, batch=2, phase="serve_whisper_card_vs_cpu")
     by_path["lm_train"], f32_rec = phase_lm_train()
     by_path["lm_train_bf16"], bf16_rec = phase_lm_train_bf16(f32_rec)
     by_path["lm_train_damped"] = phase_lm_train_damped(f32_rec)
@@ -3167,6 +3544,7 @@ def main() -> int:
     phase_lm_card_vs_cpu(SERVE_RWKV_ARCH)
     for arch, cut in LM_CARD_CPU_CUTS.items():
         phase_lm_card_vs_cpu(arch, **cut)
+    by_path["lm_example"] = phase_lm_example()
     lm_shape = {"float32": f32_rec["lm_shape"],
                 "bfloat16": bf16_rec["lm_shape"]}
     for rec in records:

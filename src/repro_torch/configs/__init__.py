@@ -1,11 +1,9 @@
 """Architecture config registry: ``get_arch(id)`` / ``get_reduced(id)``.
 
-Lists the architectures the port can build: the dense (llama3.2-1b,
+Lists every architecture of the JAX package: the dense (llama3.2-1b,
 yi-6b, qwen1.5-32b, starcoder2-15b), MoE (phi3.5-moe, llama4-maverick),
-ssm (rwkv6-3b) and hybrid (zamba2-7b) families. The JAX package's vlm
-(phi-3-vision) and audio (whisper-large-v3) configs are not ported yet:
-asking for one raises ``NotImplementedError`` (ROADMAP queue 1: model
-zoo).
+ssm (rwkv6-3b), hybrid (zamba2-7b), vlm (phi-3-vision) and audio
+(whisper-large-v3) families.
 """
 from __future__ import annotations
 
@@ -24,9 +22,11 @@ _MODULES: Dict[str, str] = {
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "yi-6b": "repro_torch.configs.yi_6b",
     "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
+    "phi-3-vision-4.2b": "repro_torch.configs.phi3_vision",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
 }
-# the JAX package's other architectures, by id
-_NOT_PORTED = ("whisper-large-v3", "phi-3-vision-4.2b")
+# the JAX package's architectures the port cannot build yet, by id
+_NOT_PORTED: tuple = ()
 
 
 def list_archs() -> List[str]:

@@ -59,7 +59,12 @@
 // lo = x - hi (exact in f32), and each product is the three TF32 products
 // hi.hi + hi.lo + lo.hi on an f32 accumulator: the dropped lo.lo and the
 // tensor core's reading of lo as TF32 leave about 2^-21 of each product.
-// Both products, S = Q K^T and O = P V, take that split. Bound: 3 TF32
+// Both products, S = Q K^T and O = P V, take that split. Each k step's
+// three mma sum into a zeroed fragment that is then added to the running
+// S or O by f32 additions (mma_3xtf32_add): the tensor core truncates as
+// it adds into an accumulator, and carried over T = 1500 keys that lay
+// 9.4e-6 from a float64 reference at outputs up to 0.73, where the plain
+// version lay 9.3e-7 (H100). Bound: 3 TF32
 // products of 2 D operations per kept (query, key) pair at the tensor
 // cores' 495 TFLOP/s, against 67 TFLOP/s for one f32 product on the CUDA
 // cores.
@@ -175,6 +180,23 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, al, bh[0], bh[1]);
   mma_tf32(d, ah, bl[0], bl[1]);
   mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+// d += the three products, summed by the tensor core on a zeroed fragment
+// and added to d by round-to-nearest f32 additions. The tensor core adds
+// into its accumulator with truncation, so carried across a long sum (T / 8
+// k steps of P V, three mma each) its error grows with every step and
+// leans one way; a fresh fragment per step leaves each truncation to one
+// step's 8 products.
+__device__ __forceinline__ void mma_3xtf32_add(float (&d)[4],
+                                               const uint32_t (&ah)[4],
+                                               const uint32_t (&al)[4],
+                                               const uint32_t (&bh)[2],
+                                               const uint32_t (&bl)[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_3xtf32(t, ah, al, bh, bl);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
 }
 
 // 16 bytes from global to shared memory; zero-filled when !ok
@@ -312,7 +334,7 @@ __global__ void __launch_bounds__(FCfg<D>::THREADS, FCfg<D>::MIN_BLOCKS)
         uint32_t bh[2], bl[2];
         split_tf32(kx.x, bh[0], bl[0]);
         split_tf32(kx.y, bh[1], bl[1]);
-        mma_3xtf32(sacc[j], ah, al, bh, bl);
+        mma_3xtf32_add(sacc[j], ah, al, bh, bl);
       }
     }
 
@@ -384,7 +406,7 @@ __global__ void __launch_bounds__(FCfg<D>::THREADS, FCfg<D>::MIN_BLOCKS)
         uint32_t bh[2], bl[2];
         split_tf32(v0[8 * n], bh[0], bl[0]);
         split_tf32(v0[C::VS + 8 * n], bh[1], bl[1]);
-        mma_3xtf32(oacc[n], ph, pl, bh, bl);
+        mma_3xtf32_add(oacc[n], ph, pl, bh, bl);
       }
     }
   }

@@ -8,20 +8,33 @@ the port of ``repro.launch.serve``.
         --full --buckets 1x128,8x1024 --batch 5 --prompt-len 1024
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --full --buckets 1x128,8x1024 --batch 8 --prompt-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch phi-3-vision-4.2b --full --buckets 1x128,8x1024 \
+        --prompt-len 1000
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-large-v3 --full --buckets 1x128,8x384 \
+        --prompt-len 384
 
 Serves the reduced config of ``--arch`` (``list_archs()``) unless
 ``--full`` is given, on ``cuda`` unless ``--device cpu``. The weights are
 drawn from ``--seed`` at the JAX package's init scales (no checkpoint is
 loaded) and served from a ParamStore; the prompt is padded into the
-tightest bucket. For the dense and MoE families (llama3.2-1b,
-phi3.5-moe, ...) the seq is right-padded, so ``--prompt-len`` below the
-bucket's seq takes the rewind + re-feed path, and prefill attention runs
-the CUDA flash kernel; the recurrent state of rwkv6 and zamba2 would fold
-pads in, so ``--prompt-len`` must equal a bucket's seq. rwkv6's prefill
-and every decode step run the CUDA WKV kernel, zamba2's shared attention
-block the flash kernel in prefill. ``--full`` zamba2-7b (6.75B
-parameters: 27 GB in f32 and a 13.5 GB bf16 copy) fits one 80 GB card;
-phi3.5-moe (42B) does not. Prints JAX's two lines, then one JSON line:
+tightest bucket. For the dense, MoE and vlm families (llama3.2-1b,
+phi3.5-moe, phi-3-vision, ...) the seq is right-padded, so
+``--prompt-len`` below the bucket's seq takes the rewind + re-feed path,
+and prefill attention runs the CUDA flash kernel; the recurrent state of
+rwkv6 and zamba2 would fold pads in, and whisper takes exact lengths as
+in JAX, so there ``--prompt-len`` must equal a bucket's seq. rwkv6's
+prefill and every decode step run the CUDA WKV kernel, zamba2's shared
+attention block the flash kernel in prefill, whisper's encoder, decoder
+and cross-attention the flash kernel in prefill. phi-3-vision's patch
+features (B, 576, 1024) and whisper's frame embeddings (B, 1500, 1280)
+are drawn from the seed too, as the stubbed image and audio frontends'
+outputs, and passed as ``extras``. ``--full`` zamba2-7b (6.75B
+parameters: 27 GB in f32 and a 13.5 GB bf16 copy), phi-3-vision and
+whisper-large-v3 fit one 80 GB card; phi3.5-moe (42B) does not. The
+prompt and the new tokens of whisper stay within 448 positions, the
+published model's cap. Prints JAX's two lines, then one JSON line:
 the prefill ms of a full bucket (no rewind step), the time to the first
 token of the prompt as given (with the rewind step when it is shorter
 than the bucket), decode ms per token, tokens/s, the engine's signature
@@ -39,7 +52,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_arch, get_reduced, list_archs
 from repro_torch.kernels import ops
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, family_extras
 from repro_torch.serve import DecodeEngine, ParamStore, select_bucket
 
 CACHE_DTYPES = {None: None, "bfloat16": torch.bfloat16,
@@ -106,15 +119,18 @@ def main(argv=None) -> dict:
 
     full_bucket = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                                 device=dev, dtype=torch.int32)
+    extras = family_extras(cfg, B, gen) or None
 
     ops.reset_launches()
 
     def run(n):
-        return engine.generate_batch(tokens, n, true_len=args.prompt_len)
+        return engine.generate_batch(tokens, n, true_len=args.prompt_len,
+                                     extras=extras)
 
     _, t_warm = _timed(lambda: run(args.new_tokens), dev)
     # prefill alone: a full bucket with one new token takes no decode step
-    _, t_prefill = _timed(lambda: engine.generate_batch(full_bucket, 1), dev)
+    _, t_prefill = _timed(lambda: engine.generate_batch(
+        full_bucket, 1, extras=extras), dev)
     _, t_first = _timed(lambda: run(1), dev)
     out, t_steady = _timed(lambda: run(args.new_tokens), dev)
     out = out[:args.batch]

@@ -41,7 +41,7 @@ from repro_torch.checkpoint.io import save
 from repro_torch.configs import get_arch, get_reduced, list_archs
 from repro_torch.core.api import make_optimizer
 from repro_torch.data.synthetic import lm_batch
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, family_extras
 from repro_torch.train.damping import make_damping
 from repro_torch.train.loop import (DecentralizedTrainer, TrainLog,
                                     stacked_loss)
@@ -64,17 +64,18 @@ def make_batch_iter(cfg, K: int, per_worker: int, seq: int, skew: float,
     """``{"tokens": (K, per_worker, seq + 1)}`` per step, every worker's
     ``lm_batch`` drawn from one generator on ``device`` seeded
     ``BATCH_SEED`` (the JAX driver folds the step into PRNGKey(42); the
-    tokens are torch's, not JAX's). The dense, MoE, ssm and hybrid
-    families take tokens only, as in JAX."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} family's batches are not ported yet "
-            "(ROADMAP queue 1: model zoo)")
+    draws are torch's, not JAX's). As in JAX, the vlm family's batch adds
+    ``patches`` (K, per_worker, n_patches, 1024) and the audio family's
+    ``audio_embeds`` (K, per_worker, n_audio_ctx, d_model), N(0, 1) f32
+    from the same generator; the others take tokens only."""
     gen = torch.Generator(device=device).manual_seed(BATCH_SEED)
     while True:
-        yield {"tokens": torch.stack([
+        batch = {"tokens": torch.stack([
             lm_batch(gen, per_worker, seq, cfg.vocab_size, k, K, skew)
             for k in range(K)])}
+        for name, x in family_extras(cfg, K * per_worker, gen).items():
+            batch[name] = x.reshape((K, per_worker) + tuple(x.shape[1:]))
+        yield batch
 
 
 def parser() -> argparse.ArgumentParser:

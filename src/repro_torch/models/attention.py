@@ -227,6 +227,24 @@ def attention_forward(params: PyTree, x: torch.Tensor, *, n_heads: int,
     return out @ params["wo"].to(out.dtype)
 
 
+def cross_attention_forward(params: PyTree, x: torch.Tensor,
+                            kv: torch.Tensor, *, n_heads: int,
+                            n_kv_heads: int, head_dim: int,
+                            impl: str = "auto") -> torch.Tensor:
+    """Encoder-decoder cross attention (whisper), non-causal. x: (B, S,
+    d_model), kv: (B, T, d_model). Like JAX's, it adds no ``bq``, ``bk``
+    or ``bv``: the decode path does (``models.whisper``), so with nonzero
+    cross biases decode parts from this forward in both packages."""
+    B, S, _ = x.shape
+    T = kv.shape[1]
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt)).reshape(B, S, n_heads, head_dim)
+    k = (kv @ params["wk"].to(dt)).reshape(B, T, n_kv_heads, head_dim)
+    v = (kv @ params["wv"].to(dt)).reshape(B, T, n_kv_heads, head_dim)
+    out = sdpa(q, k, v, causal=False, impl=impl)
+    return out @ params["wo"].to(out.dtype)
+
+
 # ------------------------------ KV cache ------------------------------------
 
 

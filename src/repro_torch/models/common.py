@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
-from repro_torch._tree import tree_flatten, tree_unflatten
+from repro_torch._tree import tree_flatten, tree_map, tree_unflatten
 
 PyTree = Any
 REMAT = ("none", "dots", "full")
@@ -45,6 +45,18 @@ def layer_views(layers: PyTree) -> List[PyTree]:
     per = [x.unbind(0) for x in leaves]
     return [tree_unflatten(td, [x[i] for x in per])
             for i in range(len(per[0]))]
+
+
+def stack_layers(n: int, make: Callable[[], PyTree]) -> PyTree:
+    """``n`` draws of ``make()`` (one layer's params) stacked on a leading
+    dim, as JAX's vmapped init lays them out; written into the stack one
+    at a time, so the stack is never held twice."""
+    first = make()
+    out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), first)
+    for i in range(n):
+        one = first if i == 0 else make()
+        tree_map(lambda dst, src: dst[i].copy_(src), out, one)
+    return out
 
 
 def check_remat(remat: str) -> None:
@@ -147,6 +159,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (..., seq, heads, head_dim); positions: (..., seq). Computed in
     f32 and cast back to x's dtype."""
     return rotate(x, rope_tables(positions, x.shape[-1], theta))
+
+
+def sinusoidal_positions(n_ctx: int, d: int,
+                         device: "str | torch.device" = "cpu"
+                         ) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings, (n_ctx, d) f32: sines of
+    the first ``d // 2`` frequencies, then their cosines."""
+    pos = torch.arange(n_ctx, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    inv = torch.exp(-math.log(10000.0) * dim / max(d // 2 - 1, 1))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ------------------------------ activations ---------------------------------

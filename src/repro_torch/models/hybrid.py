@@ -30,7 +30,6 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch._tree import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, mamba2, mlp
 
@@ -40,17 +39,12 @@ F32_LEAVES = mamba2.F32_LEAVES
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
     """The model's params on ``gen.device``: the embedding, the Mamba2
-    layers in order (written into the stacked leaves one at a time, so
-    the stack is never held twice), the shared block, the head."""
+    layers in order (``common.stack_layers``), the shared block, the
+    head."""
     dt, dev = cfg.param_dtype, gen.device
     embed = common.embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
-    first = mamba2.init_layer(gen, cfg)
-    layers = tree_map(
-        lambda x: x.new_empty((cfg.n_layers,) + tuple(x.shape)), first)
-    for i in range(cfg.n_layers):
-        one = first if i == 0 else mamba2.init_layer(gen, cfg)
-        tree_map(lambda dst, src: dst[i].copy_(src), layers, one)
-    del first
+    layers = common.stack_layers(cfg.n_layers,
+                                 lambda: mamba2.init_layer(gen, cfg))
     shared = {
         "attn": attention.init_attention(
             gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,

@@ -8,15 +8,21 @@ over the model families the port can build.
     logits, cache = api.decode_step(params, cache, token[, <impl>=...])
 
 Each family names its kernel choice with its own keyword, the JAX
-package's: ``attn_impl`` for the prefill attention of the dense, MoE and
-hybrid families (decode attention has no kernel), ``wkv_impl`` for the
-ssm family's recurrence in prefill and in decode. ``impl_kwargs`` gives
-the keywords of one choice for a config's family. The defaults are JAX's
-(``"auto"``, ``"scan"``); the serving engine asks for the kernels.
+package's: ``attn_impl`` for the prefill attention of the dense, MoE,
+hybrid, vlm and audio families (decode attention has no kernel),
+``wkv_impl`` for the ssm family's recurrence in prefill and in decode.
+``impl_kwargs`` gives the keywords of one choice for a config's family.
+The defaults are JAX's (``"auto"``, ``"scan"``); the serving engine asks
+for the kernels.
 
-The dense and MoE (``models.transformer``), ssm (``models.rwkv6``) and
-hybrid (``models.hybrid``) families are ported; vlm and audio raise
-``NotImplementedError`` (ROADMAP queue 1: model zoo).
+All six families of the JAX package are ported, with JAX's batch
+layouts:
+
+    dense, moe, ssm, hybrid: {'tokens': (B, S+1)}
+    vlm:   {'tokens': (B, S_txt+1), 'patches': (B, n_patches, 1024)}
+    audio: {'tokens': (B, S+1), 'audio_embeds': (B, n_audio_ctx, d_model)}
+
+(``models.transformer``, ``rwkv6``, ``hybrid``, ``vlm``, ``whisper``).
 """
 from __future__ import annotations
 
@@ -26,10 +32,10 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, moe, rwkv6, transformer
+from repro_torch.models import hybrid, moe, rwkv6, transformer, vlm, whisper
 
 PyTree = Any
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,11 +60,26 @@ def impl_kwargs(cfg: ModelConfig, *, attn_impl: str = "auto",
     return {"attn_impl": attn_impl}, {}
 
 
+def family_extras(cfg: ModelConfig, batch: int,
+                  gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """The batch leaves of a family besides the tokens, N(0, 1) f32 from
+    ``gen`` on its device, as the JAX drivers draw them (the stubbed image
+    and audio frontends' outputs): ``patches`` (batch, n_patches, 1024)
+    for vlm, ``audio_embeds`` (batch, n_audio_ctx, d_model) for audio;
+    empty for the others."""
+    shape = {"vlm": ("patches", (batch, cfg.n_patches, vlm.CLIP_DIM)),
+             "audio": ("audio_embeds",
+                       (batch, cfg.n_audio_ctx, cfg.d_model))}
+    if cfg.family not in shape:
+        return {}
+    name, dims = shape[cfg.family]
+    return {name: torch.randn(dims, generator=gen, device=gen.device)}
+
+
 def build_model(cfg: ModelConfig) -> ModelAPI:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1: "
-            f"model zoo); the port builds {FAMILIES}")
+        raise KeyError(f"unknown family {cfg.family!r}; the port builds "
+                       f"{FAMILIES}")
     if cfg.family == "ssm":
         return ModelAPI(
             cfg=cfg,
@@ -83,6 +104,28 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
                                attn_impl=attn_impl),
             decode_step=lambda p, c, t: hybrid.decode_step(p, c, t, cfg),
             f32_leaves=hybrid.F32_LEAVES,
+        )
+    if cfg.family == "vlm":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen: vlm.init_params(gen, cfg),
+            loss=lambda p, b, remat="none": vlm.loss_fn(
+                p, b, cfg, remat=remat),
+            prefill=lambda p, b, cache_len=None, attn_impl="auto":
+                vlm.prefill(p, b["tokens"], b["patches"], cfg,
+                            cache_len=cache_len, attn_impl=attn_impl),
+            decode_step=lambda p, c, t: vlm.decode_step(p, c, t, cfg),
+        )
+    if cfg.family == "audio":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen: whisper.init_params(gen, cfg),
+            loss=lambda p, b, remat="none": whisper.loss_fn(
+                p, b, cfg, remat=remat),
+            prefill=lambda p, b, cache_len=None, attn_impl="auto":
+                whisper.prefill(p, b["tokens"], b["audio_embeds"], cfg,
+                                cache_len=cache_len, attn_impl=attn_impl),
+            decode_step=lambda p, c, t: whisper.decode_step(p, c, t, cfg),
         )
     return ModelAPI(
         cfg=cfg,

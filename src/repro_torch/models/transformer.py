@@ -27,7 +27,6 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch._tree import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, mlp, moe
 
@@ -63,17 +62,10 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
     """The model's params on ``gen.device``: the embedding, then the
-    layers in order (written into the stacked leaves one at a time, so
-    the stack is never held twice), then the untied head."""
+    layers in order (``common.stack_layers``), then the untied head."""
     dt, dev = cfg.param_dtype, gen.device
     embed = common.embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
-    first = init_layer(gen, cfg)
-    layers = tree_map(
-        lambda x: x.new_empty((cfg.n_layers,) + tuple(x.shape)), first)
-    for i in range(cfg.n_layers):
-        one = first if i == 0 else init_layer(gen, cfg)
-        tree_map(lambda dst, src: dst[i].copy_(src), layers, one)
-    del first
+    layers = common.stack_layers(cfg.n_layers, lambda: init_layer(gen, cfg))
     p = {"embed": embed, "layers": layers,
          "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev)}
     if cfg.norm_kind == "layer":

@@ -6,9 +6,10 @@ allocates nothing); ``make_serve_step`` / ``make_prefill_step`` the
 one-token decode and the prefill; :class:`DecodeEngine` is the serving
 path: padded-bucket batching over a fixed set of ``(batch, seq)`` shapes,
 batched prefill plus decode through the family's CUDA kernel (the flash
-kernel in the prefill of the dense and MoE families and of the hybrid's
-shared attention block, the WKV kernel in the ssm family's prefill and
-every decode step), optional bf16 cache storage, and lock-free param
+kernel in the prefill of the dense, MoE and vlm families, of the
+hybrid's shared attention block, and of whisper's encoder, decoder and
+cross-attention; the WKV kernel in the ssm family's prefill and every
+decode step), optional bf16 cache storage, and lock-free param
 hot-swap through a ``serve.publish.ParamStore``.
 
 **Why seq padding is exact** (JAX's bucket contract): decode attention
@@ -19,11 +20,15 @@ index to L-1 and re-feeds the last real token: that decode step
 recomputes slot L-1's K/V from the same token and rope position, attends
 only to slots <= L-1, and yields the logits of an unpadded prefill. Every
 later step overwrites one pad slot before the mask reaches it. This holds
-for positional, non-rotating KV caches; with a rotating window, and in
-the recurrent state of the ssm and hybrid families, pads fold into the
-cache, so the engine pads only the batch dim there. A MoE layer routes
-the pad tokens too, which take expert capacity from the real ones, as in
-JAX.
+for positional, non-rotating KV caches (a vlm prompt's positions start
+after its ``n_patches`` image positions, so its rewind index is
+``L - 1 + n_patches``); with a rotating window, in the recurrent state of
+the ssm and hybrid families, and in whisper (the JAX engine pads only the
+dense, MoE and vlm families), the engine pads only the batch dim.
+``generate_batch(extras=)`` carries a family's other prefill inputs
+(``patches``, ``audio_embeds``); ``generate`` passes none, as JAX's. A
+MoE layer routes the pad tokens too, which take expert capacity from the
+real ones, as in JAX.
 
 JAX states that contract bit for bit. On the card a ``(B, 1, d)`` and a
 ``(B, S, d)`` projection may take GEMM kernels that round differently, so
@@ -57,12 +62,12 @@ import torch
 
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.models import attention, hybrid, rwkv6
+from repro_torch.models import attention, hybrid, rwkv6, whisper
 from repro_torch.models.registry import build_model, impl_kwargs
 
 PyTree = Any
-# a family's decode cache: attention.KVCache, rwkv6.RWKVCache or
-# hybrid.HybridCache
+# a family's decode cache: attention.KVCache, rwkv6.RWKVCache,
+# hybrid.HybridCache or whisper.WhisperCache
 Cache = Any
 
 
@@ -91,11 +96,12 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
                cache_dtype: torch.dtype = torch.bfloat16
                ) -> Cache:
     """The decode cache's shapes and dtypes as a ``KVCache``, an
-    ``RWKVCache`` or a ``HybridCache`` of :class:`TensorSpec` (the index:
-    a host int, spec'd as JAX's int32 scalar). As in JAX, the recurrent
-    states take the compute dtype and f32 whatever ``cache_dtype`` says
-    (the hybrid's KV sites take ``cache_dtype``). The encoder-decoder
-    cache is not ported yet (ROADMAP queue 1: model zoo)."""
+    ``RWKVCache``, a ``HybridCache`` or a ``WhisperCache`` of
+    :class:`TensorSpec` (the index: a host int, spec'd as JAX's int32
+    scalar). As in JAX, the recurrent states take the compute dtype and
+    f32 whatever ``cache_dtype`` says (the hybrid's KV sites take
+    ``cache_dtype``); whisper's self K/V take ``seq_len`` slots and its
+    cross K/V ``n_audio_ctx``, both in ``cache_dtype``."""
     L = cfg.n_layers
     hd = cfg.resolved_head_dim
     idx = TensorSpec((), torch.int32)
@@ -120,9 +126,12 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
                        cfg.compute_dtype),
             TensorSpec((L, batch, H, di // H, N), torch.float32), kv, kv,
             idx)
-    raise NotImplementedError(
-        f"the {cfg.family!r} cache is not ported yet (ROADMAP queue 1: "
-        "model zoo)")
+    if cfg.family == "audio":
+        kv = TensorSpec((L, batch, seq_len, cfg.n_kv_heads, hd), cache_dtype)
+        xkv = TensorSpec((L, batch, cfg.n_audio_ctx, cfg.n_kv_heads, hd),
+                         cache_dtype)
+        return whisper.WhisperCache(kv, kv, xkv, xkv, idx)
+    raise KeyError(cfg.family)
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
@@ -180,8 +189,8 @@ def greedy_generate(cfg: ModelConfig, params: PyTree, batch: PyTree,
                     ) -> torch.Tensor:
     """Batched greedy decoding: prefill the prompt, then n_new - 1 decode
     steps. Returns (B, n_new) int32 on the prompt's device. ``attn_impl``
-    (dense, MoE, hybrid) or ``wkv_impl`` (ssm) picks the family's kernel
-    path."""
+    (every family but ssm) or ``wkv_impl`` (ssm) picks the family's
+    kernel path."""
     api = build_model(cfg)
     prefill_kw, decode_kw = impl_kwargs(cfg, attn_impl=attn_impl,
                                         wkv_impl=wkv_impl)
@@ -216,9 +225,9 @@ def greedy_generate(cfg: ModelConfig, params: PyTree, batch: PyTree,
 def cast_cache(cache: Cache, cache_dtype: Optional[torch.dtype]) -> Cache:
     """Every float tensor of the cache in ``cache_dtype`` (bf16 halves the
     cache's memory and decode read traffic): K/V, the token shifts AND the
-    WKV state, or the conv and SSM states AND the K/V sites, as JAX casts
-    every float leaf. The index passes through. ``None`` is the
-    identity."""
+    WKV state, the conv and SSM states AND the K/V sites, or whisper's
+    self AND cross K/V, as JAX casts every float leaf. The index passes
+    through. ``None`` is the identity."""
     if cache_dtype is None:
         return cache
     return cache._replace(**{
@@ -297,8 +306,8 @@ class DecodeEngine:
         keeps the prefill's. Must not be wider than ``cfg.compute_dtype``.
       recompile_limit: distinct signatures per phase; default
         ``len(buckets)``.
-      attn_impl: the prefill ``sdpa`` impl of the dense, MoE and hybrid
-        families, the CUDA flash kernel by default (its plain version on a
+      attn_impl: the prefill ``sdpa`` impl of every family but the ssm
+        one, the CUDA flash kernel by default (its plain version on a
         CPU tensor).
       wkv_impl: the ssm family's recurrence in prefill and decode, the
         CUDA WKV kernel by default (its plain version on a CPU tensor).

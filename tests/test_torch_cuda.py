@@ -332,6 +332,15 @@ FLASH_CASES = {
     "d112_f32": (2, 1024, 1024, 32, 8, 112, torch.float32, True, 0),
     "ragged_1021_f32": (2, 1021, 1021, 32, 8, 64, torch.float32, True, 0),
     "s_ne_t_window_f32": (2, 300, 700, 8, 2, 128, torch.float32, True, 100),
+    # phi-3-vision's (8, 1024) prefill over its 576 patches; whisper's
+    # encoder (non-causal, T = 1500 ends mid-tile), cross-attention (S !=
+    # T, non-causal), decoder self-attention, and the cross-attention in f32
+    "phi3_vision_prefill": (8, 1600, 1600, 32, 32, 96, torch.bfloat16, True,
+                            0),
+    "whisper_encoder": (8, 1500, 1500, 20, 20, 64, torch.bfloat16, False, 0),
+    "whisper_cross": (8, 384, 1500, 20, 20, 64, torch.bfloat16, False, 0),
+    "whisper_decoder": (8, 384, 384, 20, 20, 64, torch.bfloat16, True, 0),
+    "whisper_cross_f32": (8, 384, 1500, 20, 20, 64, torch.float32, False, 0),
 }
 
 
@@ -353,6 +362,33 @@ def test_cuda_flash_attention_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == q.shape and got.is_contiguous()
     close([got.float()], [want.float()], **FLASH_TOL[dt])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["whisper_cross_f32", "serve_bucket_f32",
+                                  "non_causal_f32_d128"])
+def test_cuda_flash_f32_is_as_near_float64_as_the_plain_version(cuda,
+                                                                  case):
+    """The tensor core truncates as it adds into an accumulator: carried
+    across 1500 keys that put the 3xTF32 kernel 15x farther from float64
+    than the plain version; each k step now sums on a fresh fragment and
+    is added by f32 additions (at most 2x, as ``chip_smoke.py``'s
+    F32_FLASH_F64_RATIO)."""
+    B, S, T, Hq, Hk, D, dt, causal, window = FLASH_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn((B, S, Hq, D), generator=gen, device="cuda")
+    k = torch.randn((B, T, Hk, D), generator=gen, device="cuda")
+    v = torch.randn((B, T, Hk, D), generator=gen, device="cuda")
+    kk, vv = (t.double().repeat_interleave(Hq // Hk, 2) for t in (k, v))
+    s = torch.einsum("bshd,bthd->bhst", q.double(), kk) / D ** 0.5
+    if causal:
+        s = s.masked_fill(torch.ones((S, T), dtype=torch.bool,
+                                     device="cuda").triu(1), -float("inf"))
+    ref = torch.einsum("bhst,bthd->bshd", torch.softmax(s, -1), vv)
+    err = {n: float((f(q, k, v, causal=causal).double() - ref).abs().max())
+           for n, f in (("kernel", tflash.flash_attention),
+                        ("plain", tflash.flash_attention_plain))}
+    assert err["kernel"] <= 2.0 * err["plain"], err
 
 
 @pytest.mark.gpu
@@ -437,20 +473,23 @@ def test_cuda_engine_prefills_through_the_kernel(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["zamba2-7b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "phi3.5-moe-42b-a6.6b",
+                                  "phi-3-vision-4.2b", "whisper-large-v3"])
 def test_cuda_hybrid_and_moe_prefill_match_the_cpu(cuda, arch):
-    """The reduced zamba2-7b (its shared block at each of its 2 sites) and
-    phi3.5-moe (one attention per layer) at f32 compute: a (2, 16) prefill
-    through the flash kernel on the card, one launch per site or layer,
-    and 3 decode steps, against the same on the CPU (the plain version):
-    logits and caches within f32 2e-5."""
+    """The reduced zamba2-7b (its shared block at each of its 2 sites),
+    phi3.5-moe and phi-3-vision (one attention per layer) and whisper
+    (per encoder layer, and per decoder layer a causal self-attention and
+    a cross-attention) at f32 compute: a (2, 16) prefill through the flash
+    kernel on the card, with the family's extras drawn on the CPU, and 3
+    decode steps, against the same on the CPU (the plain version): logits
+    and caches within f32 2e-5."""
     import dataclasses
 
     from repro_torch._tree import tree_map
     from repro_torch.configs import get_reduced
     from repro_torch.kernels import ops
     from repro_torch.models import hybrid
-    from repro_torch.models.registry import build_model
+    from repro_torch.models.registry import build_model, family_extras
 
     cfg = dataclasses.replace(get_reduced(arch).model,
                               compute_dtype=torch.float32)
@@ -459,15 +498,20 @@ def test_cuda_hybrid_and_moe_prefill_match_the_cpu(cuda, arch):
     params["cuda"] = tree_map(lambda x: x.to("cuda"), params["cpu"])
     toks = torch.randint(0, cfg.vocab_size, (2, 19),
                          generator=torch.Generator().manual_seed(1))
-    sites = (hybrid.n_attn_sites(cfg) if cfg.family == "hybrid"
-             else cfg.n_layers)
+    extras = family_extras(cfg, 2, torch.Generator().manual_seed(2))
+    sites = {"hybrid": hybrid.n_attn_sites(cfg),
+             "audio": cfg.n_encoder_layers + 2 * cfg.n_layers}.get(
+                 cfg.family, cfg.n_layers)
     out = {}
     for dev in ("cpu", "cuda"):
         t = toks.to(dev)
+        ex = {k: x.to(dev) for k, x in extras.items()}
         ops.reset_launches()
         with torch.no_grad():
-            logits, cache = api.prefill(params[dev], {"tokens": t[:, :16]},
-                                        cache_len=24, attn_impl="kernel")
+            logits, cache = api.prefill(params[dev], {"tokens": t[:, :16],
+                                                      **ex},
+                                        cache_len=24 + (cfg.n_patches or 0),
+                                        attn_impl="kernel")
             steps = [logits[:, 0]]
             for i in range(16, 19):
                 logits, cache = api.decode_step(params[dev], cache, t[:, i])

@@ -357,14 +357,17 @@ def test_train_cli_trains_the_moe_and_its_checkpoint_loads_in_jax(
 def test_train_batches_are_tokens_only_and_vlm_audio_still_raise(arch):
     """The MoE and hybrid families train on tokens-only batches, as the
     JAX CLI's ``make_batch_iter`` gives them; the vlm and audio families'
-    batches (patches, audio embeddings) are not ported yet."""
+    batches add their patch features and frame embeddings
+    (``tests/test_torch_vlm.py`` and ``tests/test_torch_whisper.py`` hold
+    them against JAX's)."""
     cfg = get_reduced(arch).model
     batch = next(train_cli.make_batch_iter(cfg, 2, 3, 8, 0.5,
                                            torch.device("cpu")))
     assert list(batch) == ["tokens"]
     assert tuple(batch["tokens"].shape) == (2, 3, 9)
-    for family in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="model zoo"):
-            next(train_cli.make_batch_iter(
-                dataclasses.replace(cfg, family=family), 2, 3, 8, 0.5,
-                torch.device("cpu")))
+    for family, extra in (("vlm", "patches"), ("audio", "audio_embeds")):
+        batch = next(train_cli.make_batch_iter(
+            dataclasses.replace(cfg, family=family), 2, 3, 8, 0.5,
+            torch.device("cpu")))
+        assert sorted(batch) == sorted(["tokens", extra])
+        assert tuple(batch[extra].shape[:2]) == (2, 3)

@@ -116,22 +116,21 @@ def test_param_count_matches_jax():
 
 
 def test_config_registry():
-    """Every JAX arch but the vlm and audio ones is registered; those two
-    raise, and so do their families."""
-    assert list_archs() == sorted(
-        set(jlist_archs()) - {"phi-3-vision-4.2b", "whisper-large-v3"})
+    """Every JAX arch is registered, the vlm and audio ones too;
+    an unknown arch or family raises ``KeyError``, as in JAX."""
+    assert list_archs() == sorted(jlist_archs())
     assert get_arch("zamba2-7b").model.family == "hybrid"
     assert get_reduced("phi3.5-moe-42b-a6.6b").model.family == "moe"
-    with pytest.raises(NotImplementedError, match="model zoo"):
-        get_arch("whisper-large-v3")
-    with pytest.raises(NotImplementedError, match="model zoo"):
-        get_reduced("phi-3-vision-4.2b")
+    assert get_arch("whisper-large-v3").model.family == "audio"
+    assert get_reduced("phi-3-vision-4.2b").model.family == "vlm"
     with pytest.raises(KeyError):
         get_arch("gpt-2")
     for family in ("vlm", "audio"):
         cfg = dataclasses.replace(get_reduced(ARCH).model, family=family)
-        with pytest.raises(NotImplementedError, match="model zoo"):
-            build_model(cfg)
+        assert build_model(cfg).cfg.family == family
+    with pytest.raises(KeyError, match="family"):
+        build_model(dataclasses.replace(get_reduced(ARCH).model,
+                                        family="gnn"))
 
 
 def test_init_params_tree_matches_jax():
@@ -260,8 +259,10 @@ def test_cache_spec_matches_actual_prefill(lm32):
     assert spec.k.dtype == cache.k.dtype
     windowed = dataclasses.replace(tcfg, sliding_window=8)
     assert cache_spec(windowed, 1, 524288).k.shape[2] == 8
-    with pytest.raises(NotImplementedError, match="model zoo"):
-        cache_spec(dataclasses.replace(tcfg, family="audio"), 1, 16)
+    audio = cache_spec(dataclasses.replace(tcfg, family="audio"), 1, 16)
+    assert audio.cross_k.shape[2] == tcfg.n_audio_ctx
+    with pytest.raises(KeyError):
+        cache_spec(dataclasses.replace(tcfg, family="gnn"), 1, 16)
 
 
 def test_effective_config_substitutes_window():
