@@ -167,6 +167,25 @@ script exits non-zero without the final ``ok`` line:
    to the bit. The kernels phase also holds ``fused_adam``,
    ``consensus_mix`` and ``sign_compress_stacked`` at one rank's K = 1
    shard.
+31. axis2d (after axis): the 2D worker x model layout, K=4 workers of
+   M=2 ranks each (8 ranks on the one card in a gloo group,
+   host-staged), each rank one ``(1, rows / 2, 128)`` block of its
+   worker's row-sharded state: the paper's experiment at full width
+   through the trainer's packed mode (the worker's blocks all-gathered
+   once a step), 12 steps at p=4, for D-Adam and CD-Adam (leaf scales
+   summed over each model group: ``sign_compress_stacked(reduce_axis=)``,
+   two launches a round) on the ring and D-Adam with AdaDamp at 8
+   chunks; per rank the launches, the collectives by kind, the bytes a
+   round (the accounting's equal to the stacked path's), the step times
+   and peak memory, its buffers after steps 1, 3 and 4 against its block
+   of the same path stacked over 4 workers on the card (loss worker by
+   worker), the loss and the evaluations; then the sharded-packed mode
+   (``sharded_mlp_loss`` at 8192 x 1024, no model-group all-gather)
+   against the stacked run of ``mlp_loss``; CD-Adam's scales equal to the
+   bit on every rank of a worker, every block received equal to its
+   sender's; and the training CLI at ``--model-parallel 2`` against
+   ``--model-parallel 1`` (reduced llama3.2-1b, 4 steps). The kernels
+   phase holds the ``reduce_axis`` form on one rank's block.
 
 Every phase's line holds ``elapsed_s``, the seconds since the script
 started.
@@ -640,6 +659,39 @@ AXIS_SNAPSHOTS = {1: ("buf", "m", "v"), 3: ("buf", "m", "v"), 4: ("buf",)}
 AXIS_LOSS_RTOL = 1e-4
 AXIS_GROUP_TIMEOUT_S = 120
 AXIS_SPAWN_TIMEOUT_S = 300
+# comm='axis' with the 2D worker x model layout on the one card: K=4
+# workers of M=2 ranks each (8 ranks in a gloo group, host-staged), the
+# paper's experiment at full width through the trainer's packed mode
+# (DeepFM has no sharded spelling in the JAX registry): each step
+# all-gathers the worker's 2 blocks once over its model group. p=4, 12 fit
+# steps a path, as the axis phase. Per rank: fused_adam on every step;
+# CD-Adam's 3 rounds one consensus_mix and one sign_compress_stacked with
+# reduce_axis each, which is two launches of the kernel; the mixes are f32
+# torch ops, as under the 1D layout.
+AXIS2D_K, AXIS2D_M = 4, 2
+AXIS2D_PATHS = {
+    "d-adam": dict(kind="d-adam", opt={}, launches={"fused_adam": 12}),
+    "cd-adam": dict(kind="cd-adam", opt=CD_ADAM, launches={
+        "fused_adam": 12, "consensus_mix": 3,
+        "sign_compress_stacked_reduce": 6}),
+    "d-adam-adadamp": dict(kind="d-adam", opt={}, damping=DAMPING,
+                           launches={"fused_adam": 12}),
+}
+# the sharded-packed mode on the card: tests/test_grad_pipeline.py's
+# sharded_mlp_loss (row_parallel_dot for the weight, full_leaf for the
+# bias) at d_in 8192 x d_out 1024 (8,389,632 parameters a worker), 64
+# examples a worker, 6 steps at p=2, eta 1e-3, held to the stacked run of
+# mlp_loss (one worker at a time): the row-parallel product sums two
+# halves where cuBLAS sums one, so D-Adam is held by step3_check's rule
+# and CD-Adam, whose signs flip where those sums part, by the JAX
+# package's flip budget for its sharded run (mean drift < 1e-4, < 1% of
+# the elements past 1e-3, none past 0.1)
+AXIS2D_MLP = dict(d_in=8192, d_out=1024, per_worker=64, steps=6, period=2)
+# the training CLI at --model-parallel 2 against --model-parallel 1: the
+# reduced llama3.2-1b (the CLI's default), K=2 packed D-Adam, 4 steps
+AXIS2D_CLI = ["--comm", "axis", "--workers", "2", "--backend", "packed",
+              "--steps", "4", "--period", "2", "--log-every", "2",
+              "--dist-backend", "gloo"]
 
 
 def emit(obj) -> None:
@@ -712,12 +764,40 @@ def check_bitwise_repeat(got, kernel, what: str) -> None:
                              f"first")
 
 
-def sign_extra(elements: int) -> dict:
+def launches_per_call(c: dict, ops) -> int:
+    """The launches one call of ``c["kernel"]`` adds to its wrapper's
+    count, measured; it must be the record's ``per_call``."""
+    before = ops.launch_counts()[c["name"]]
+    c["kernel"]()
+    torch.cuda.synchronize()
+    got = ops.launch_counts()[c["name"]] - before
+    if got != c["per_call"]:
+        raise AssertionError(f"{c['name']}: {got} launches a call, not "
+                             f"{c['per_call']}")
+    return got
+
+
+def sign_extra(elements: int, per_call: int) -> dict:
     """The sign_compress record's 18-byte figure beside its 13-byte
     bound, and its launch and equality checks."""
     return {"bytes_no_reuse": SIGN_NO_REUSE_BYTES * elements,
             "no_reuse_ms": SIGN_NO_REUSE_BYTES * elements / MEM_RATE * 1e3,
-            "launches_per_call": 1, "second_call_bit_equal": True}
+            "launches_per_call": per_call, "second_call_bit_equal": True}
+
+
+def check_hat_at_scales(got, hat, ranges, what: str) -> None:
+    """The kernel's hat equal to the bit to the plain arithmetic
+    ``hat + scale * q`` at the kernel's own scales (its scales' sums
+    differ from the plain version's by their order only)."""
+    q, scale, hat_new = got
+    rows = torch.tensor([b - a for a, b in ranges], device=q.device)
+    sc = torch.repeat_interleave(scale, rows, dim=1,
+                                 output_size=q.shape[1])[:, :, None]
+    want = hat + sc * q.to(torch.float32)
+    if not torch.equal(hat_new, want):
+        raise AssertionError(f"{what}: hat differs from hat + scale * q at "
+                             f"the kernel's scales in "
+                             f"{int((hat_new != want).sum())} elements")
 
 
 def compare_bf16_moments(got, want, what: str):
@@ -754,6 +834,19 @@ def full_width_spec():
     if spec.buf_shape() != SHAPE or spec.n != PARAMS:
         raise AssertionError(f"layout {spec.buf_shape()}, {spec.n} params")
     return spec
+
+
+def block_mask(spec, m: int):
+    """True on the elements of shard block ``m`` of the row-sharded layout
+    ``spec`` that hold a parameter; shaped ``(1, local_rows, 128)``."""
+    from repro_torch.kernels import pack as packing
+
+    true = torch.zeros(spec.local_rows * 128, dtype=torch.bool,
+                       device="cuda")
+    for o, c, sz in zip(spec.offsets, packing.local_chunk_elems(spec),
+                        spec.sizes):
+        true[o:o + max(0, min(c, sz - m * c))] = True
+    return true.reshape(1, spec.local_rows, 128)
 
 
 def resident_mask(spec):
@@ -857,6 +950,7 @@ def phase_kernels():
     from repro_torch.core.topology import make_topology
     from repro_torch.kernels import fused_adam as fa
     from repro_torch.kernels import gossip as gk
+    from repro_torch.kernels import ops
     from repro_torch.kernels import pack as packing
     from repro_torch.kernels import sign_compress as sc
 
@@ -921,6 +1015,20 @@ def phase_kernels():
     fused_adam_lib_1, fused_adam_library_err_1 = fused_adam_library(
         adam, p1, g1, m1, v1)
     axis_variant = "K = 1: one rank's comm='axis' shard"
+    # the 2D layout: one rank's (1, rows/2, 128) block of DeepFM's
+    # row-sharded layout at M = 2 (the axis2d phase's), zero in its
+    # padding; sign_compress_stacked with reduce_axis divides by the
+    # leaves' global true counts, and a stand-in for the model group's sum
+    # (two equal shards: the sums doubled) runs between its two launches
+    spec2 = axis2d_spec(full_width_spec(), AXIS2D_M)
+    ranges2 = packing.leaf_row_ranges(spec2)
+    x2, hs2 = (torch.randn((1,) + spec2.block_shape()[1:], generator=gen,
+                           device="cuda") * block_mask(spec2, 0)
+               for _ in range(2))
+    n2 = x2.numel()
+
+    def two_shards(sums):
+        return sums + sums
     # bf16 moments (make_optimizer(moment_dtype=torch.bfloat16)): p and g
     # f32, m and v bf16; 20 bytes an element
     mb, vb = m.to(torch.bfloat16), v.to(torch.bfloat16)
@@ -1022,6 +1130,24 @@ def phase_kernels():
              compressed=True, library=None, bytes=13 * n, ops=8 * n,
              device=SIGN_KERNELS, per_call=1, elements=n,
              variant="scales='worker': one segment, (K,) scales"),
+        dict(name="sign_compress_stacked_reduce",
+             source="src/repro_torch/csrc/sign_compress.cu",
+             replaces="src/repro/kernels/sign_compress.py:174, 192 "
+                      "(reduce_axis, :187-188)",
+             kernel=lambda: sc.sign_compress_stacked(
+                 x2, hs2, n_true=spec2.sizes, row_ranges=ranges2,
+                 reduce_axis=two_shards),
+             plain=lambda: sc.sign_compress_stacked_plain(
+                 x2, hs2, n_true=spec2.sizes, row_ranges=ranges2,
+                 reduce_axis=two_shards),
+             compressed=True, same_scale_hat=(hs2, ranges2), library=None,
+             bytes=13 * n2, ops=8 * n2, device=SIGN_KERNELS, per_call=2,
+             elements=n2,
+             variant="reduce_axis (the 2D layout): one rank's "
+                     f"{tuple(x2.shape)} block at M = "
+                     f"{AXIS2D_M}, DeepFM's 11 leaf segments; two launches "
+                     "a call, the first's sums summed (here doubled) "
+                     "between them"),
         dict(name="sign_compress",
              source="src/repro_torch/csrc/sign_compress.cu",
              replaces="src/repro/kernels/sign_compress.py:65",
@@ -1095,6 +1221,9 @@ def phase_kernels():
                    "hat": f"{KERNEL_TOL} + max scale * {SCALE_RTOL}"}
             max_abs, max_rel = compare_compressed(got, want, c["name"])
             check_bitwise_repeat(got, c["kernel"], c["name"])
+            if c.get("same_scale_hat"):
+                tol["hat_given_the_kernels_scales"] = "equal"
+                check_hat_at_scales(got, *c["same_scale_hat"], c["name"])
         elif c.get("bf16_moments"):
             tol = {"p": BF16_MOMENT_P_TOL, "m, v": "within 1 bf16 ulp"}
             max_abs, max_rel = compare_bf16_moments(got, want, c["name"])
@@ -1122,7 +1251,8 @@ def phase_kernels():
         if "library_err" in c:
             rec["library_max_abs_err"] = c["library_err"]
         if c.get("compressed"):
-            rec.update(sign_extra(c["elements"]))
+            rec.update(sign_extra(c["elements"],
+                                  launches_per_call(c, ops)))
         if "variant" in c:
             rec["variant"] = c["variant"]
         emit({"phase": "kernel", **rec})
@@ -1142,7 +1272,7 @@ def phase_kernels():
           "ms": nbr_ms, "bound_ms": nbr_bytes / MEM_RATE * 1e3,
           "bytes": nbr_bytes, "offsets": deg})
     del p, g, m, v, mb, vb, x, hs, hn1, hn2, xs, hs1, q, scales, cases
-    del p1, g1, m1, v1, x1, hs_1, hn1_1, hn2_1
+    del p1, g1, m1, v1, x1, hs_1, hn1_1, hn2_1, x2, hs2
     del fused_adam_lib, fused_adam_lib_wd, fused_adam_lib_1
     torch.cuda.empty_cache()
     return records + flash_records() + rwkv_records()
@@ -2069,9 +2199,9 @@ def phase_card_vs_cpu(path: str, period: int = 3, damping=None):
 # ------------------------------ comm='axis' ---------------------------------
 
 
-def axis_inputs():
-    """The init and the batches of the axis phase, made on the CPU from
-    seeds: the same in the parent and in every rank."""
+def axis_inputs(k: int = K):
+    """The init and the batches of the axis phases (``k`` workers), made
+    on the CPU from seeds: the same in the parent and in every rank."""
     from repro_torch.data.synthetic import (ctr_batch_stacked, ctr_teacher,
                                             make_ctr_task)
     from repro_torch.models.deepfm import init_deepfm
@@ -2083,7 +2213,7 @@ def axis_inputs():
     params = init_deepfm(torch.Generator().manual_seed(0), task.n_features,
                          task.n_fields, FULL["embed_dim"], FULL["hidden"])
     gen = torch.Generator().manual_seed(1)
-    batches = [ctr_batch_stacked(teacher, gen, K, FULL["per_worker"])
+    batches = [ctr_batch_stacked(teacher, gen, k, FULL["per_worker"])
                for _ in range(AXIS_STEPS)]
     return params, batches
 
@@ -2216,7 +2346,7 @@ def axis_rank(rank: int, init_method: str, folder: str):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
-        group.bytes_sent = group.messages = 0
+        group.reset_counts()
         stamps.append((0, time.perf_counter()))
         state, log = trainer.fit(state, iter(batches), AXIS_STEPS,
                                  log_every=AXIS_STEPS, hook=hook,
@@ -2345,6 +2475,423 @@ def phase_axis():
     emit({"phase": "axis_exchange", "blocks_equal_to_the_bit":
           sorted(ranks[0]["digests"]), "ranks": K,
           "stacked_reference_s": t_ref,
+          "seconds": time.perf_counter() - t0})
+    return by_path
+
+
+def axis2d_spec(spec1, M: int):
+    """The row-sharded layout (``row_shards=M``) of the tree of
+    ``spec1``'s shapes."""
+    from repro_torch._tree import tree_unflatten
+    from repro_torch.kernels import pack as packing
+
+    like = tree_unflatten(spec1.treedef, [
+        torch.empty(shape, dtype=dt, device="meta")
+        for shape, dt in zip(spec1.shapes, spec1.dtypes)])
+    return packing.make_spec(like, stacked=True,
+                             block_rows=packing.BLOCK_ROWS, leaf_align=True,
+                             row_shards=M)
+
+
+def axis2d_trainer(path: str, group=None):
+    """The 2D phase's trainer of ``path``: stacked over AXIS2D_K workers
+    on the card without ``group``, its loss worker by worker (as a rank
+    evaluates it); else this rank's, on a 2D group."""
+    from repro_torch.core.api import make_optimizer
+    from repro_torch.models.deepfm import deepfm_loss
+    from repro_torch.train.damping import DampingConfig
+    from repro_torch.train.loop import DecentralizedTrainer
+
+    spec = AXIS2D_PATHS[path]
+    where = (dict(device=DEVICE) if group is None
+             else dict(comm="axis", group=group))
+    opt = make_optimizer(spec["kind"], AXIS2D_K, eta=ETA,
+                         period=AXIS_PERIOD, backend="packed", **where,
+                         **spec["opt"])
+    damping = spec.get("damping")
+    return DecentralizedTrainer(
+        per_worker_deepfm_loss if group is None else deepfm_loss, opt,
+        damping=DampingConfig(**damping) if damping else None)
+
+
+def mlp2d_inputs():
+    """The sharded-packed runs' init and batches, from seeds on the CPU."""
+    c = AXIS2D_MLP
+    gen = torch.Generator().manual_seed(3)
+    params = {"bias": torch.zeros(c["d_out"]),
+              "w": torch.randn(c["d_in"], c["d_out"], generator=gen) * 0.02}
+    batches = [{"x": torch.randn(AXIS2D_K, c["per_worker"], c["d_in"],
+                                 generator=gen),
+                "y": torch.randn(AXIS2D_K, c["per_worker"], c["d_out"],
+                                 generator=gen)}
+               for _ in range(c["steps"])]
+    return params, batches
+
+
+def mlp_loss(p, batch):
+    pred = batch["x"] @ p["w"] + p["bias"]
+    return torch.mean((pred - batch["y"]) ** 2)
+
+
+def sharded_mlp_loss(chunks, batch, ctx):
+    """``mlp_loss`` from a rank's block: the weight's rows by
+    ``row_parallel_dot``, the bias (leaf 0) by ``full_leaf``."""
+    from repro_torch.train.grad import row_parallel_dot
+
+    h = row_parallel_dot(batch["x"], chunks["w"], batch["y"].shape[-1], ctx)
+    pred = h + ctx.full_leaf(chunks["bias"], 0)
+    return torch.mean((pred - batch["y"]) ** 2)
+
+
+def mlp2d_trainer(kind: str, group=None):
+    from repro_torch.core.api import make_optimizer
+    from repro_torch.train.loop import DecentralizedTrainer, stacked_loss
+
+    where = (dict(device=DEVICE) if group is None
+             else dict(comm="axis", group=group))
+    opt = make_optimizer(kind, AXIS2D_K, eta=ETA,
+                         period=AXIS2D_MLP["period"], backend="packed",
+                         **where, **(CD_ADAM if kind == "cd-adam" else {}))
+    return DecentralizedTrainer(
+        stacked_loss(mlp_loss), opt,
+        sharded_loss=None if group is None else sharded_mlp_loss)
+
+
+def axis2d_refs(folder: Path) -> dict:
+    """Each path stacked on the card over AXIS2D_K workers, its loss
+    worker by worker: its buffers at the snapshot steps repacked into the
+    2D layout, each rank's block written to ``<folder>/<path>-<rank>.pt``;
+    the sharded-packed runs' stacked twins' final params likewise. Returns
+    each path's last loss, consensus, evaluations and bytes per round."""
+    from repro_torch.kernels import pack as packing
+
+    params, batches = axis_inputs(AXIS2D_K)
+    out = {}
+    for path in AXIS2D_PATHS:
+        trainer = axis2d_trainer(path)
+        snaps = {}
+
+        def hook(step, st):
+            if step in AXIS_SNAPSHOTS:
+                snaps.update(axis_snapshot(st, step))
+
+        state, log = trainer.fit(trainer.init(params), iter(batches),
+                                 AXIS_STEPS, log_every=AXIS_STEPS, hook=hook,
+                                 hook_every=1)
+        spec2 = axis2d_spec(state.spec, AXIS2D_M)
+        rows = spec2.local_rows
+        blocks = {n: packing.pack(packing.unpack(x, state.spec), spec2)
+                  for n, x in snaps.items()}
+        for w in range(AXIS2D_K):
+            for m in range(AXIS2D_M):
+                torch.save({n: x[w:w + 1, m * rows:(m + 1) * rows].to(
+                    "cpu", copy=True) for n, x in blocks.items()},
+                    folder / f"{path}-{w * AXIS2D_M + m}.pt")
+        out[path] = {"loss": log.loss[-1], "consensus": log.consensus[-1],
+                     "evals": log.grad_evals[-1],
+                     "bytes_round_list": trainer.opt.comm_bytes_round_list(
+                         trainer.opt.params_of(state))}
+        del trainer, state, snaps, blocks
+        torch.cuda.empty_cache()
+    mparams, mbatches = mlp2d_inputs()
+    for kind in ("d-adam", "cd-adam"):
+        trainer = mlp2d_trainer(kind)
+        state, _ = trainer.fit(trainer.init(mparams), iter(mbatches),
+                               AXIS2D_MLP["steps"],
+                               log_every=AXIS2D_MLP["steps"])
+        torch.save({n: x.to("cpu", copy=True) for n, x in
+                    trainer.opt.params_of(state).items()},
+                   folder / f"mlp-{kind}.pt")
+        del trainer, state
+    return out
+
+
+def flip_budget(d: torch.Tensor) -> dict:
+    """The JAX package's budget for a CD-Adam run whose products sum in
+    another order (``test_sharded_equals_unpack_equals_reference``)."""
+    rec = {"mean_abs_err": float(d.mean()),
+           "share_past_1e-3": float((d > 1e-3).double().mean()),
+           "max_abs_err": float(d.max())}
+    if rec["mean_abs_err"] >= 1e-4 or rec["share_past_1e-3"] >= 0.01 \
+            or rec["max_abs_err"] >= 0.1:
+        raise AssertionError(f"sharded CD-Adam past the flip budget: {rec}")
+    return rec
+
+
+def axis2d_rank(rank: int, init_method: str, folder: str):
+    """One rank of the 2D phase: every path of AXIS2D_PATHS through
+    ``make_optimizer(comm='axis')`` on a 2D group and
+    ``DecentralizedTrainer.fit`` on cuda:0; then the sharded-packed runs.
+    Returns its launches, collectives, step times, bytes, peak memory,
+    last loss, its buffers' checks against its block of the stacked run,
+    and digests of the scales and blocks it sent and received."""
+    import functools
+    import hashlib
+
+    from repro_torch.core.dadam import shift_worker
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pack as packing
+    from repro_torch.launch.mesh import make_worker_group, model_sum
+
+    def digest(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = make_worker_group(AXIS2D_K, init_method=init_method,
+                              device=DEVICE, backend="gloo",
+                              timeout_s=AXIS_GROUP_TIMEOUT_S,
+                              model_parallel=AXIS2D_M)
+    params, batches = axis_inputs(AXIS2D_K)
+    out = {"transport": group.transport, "device": str(group.device),
+           "worker": group.rank, "model_rank": group.model_rank}
+    rounds = AXIS_STEPS // AXIS_PERIOD
+    for path in AXIS2D_PATHS:
+        refs = torch.load(Path(folder) / f"{path}-{rank}.pt")
+        trainer = axis2d_trainer(path, group)
+        state = trainer.init(params)
+        checks, stamps = {}, []
+
+        def hook(step, st):
+            torch.cuda.synchronize()
+            stamps.append((step, time.perf_counter()))
+            if step in AXIS_SNAPSHOTS:
+                for n, x in axis_snapshot(st, step).items():
+                    checks[n] = axis_check(n, x, refs[n].to(x.device))
+            torch.cuda.synchronize()
+            stamps.append((step, time.perf_counter()))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        group.reset_counts()
+        stamps.append((0, time.perf_counter()))
+        state, log = trainer.fit(state, iter(batches), AXIS_STEPS,
+                                 log_every=AXIS_STEPS, hook=hook,
+                                 hook_every=1)
+        launches = ops.launch_counts()
+        coll = group.collective_summary()
+        dts = [(step, (t1 - t0) * 1e3) for (_, t0), (step, t1)
+               in zip(stamps[0::2], stamps[1::2])]
+        rec = {"launches": launches, "checks": checks, "collectives": coll,
+               "loss": log.loss[-1], "consensus": log.consensus[-1],
+               "evals": log.grad_evals[-1],
+               "block": list(state.buf.shape), "rows": state.spec.rows,
+               "local_step_ms_median": statistics.median(
+                   d for s, d in dts if s % AXIS_PERIOD),
+               "comm_step_ms_median": statistics.median(
+                   d for s, d in dts if s % AXIS_PERIOD == 0),
+               "bytes_round_list": trainer.opt.comm_bytes_round_list(
+                   trainer._params_like(state)),
+               "wire_bytes_per_round": coll["exchange"]["bytes"] // rounds,
+               "messages_per_round": coll["exchange"]["count"] // rounds,
+               "model_all_gathers_per_step":
+                   coll["model_all_gather"]["count"] / AXIS_STEPS,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "finite": bool(torch.isfinite(state.buf).all())}
+        if path == "cd-adam":
+            # the scales every rank of the worker applies and sends
+            _, scales, _ = ops.sign_compress_stacked(
+                state.buf, state.hat_buf, n_true=state.spec.sizes,
+                row_ranges=packing.leaf_row_ranges(state.spec),
+                reduce_axis=functools.partial(model_sum, wg=group))
+            rec["scales_digest"] = digest(scales)
+        if path == "d-adam":
+            # a block of each dtype to the rank of the same model index
+            # that reads it: digests of what was sent and received
+            rec["digests"] = {}
+            for dt in (torch.float32, torch.int8):
+                x = state.buf if dt == torch.float32 else \
+                    torch.sign(state.buf).to(dt)
+                got = shift_worker(x, 1, AXIS2D_K, group, tag=7)
+                rec["digests"][str(dt)] = [digest(x), digest(got)]
+        out[path] = rec
+        del trainer, state, refs
+        torch.cuda.empty_cache()
+    mparams, mbatches = mlp2d_inputs()
+    for kind in ("d-adam", "cd-adam"):
+        want = torch.load(Path(folder) / f"mlp-{kind}.pt")
+        trainer = mlp2d_trainer(kind, group)
+        state = trainer.init(mparams)
+        ops.reset_launches()
+        group.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, log = trainer.fit(state, iter(mbatches), AXIS2D_MLP["steps"],
+                                 log_every=AXIS2D_MLP["steps"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, coll = ops.launch_counts(), group.collective_summary()
+        got = trainer.opt.params_of(state)
+        w = group.rank
+        rec = {"mode": trainer.pipeline.mode, "launches": launches,
+               "collectives": coll, "loss": log.loss[-1],
+               "step_ms_mean": wall / AXIS2D_MLP["steps"] * 1e3}
+        for n in ("bias", "w"):
+            a, b = got[n][0], want[n][w].to(got[n].device)
+            if kind == "cd-adam":
+                rec[n] = flip_budget((a.double() - b.double()).abs())
+            else:
+                rec[n] = step3_check(f"axis2d mlp {n}", a, b)
+        out[f"mlp-{kind}"] = rec
+        del trainer, state, want
+    return out
+
+
+def phase_axis2d():
+    """comm='axis' with the 2D worker x model layout on the one card:
+    AXIS2D_K x AXIS2D_M ranks spawned in a gloo group (host-staged), the
+    paper's experiment at full width on each path of AXIS2D_PATHS held
+    against the same path stacked on the card (its loss worker by
+    worker), the sharded-packed mode at AXIS2D_MLP's widths, digests of
+    the scales and blocks, and the training CLI at --model-parallel 2
+    against 1. NCCL, which needs a card per rank, does not run here."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import spawn
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks_n = AXIS2D_K * AXIS2D_M
+    with tempfile.TemporaryDirectory(prefix="smoke_axis2d_") as folder:
+        stacked = axis2d_refs(Path(folder))
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t0
+        ranks = spawn(axis2d_rank, ranks_n, (folder,),
+                      timeout_s=AXIS_SPAWN_TIMEOUT_S, threads=1)
+    t_ranks = time.perf_counter() - t0 - t_ref
+    by_path = {}
+    for path, spec in AXIS2D_PATHS.items():
+        want = {n: spec["launches"].get(n, 0) for n in ops.launch_counts()}
+        recs = [r[path] for r in ranks]
+        for rank, rec in enumerate(recs):
+            what = f"axis2d {path} rank {rank}"
+            if rec["launches"] != want:
+                raise AssertionError(f"{what}: launches {rec['launches']} "
+                                     f"!= {want}")
+            if rec["bytes_round_list"] != stacked[path]["bytes_round_list"] \
+                    or rec["bytes_round_list"] != WIRE_BYTES[path.split(
+                        "-adadamp")[0]]:
+                raise AssertionError(
+                    f"{what}: {rec['bytes_round_list']} bytes a round, "
+                    f"stacked {stacked[path]['bytes_round_list']}")
+            if rec["block"] != [1, rec["rows"] // AXIS2D_M, 128]:
+                raise AssertionError(f"{what}: block {rec['block']}")
+            if rec["model_all_gathers_per_step"] != 1:
+                raise AssertionError(
+                    f"{what}: {rec['model_all_gathers_per_step']} model "
+                    "all-gathers a step, not 1")
+            if rec["evals"] != stacked[path]["evals"]:
+                raise AssertionError(f"{what}: {rec['evals']} evaluations, "
+                                     f"stacked {stacked[path]['evals']}")
+            if not rec["finite"]:
+                raise AssertionError(f"{what}: non-finite")
+            if not math.isclose(rec["loss"], stacked[path]["loss"],
+                                rel_tol=AXIS_LOSS_RTOL):
+                raise AssertionError(
+                    f"{what}: loss {rec['loss']} against stacked "
+                    f"{stacked[path]['loss']}")
+        by_path[f"axis2d-{path}"] = {n: sum(r["launches"][n] for r in recs)
+                                     for n in want}
+        checks = {n: {"max_abs_err": max(r["checks"][n]["max_abs_err"]
+                                         for r in recs),
+                      "share_outside": max(r["checks"][n]["share_outside"]
+                                           for r in recs)}
+                  for n in recs[0]["checks"]}
+        emit({"phase": "axis2d", "path": path, "kind": spec["kind"],
+              "config": {"K": AXIS2D_K, "M": AXIS2D_M,
+                         "period": AXIS_PERIOD, "steps": AXIS_STEPS,
+                         **spec["opt"], **FULL,
+                         "hidden": list(FULL["hidden"]),
+                         **({"damping": spec["damping"]}
+                            if "damping" in spec else {})},
+              "grad_mode": "packed (the worker's blocks all-gathered once a "
+                           "step)",
+              "transport": ranks[0]["transport"],
+              "ranks_device": ranks[0]["device"],
+              "nccl": "not run: NCCL needs a card per rank and this "
+                      "machine has one",
+              "block_per_rank": recs[0]["block"],
+              "launches_per_rank": recs[0]["launches"],
+              "local_step_ms_median_per_rank": [
+                  r["local_step_ms_median"] for r in recs],
+              "comm_step_ms_median_per_rank": [
+                  r["comm_step_ms_median"] for r in recs],
+              "bytes_per_worker_per_round": recs[0]["bytes_round_list"],
+              "wire_bytes_per_rank_per_round": [
+                  r["wire_bytes_per_round"] for r in recs],
+              "messages_per_rank_per_round": recs[0]["messages_per_round"],
+              "model_all_gathers_per_step": recs[0][
+                  "model_all_gathers_per_step"],
+              "collectives_per_rank_rank0": recs[0]["collectives"],
+              "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in recs],
+              "evals": recs[0]["evals"],
+              "loss": recs[0]["loss"], "loss_stacked": stacked[path]["loss"],
+              "consensus": recs[0]["consensus"],
+              "consensus_stacked": stacked[path]["consensus"],
+              "checks": checks, "tol": CARD_CPU_TOL,
+              "max_share_outside": CARD_CPU_MAX_SHARE,
+              "loss_rtol": AXIS_LOSS_RTOL})
+    for kind in ("d-adam", "cd-adam"):
+        recs = [r[f"mlp-{kind}"] for r in ranks]
+        for rank, rec in enumerate(recs):
+            coll = rec["collectives"]
+            if rec["mode"] != "sharded-packed" \
+                    or coll["model_all_gather"]["count"] != 0:
+                raise AssertionError(
+                    f"axis2d mlp {kind} rank {rank}: mode {rec['mode']}, "
+                    f"{coll['model_all_gather']['count']} model all-gathers")
+        by_path[f"axis2d-mlp-{kind}"] = {
+            n: sum(r["launches"][n] for r in recs)
+            for n in ops.launch_counts()}
+        emit({"phase": "axis2d", "path": f"sharded-packed mlp {kind}",
+              "config": {"K": AXIS2D_K, "M": AXIS2D_M, **AXIS2D_MLP,
+                         **(CD_ADAM if kind == "cd-adam" else {})},
+              "mode": recs[0]["mode"],
+              "launches_per_rank": recs[0]["launches"],
+              "collectives_rank0": recs[0]["collectives"],
+              "step_ms_mean_per_rank": [r["step_ms_mean"] for r in recs],
+              "loss": recs[0]["loss"],
+              "params_against_stacked": {
+                  n: {k: max(r[n][k] for r in recs) for k in recs[0][n]}
+                  for n in ("bias", "w")}})
+    # every rank of a worker holds CD-Adam's scales to the bit; every
+    # block received is its sender's
+    M = AXIS2D_M
+    for w in range(AXIS2D_K):
+        got = {ranks[w * M + m]["cd-adam"]["scales_digest"]
+               for m in range(M)}
+        if len(got) != 1:
+            raise AssertionError(f"axis2d: worker {w}'s ranks hold "
+                                 f"{len(got)} different scales")
+    for dt in ranks[0]["d-adam"]["digests"]:
+        for r in range(ranks_n):
+            w, m = divmod(r, M)
+            sender = ranks[((w + 1) % AXIS2D_K) * M + m]
+            if ranks[r]["d-adam"]["digests"][dt][1] != \
+                    sender["d-adam"]["digests"][dt][0]:
+                raise AssertionError(f"axis2d: rank {r} received a {dt} "
+                                     "block not equal to the bit to its "
+                                     "sender's")
+    t_cli = time.perf_counter()
+    cli = {m: train_cli.main(AXIS2D_CLI + ["--model-parallel", str(m)])
+           for m in (1, 2)}
+    for a, b in zip(cli[2].log.loss, cli[1].log.loss):
+        if not math.isclose(a, b, rel_tol=AXIS_LOSS_RTOL):
+            raise AssertionError(f"axis2d CLI: --model-parallel 2 losses "
+                                 f"{cli[2].log.loss} against 1's "
+                                 f"{cli[1].log.loss}")
+    emit({"phase": "axis2d_exchange",
+          "scales_equal_across_each_model_group": True,
+          "blocks_equal_to_the_bit": sorted(ranks[0]["d-adam"]["digests"]),
+          "ranks": ranks_n,
+          "cli": {"argv": AXIS2D_CLI, "losses_model_parallel_1":
+                  cli[1].log.loss, "losses_model_parallel_2":
+                  cli[2].log.loss, "seconds": time.perf_counter() - t_cli},
+          "stacked_reference_s": t_ref, "ranks_s": t_ranks,
           "seconds": time.perf_counter() - t0})
     return by_path
 
@@ -3701,7 +4248,7 @@ def lm_sign_record(state) -> dict:
            "bytes": 13 * n, "library_ms": None, "library": NO_LIBRARY,
            "variant": f"lm_train_cd's trained state {list(x.shape)}, "
                       f"{len(kw['n_true'])} leaf segments",
-           **sign_extra(n)}
+           **sign_extra(n, launched // calls[0])}
     emit({"phase": "kernel", **rec})
     return rec
 
@@ -3874,6 +4421,7 @@ def main() -> int:
             phase_churn(trainer, state, res.teacher)
         del trainer, state, res
     by_path.update(phase_axis())
+    by_path.update(phase_axis2d())
     phase_card_vs_cpu("d-adam")
     phase_card_vs_cpu("cd-adam")
     phase_card_vs_cpu("d-adam-straggler", period=1)

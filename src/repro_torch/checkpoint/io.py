@@ -22,7 +22,13 @@ Checkpoints cross comm modes too, as the JAX package's do: with
 ``(1, ...)`` slice) ``save`` gathers every optimizer state's slices to
 all K workers and rank 0 writes the file a stacked state writes, and
 ``restore`` reads the K workers' rows and gives each rank its own. So a
-stacked checkpoint restores onto an axis state and back.
+stacked checkpoint restores onto an axis state and back. Under the 2D
+worker x model layout (each rank one block of its worker's row-sharded
+buffers) ``save`` first gathers every packed state over the model group,
+so the file holds the portable form of all K workers, as the stacked and
+1D forms do; ``restore`` repacks a rank's worker with ``row_shards=M`` and
+keeps its block. Stacked, 1D and 2D checkpoints restore onto each other,
+equal to the bit.
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ import torch
 from repro_torch._tree import tree_map
 from repro_torch.core import cdadam, dadam
 from repro_torch.launch.mesh import WorkerGroup, barrier
-from repro_torch.launch.shardings import gather_workers, take_worker
+from repro_torch.launch.shardings import (gather_model, gather_workers,
+                                          take_model_block, take_worker)
 
 PyTree = Any
 
@@ -93,10 +100,14 @@ def _map_states(fn: Callable[[Any], Any], tree: PyTree) -> PyTree:
     return tree
 
 
-def _to_portable(tree: PyTree) -> PyTree:
-    """Packed states unpacked, transient buffers stripped, the rest as it
-    is."""
-    return _map_states(_portable_of, tree)
+def _to_portable(tree: PyTree, group: Optional[WorkerGroup] = None
+                 ) -> PyTree:
+    """Packed states unpacked (under the 2D layout after gathering their
+    blocks over the model group, which every rank of it must do),
+    transient buffers stripped, the rest as it is."""
+    if group is None or group.M == 1:
+        return _map_states(_portable_of, tree)
+    return _map_states(lambda s: _portable_of(gather_model(s, group)), tree)
 
 
 def _leaves_with_path(tree: PyTree, path: Tuple[str, ...] = ()
@@ -206,8 +217,15 @@ def _with_cold_transient(out: Any, orig: Any) -> Any:
     return out
 
 
-def _adapt(slot: Any, orig: Any) -> Any:
-    if _is_packed(orig):
+def _adapt(slot: Any, orig: Any,
+           group: Optional[WorkerGroup] = None) -> Any:
+    if _is_packed(orig) and orig.spec.row_shards > 1:
+        dev = orig.buf.device
+        out = type(orig).from_unpacked(
+            tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor)
+                     else x, slot), row_shards=orig.spec.row_shards)
+        out = take_model_block(out, group)
+    elif _is_packed(orig):
         out = type(orig).from_unpacked(_placed_like(slot,
                                                     _portable_of(orig)))
     elif _has_transient(orig):
@@ -217,26 +235,32 @@ def _adapt(slot: Any, orig: Any) -> Any:
     return _with_cold_transient(out, orig)
 
 
-def place_like(portable: PyTree, like: PyTree) -> PyTree:
+def place_like(portable: PyTree, like: PyTree,
+               group: Optional[WorkerGroup] = None) -> PyTree:
     """Adapt a portable (backend-agnostic) state tree into ``like``'s
     backend layout, device and transient-comm structure.
 
-    Packed states in ``like`` are repacked into its layout; live
+    Packed states in ``like`` are repacked into its layout (the
+    row-sharded one of its spec, cut to ``group``'s model block, under the
+    2D layout); live
     straggler-comm buffers are rebuilt COLD rather than copied from
     ``like`` (a restored or resized worker holds no valid in-flight
     neighbour traffic); other tensors move to their ``like`` counterpart's
     device. Shared by :func:`restore` and ``core.elastic.resize_state``.
     Raises ``ValueError`` when the two trees do not match."""
     if isinstance(like, _STATES):
-        return _adapt(portable, like)
+        return _adapt(portable, like, group)
     if isinstance(like, dict):
-        return {k: place_like(portable[k], v) for k, v in like.items()}
+        return {k: place_like(portable[k], v, group)
+                for k, v in like.items()}
     if _is_namedtuple(like):
-        return type(like)(*(place_like(p, v) for p, v in zip(portable, like)))
+        return type(like)(*(place_like(p, v, group)
+                            for p, v in zip(portable, like)))
     if isinstance(like, (list, tuple)):
         if len(portable) != len(like):
             raise ValueError("tree structures differ")
-        return type(like)(place_like(p, v) for p, v in zip(portable, like))
+        return type(like)(place_like(p, v, group)
+                          for p, v in zip(portable, like))
     return _placed_like(portable, like)
 
 
@@ -256,8 +280,9 @@ def save(path: str, tree: PyTree, *, step: int = 0,
     ``path`` and ``path + '.json'``. With ``group`` (``comm='axis'``) every
     rank must call it: the optimizer states are gathered over the worker
     dim, rank 0 writes the stacked form (other leaves as rank 0 holds
-    them), and every rank returns once the file is written."""
-    portable = _to_portable(tree)
+    them), and every rank returns once the file is written; under the 2D
+    layout the packed states are first gathered over the model groups."""
+    portable = _to_portable(tree, group)
     if group is not None:
         portable = _map_states(lambda s: gather_workers(s, group), portable)
         if group.rank == 0:
@@ -298,8 +323,9 @@ def restore(path: str, like: PyTree,
     restored through their portable form and adapted back with
     :func:`place_like`. With ``group`` (``like`` a ``comm='axis'`` rank's
     state) the file's optimizer states hold all K workers, and each rank
-    keeps its own row."""
-    portable_like = _to_portable(like)
+    keeps its own row (under the 2D layout, repacked row-sharded and cut
+    to its model block; every rank must call it)."""
+    portable_like = _to_portable(like, group)
     file_like = portable_like
     if group is not None:
         file_like = _map_states(lambda s: _widened(s, group.K),
@@ -317,4 +343,4 @@ def restore(path: str, like: PyTree,
     if group is not None:
         restored = _map_states(
             lambda s: take_worker(s, group.rank, group.K), restored)
-    return place_like(restored, like), side["step"]
+    return place_like(restored, like, group), side["step"]

@@ -33,6 +33,21 @@ signs and their scales) travel.
     group = make_worker_group(K)          # under torchrun --nproc-per-node K
     opt = make_optimizer("d-adam", K, comm="axis", group=group,
                          backend="packed")
+
+A group made with ``model_parallel=M`` (K x M ranks) declares the 2D
+worker x model layout, as the JAX package's mesh with a ``'model'`` axis
+does, for ``backend='packed'``: ``cfg.model_parallel`` is M, each rank
+keeps one ``(1, rows / M, 128)`` block of its worker's row-sharded
+buffers, gossip crosses only the worker axis, and CD-Adam's scales are
+summed over the worker's M ranks. ``opt.params_of`` then all-gathers the
+worker's blocks (every rank of the model group must call it), and
+``opt.sharded_value_and_grad`` is the hook of the grad pipeline's
+``'sharded-packed'`` mode. Under ``backend='reference'`` a 2D group keeps
+the 1D layout, the state replicated over each model group.
+
+    group = make_worker_group(K, model_parallel=2)   # K x 2 ranks
+    opt = make_optimizer("cd-adam", K, comm="axis", group=group,
+                         backend="packed")
 """
 from __future__ import annotations
 
@@ -52,7 +67,10 @@ from repro_torch.core.dadam import ArrivalFn, DAdamConfig
 from repro_torch.core.schedule import (SCHEDULES, TopologySchedule,
                                        comm_offsets, make_schedule)
 from repro_torch.core.topology import Topology, make_topology
-from repro_torch.launch.shardings import gather_workers, take_worker
+from repro_torch.kernels import pack as packing
+from repro_torch.launch.mesh import model_all_gather
+from repro_torch.launch.shardings import (gather_workers, take_model_block,
+                                          take_worker)
 
 PyTree = Any
 
@@ -73,6 +91,11 @@ class DecentralizedOptimizer:
     compressor: Optional[Compressor] = None
     # comm='axis': this rank's launch.mesh.WorkerGroup; None when stacked
     group: Any = None
+    # the 2D layout's hook for the grad pipeline's 'sharded-packed' mode:
+    # ``(local_vag, state, batch) -> (losses (1,), grads block)``, which
+    # runs ``local_vag(block, batch)`` on this rank's (1, rows/M, 128)
+    # block and its worker's batch; None unless cfg.model_parallel > 1
+    sharded_value_and_grad: Any = None
 
     @property
     def K(self) -> int:
@@ -81,7 +104,8 @@ class DecentralizedOptimizer:
     def gather_params(self, state: Any) -> PyTree:
         """All K workers' params, stacked ``(K, ...)``: ``params_of``
         itself under ``comm='stacked'``; under ``comm='axis'`` the ranks'
-        slices gathered (every rank must call it, and gets all of them)."""
+        slices gathered (every rank must call it, and gets all of them;
+        under the 2D layout over both axes)."""
         params = self.params_of(state)
         if self.group is None:
             return params
@@ -222,7 +246,9 @@ def make_optimizer(
         worker per process; needs ``group``).
       group: ``comm="axis"``'s worker group
         (``launch.mesh.make_worker_group``): K ranks, this one's device.
-        Only meaningful with ``comm="axis"``.
+        Only meaningful with ``comm="axis"``. A group of K x M ranks
+        (``model_parallel=M``) selects the 2D layout for
+        ``backend="packed"``.
       axis_name: the worker axis's name; the group's must equal it.
       staleness: bounded-staleness gossip (tau rounds), with
         ``straggler_rate`` / ``straggler_seed`` modelling late payloads.
@@ -282,6 +308,12 @@ def make_optimizer(
                 comm=comm, axis_name=axis_name, group=group,
                 staleness=staleness, straggler_rate=straggler_rate,
                 straggler_seed=straggler_seed, overlap=overlap)
+    # 2D execution is declared by the group, as JAX's by its mesh: only the
+    # packed backend has a row dim to cut; under 'reference' a 2D group
+    # keeps the 1D layout, the state replicated over each model group
+    if comm == "axis" and backend == "packed" and group is not None \
+            and group.M > 1:
+        adam["model_parallel"] = group.M
     comp = None
 
     if kind in ("d-adam", "dadam", "d-adam-vanilla"):
@@ -325,18 +357,31 @@ def make_optimizer(
     else:
         raise KeyError(f"unknown optimizer kind {kind!r}")
     dev = _check_axis(comm, group, axis_name, topo, device)
+    two_d = getattr(cfg, "model_parallel", 1) > 1
 
     def init(params: PyTree):
         on = resolve_device(dev)
         if group is not None:
             params = take_worker(params, group.rank, K)
-        return init_fn(tree_map(lambda x: x.to(on), params))
+        state = init_fn(tree_map(lambda x: x.to(on), params))
+        return take_model_block(state, group) if two_d else state
+
+    def params_of(state):
+        if two_d and hasattr(state, "spec"):
+            return packing.unpack(model_all_gather(state.buf, group),
+                                  state.spec)
+        return state.params
+
+    sharded_vag = None
+    if two_d:
+        def sharded_vag(local_vag: Callable, state: Any, batch: PyTree):
+            return local_vag(state.buf, batch)
 
     return DecentralizedOptimizer(
         name=kind, topo=topo, cfg=cfg, device=dev, init=init, step=step,
-        round=round_, params_of=lambda s: s.params,
+        round=round_, params_of=params_of,
         rebuild=lambda **ov: make_optimizer(**{**factory_kwargs, **ov}),
-        compressor=comp, group=group)
+        compressor=comp, group=group, sharded_value_and_grad=sharded_vag)
 
 
 def _check_axis(comm: str, group: Any, axis_name: str,

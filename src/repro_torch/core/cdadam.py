@@ -28,6 +28,14 @@ Two backends, as for D-Adam:
   per worker and leaf, ``scales='leaf'``, or per worker,
   ``scales='worker'``) and the neighbour-copy update in torch ops.
 
+Under the 2D worker x model layout (``cfg.model_parallel`` = M > 1) every
+packed buffer is a rank's ``(1, rows / M, 128)`` block of the row-sharded
+layout: the leaf segments' row ranges are those within a block, and
+``sign_compress_stacked`` sums each (worker, leaf) scale's partial sums
+over the worker's M ranks (``reduce_axis``, the model group's
+deterministic sum) before dividing by the leaf's global true count, so
+every rank of a worker applies and sends the same scale.
+
 An unpacked :class:`CDAdamState` stepped with ``backend='packed'`` takes
 the reference round with the sign compressor, the same math.
 
@@ -55,6 +63,7 @@ from repro_torch.core.dadam import (AdamMoments, DAdamConfig, _axis,
                                     _round_index, init_moments, local_rows,
                                     local_update, round_view, select_workers,
                                     shift_worker)
+from repro_torch.launch.mesh import model_sum
 from repro_torch.core.schedule import TopologySchedule, comm_offsets
 from repro_torch.core.topology import Topology
 from repro_torch.kernels import ops
@@ -131,6 +140,21 @@ class PackedCDAdamState:
     def with_pending(self, pending) -> "PackedCDAdamState":
         return dataclasses.replace(self, pending=pending)
 
+    def map_buffers(self, fn: Callable[[torch.Tensor, int], torch.Tensor]
+                    ) -> "PackedCDAdamState":
+        """``fn(x, row_dim)`` applied to every packed buffer (params,
+        moments, hats, the delay rings' q), the rest kept (see
+        ``PackedDAdamState.map_buffers``)."""
+        pending = self.pending
+        if pending is not None:
+            pending = tuple({"q": fn(r["q"], 2), "scale": r["scale"]}
+                            for r in pending)
+        return dataclasses.replace(
+            self, buf=fn(self.buf, 1), m=fn(self.m, 1), v=fn(self.v, 1),
+            hat_buf=fn(self.hat_buf, 1),
+            hat_nbr_bufs=tuple(fn(h, 1) for h in self.hat_nbr_bufs),
+            pending=pending)
+
     @property
     def params(self) -> PyTree:
         return packing.unpack(self.buf, self.spec)
@@ -155,11 +179,16 @@ class PackedCDAdamState:
                            self.hat_nbrs)
 
     @classmethod
-    def from_unpacked(cls, state: CDAdamState) -> "PackedCDAdamState":
+    def from_unpacked(cls, state: CDAdamState, *,
+                      row_shards: int = 1) -> "PackedCDAdamState":
+        """``row_shards=M`` packs into the row-sharded 2D layout (whole
+        buffers)."""
         spec = packing.make_spec(state.params, stacked=True,
-                                 block_rows=BLOCK_ROWS, leaf_align=True)
+                                 block_rows=BLOCK_ROWS, leaf_align=True,
+                                 row_shards=row_shards)
         spec_m = packing.make_spec(state.moments.m, stacked=True,
-                                   block_rows=BLOCK_ROWS, leaf_align=True)
+                                   block_rows=BLOCK_ROWS, leaf_align=True,
+                                   row_shards=row_shards)
         return cls(packing.pack(state.params, spec),
                    packing.pack(state.moments.m, spec_m),
                    packing.pack(state.moments.v, spec_m),
@@ -260,7 +289,8 @@ def init(params_stacked: PyTree, cfg: CDAdamConfig,
     state = CDAdamState(params_stacked, init_moments(params_stacked, cfg),
                         zeros, hat_nbrs)
     if cfg.backend == "packed":
-        packed = PackedCDAdamState.from_unpacked(state)
+        packed = PackedCDAdamState.from_unpacked(
+            state, row_shards=cfg.model_parallel)
         if tau > 0:
             K, rows = packed.buf.shape[:2]
             per_worker = (() if cfg.scales == "worker"
@@ -404,19 +434,25 @@ def _comm_round_packed(state_half: PackedCDAdamState, topo: Topology,
     pass, one ``sign_compress_stacked`` call over every leaf segment (or
     the whole buffer for ``scales='worker'``, divided by the true element
     count), then the neighbour copies from the int8 payload, through the
-    delay rings when ``cfg`` delays payloads."""
+    delay rings when ``cfg`` delays payloads. Under the 2D layout the
+    buffers are the rank's block, the row ranges those within a block,
+    and the scales' sums are summed over the worker's model group before
+    the division by the global true counts."""
     spec = state_half.spec
     x_new = ops.consensus_mix(state_half.buf, state_half.hat_buf,
                               state_half.hat_nbr_bufs, topo.offset_weights,
                               cfg.gamma)
+    reduce = (functools.partial(model_sum, wg=cfg.group)
+              if cfg.model_parallel > 1 else None)
     if cfg.scales == "worker":
         ranges = None
         q_buf, scales, new_hat = ops.sign_compress_stacked(
-            x_new, state_half.hat_buf, n_true=spec.n)
+            x_new, state_half.hat_buf, n_true=spec.n, reduce_axis=reduce)
     else:
         ranges = packing.leaf_row_ranges(spec)
         q_buf, scales, new_hat = ops.sign_compress_stacked(
-            x_new, state_half.hat_buf, n_true=spec.sizes, row_ranges=ranges)
+            x_new, state_half.hat_buf, n_true=spec.sizes, row_ranges=ranges,
+            reduce_axis=reduce)
     tau = _wire_tau(cfg)
     delays = local_rows(_payload_delays(cfg, topo.K, len(topo.offsets)), cfg)
     pending = state_half.pending

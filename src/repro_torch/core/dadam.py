@@ -32,6 +32,13 @@ Two backends:
   in JAX (``gossip_mix``, ``gossip_adam_mix`` and ``payload_mix`` are
   stacked-only there).
 
+With ``cfg.model_parallel`` = M > 1 (the 2D worker x model layout, packed
+and ``comm='axis'`` only) each worker is a group of M ranks, and the
+packed buffers are in the row-sharded layout (``make_spec(row_shards=M)``):
+a rank holds one ``(1, rows / M, 128)`` block of each, ``fused_adam`` runs
+on it, and every worker shift exchanges blocks with the ranks of the same
+model index, so gossip crosses only the worker axis.
+
 The straggler-tolerant runtime of the JAX package is here too: bounded
 staleness (``cfg.staleness``, with ``straggler_rate`` / ``straggler_seed``
 modelling late payloads), the delay-1 overlap schedule (``cfg.overlap``)
@@ -95,6 +102,10 @@ class DAdamConfig:
     group: Any = dataclasses.field(default=None, compare=False, repr=False)
     #                             comm='axis': this rank's
     #                             launch.mesh.WorkerGroup
+    model_parallel: int = 1     # M: ranks a worker (the 2D worker x model
+    #                             layout); the packed row dim is cut M
+    #                             ways and each rank steps one
+    #                             (1, rows/M, 128) block
     staleness: Optional[int] = None  # straggler-tolerant gossip: mix the
     #                             last-arrived neighbour payload, at most
     #                             tau rounds old (None = synchronous;
@@ -130,6 +141,20 @@ class DAdamConfig:
                     "comm='axis' gossips by one exchange per graph offset "
                     "and has no dense-mixing form; use mixing='roll' "
                     "(shift-invariant topology) or comm='stacked'")
+        if self.model_parallel < 1:
+            raise ValueError(
+                f"model_parallel must be >= 1, got {self.model_parallel}")
+        if self.model_parallel > 1:
+            if self.comm != "axis":
+                raise ValueError(
+                    "model_parallel > 1 is the 2D (worker x model) layout "
+                    "and requires comm='axis'")
+            if self.backend != "packed":
+                raise ValueError(
+                    "model_parallel > 1 cuts the packed row dim of the "
+                    "resident (K, rows, 128) state and requires "
+                    "backend='packed' (the reference tree layout has no "
+                    "uniform row dim to cut)")
         if self.backend == "packed" and self.bias_correction:
             raise ValueError(
                 "backend='packed' implements the paper's Alg. 1 update "
@@ -144,6 +169,11 @@ class DAdamConfig:
                     "staleness-bounded gossip double-buffers per-offset "
                     "neighbour payloads; it requires the shift lowering "
                     "(mixing='roll')")
+            if self.model_parallel > 1:
+                raise ValueError(
+                    "staleness buffers are per-worker payload copies and "
+                    "are not row-sharded; staleness requires "
+                    "model_parallel == 1")
         if not 0.0 <= self.straggler_rate < 1.0:
             raise ValueError(
                 f"straggler_rate must be in [0, 1), got "
@@ -666,6 +696,19 @@ class PackedDAdamState:
     def with_stale(self, stale: Optional[StaleBufs]) -> "PackedDAdamState":
         return dataclasses.replace(self, stale=stale)
 
+    def map_buffers(self, fn: Callable[[torch.Tensor, int], torch.Tensor]
+                    ) -> "PackedDAdamState":
+        """``fn(x, row_dim)`` applied to every packed buffer (params,
+        moments, payload buffers), the rest kept: how the 2D layout cuts
+        a state into its model blocks and puts it back together
+        (``launch.shardings``)."""
+        stale = self.stale
+        if stale is not None:
+            stale = StaleBufs(tuple(fn(b, 1) for b in stale.bufs), stale.age)
+        return dataclasses.replace(self, buf=fn(self.buf, 1),
+                                   m=fn(self.m, 1), v=fn(self.v, 1),
+                                   stale=stale)
+
     @property
     def params(self) -> PyTree:
         return packing.unpack(self.buf, self.spec)
@@ -681,31 +724,48 @@ class PackedDAdamState:
         return DAdamState(self.params, self.moments)
 
     @classmethod
-    def from_unpacked(cls, state: DAdamState) -> "PackedDAdamState":
+    def from_unpacked(cls, state: DAdamState, *,
+                      row_shards: int = 1) -> "PackedDAdamState":
+        """``row_shards=M`` packs into the row-sharded 2D layout (whole
+        buffers; ``launch.shardings.take_model_block`` cuts a rank's
+        block out)."""
         spec = packing.make_spec(state.params, stacked=True,
-                                 block_rows=BLOCK_ROWS, leaf_align=True)
+                                 block_rows=BLOCK_ROWS, leaf_align=True,
+                                 row_shards=row_shards)
         spec_m = packing.make_spec(state.moments.m, stacked=True,
-                                   block_rows=BLOCK_ROWS, leaf_align=True)
+                                   block_rows=BLOCK_ROWS, leaf_align=True,
+                                   row_shards=row_shards)
         return cls(packing.pack(state.params, spec),
                    packing.pack(state.moments.m, spec_m),
                    packing.pack(state.moments.v, spec_m),
                    state.moments.count, spec, spec_m)
 
 
-def grads_buffer(grads: Any, spec: packing.PackSpec,
-                 dtype: torch.dtype) -> torch.Tensor:
-    """Admit gradients in either form: an already packed ``(K, rows, 128)``
-    buffer passes through (the steady state: the grad pipeline
+def grads_buffer(grads: Any, spec: packing.PackSpec, dtype: torch.dtype,
+                 block: Optional[int] = None) -> torch.Tensor:
+    """Admit gradients in either form: an already packed buffer of the
+    resident shape passes through (the steady state: the grad pipeline
     differentiates through ``packing.unpack``); a tree is packed once
-    here."""
-    want = spec.buf_shape()
+    here. Under the 2D layout the resident shape is one shard block,
+    ``spec.block_shape()``, and a tree (the worker's whole grads) is
+    packed and cut to block ``block``."""
+    want = spec.block_shape() if spec.stacked else spec.buf_shape()
     if isinstance(grads, torch.Tensor):
         if tuple(grads.shape) == want:
             return grads.to(dtype)
         raise ValueError(
             f"packed grads shape {tuple(grads.shape)} != resident "
             f"buffer {want}")
-    return packing.pack(grads, spec, dtype=dtype)
+    buf = packing.pack(grads, spec, dtype=dtype)
+    if spec.row_shards > 1:
+        rows = spec.local_rows
+        buf = buf[:, block * rows:(block + 1) * rows].contiguous()
+    return buf
+
+
+def model_block(cfg: DAdamConfig) -> Optional[int]:
+    """This rank's model index under the 2D layout, else ``None``."""
+    return cfg.group.model_rank if cfg.model_parallel > 1 else None
 
 
 def init(params_stacked: PyTree, cfg: DAdamConfig,
@@ -713,7 +773,9 @@ def init(params_stacked: PyTree, cfg: DAdamConfig,
          ) -> "DAdamState | PackedDAdamState":
     """The state of ``params_stacked``: all K workers' under
     ``comm='stacked'``, this rank's ``(1, ...)`` slice under
-    ``comm='axis'``."""
+    ``comm='axis'``. Under the 2D layout the packed buffers are the
+    worker's whole row-sharded ones; ``make_optimizer``'s ``init`` keeps
+    the rank's block."""
     cfg.validate()
     workers = 1 if cfg.comm == "axis" else None
     needs_bufs = cfg.staleness is not None or cfg.overlap
@@ -724,7 +786,8 @@ def init(params_stacked: PyTree, cfg: DAdamConfig,
             "make_optimizer does)")
     state = DAdamState(params_stacked, init_moments(params_stacked, cfg))
     if cfg.backend == "packed":
-        packed = PackedDAdamState.from_unpacked(state)
+        packed = PackedDAdamState.from_unpacked(
+            state, row_shards=cfg.model_parallel)
         if needs_bufs:
             packed = packed.with_stale(init_stale(packed.buf, topo,
                                                   workers))
@@ -741,7 +804,7 @@ def _fused_local_packed(state: PackedDAdamState, grads: Any,
                                    int]:
     """Alg. 1 lines 3-6 on the resident buffers: one ``fused_adam`` pass.
     Returns (params_buf, m_buf, v_buf, count)."""
-    gbuf = grads_buffer(grads, state.spec, state.buf.dtype)
+    gbuf = grads_buffer(grads, state.spec, state.buf.dtype, model_block(cfg))
     po, mo, vo = ops.fused_adam(
         state.buf, gbuf, state.m, state.v,
         eta=cfg.eta, beta1=cfg.beta1, beta2=cfg.beta2, tau=cfg.tau,

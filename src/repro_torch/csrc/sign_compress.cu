@@ -58,6 +58,22 @@
 // the kernel slower, so neither is used: the times stay near the 18-byte
 // floor. The counters are zeroed on the stream at every call; nothing
 // persists between calls.
+//
+// The 2D worker x model layout (sign_compress_stacked(reduce_axis=)): x
+// is one model shard's block of each segment, and a segment's scale is
+// the sum over the M shards of a worker divided by the segment's global
+// true count. A sum across processes cannot happen inside a launch, so
+// the same kernel runs as two launches of one call, each over its own
+// half of the work list:
+//   phase 1 walks the A items only: q and the partials as above, and the
+//     A item that completes a segment writes the segment's sum of
+//     |x - hat| (in the same fixed order, not divided) where the scale
+//     would go;
+//   phase 2 walks the B items only: the scales are an input (the host
+//     summed the M shards' sums in model-index order and divided by the
+//     true counts), so no B item waits.
+// Phase 0 is the one launch above. The bytes are the same 18 an element
+// over the two launches.
 // Loads are 16 bytes (float4) and q accesses 4 (char4) when vec != 0; the
 // last (b - a) % 4 elements of a tile then take the scalar path.
 #include <cuda_runtime.h>
@@ -87,6 +103,9 @@ struct Args {
   int n_items, K, T, L;
   long long n;
   int vec;
+  // 0: both passes in one launch; 1: first pass only (writes the raw
+  // sums); 2: second pass only (the scales are an input)
+  int phase;
 };
 
 // A fixed tree over the block; the sum is valid in thread 0. The leading
@@ -253,9 +272,10 @@ __global__ void __launch_bounds__(kThreads, 3)
   __shared__ int next_item;
   __shared__ int last_arrival;
   __shared__ float seg_scale;
-  // an empty segment has no tile and no A item: its scale is 0
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < g.K * g.L;
-       i += gridDim.x * kThreads) {
+  // an empty segment has no tile and no A item: its scale (its sum in
+  // phase 1) is 0; in phase 2 the scales are an input
+  for (int i = blockIdx.x * kThreads + threadIdx.x;
+       g.phase != 2 && i < g.K * g.L; i += gridDim.x * kThreads) {
     const int s = i % g.L;
     if (g.seg_first[s + 1] == g.seg_first[s]) g.scales[i] = 0.f;
   }
@@ -290,14 +310,16 @@ __global__ void __launch_bounds__(kThreads, 3)
         }
         acc = block_sum(acc);
         if (threadIdx.x == 0) {
-          g.scales[k * g.L + s] = acc / g.n_true[s];
+          g.scales[k * g.L + s] = g.phase == 1 ? acc : acc / g.n_true[s];
           __threadfence();
           atomicAdd(seg_count, 1u);
         }
       }
     } else {
       if (threadIdx.x == 0) {
-        while (ld_acquire(seg_count) < tiles + 1) __nanosleep(64);
+        if (g.phase == 0) {
+          while (ld_acquire(seg_count) < tiles + 1) __nanosleep(64);
+        }
         seg_scale = __ldcg(g.scales + k * g.L + s);
       }
       __syncthreads();
@@ -329,8 +351,11 @@ extern "C" int sign_compress_grid(int device) {
 // K * T f32 scratch; counters: 1 + K * L uint32 scratch, zeroed here on the
 // stream. tile_start / tile_end (int64), tile_seg (int32, T entries),
 // seg_first (int32, L + 1 entries), n_true (f32, L entries) and items
-// (int32, n_items = 2 K T entries: ((k * T + t) << 1) | pass) are device
-// tables. vec != 0 promises that every tile starts at a multiple of 4
+// (int32, n_items entries: ((k * T + t) << 1) | pass; 2 K T in phase 0,
+// the K T A items in phase 1, the K T B items in phase 2) are device
+// tables. In phase 1 `scales` receives the raw per-segment sums and n_true
+// is not read; in phase 2 `scales` is read and partials are not used.
+// vec != 0 promises that every tile starts at a multiple of 4
 // within its worker, that every worker starts 16 bytes aligned (K == 1 or
 // n a multiple of 4) and that x, hat, q and hat_out are 16-byte aligned.
 // Launches min(grid, n_items) blocks. Returns the first non-zero
@@ -344,10 +369,12 @@ extern "C" int sign_compress_f32(const float* x, const float* hat,
                                  const int* tile_seg, const int* seg_first,
                                  const float* n_true, const int* items,
                                  int n_items, int K, int T, int L,
-                                 long long n, int vec, int grid,
+                                 long long n, int vec, int grid, int phase,
                                  void* stream) {
   if (K <= 0 || L <= 0 || n <= 0 || n_items <= 0) return 0;
-  if (K > 65535 || grid <= 0) return (int)cudaErrorInvalidValue;
+  if (K > 65535 || grid <= 0 || phase < 0 || phase > 2) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(
       counters, 0, sizeof(unsigned) * (1 + (size_t)K * L), s);
@@ -355,7 +382,7 @@ extern "C" int sign_compress_f32(const float* x, const float* hat,
   const Args g{x,        hat,        q,        hat_out,  scales,
                partials, counters,   tile_start, tile_end, tile_seg,
                seg_first, n_true,    items,    n_items,  K,
-               T,        L,          n,        vec};
+               T,        L,          n,        vec,      phase};
   sign_compress_kernel<<<grid < n_items ? grid : n_items, kThreads, 0, s>>>(
       g);
   return (int)cudaGetLastError();

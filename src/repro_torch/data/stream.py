@@ -8,12 +8,14 @@ loop draws from, deterministic in ``(seed, step)``: step ``t`` is
 ``prefetch_to_device`` keeps ``size`` batches in flight: on CUDA each
 host batch is pinned and copied with ``non_blocking``, so the copies
 overlap the compute on the current batch; on the CPU it is plain
-iteration.
+iteration. Its ``placer`` (a callable ``batch -> batch``, e.g. the
+trainer's ``_place_batch``, which takes a ``comm='axis'`` rank's slice)
+places each batch in its stead.
 """
 from __future__ import annotations
 
 import collections
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator, Optional
 
 import torch
 
@@ -38,15 +40,16 @@ def ctr_stream(teacher: CTRTeacher, K: int, per_worker: int, *,
 
 
 def prefetch_to_device(it: Iterator[PyTree], size: int = 2, *,
-                       device: "str | torch.device" = "cuda"
+                       device: "str | torch.device" = "cuda",
+                       placer: Optional[Callable[[PyTree], PyTree]] = None
                        ) -> Iterator[PyTree]:
     """Wrap a batch iterator with a transfer window of ``size`` batches
-    (2: one in use, one in flight) to ``device``. JAX's ``sharding=`` /
-    ``placer=`` belong to the worker mesh, not ported yet (ROADMAP queue
-    1: multi-GPU comm)."""
+    (2: one in use, one in flight) to ``device``, or through ``placer``
+    when it is given (JAX's ``placer=``; its ``sharding=`` is a jax
+    object with no torch counterpart)."""
     if size < 1:
         raise ValueError(f"prefetch size must be >= 1, got {size}")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if placer is None else None
 
     def one(x: torch.Tensor) -> torch.Tensor:
         if dev.type == "cuda" and x.device.type == "cpu":
@@ -54,6 +57,8 @@ def prefetch_to_device(it: Iterator[PyTree], size: int = 2, *,
         return x.to(dev)
 
     def put(batch: PyTree) -> PyTree:
+        if placer is not None:
+            return placer(batch)
         return tree_map(one, batch)
 
     window: collections.deque = collections.deque()

@@ -16,10 +16,12 @@ from repro_torch.kernels import gossip as _gossip
 from repro_torch.kernels import rwkv_scan as _wkv
 from repro_torch.kernels import sign_compress as _sc
 
-KERNELS = (_adam.fused_adam, _gossip.gossip_mix, _gossip.gossip_adam_mix,
-           _gossip.consensus_mix, _sc.sign_compress_stacked,
-           _sc.sign_compress, _gossip.payload_mix, _fa.flash_attention,
-           _wkv.rwkv_scan)
+KERNELS = {k.__name__: k for k in (
+    _adam.fused_adam, _gossip.gossip_mix, _gossip.gossip_adam_mix,
+    _gossip.consensus_mix, _sc.sign_compress_stacked, _sc.sign_compress,
+    _gossip.payload_mix, _fa.flash_attention, _wkv.rwkv_scan)}
+# the two-launch reduce_axis form of sign_compress_stacked, counted apart
+KERNELS["sign_compress_stacked_reduce"] = _sc._stacked_reduce
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -101,9 +103,9 @@ def rwkv_scan(r, k, v, w, u, state):
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launches`."""
-    return {k.__name__: k.launches for k in KERNELS}
+    return {name: k.launches for name, k in KERNELS.items()}
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
+    for k in KERNELS.values():
         k.launches = 0

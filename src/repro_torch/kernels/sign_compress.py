@@ -18,6 +18,21 @@ per worker over the whole worker, divided by ``n_true``.
 at lines 65 and 78): one scale over a whole tensor, divided by its element
 count. It is the K = 1, one-segment case of the same CUDA code.
 
+``reduce_axis`` is the 2D worker x model layout's form (JAX's
+``reduce_axis=`` names the model mesh axis and ``psum``s the scale's
+partial sums over it, ``sign_compress.py:187-188``): here it is the model
+group's sum, a callable that takes the ``(K, L)`` f32 sums of this shard
+and returns their sum over the M shards of the worker in a fixed order
+(``functools.partial(launch.mesh.model_sum, wg=group)``), the same bits
+on every rank. ``x`` is then one shard's block of each segment and
+``n_true`` the segments' GLOBAL true counts, which may exceed the block's
+slots. The CUDA code runs as two launches of the same kernel
+(:func:`_stacked_reduce`): the first walks the A items and
+writes q and the per-segment sums, the host sums them over the group and
+divides by ``n_true``, and the second walks the B items with those
+scales. Every rank of a worker then applies, and sends, the same scale.
+The plain version takes the same split.
+
 The CUDA code (``csrc/sign_compress.cu``) is one persistent launch that
 walks a list of work items built here (:func:`schedule`): each segment is
 cut into tiles of at most ``TILE`` elements, and each tile is an A item
@@ -58,13 +73,12 @@ Bounds = Tuple[Tuple[int, int], ...]
 def _layout(x: torch.Tensor, hat: torch.Tensor, n_true, row_ranges,
             reduce_axis) -> Tuple[int, int, Bounds, Tuple[int, ...]]:
     """``(K, n, bounds, n_trues)``: per-worker element bounds of each
-    segment and its true element count."""
-    if reduce_axis is not None:
-        raise NotImplementedError(
-            "reduce_axis (the 2D worker x model mesh's sum of the scale "
-            "partials over the model axis) is not ported yet; the 1D "
-            "comm='axis' worker layout runs the kernel on each rank's K = 1 "
-            "shard (ROADMAP queue 3: the 2D row-sharded layout)")
+    segment and its true element count (the global one, which may exceed
+    the segment's slots, with ``reduce_axis``)."""
+    if reduce_axis is not None and not callable(reduce_axis):
+        raise TypeError("reduce_axis is the model group's sum, a callable "
+                        "(launch.mesh.model_sum with its group bound); got "
+                        f"{type(reduce_axis).__name__}")
     if x.dim() < 1:
         raise ValueError("stacked sign compress needs a leading worker dim")
     if hat.shape != x.shape:
@@ -94,7 +108,8 @@ def _layout(x: torch.Tensor, hat: torch.Tensor, n_true, row_ranges,
         n_trues = tuple(int(t) if t is not None else (b - a) * LANE
                         for t, (a, b) in zip(n_true, ranges))
     for (a, b), t in zip(bounds, n_trues):
-        if b > a and not 0 < t <= b - a:
+        if b > a and not 0 < t <= (b - a if reduce_axis is None
+                                   else float("inf")):
             raise ValueError(f"n_true={t} out of range (0, {b - a}]")
     return K, n, bounds, n_trues
 
@@ -108,7 +123,9 @@ def _zeros(x, hat, K: int, L: Optional[int]) -> Tensors3:
 def sign_compress_stacked_plain(x: torch.Tensor, hat: torch.Tensor, *,
                                 n_true=None, row_ranges=None,
                                 reduce_axis=None) -> Tensors3:
-    """Plain PyTorch version of :func:`sign_compress_stacked`, op by op."""
+    """Plain PyTorch version of :func:`sign_compress_stacked`, op by op;
+    with ``reduce_axis`` the sums go through it before the division, as
+    the kernel's two launches do."""
     K, n, bounds, n_trues = _layout(x, hat, n_true, row_ranges, reduce_axis)
     L = None if row_ranges is None else len(bounds)
     if n == 0 or K == 0:
@@ -117,9 +134,9 @@ def sign_compress_stacked_plain(x: torch.Tensor, hat: torch.Tensor, *,
     d = x.reshape(K, n).to(torch.float32) - hf
     absd = torch.abs(d)
     sums = torch.stack([absd[:, a:b].sum(dim=1) for a, b in bounds], dim=1)
-    div = torch.tensor([f32(max(t, 1)) for t in n_trues],
-                       dtype=torch.float32, device=x.device)
-    scale = sums / div                                     # (K, L)
+    if reduce_axis is not None:
+        sums = reduce_axis(sums)
+    scale = sums / _divisors(n_trues, x.device)            # (K, L)
     sgn = (d > 0).to(torch.float32) - (d < 0).to(torch.float32)
     lengths = torch.tensor([b - a for a, b in bounds], device=x.device)
     scale_el = torch.repeat_interleave(scale, lengths, dim=1, output_size=n)
@@ -194,23 +211,41 @@ def schedule(bounds: Bounds, K: int, lag: int) -> Schedule:
                     tuple(items))
 
 
+def split_items(sch: Schedule, K: int) -> Tuple[int, ...]:
+    """The work list of the two-launch (``reduce_axis``) form: every A
+    item, workers and segments in order, then every B item in the same
+    order; the first launch walks the first half, the second the
+    other."""
+    T = len(sch.tile_start)
+    a = tuple((k * T + t) << 1 for k in range(K) for t in range(T))
+    return a + tuple(i | 1 for i in a)
+
+
+def _divisors(n_trues: Tuple[int, ...], device) -> torch.Tensor:
+    """The f32 true counts, 1 for an empty segment (whose sum is 0)."""
+    return torch.tensor([f32(max(t, 1)) for t in n_trues],
+                        dtype=torch.float32, device=device)
+
+
 @functools.lru_cache(maxsize=64)
 def device_tables(bounds: Bounds, n_trues: Tuple[int, ...], K: int,
-                  device: torch.device, grid: int) -> Tuple:
+                  device: torch.device, grid: int,
+                  split: bool = False) -> Tuple:
     """``(tile_start, tile_end, tile_seg, seg_first, n_true, items)`` on
     ``device`` for K workers and a grid of ``grid`` blocks (the B items lag
-    ``LAG_GRIDS * grid`` items), with ``T`` and ``n_items``: built once per
+    ``LAG_GRIDS * grid`` items; with ``split`` the list is
+    :func:`split_items`'), with ``T`` and ``n_items``: built once per
     layout, device and grid. ``n_true`` is f32, 1 for an empty segment
     (whose sum is 0)."""
     sch = schedule(bounds, K, LAG_GRIDS * grid)
-    div = [f32(max(t, 1)) for t in n_trues]
+    items = split_items(sch, K) if split else sch.items
     tabs = (torch.tensor(sch.tile_start, dtype=torch.int64, device=device),
             torch.tensor(sch.tile_end, dtype=torch.int64, device=device),
             torch.tensor(sch.tile_seg, dtype=torch.int32, device=device),
             torch.tensor(sch.seg_first, dtype=torch.int32, device=device),
-            torch.tensor(div, dtype=torch.float32, device=device),
-            torch.tensor(sch.items, dtype=torch.int32, device=device))
-    return tabs, len(sch.tile_start), len(sch.items)
+            _divisors(n_trues, device),
+            torch.tensor(items, dtype=torch.int32, device=device))
+    return tabs, len(sch.tile_start), len(items)
 
 
 @functools.lru_cache(maxsize=None)
@@ -218,7 +253,7 @@ def _lib():
     lib = _build.load("sign_compress")
     lib.sign_compress_f32.argtypes = (
         [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
-        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.sign_compress_f32.restype = ctypes.c_int
     lib.sign_compress_grid.argtypes = [ctypes.c_int]
     lib.sign_compress_grid.restype = ctypes.c_int
@@ -238,12 +273,18 @@ def grid_blocks(device: torch.device) -> int:
 
 
 def _launch(x: torch.Tensor, hat: torch.Tensor, K: int, n: int,
-            bounds: Bounds, n_trues: Tuple[int, ...]) -> Tensors3:
+            bounds: Bounds, n_trues: Tuple[int, ...],
+            reduce_axis=None) -> Tensors3:
     """Run the CUDA kernel on ``x``, ``hat`` viewed as ``(K, n)``; returns
-    (q shaped like x, scales (K, L), hat_new shaped like hat)."""
+    (q shaped like x, scales (K, L), hat_new shaped like hat). Without
+    ``reduce_axis`` one launch; with it two (phases 1 and 2), the sums of
+    the first summed over the model group and divided by ``n_trues`` on
+    the device between them."""
     check_f32_cuda(x, hat)
     grid = grid_blocks(x.device)
-    tabs, T, n_items = device_tables(bounds, n_trues, K, x.device, grid)
+    split = reduce_axis is not None
+    tabs, T, n_items = device_tables(bounds, n_trues, K, x.device, grid,
+                                     split)
     L = len(bounds)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     hat_new = torch.empty_like(hat)
@@ -254,13 +295,27 @@ def _launch(x: torch.Tensor, hat: torch.Tensor, K: int, n: int,
     # 16-byte accesses when every tile of every worker starts aligned
     vec = int((K == 1 or n % 4 == 0) and all(a % 4 == 0 for a, _ in bounds)
               and all(t.data_ptr() % 16 == 0 for t in (x, hat, q, hat_new)))
-    status = _build.launch(
-        _lib().sign_compress_f32, x.device, x.data_ptr(), hat.data_ptr(),
-        q.data_ptr(), hat_new.data_ptr(), at, at + 4 * K * L,
-        at + 4 * (K * L + K * T), *(t.data_ptr() for t in tabs), n_items, K,
-        T, L, n, vec, grid)
-    _build.check(status, "sign_compress")
-    return q, scratch[:K * L].view(K, L), hat_new
+    ptrs = [t.data_ptr() for t in tabs]
+
+    def run(scales: int, items: int, count: int, phase: int) -> None:
+        status = _build.launch(
+            _lib().sign_compress_f32, x.device, x.data_ptr(),
+            hat.data_ptr(), q.data_ptr(), hat_new.data_ptr(), scales,
+            at + 4 * K * L, at + 4 * (K * L + K * T), *ptrs[:5], items,
+            count, K, T, L, n, vec, grid, phase)
+        _build.check(status, "sign_compress")
+
+    if not split:
+        run(at, ptrs[5], n_items, 0)
+        return q, scratch[:K * L].view(K, L), hat_new
+    half = n_items // 2
+    run(at, ptrs[5], half, 1)
+    _stacked_reduce.launches += 1
+    sums = reduce_axis(scratch[:K * L].view(K, L))
+    scales = (sums.to(x.device) / tabs[4]).contiguous()
+    run(scales.data_ptr(), ptrs[5] + 4 * half, half, 2)
+    _stacked_reduce.launches += 1
+    return q, scales, hat_new
 
 
 def sign_compress_stacked(x: torch.Tensor, hat: torch.Tensor, *,
@@ -275,12 +330,32 @@ def sign_compress_stacked(x: torch.Tensor, hat: torch.Tensor, *,
     signature. With ``row_ranges`` (one ``(row_start, row_end)`` per
     segment of a ``(K, rows, 128)`` buffer, covering its rows in order)
     and ``n_true`` one true count per segment, ``scale`` is ``(K, L)``.
-    One call launches the kernel once, whatever the segment count."""
-    K, n, bounds, n_trues = _layout(x, hat, n_true, row_ranges, reduce_axis)
+    One call launches the kernel once, whatever the segment count; with
+    ``reduce_axis`` (the model group's sum) it is
+    :func:`_stacked_reduce`'s two launches."""
+    if reduce_axis is not None:
+        return _stacked_reduce(x, hat, n_true=n_true, row_ranges=row_ranges,
+                               reduce_axis=reduce_axis)
+    K, n, bounds, n_trues = _layout(x, hat, n_true, row_ranges, None)
     if n == 0 or K == 0:
         return _zeros(x, hat, K, None if row_ranges is None else len(bounds))
     q, scales, hat_new = _launch(x, hat, K, n, bounds, n_trues)
     sign_compress_stacked.launches += 1
+    return q, scales[:, 0] if row_ranges is None else scales, hat_new
+
+
+def _stacked_reduce(x: torch.Tensor, hat: torch.Tensor, *, n_true=None,
+                    row_ranges=None, reduce_axis) -> Tensors3:
+    """:func:`sign_compress_stacked` on one model shard's block under the
+    2D layout: the sums of ``|x - hat|`` over each segment's slots of this
+    block are summed over the model group by ``reduce_axis`` and divided
+    by the segments' global true counts ``n_true``. Two launches of the
+    kernel, each counted (under ``sign_compress_stacked_reduce`` in
+    :func:`repro_torch.kernels.ops.launch_counts`)."""
+    K, n, bounds, n_trues = _layout(x, hat, n_true, row_ranges, reduce_axis)
+    if n == 0 or K == 0:
+        return _zeros(x, hat, K, None if row_ranges is None else len(bounds))
+    q, scales, hat_new = _launch(x, hat, K, n, bounds, n_trues, reduce_axis)
     return q, scales[:, 0] if row_ranges is None else scales, hat_new
 
 
@@ -300,4 +375,5 @@ def sign_compress(x: torch.Tensor, hat: torch.Tensor) -> Tensors3:
 
 
 sign_compress_stacked.launches = 0
+_stacked_reduce.launches = 0
 sign_compress.launches = 0

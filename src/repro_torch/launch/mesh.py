@@ -2,12 +2,21 @@
 ``make_worker_mesh``.
 
 The JAX package runs ``comm='axis'`` as one controller driving
-``shard_map`` over a ``'worker'`` mesh axis. Here every worker is a
-process of its own, SPMD over ``torch.distributed``: rank r is worker r,
-holds its ``(1, ...)`` slice of the stacked state, and takes its graph
-neighbours' blocks by point-to-point messages (:func:`exchange`, called
-by ``core.dadam.shift_worker`` once per graph offset, where JAX has one
-``ppermute``).
+``shard_map`` over a ``'worker'`` mesh axis (and, for the 2D layout, a
+``'model'`` axis). Here every rank is a process of its own, SPMD over
+``torch.distributed``. With ``model_parallel=M`` (1 by default) the K
+workers are K groups of M ranks: global rank ``r = w M + m`` is model
+index m of worker w, the row-major device order of
+``jax.make_mesh((K, M))``. Each rank holds its worker's ``(1, ...)``
+slice of the stacked state, and under the 2D layout one
+``(1, rows / M, 128)`` block of its packed buffers. A rank takes its graph
+neighbours' blocks by point-to-point messages with the ranks of the same
+model index (:func:`exchange`, called by ``core.dadam.shift_worker`` once
+per graph offset, where JAX has one ``ppermute`` over the worker axis),
+and reaches the other ranks of its worker through the model-group
+collectives: :func:`model_all_gather` and :func:`model_sum`, a sum whose
+order is the model index, so that every rank of a group holds the same
+bits.
 
 Transport, by the group's backend:
 
@@ -45,14 +54,25 @@ from repro_torch._device import resolve_device
 
 WORKER_AXIS = "worker"   # the comm='axis' worker axis name, as in JAX
 DEFAULT_TIMEOUT_S = 300.0
+# the collectives a WorkerGroup counts, by kind (collective_summary)
+COLLECTIVES = ("exchange", "model_all_gather", "model_sum",
+               "worker_all_gather", "all_reduce")
 
 
 @dataclasses.dataclass
 class WorkerGroup:
     """One rank's view of the worker group: the process group, this
-    rank's worker index, the worker count K, the device that holds this
-    worker's state, and the backend. ``bytes_sent`` and ``messages``
-    count what :func:`exchange` put on the wire from this rank."""
+    rank's worker index ``rank`` (w), the worker count K, the device that
+    holds this worker's state, and the backend. With ``M`` > 1 (the 2D
+    layout) the rank is model index ``model_rank`` (m) of worker w, at
+    global rank ``global_rank`` = w M + m; ``model_group`` is the process
+    group of worker w's M ranks (None when M is 1) and ``worker_group``
+    that of the K ranks of model index m (the whole group when M is 1).
+
+    ``counts`` holds ``[calls, bytes]`` of every collective by kind
+    (:data:`COLLECTIVES`, :meth:`collective_summary`), the bytes being
+    this rank's contribution; ``bytes_sent`` and ``messages`` are
+    :func:`exchange`'s, what this rank put on the wire."""
 
     group: Any
     rank: int
@@ -60,8 +80,40 @@ class WorkerGroup:
     device: torch.device
     backend: str
     axis_name: str = WORKER_AXIS
-    bytes_sent: int = 0
-    messages: int = 0
+    M: int = 1
+    model_rank: int = 0
+    model_group: Any = None
+    worker_group: Any = None
+    counts: dict = dataclasses.field(
+        default_factory=lambda: {k: [0, 0] for k in COLLECTIVES})
+
+    @property
+    def global_rank(self) -> int:
+        return self.rank * self.M + self.model_rank
+
+    @property
+    def bytes_sent(self) -> int:
+        return self.counts["exchange"][1]
+
+    @property
+    def messages(self) -> int:
+        return self.counts["exchange"][0]
+
+    def count(self, kind: str, nbytes: int) -> None:
+        c = self.counts[kind]
+        c[0] += 1
+        c[1] += int(nbytes)
+
+    def reset_counts(self) -> None:
+        for c in self.counts.values():
+            c[0] = c[1] = 0
+
+    def collective_summary(self) -> dict:
+        """``{kind: {"count", "bytes"}}`` of the collectives this rank made
+        since the last :meth:`reset_counts`: the port's form of the JAX
+        package's ``analysis.hlo.collective_summary``."""
+        return {k: {"count": c, "bytes": b}
+                for k, (c, b) in self.counts.items()}
 
     @property
     def host_staged(self) -> bool:
@@ -112,9 +164,10 @@ def make_worker_group(workers: int, *, backend: Optional[str] = None,
                       rank: Optional[int] = None,
                       device: "str | torch.device" = "cuda",
                       timeout_s: float = DEFAULT_TIMEOUT_S,
-                      axis_name: str = WORKER_AXIS) -> WorkerGroup:
-    """Open (or join) the process group of ``workers`` ranks and return
-    this rank's :class:`WorkerGroup`.
+                      axis_name: str = WORKER_AXIS,
+                      model_parallel: int = 1) -> WorkerGroup:
+    """Open (or join) the process group of ``workers`` x ``model_parallel``
+    ranks and return this rank's :class:`WorkerGroup`.
 
     Without ``init_method`` the group forms from the environment
     ``torchrun`` sets (``env://``: ``MASTER_ADDR``, ``MASTER_PORT``,
@@ -122,10 +175,18 @@ def make_worker_group(workers: int, *, backend: Optional[str] = None,
     ``tcp://localhost:<port>``) the rank comes from ``rank`` or
     ``$RANK``. A group that is already initialised is joined as it is.
     ``backend`` defaults to :func:`default_backend`; every collective
-    fails after ``timeout_s``.
+    fails after ``timeout_s``. With ``model_parallel=M`` > 1 global rank
+    r is model index ``r % M`` of worker ``r // M``, and every rank
+    creates the K model groups and the M worker groups, in that order.
 
-    Raises ``ValueError`` when the group's size is not ``workers``, or
-    when ``nccl`` is asked for on the CPU or for ranks sharing a card."""
+    Raises ``ValueError`` when the group's size is not ``workers`` x
+    ``model_parallel``, or when ``nccl`` is asked for on the CPU or for
+    ranks sharing a card."""
+    if model_parallel < 1:
+        raise ValueError(f"model_parallel must be >= 1, got "
+                         f"{model_parallel}")
+    M = model_parallel
+    workers_total = workers * M
     if not dist.is_initialized():
         if rank is None:
             if "RANK" not in os.environ:
@@ -133,26 +194,42 @@ def make_worker_group(workers: int, *, backend: Optional[str] = None,
                     "make_worker_group needs the rank: run under torchrun, "
                     "or pass rank= (or set $RANK) with init_method=")
             rank = int(os.environ["RANK"])
-        dev = rank_device(device, rank, workers)
-        backend = backend or default_backend(dev, workers)
-        _check_backend(backend, dev, workers)
+        dev = rank_device(device, rank, workers_total)
+        backend = backend or default_backend(dev, workers_total)
+        _check_backend(backend, dev, workers_total)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         dist.init_process_group(
             backend, init_method=init_method or "env://",
-            world_size=workers, rank=rank,
+            world_size=workers_total, rank=rank,
             timeout=datetime.timedelta(seconds=timeout_s))
     else:
         rank = dist.get_rank()
-        dev = rank_device(device, rank, workers)
+        dev = rank_device(device, rank, workers_total)
         backend = dist.get_backend()
-        _check_backend(backend, dev, workers)
+        _check_backend(backend, dev, workers_total)
     world = dist.get_world_size()
-    if world != workers:
-        raise ValueError(f"the process group has {world} ranks; comm='axis' "
-                         f"with {workers} workers needs one rank a worker")
-    return WorkerGroup(group=dist.group.WORLD, rank=rank, K=workers,
-                       device=dev, backend=backend, axis_name=axis_name)
+    if world != workers_total:
+        raise ValueError(
+            f"the process group has {world} ranks; comm='axis' with "
+            f"{workers} workers x model_parallel {M} needs {workers_total}")
+    wg = WorkerGroup(group=dist.group.WORLD, rank=rank // M, K=workers,
+                     device=dev, backend=backend, axis_name=axis_name,
+                     M=M, model_rank=rank % M, worker_group=dist.group.WORLD)
+    if M > 1:
+        timeout = datetime.timedelta(seconds=timeout_s)
+        # every rank creates every subgroup, in one order
+        for w in range(workers):
+            g = dist.new_group([w * M + m for m in range(M)],
+                               timeout=timeout)
+            if w == wg.rank:
+                wg.model_group = g
+        for m in range(M):
+            g = dist.new_group([w * M + m for w in range(workers)],
+                               timeout=timeout)
+            if m == wg.model_rank:
+                wg.worker_group = g
+    return wg
 
 
 def _check_backend(backend: str, dev: torch.device, workers: int) -> None:
@@ -188,10 +265,13 @@ def _unwire(buf: torch.Tensor, like: torch.Tensor,
 
 def exchange(x: torch.Tensor, src: int, dst: int, wg: WorkerGroup,
              tag: int = 0) -> torch.Tensor:
-    """Send ``x`` to rank ``dst`` and return the tensor rank ``src`` sends
-    (of ``x``'s shape and dtype), both in one ``batch_isend_irecv``; every
-    rank of the group must call it with its own peers and the same
-    ``tag``. With ``src == dst == rank`` it returns a copy of ``x``.
+    """Send ``x`` to worker ``dst`` and return the tensor worker ``src``
+    sends (of ``x``'s shape and dtype), both in one ``batch_isend_irecv``;
+    every rank of the group must call it with its own peers and the same
+    ``tag``. Under the 2D layout the peers are the ranks of this rank's
+    model index (global ranks ``src M + m`` and ``dst M + m``), so each
+    model column ships its own block. With ``src == dst == rank`` it
+    returns a copy of ``x``.
 
     The branch on the backend: a host-staged group (gloo, CUDA state)
     copies ``x`` to a host buffer, exchanges host buffers and copies the
@@ -201,34 +281,72 @@ def exchange(x: torch.Tensor, src: int, dst: int, wg: WorkerGroup,
         return x.clone()
     send = _wire(x, wg)
     recv = torch.empty_like(send)
+    m = wg.model_rank
     reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, dst, wg.group, tag),
-        dist.P2POp(dist.irecv, recv, src, wg.group, tag)])
+        dist.P2POp(dist.isend, send, dst * wg.M + m, wg.group, tag),
+        dist.P2POp(dist.irecv, recv, src * wg.M + m, wg.group, tag)])
     for req in reqs:
         req.wait()
-    wg.bytes_sent += send.numel()
-    wg.messages += 1
+    wg.count("exchange", send.numel())
     return _unwire(recv, x, x.shape)
 
 
 def all_reduce_sum(x: torch.Tensor, wg: WorkerGroup) -> torch.Tensor:
-    """The sum of ``x`` over the ranks (a new tensor on ``x``'s device),
-    staged through host memory for a host-staged group."""
+    """The sum of ``x`` (a new tensor on ``x``'s device) over the K
+    workers of this rank's model index (every rank when M is 1), staged
+    through host memory for a host-staged group. The backend picks the
+    order of the sum: for values that need not agree to the bit (the
+    log)."""
     buf = x.detach().clone()
     if wg.host_staged:
         buf = buf.cpu()
-    dist.all_reduce(buf, group=wg.group)
+    dist.all_reduce(buf, group=wg.worker_group)
+    wg.count("all_reduce", buf.numel() * buf.element_size())
     return buf.to(x.device)
 
 
-def all_gather_workers(x: torch.Tensor, wg: WorkerGroup) -> torch.Tensor:
-    """The ranks' ``x`` concatenated along dim 0 in rank order, equal to
-    the bit (every rank gets all of them; each rank's ``x`` must have the
-    same shape and dtype)."""
+def _gather(x: torch.Tensor, wg: WorkerGroup, n: int, group: Any,
+            kind: str) -> list:
     send = _wire(x, wg)
-    parts = [torch.empty_like(send) for _ in range(wg.K)]
-    dist.all_gather(parts, send, group=wg.group)
-    return torch.cat([_unwire(p, x, x.shape) for p in parts], dim=0)
+    parts = [torch.empty_like(send) for _ in range(n)]
+    dist.all_gather(parts, send, group=group)
+    wg.count(kind, send.numel())
+    return [_unwire(p, x, x.shape) for p in parts]
+
+
+def all_gather_workers(x: torch.Tensor, wg: WorkerGroup) -> torch.Tensor:
+    """The K workers' ``x`` (from the ranks of this rank's model index)
+    concatenated along dim 0 in worker order, equal to the bit (every
+    rank gets all of them; each rank's ``x`` must have the same shape and
+    dtype)."""
+    return torch.cat(_gather(x, wg, wg.K, wg.worker_group,
+                             "worker_all_gather"), dim=0)
+
+
+def model_all_gather(x: torch.Tensor, wg: WorkerGroup,
+                     dim: int = 1) -> torch.Tensor:
+    """The M blocks ``x`` of this rank's worker concatenated along ``dim``
+    in model-index order, equal to the bit, on every rank of the model
+    group: a ``(1, rows / M, 128)`` block becomes the worker's
+    ``(1, rows, 128)`` buffer. ``x`` itself when M is 1."""
+    if wg.M == 1:
+        return x
+    return torch.cat(_gather(x, wg, wg.M, wg.model_group,
+                             "model_all_gather"), dim=dim)
+
+
+def model_sum(x: torch.Tensor, wg: WorkerGroup) -> torch.Tensor:
+    """The sum of ``x`` over the M ranks of this rank's worker, added in
+    model-index order after one all-gather, so that every rank of the
+    group holds the same bits (``dist.all_reduce`` leaves the order to the
+    backend). ``x`` itself when M is 1."""
+    if wg.M == 1:
+        return x
+    parts = _gather(x, wg, wg.M, wg.model_group, "model_sum")
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
 
 
 def barrier(wg: WorkerGroup) -> None:

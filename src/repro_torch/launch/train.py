@@ -27,14 +27,23 @@ draw the same global batches, each steps its own worker on its slice, and
 rank 0 prints the log (global loss and consensus) and writes the
 checkpoint. ``--dist-backend`` takes ``nccl`` (one card per rank) or
 ``gloo`` (the CPU, or ranks sharing a card, staged through host memory);
-by default nccl when every rank has a card of its own. ``--damping`` is
-not ported under ``--comm axis``, and ``--model-parallel > 1`` (the 2D
-worker x model layout) raises ``NotImplementedError``.
+by default nccl when every rank has a card of its own.
+
+``--model-parallel M`` (with ``--comm axis --backend packed``) is the 2D
+worker x model layout: each of the K workers is a group of M ranks, each
+holding one ``(1, rows / M, 128)`` block of its worker's row-sharded
+state; gossip crosses only the worker axis and CD-Adam's scales are
+summed over the M ranks. Without torchrun ``--workers K`` spawns K x M
+ranks; under torchrun it takes K x M of them. Rank (w, 0) of each worker
+counts toward the log, and global rank 0 prints it.
 
     PYTHONPATH=src python -m repro_torch.launch.train --comm axis \
         --workers 2 --device cpu --steps 4 --period 2 --seq 16 --batch 1
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --comm axis --workers 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --comm axis \
+        --workers 2 --model-parallel 2 --backend packed --device cpu \
+        --steps 4 --period 2 --seq 16 --batch 1
 
 Memory: the packed step is out of place (the Adam kernels write new
 buffers), and a ``fit`` call keeps the state it was handed alive until it
@@ -154,8 +163,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--dist-timeout", type=float, default=DEFAULT_TIMEOUT_S,
                     help="seconds before a --comm axis collective fails")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="inner model-parallel group size per worker (the "
-                         "2D mesh); not ported yet")
+                    help="with --comm axis --backend packed: ranks per "
+                         "worker M (the 2D worker x model layout; the "
+                         "packed state's row dim is cut M ways, gossip "
+                         "still crosses only the worker axis): K x M "
+                         "ranks in all")
     ap.add_argument("--microbatch", type=int, default=1,
                     help="gradient-accumulation microbatches per step "
                          "(must divide --batch)")
@@ -189,28 +201,29 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def check_ported(args: argparse.Namespace) -> None:
-    """Raise for the options whose machinery the port does not have yet."""
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 is the 2D worker x model row-sharded "
-            "layout, not ported yet (ROADMAP queue 3: the 2D row-sharded "
-            "layout)")
-    if args.comm == "axis" and args.damping:
-        raise NotImplementedError(
-            "--damping under --comm axis is not ported yet (ROADMAP queue "
-            "3: multi-GPU comm)")
+def check_args(args: argparse.Namespace) -> None:
+    """The JAX CLI's refusals of ``--model-parallel`` without the 2D
+    layout's needs."""
+    if args.model_parallel < 1:
+        raise SystemExit("--model-parallel must be >= 1")
+    if args.model_parallel > 1 and args.comm != "axis":
+        raise SystemExit("--model-parallel > 1 requires --comm axis "
+                         "(the 2D worker x model layout)")
+    if args.model_parallel > 1 and args.backend != "packed":
+        raise SystemExit("--model-parallel > 1 requires --backend packed "
+                         "(it cuts the packed row dim)")
 
 
 def main(argv: Optional[List[str]] = None) -> TrainRun:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser().parse_args(argv)
-    check_ported(args)
+    check_args(args)
     if args.comm == "axis" and "WORLD_SIZE" not in os.environ:
-        # no torchrun: this process spawns the K ranks and waits for them
-        # the ranks share the host's cores
-        logs = spawn(_axis_rank, args.workers, (argv,), timeout_s=None,
-                     threads=max(1, (os.cpu_count() or 1) // args.workers))
+        # no torchrun: this process spawns the K x M ranks and waits for
+        # them; the ranks share the host's cores
+        ranks = args.workers * args.model_parallel
+        logs = spawn(_axis_rank, ranks, (argv,), timeout_s=None,
+                     threads=max(1, (os.cpu_count() or 1) // ranks))
         log, n_params = logs[0]
         return TrainRun(None, None, log, None, n_params)
     return _run(args)
@@ -228,12 +241,13 @@ def _run(args: argparse.Namespace,
         group = make_worker_group(args.workers, backend=args.dist_backend,
                                   init_method=init_method,
                                   device=args.device,
-                                  timeout_s=args.dist_timeout)
+                                  timeout_s=args.dist_timeout,
+                                  model_parallel=args.model_parallel)
         dev = group.device
     else:
         dev = resolve_device(args.device)
-    # under --comm axis rank 0 prints for the group
-    say = print if group is None or group.rank == 0 else (
+    # under --comm axis global rank 0 prints for the group
+    say = print if group is None or group.global_rank == 0 else (
         lambda *a, **k: None)
     arch = get_arch(args.arch) if args.full else get_reduced(args.arch)
     cfg = arch.model
@@ -270,9 +284,15 @@ def _run(args: argparse.Namespace,
           f"topo={args.topology} backend={args.backend} comm={args.comm}"
           + (" overlap" if args.overlap else ""), flush=True)
     if group is not None:
-        say(f"[train] worker group: {args.workers} ranks, one worker "
-            f"each, on {dev}; gossip = one exchange per graph offset "
+        say(f"[train] worker group: {args.workers} workers x {group.M} "
+            f"rank(s), on {dev}; gossip = one exchange per graph offset "
             f"({group.transport})", flush=True)
+        if group.M > 1:
+            say(f"[train] 2D execution: each worker = {group.M}-rank "
+                f"model group ({args.workers * group.M} ranks); packed "
+                f"rows cut {group.M} ways, one (1, rows/{group.M}, 128) "
+                f"block a rank; compression scales summed over the model "
+                f"group", flush=True)
     if args.backend == "packed":
         # packed-resident state: params + moments live in the stacked
         # (K, rows, 128) kernel layout across steps; grads come back packed

@@ -2,7 +2,7 @@
 of ``repro.train.grad``.
 
 ``make_grad_pipeline(loss, opt)`` reads the optimizer's config and returns
-a :class:`GradPipeline` in one of two modes:
+a :class:`GradPipeline` in one of three modes:
 
 * **reference**: tree state. The loss runs on the stacked params, whose
   leaves are made leaves of the autograd graph, and the grads come back as
@@ -12,7 +12,25 @@ a :class:`GradPipeline` in one of two modes:
   it from ``packing.unpack``, and the gradient of the summed per-worker
   losses comes back as one packed buffer with zero padding, written leaf
   by leaf by ``unpack``'s backward, with no pack. This is the counterpart
-  of differentiating through ``unpack`` in the JAX package.
+  of differentiating through ``unpack`` in the JAX package. Under the 2D
+  worker x model layout (``cfg.model_parallel`` = M > 1) a rank holds one
+  ``(1, rows / M, 128)`` block: each step all-gathers the worker's M
+  blocks over the model group once, differentiates through the whole
+  buffer, and keeps its own rows of the gradient. That moves one
+  worker's parameters a step, as JAX's GSPMD does through ``unpack`` on a
+  2D mesh.
+* **sharded-packed**: the 2D layout with a model-parallel loss,
+  ``sharded_loss(chunks, batch, ctx) -> scalar``, evaluated on the rank's
+  own block: ``chunks`` are the block's flat per-leaf chunks
+  (``packing.unpack_local``, padding kept, the worker dim dropped),
+  ``batch`` the worker's batch without its K dim, and ``ctx`` a
+  :class:`ShardCtx` whose ``psum`` (:func:`psum_replicated`),
+  ``mirror``, ``full_leaf`` and :func:`row_parallel_dot` are the only
+  ways the M ranks of a worker meet; it returns the worker's whole loss,
+  the same on every rank of the group. Nothing is all-gathered: the
+  gradient of the block comes back from ``unpack_local``'s backward, and
+  the group's collectives are the loss's own sums (counted on the
+  ``WorkerGroup`` as ``model_sum``).
 
 A loss here is ``loss(params_stacked, batch_stacked) -> (K,)``: the
 worker dim is written out. Workers do not share params, so the gradient of
@@ -47,18 +65,148 @@ import torch
 from repro_torch._tree import (keystr, tree_flatten, tree_map,
                                tree_map_with_path, tree_unflatten)
 from repro_torch.kernels import pack as packing
+from repro_torch.launch.mesh import WorkerGroup, model_all_gather, model_sum
 
 PyTree = Any
+
+
+# ------------------------------ shard context -------------------------------
+
+
+class _PsumReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: WorkerGroup):
+        return model_sum(x.detach(), group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+def psum_replicated(x: torch.Tensor, group: WorkerGroup) -> torch.Tensor:
+    """The sum of ``x`` over the worker's model group
+    (``launch.mesh.model_sum``, the same bits on every rank), whose
+    backward is the identity: the adjoint for a loss that is the same on
+    every rank of the group, each rank keeping its own cotangent. The
+    adjoint of a plain sum would be another sum over the group, and would
+    multiply every gradient by M. Every sharded loss reduces with it
+    (``ShardCtx.psum``)."""
+    return _PsumReplicated.apply(x, group)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """What a model-parallel loss knows of its shard: the pack spec (the
+    leaf layout) and the rank's ``WorkerGroup``, whose model group is the
+    worker's M ranks."""
+
+    spec: packing.PackSpec
+    group: WorkerGroup
+
+    @property
+    def n_shards(self) -> int:
+        return self.group.M
+
+    @property
+    def index(self) -> int:
+        """This rank's model index."""
+        return self.group.model_rank
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the model group, the only way a sharded loss ties
+        the shards together; its backward is the identity
+        (:func:`psum_replicated`)."""
+        return psum_replicated(x, self.group)
+
+    def mirror(self, tree: PyTree) -> PyTree:
+        """A per-worker tree of full leaf shapes (targets, anchors) cut
+        into this shard's chunk layout (``packing.mirror_local``)."""
+        return packing.mirror_local(tree, self.spec, self.index)
+
+    def full_leaf(self, chunk: torch.Tensor, leaf_idx: int) -> torch.Tensor:
+        """Leaf ``leaf_idx``'s whole per-worker value from this shard's
+        chunk, by one sum over the group of a vector of the leaf's true
+        size that is zero outside this shard's part: for SMALL leaves
+        (biases, norms), whose size is what the sum moves."""
+        spec = self.spec
+        sz = spec.sizes[leaf_idx]
+        c = chunk.numel()
+        lo = min(self.index * c, sz)
+        mine = min(c, sz - lo)
+        flat = chunk.reshape(-1)
+        vals = torch.cat([flat.new_zeros(lo), flat[:mine],
+                          flat.new_zeros(sz - lo - mine)])
+        return self.psum(vals).reshape(spec.shapes[leaf_idx][1:])
+
+
+class _SliceReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, rows_local: int, group: WorkerGroup):
+        ctx.shape, ctx.rows, ctx.group = tuple(x.shape), rows_local, group
+        start = group.model_rank * rows_local
+        return x[..., start:start + rows_local]
+
+    @staticmethod
+    def backward(ctx, ct):
+        full = ct.new_zeros(ctx.shape)
+        start = ctx.group.model_rank * ctx.rows
+        full[..., start:start + ctx.rows] = ct
+        return model_sum(full, ctx.group), None, None
+
+
+def _slice_replicated(x: torch.Tensor, rows_local: int,
+                      group: WorkerGroup) -> torch.Tensor:
+    """This shard's ``rows_local`` slice of the last dim of an activation
+    that is the same on every rank of the group. Its backward puts the
+    cotangent into the full width and sums it over the group, so the
+    cotangent leaving it is again the same on every rank: with a plain
+    slice, a lower row-parallel layer would get a slice-shaped cotangent
+    and lose most of its weight gradient."""
+    return _SliceReplicated.apply(x, rows_local, group)
+
+
+def row_parallel_dot(x: torch.Tensor, w_chunk: torch.Tensor, d_out: int,
+                     ctx: ShardCtx) -> torch.Tensor:
+    """``x @ W`` with W's rows in this shard's flat chunk: Megatron's
+    row-parallel linear over the packed layout. The chunk is a
+    contiguous piece of the flattened ``(d_in, d_out)`` matrix, whole
+    rows of it when ``d_out`` divides the chunk (any power of two up to
+    the tile quantum does); ``x``'s columns are padded with zeros to
+    every shard's rows (the padding rows of W are zero), this shard's
+    columns are taken, and the product is summed over the group. ``x``
+    must be the same on every rank of the group, and so is the result:
+    row-parallel layers compose."""
+    c = w_chunk.numel()
+    if c % d_out:
+        raise ValueError(
+            f"chunk of {c} elements is not whole rows of d_out={d_out}; "
+            "pick a d_out dividing the tile quantum "
+            f"({packing.BLOCK_ROWS * packing.LANE} elements)")
+    rows_local = c // d_out
+    W = w_chunk.reshape(rows_local, d_out)
+    rows_total = rows_local * ctx.n_shards
+    d_in = x.shape[-1]
+    if rows_total < d_in:
+        raise ValueError(f"chunked rows {rows_total} < d_in {d_in}")
+    xp = torch.nn.functional.pad(x, (0, rows_total - d_in))
+    xl = _slice_replicated(xp, rows_local, ctx.group)
+    return ctx.psum(xl @ W.to(x.dtype))
+
+
+# ------------------------------- the pipeline -------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class GradPipeline:
     """``value_and_grad(state, batch) -> (losses (K,), grads)`` with
-    ``grads`` in the optimizer's form: a stacked tree (reference) or a
-    packed ``(K, rows, 128)`` buffer (packed). With ``damping_chunks`` > 0
-    it takes a third argument, the ``(K,)`` live-chunk counts ``n``."""
+    ``grads`` in the optimizer's form: a stacked tree (reference), a
+    packed ``(K, rows, 128)`` buffer (packed), or the rank's
+    ``(1, rows / M, 128)`` block (the 2D layout's packed and
+    sharded-packed). With ``damping_chunks`` > 0 it takes a third
+    argument, the ``(K,)`` live-chunk counts ``n`` (the rank's ``(1,)``
+    under ``comm='axis'``)."""
 
-    mode: str                 # 'reference' | 'packed'
+    mode: str                 # 'reference' | 'packed' | 'sharded-packed'
     value_and_grad: Callable[..., Any]
     microbatch: int = 1
     damping_chunks: int = 0   # 0 = undamped 2-arg pipeline
@@ -139,14 +287,21 @@ def make_grad_pipeline(loss: Callable[[PyTree, PyTree], torch.Tensor],
                        plan: Any = None,
                        damping_chunks: int = 0) -> GradPipeline:
     """Build the gradient pipeline for ``opt`` (a DecentralizedOptimizer):
-    ``backend='packed'`` takes the through-unpack path, everything else the
-    reference path.
+    ``backend='packed'`` takes the through-unpack path, or under the 2D
+    layout with a ``sharded_loss`` the sharded-packed path; everything
+    else the reference path. A ``sharded_loss`` without a 2D optimizer is
+    not used, as in the JAX package.
 
     Args:
       loss: ``(params_stacked, batch_stacked) -> (K,)`` per-worker losses.
       opt: the optimizer; its config decides the mode.
       microbatch: gradient-accumulation chunks per step (>= 1).
-      sharded_loss, plan: the 2D worker x model mesh's; not ported yet.
+      sharded_loss: ``(chunks, batch, ctx) -> scalar``, the worker's loss
+        from this rank's block (see the module's docstring); selects the
+        ``'sharded-packed'`` mode under the 2D layout.
+      plan: the JAX package's GSPMD sharding constraints for the 2D
+        packed mode; they place operands and change no number, and have
+        no torch meaning yet.
       damping_chunks: > 0 builds the damped variant, a 3-arg
         ``value_and_grad(state, batch, n)`` over this many chunks, masking
         each worker's chunks past its count ``n[k]``. Exclusive with
@@ -155,7 +310,7 @@ def make_grad_pipeline(loss: Callable[[PyTree, PyTree], torch.Tensor],
     Raises:
       ValueError: ``microbatch < 1``, ``damping_chunks < 0``, or both
         ``damping_chunks`` and ``microbatch`` > 1.
-      NotImplementedError: ``sharded_loss`` or ``plan``.
+      NotImplementedError: ``plan``.
     """
     if microbatch < 1:
         raise ValueError(f"microbatch must be >= 1, got {microbatch}")
@@ -168,20 +323,29 @@ def make_grad_pipeline(loss: Callable[[PyTree, PyTree], torch.Tensor],
                 "damping owns the accumulation loop (its max_chunks IS "
                 "the chunk count); microbatch > 1 alongside "
                 "damping_chunks is ambiguous — set one, not both")
-    if sharded_loss is not None or plan is not None:
-        what = ("the sharded damped path" if damping_chunks
-                else "sharded_loss / plan")
+    if plan is not None:
         raise NotImplementedError(
-            f"{what} belongs to the 2D worker x model mesh, not ported "
-            "yet; the 1D comm='axis' worker layout is (ROADMAP queue 3: the "
-            "2D row-sharded layout)")
+            "plan= threads the JAX package's GSPMD sharding constraints "
+            "into the loss; they place operands and change no number, and "
+            "have no torch meaning yet (ROADMAP queue 4: make_plan)")
     packed = getattr(opt.cfg, "backend", "reference") == "packed"
+    two_d = packed and getattr(opt.cfg, "model_parallel", 1) > 1
+    mb = 1 if damping_chunks else microbatch
+    if two_d and sharded_loss is not None:
+        if opt.sharded_value_and_grad is None:
+            raise ValueError(
+                "sharded_loss needs a 2D comm='axis' optimizer; this one "
+                "has no sharded execution hook")
+        vag = _sharded_packed_vag(sharded_loss, opt, microbatch,
+                                  damping_chunks)
+        return GradPipeline("sharded-packed", vag, mb, damping_chunks)
     if packed:
-        vag = _packed_vag(loss, microbatch, damping_chunks)
+        vag = _packed_vag(loss, microbatch, damping_chunks,
+                          opt.group if two_d else None)
     else:
         vag = _reference_vag(loss, opt, microbatch, damping_chunks)
-    return GradPipeline("packed" if packed else "reference", vag,
-                        1 if damping_chunks else microbatch, damping_chunks)
+    return GradPipeline("packed" if packed else "reference", vag, mb,
+                        damping_chunks)
 
 
 def _reference_vag(loss, opt, microbatch: int, damping_chunks: int):
@@ -231,17 +395,29 @@ def _reference_vag(loss, opt, microbatch: int, damping_chunks: int):
     return reference_vag
 
 
-def _packed_vag(loss, microbatch: int, damping_chunks: int):
+def _packed_vag(loss, microbatch: int, damping_chunks: int,
+                group: Optional[WorkerGroup] = None):
     """Differentiate through ``packing.unpack``, whose backward writes
     every leaf's gradient into one fresh packed buffer: the damped masks,
-    sums and division work on it in place."""
+    sums and division work on it in place. With ``group`` (the 2D layout)
+    the worker's whole buffer is all-gathered once a step and each chunk's
+    gradient cut to this rank's rows."""
 
     def one_of(state):
+        whole = state.buf
+        rows = None
+        if group is not None:
+            whole = model_all_gather(whole.detach(), group)
+            rows = state.spec.local_rows
+            start = group.model_rank * rows
+
         def one(b):
             with torch.enable_grad():
-                buf = state.buf.detach().requires_grad_(True)
+                buf = whole.detach().requires_grad_(True)
                 losses = loss(packing.unpack(buf, state.spec), b)
                 (grad,) = torch.autograd.grad(losses.sum(), buf)
+            if rows is not None:
+                grad = grad[:, start:start + rows].contiguous()
             return losses.detach(), grad
 
         return one
@@ -259,5 +435,59 @@ def _packed_vag(loss, microbatch: int, damping_chunks: int):
     def vag(state, batch):
         return _accumulate(one_of(state), batch, microbatch, torch.add,
                            lambda a, n: a / n)
+
+    return vag
+
+
+def _sharded_packed_vag(sharded_loss, opt, microbatch: int,
+                        damping_chunks: int):
+    """The model-parallel path: the loss runs on this rank's block through
+    ``packing.unpack_local``, whose backward writes the gradient straight
+    into a block-sized buffer, with nothing all-gathered. Each chunk's
+    loss is the worker's (the same on every rank of the group), so the
+    losses are ``(1,)``; damping masks with the rank's ``(1,)`` count."""
+    group = opt.group
+
+    def local_vag_of(state):
+        spec = state.spec
+        ctx = ShardCtx(spec=spec, group=group)
+
+        def one(block, b):
+            worker_batch = tree_map(lambda x: x[0], b)
+            with torch.enable_grad():
+                blk = block.detach().requires_grad_(True)
+                chunks = tree_map(lambda x: x[0],
+                                  packing.unpack_local(blk, spec))
+                loss = sharded_loss(chunks, worker_batch, ctx)
+                (grad,) = torch.autograd.grad(loss, blk)
+            return loss.detach().reshape(1), grad
+
+        return one
+
+    if damping_chunks:
+        def damped_vag(state, batch, n):
+            one = local_vag_of(state)
+
+            def local_vag(block, batch_n):
+                b, n_local = batch_n
+                return _accumulate_damped(
+                    lambda mb: one(block, mb), b, damping_chunks, n_local,
+                    lambda g, off: g.masked_fill_(_worker_shaped(off, g),
+                                                  0.0),
+                    torch.Tensor.add_,
+                    lambda a, nf: a.div_(_worker_shaped(nf, a)))
+
+            return opt.sharded_value_and_grad(local_vag, state, (batch, n))
+
+        return damped_vag
+
+    def vag(state, batch):
+        one = local_vag_of(state)
+
+        def local_vag(block, b):
+            return _accumulate(lambda mb: one(block, mb), b, microbatch,
+                               torch.add, lambda a, k: a / k)
+
+        return opt.sharded_value_and_grad(local_vag, state, batch)
 
     return vag

@@ -11,7 +11,13 @@ Under ``comm='axis'`` (an optimizer built with a worker group) every rank
 runs the same ``fit`` on the same global stacked batches and steps its own
 worker on its slice of them; the log's loss and consensus are the K
 workers' (one all-reduce per logged step), so every rank's ``TrainLog``
-is the stacked run's.
+is the stacked run's. Under the 2D worker x model layout the M ranks of a
+worker take the same slice of the batch and count once: the loss enters
+the log once per worker, and the consensus sums run over the workers of
+each model index and then over the model group. The damping state is
+global, as in the JAX package: every rank keeps the ``(K,)`` state and
+updates it from the K workers' all-gathered losses, and each rank masks
+its own chunks with its worker's count.
 """
 from __future__ import annotations
 
@@ -25,7 +31,9 @@ from repro_torch._tree import (tree_flatten, tree_leaves, tree_map,
                                tree_unflatten)
 from repro_torch.core.api import DecentralizedOptimizer
 from repro_torch.core.dadam import consensus_error, mean_params
-from repro_torch.launch.mesh import all_reduce_sum
+from repro_torch.kernels import pack as packing
+from repro_torch.launch.mesh import (all_gather_workers, all_reduce_sum,
+                                     model_sum)
 from repro_torch.launch.shardings import take_worker
 from repro_torch.train import damping as damping_mod
 from repro_torch.train.damping import DampingConfig, DampingState
@@ -111,10 +119,15 @@ class DecentralizedTrainer:
     a host sync, and survives ``resize`` and lr-decay rebuilds. Exclusive
     with ``microbatch`` > 1. Once every worker sits at ``max_chunks``,
     ``lr_decay`` / ``lr_decay_every`` decay eta through ``opt.rebuild``,
-    checked at log points.
+    checked at log points. Under ``comm='axis'`` the damping state is
+    the same ``(K,)`` state on every rank (see the module's docstring).
 
-    ``sharded_loss``, ``plan`` and ``recompile_limit`` are not ported yet
-    and raise ``NotImplementedError`` when given.
+    ``sharded_loss``: the model-parallel loss of the 2D layout's
+    ``'sharded-packed'`` grad pipeline, ``(chunks, batch, ctx) ->
+    scalar`` (``train.grad``); without a 2D optimizer it is not used.
+    ``plan`` (GSPMD sharding constraints) and ``recompile_limit`` (a
+    guard on jit recompiles) have no torch meaning yet and raise
+    ``NotImplementedError`` when given.
     """
 
     def __init__(self, loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
@@ -125,16 +138,12 @@ class DecentralizedTrainer:
         if recompile_limit is not None:
             raise NotImplementedError(
                 "recompile_limit guards jit recompiles, which the eager port "
-                "does not have yet (ROADMAP queue 1: tooling)")
+                "does not have yet (ROADMAP queue 4: tooling)")
         self.loss_fn = loss_fn
         self._microbatch = microbatch
         self._sharded_loss = sharded_loss
         self._plan = plan
         self._damping = damping_mod.make_damping(damping)
-        if self._damping is not None and opt.group is not None:
-            raise NotImplementedError(
-                "damping under comm='axis' is not ported yet (ROADMAP queue "
-                "3: multi-GPU comm); use comm='stacked'")
         if self._damping is not None and microbatch > 1:
             raise ValueError(
                 "damping owns the accumulation loop (max_chunks IS the "
@@ -182,15 +191,25 @@ class DecentralizedTrainer:
         self._build(new_opt)
         return new_state
 
+    def _params_like(self, state) -> PyTree:
+        """The params' shapes and dtypes for the byte accounting: of a
+        packed state, empty tensors made from its spec (no collective
+        under the 2D layout); else the params."""
+        spec = getattr(state, "spec", None)
+        if spec is None:
+            return self.opt.params_of(state)
+        return tree_unflatten(spec.treedef, [
+            torch.empty(shape, dtype=dt, device="meta")
+            for shape, dt in zip(spec.shapes, spec.dtypes)])
+
     def comm_mb_per_round(self, state) -> float:
-        return self.opt.comm_bytes_per_round(
-            self.opt.params_of(state)) / 1e6
+        return self.opt.comm_bytes_per_round(self._params_like(state)) / 1e6
 
     def _round_mb(self, state, round_index: int) -> float:
         if self._mb_rounds is None:
-            params = self.opt.params_of(state)
             self._mb_rounds = [
-                b / 1e6 for b in self.opt.comm_bytes_round_list(params)]
+                b / 1e6 for b in self.opt.comm_bytes_round_list(
+                    self._params_like(state))]
         return self._mb_rounds[round_index % len(self._mb_rounds)]
 
     def _place_batch(self, batch: PyTree) -> PyTree:
@@ -201,26 +220,44 @@ class DecentralizedTrainer:
             batch = take_worker(batch, group.rank, group.K)
         return tree_map(lambda x: x.to(self.opt.device), batch)
 
+    def _local_x(self, state) -> torch.Tensor:
+        """This rank's params, flat in f64: its worker's, or under the 2D
+        layout its block's leaf chunks without their padding."""
+        spec = getattr(state, "spec", None)
+        if getattr(self.opt.cfg, "model_parallel", 1) == 1 or spec is None:
+            leaves = tree_leaves(self.opt.params_of(state))
+        else:
+            m = self.opt.group.model_rank
+            chunks = tree_leaves(packing.unpack_local(state.buf, spec))
+            leaves = [c[:, :max(0, min(c.shape[1], sz - m * c.shape[1]))]
+                      for c, sz in zip(chunks, spec.sizes)]
+        return torch.cat([t.reshape(-1).to(torch.float64) for t in leaves])
+
     def _log_values(self, loss: torch.Tensor, state) -> Tuple[float, float]:
         """The logged mean loss over the K workers and their consensus
-        error. Under ``comm='axis'`` both come from one f64 all-reduce of
+        error. Under ``comm='axis'`` both come from one f64 all-reduce,
+        over the workers of this rank's model index, of
         ``[loss_k, ||x_k||^2, x_k]``: the mean loss, and
         ``(sum_k ||x_k||^2 - ||sum_k x_k||^2 / K) / K``, which is
         ``consensus_error``'s ``(1/K) sum_k ||x_k - x_bar||^2`` (floored at
-        0, where equal workers leave a rounding's worth below it)."""
-        params = self.opt.params_of(state)
+        0, where equal workers leave a rounding's worth below it). Under
+        the 2D layout x is the block's part of each worker's params, and
+        the M parts of the consensus are summed over the model group; the
+        loss, the same on every rank of a worker, enters once."""
         group = self.opt.group
         if group is None:
-            return float(loss), float(consensus_error(params))
-        x = torch.cat([t.reshape(-1).to(torch.float64)
-                       for t in tree_leaves(params)])
+            return float(loss), float(consensus_error(
+                self.opt.params_of(state)))
+        x = self._local_x(state)
         head = torch.stack([loss.reshape(()).to(torch.float64),
                             torch.dot(x, x)])
         total = all_reduce_sum(torch.cat([head, x]), group)
         K = group.K
         s2, sx = total[1], total[2:]
-        consensus = (s2 - torch.dot(sx, sx) / K) / K
-        return float(total[0]) / K, max(float(consensus), 0.0)
+        part = (s2 - torch.dot(sx, sx) / K).reshape(1)
+        if getattr(self.opt.cfg, "model_parallel", 1) > 1:
+            part = model_sum(part, group)
+        return float(total[0]) / K, max(float(part) / K, 0.0)
 
     def step(self, state, batch) -> Tuple[Any, torch.Tensor]:
         """One optimizer step; returns the new state and the mean loss
@@ -232,9 +269,14 @@ class DecentralizedTrainer:
             losses, grads = self.pipeline.value_and_grad(state, batch)
             return self.opt.step(state, grads), torch.mean(losses)
         n = damping_mod.chunks_of(self.damp_state, dcfg, self.opt.K)
+        group = self.opt.group
+        if group is not None:
+            n = n[group.rank:group.rank + 1]
         losses, grads = self.pipeline.value_and_grad(state, batch, n)
         state = self.opt.step(state, grads)
-        self.damp_state = damping_mod.update(self.damp_state, losses, dcfg)
+        every = losses if group is None else all_gather_workers(losses,
+                                                                group)
+        self.damp_state = damping_mod.update(self.damp_state, every, dcfg)
         return state, torch.mean(losses)
 
     def _maybe_decay_lr(self) -> None:
@@ -312,8 +354,10 @@ class DecentralizedTrainer:
         return state, log
 
     def averaged_params(self, state) -> PyTree:
-        """The mean over the K workers (all-reduced under
-        ``comm='axis'``)."""
+        """The mean over the K workers (all-reduced over the workers of
+        this rank's model index under ``comm='axis'``; under the 2D layout
+        from the worker's params gathered over its model group, so each
+        worker counts once)."""
         params = self.opt.params_of(state)
         group = self.opt.group
         if group is None:

@@ -5,7 +5,7 @@ JAX package's comm='axis' (one controller, shard_map over a 'worker' mesh).
   ``TestValidation`` / ``TestMeshValidation``), in-process: no group, a
   group of another size or axis name, dense mixing, a topology without
   shift offsets, D-PSGD, CD-Adam staleness; and the options the port
-  leaves out under axis (damping, elastic resize, online publish).
+  leaves out under axis (elastic resize, online publish).
 * Port against JAX: the same numpy inputs (the ragged tree of
   ``tests/test_comm_axis.py``, K=4, weight decay 0.01, grads ``0.5 x +
   0.1 noise_t``) go through the port's axis runs, 4 gloo ranks spawned on
@@ -90,7 +90,13 @@ def write_inputs(path, k=K, seed=0):
 
 JAX_SCRIPT = textwrap.dedent("""
     import json, os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    # a larger thread pool and a longer collective wait than XLA's CPU
+    # defaults (one thread a core, 40 s), so that a loaded host does not
+    # abort the reference; neither changes a number
+    os.environ["XLA_FLAGS"] = (
+        "--xla_force_host_platform_device_count=8 "
+        "--xla_cpu_collective_call_terminate_timeout_seconds=300")
+    os.environ["PJRT_NPROC"] = "32"
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -302,8 +308,11 @@ class TestValidation:
 
         loss = lambda p, b: ((p["x"] - b) ** 2).sum(dim=1)
         axis = make_optimizer("d-adam", K, comm="axis", group=fake_group())
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-            DecentralizedTrainer(loss, axis, damping="adadamp:2")
+        # damping under axis is ported (tests/test_torch_grad_2d.py): the
+        # trainer keeps the global (K,) damping state on every rank
+        tr = DecentralizedTrainer(loss, axis, damping="adadamp:2")
+        assert tr.pipeline.damping_chunks == 2
+        assert tr.damp_state.level.shape == (1,)
         with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
             train_online(DecentralizedTrainer(loss, axis), None, iter(()),
                          1, store=ParamStore(), publish_every=1)

@@ -273,6 +273,38 @@ def test_cuda_sign_compress_matches_plain(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["leaf", "worker"])
+def test_cuda_sign_compress_reduce_axis_matches_plain(cuda, case):
+    """The 2D layout's two launches (``reduce_axis``, here a stand-in for
+    the model group's sum that doubles the sums, as a group of two equal
+    shards would, with n_true the global counts): q equal, the scales
+    within the f32 reordering of the sums, and hat equal to the bit to
+    the plain arithmetic at the kernel's own scales."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((1, 3 * 256 + 8, 128), generator=gen, device="cuda")
+    hat = torch.randn(x.shape, generator=gen, device="cuda")
+    ranges = ((0, 256), (256, 768), (768, 768), (768, 776))
+    kw = (dict(row_ranges=ranges, n_true=(2 * 32768, 2 * 65536, 0, 2 * 1000))
+          if case == "leaf" else dict(n_true=2 * x.numel()))
+
+    def reduce(s):
+        return s + s
+
+    got = tsc.sign_compress_stacked(x, hat, reduce_axis=reduce, **kw)
+    want = tsc.sign_compress_stacked_plain(x, hat, reduce_axis=reduce, **kw)
+    torch.cuda.synchronize()
+    compressed_close(got, want)
+    q, scale, hat_new = got
+    sc = scale.reshape(1, -1)
+    lengths = torch.tensor([b - a for a, b in (ranges if case == "leaf"
+                                               else ((0, x.shape[1]),))],
+                           device="cuda") * 128
+    scale_el = torch.repeat_interleave(sc, lengths, dim=1)
+    assert torch.equal(hat_new.reshape(1, -1),
+                       hat.reshape(1, -1) + scale_el * q.reshape(1, -1).float())
+
+
+@pytest.mark.gpu
 def test_cuda_wrappers_count_launches_and_reject_bad_operands(cuda):
     from repro_torch.kernels import ops
 
@@ -285,6 +317,7 @@ def test_cuda_wrappers_count_launches_and_reject_bad_operands(cuda):
                         topo.self_weight, eta=1e-3)
     ops.consensus_mix(p, g, (m, v), topo.offset_weights, 0.4)
     ops.sign_compress_stacked(p, g, row_ranges=((0, 4), (4, ROWS)))
+    ops.sign_compress_stacked(p, g, reduce_axis=lambda s: s)
     ops.sign_compress(p, g)
     ops.payload_mix(p, (m, v), topo.offset_weights, topo.self_weight)
     q = p.reshape(1, K * ROWS, 4, 32)
@@ -293,7 +326,8 @@ def test_cuda_wrappers_count_launches_and_reject_bad_operands(cuda):
     ops.rwkv_scan(x, x, x, x.sigmoid(), x[0, 0], p.reshape(2, 4, 32, 32))
     assert ops.launch_counts() == {
         "fused_adam": 1, "gossip_mix": 1, "gossip_adam_mix": 1,
-        "consensus_mix": 1, "sign_compress_stacked": 1, "sign_compress": 1,
+        "consensus_mix": 1, "sign_compress_stacked": 1,
+        "sign_compress_stacked_reduce": 2, "sign_compress": 1,
         "payload_mix": 1, "flash_attention": 1, "rwkv_scan": 1}
     with pytest.raises(ValueError, match="f32"):
         ops.fused_adam(p.double(), g.double(), m.double(), v.double(),

@@ -399,12 +399,15 @@ def test_damping_and_microbatch_are_not_both():
 
 
 def test_sharded_damped_path_waits_for_multi_gpu_comm():
+    """The sharded damped path is the 2D layout's
+    (tests/test_torch_grad_2d.py); without a 2D optimizer a sharded loss
+    is not used, as in JAX, and the packed damped path runs. ``plan``
+    has no torch meaning yet."""
     opt = make_optimizer("d-adam", K, backend="packed", device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="sharded damped path.*2D row-sharded layout"):
-        make_grad_pipeline(deepfm.deepfm_loss, opt, damping_chunks=4,
-                           sharded_loss=lambda *a: 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+    pipe = make_grad_pipeline(deepfm.deepfm_loss, opt, damping_chunks=4,
+                              sharded_loss=lambda *a: 0.0)
+    assert (pipe.mode, pipe.damping_chunks) == ("packed", 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 4"):
         DecentralizedTrainer(deepfm.deepfm_loss, opt, damping="adadamp:4",
                              plan=object())
 

@@ -227,6 +227,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                         topo.self_weight, eta=1e-3)
     ops.consensus_mix(p, g, (m, v), topo.offset_weights, 0.4)
     ops.sign_compress_stacked(p, g, row_ranges=((0, 4), (4, ROWS)))
+    ops.sign_compress_stacked(p, g, reduce_axis=lambda s: s)
     ops.sign_compress(p, g)
     ops.payload_mix(p, (m, v), topo.offset_weights, topo.self_weight)
     q = p.reshape(1, K * ROWS, 4, 32)
@@ -235,7 +236,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     ops.rwkv_scan(x, x, x, x.sigmoid(), x[0, 0], p.reshape(2, 4, 32, 32))
     assert ops.launch_counts() == {
         "fused_adam": 0, "gossip_mix": 0, "gossip_adam_mix": 0,
-        "consensus_mix": 0, "sign_compress_stacked": 0, "sign_compress": 0,
+        "consensus_mix": 0, "sign_compress_stacked": 0,
+        "sign_compress_stacked_reduce": 0, "sign_compress": 0,
         "payload_mix": 0, "flash_attention": 0, "rwkv_scan": 0}
 
 
@@ -363,8 +365,19 @@ def test_sign_compress_edge_cases_and_rejections():
     assert q.shape == (K, 0) and q.dtype == torch.int8
     assert torch.equal(scale, torch.zeros(K)) and hat is x
     p, g, _, _ = to_t(*bufs())
-    with pytest.raises(NotImplementedError, match="2D row-sharded layout"):
+    # reduce_axis is the model group's sum, a callable (a model group of
+    # one: the identity gives the call without it); a mesh axis name is
+    # refused (tests/test_torch_axis_2d.py holds the 2D form against JAX)
+    with pytest.raises(TypeError, match="callable"):
         ops.sign_compress_stacked(p, g, reduce_axis="model")
+    for a, b in zip(ops.sign_compress_stacked(p, g, reduce_axis=lambda s: s),
+                    ops.sign_compress_stacked(p, g)):
+        assert torch.equal(a, b)
+    # with reduce_axis, n_true is the global count and may exceed the slots
+    _, s_big, _ = ops.sign_compress_stacked(p, g, n_true=2 * ROWS * 128,
+                                            reduce_axis=lambda s: 2 * s)
+    _, s_one, _ = ops.sign_compress_stacked(p, g)
+    torch.testing.assert_close(s_big, s_one, rtol=1e-6, atol=0)
     with pytest.raises(ValueError, match="out of range"):
         ops.sign_compress_stacked(p, g, n_true=ROWS * 128 + 1)
     with pytest.raises(ValueError, match="cover"):

@@ -287,12 +287,25 @@ def test_train_cli_runs_and_its_checkpoint_loads_in_jax(tmp_path, capsys):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-# --comm axis is ported (tests/test_torch_comm_axis_train.py); damping
-# under it is not, and is refused before any rank is spawned
+# --comm axis, --damping under it and --model-parallel are ported
+# (tests/test_torch_comm_axis_train.py, tests/test_torch_grad_2d.py):
+# --model-parallel without --comm axis is refused, as the JAX CLI refuses
+# it, before any rank is spawned; damping under axis runs, its evaluations
+# the stacked run's
 @pytest.mark.parametrize("flags", [["--damping", "adadamp:2",
                                     "--model-parallel", "2"],
                                    ["--comm", "axis", "--damping", "adadamp:2"],
                                    ["--model-parallel", "2"]])
 def test_train_cli_options_not_ported_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-        train_cli.main(["--device", "cpu", "--steps", "1"] + flags)
+    argv = ["--device", "cpu", "--steps", "1"] + flags
+    if "--comm" not in flags:
+        with pytest.raises(SystemExit, match="--comm axis"):
+            train_cli.main(argv)
+        return
+    small = ["--workers", "2", "--batch", "2", "--seq", "16", "--steps",
+             "2", "--log-every", "2", "--dist-backend", "gloo"]
+    axis = train_cli.main(argv + small)
+    stacked = train_cli.main(["--device", "cpu", "--damping", "adadamp:2"]
+                             + small)
+    assert axis.log.grad_evals == stacked.log.grad_evals
+    np.testing.assert_allclose(axis.log.loss, stacked.log.loss, rtol=1e-4)

@@ -270,9 +270,15 @@ def test_rejections():
     spec = tpack.make_spec({"w": torch.ones(3, 8)}, stacked=True)
     with pytest.raises(ValueError, match="match spec"):
         tpack.pack({"w": torch.ones(3, 9)}, spec)
-    with pytest.raises(NotImplementedError, match="row_shards"):
+    # the row-sharded layout needs the stacked, leaf-aligned one
+    # (tests/test_torch_pack_2d.py holds it against JAX)
+    with pytest.raises(ValueError, match="leaf_align"):
+        tpack.make_spec({"w": torch.ones(3, 8)}, stacked=True, row_shards=2)
+    with pytest.raises(ValueError, match="row_shards must be"):
         tpack.make_spec({"w": torch.ones(3, 8)}, stacked=True,
-                        leaf_align=True, row_shards=2)
+                        leaf_align=True, row_shards=0)
+    assert tpack.make_spec({"w": torch.ones(3, 8)}, stacked=True,
+                           leaf_align=True, row_shards=2).row_shards == 2
 
 
 def test_bf16_roundtrip_through_numpy_is_exact():
