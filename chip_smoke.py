@@ -186,6 +186,32 @@ script exits non-zero without the final ``ok`` line:
    sender's; and the training CLI at ``--model-parallel 2`` against
    ``--model-parallel 1`` (reduced llama3.2-1b, 4 steps). The kernels
    phase holds the ``reduce_axis`` form on one rank's block.
+32. axis_elastic and axis_online (inside axis's spawn): ranks that leave
+   and join the worker group in the world of 8 (``trainer.resize`` on
+   every rank with its old group, ``share_log``): D-Adam tau=2 from its
+   12-step state K 8 -> 6 by clone (ranks 6 and 7 leave), 4 steps, 6 -> 8
+   by the mean (they join), 4 steps; CD-Adam 8 -> 6 by clone, 4 steps.
+   Every member's buffers right after each resize and after each step
+   equal to the bit (``bit_sums``) to its rows of the same plan stacked
+   on the card (loss worker by worker), exact launches per rank (none
+   outside a membership), ages cold, hats zero, the count kept, the
+   resize's seconds and bytes a rank. Then ``train_online`` at K=8, 12
+   steps publishing the mean every 4 and one worker's replica: the
+   history (4, 1), (8, 2), (12, 3) on every rank, every tree equal to the
+   bit to the stacked run's ``publish_params``, the held-out AUC by
+   version, the publish ms a rank.
+33. axis2d_elastic (inside axis2d's spawn): the D-Adam state at (K, M) =
+   (4, 2) resized by clone to (2, 4), 2 steps and one mean publish, every
+   rank's block equal to the bit to its block of the stacked K=4 -> 2 run
+   in the (2, 4) layout, the launches exact.
+34. examples (before lm_example): the ports of examples/quickstart.py,
+   serve_lm.py and online_serve.py as a user runs them on the card, their
+   launches exact (``EXAMPLES``).
+
+The CPU sides of the lm card-vs-CPU phases (16, 23, 28) run in a worker
+thread started after axis2d (``LMCPUSides``), beside the card phases;
+each step's card side and comparison run in the main thread between two
+phases once its CPU side is ready, the last before lm_example.
 
 Every phase's line holds ``elapsed_s``, the seconds since the script
 started.
@@ -469,6 +495,23 @@ LM_CARD_CPU_CUTS = {"zamba2-7b": dict(shared_attn_period=1),
                     "phi3.5-moe-42b-a6.6b": dict(n_experts=4),
                     "whisper-large-v3": dict(n_layers=2,
                                              n_encoder_layers=2)}
+# The CPU sides of these phases (their plain versions: 219 s of the
+# smoke's 295 s in them on an NVIDIA H100 80GB HBM3 host) run in a worker
+# thread started after the axis phases (whose 8 ranks share the host's
+# cores), in LM_CPU_ORDER (the largest first), with LM_CPU_THREADS torch
+# threads, beside the card phases. The worker hands each step's state
+# over; the main thread, between two phases, runs the card side to that
+# step and compares. Two child-process designs ran first (NVIDIA H100
+# 80GB HBM3, 700 W): with the states of steps 1 and 2 kept as copies in
+# shared memory the child's peak RSS reached 84.7 GB of the host's 101,
+# and in both the card's copies out of shared memory took 25-100 s an
+# arch (1,227 and 1,175 s for the smoke)
+LM_CPU_ORDER = (("phi3.5-moe-42b-a6.6b", LM_CARD_CPU_CUTS[
+    "phi3.5-moe-42b-a6.6b"]), ("zamba2-7b", LM_CARD_CPU_CUTS["zamba2-7b"]),
+    ("rwkv6-3b", {}), ("llama3.2-1b", {}),
+    ("whisper-large-v3", LM_CARD_CPU_CUTS["whisper-large-v3"]))
+LM_CPU_THREADS = 4
+LM_CPU_WAIT_S = 900
 # serving phi-3-vision whole: 32 layers (d_model 3072, 32/32 heads of 96,
 # d_ff 8192, vocab 32,064) and the projector, each request's 576 patch
 # features (1024 wide, from a seed) before its text; 3,820,879,872
@@ -556,6 +599,17 @@ LM_EXAMPLE_ARGS = ["--preset", "100m", "--workers", "4", "--period", "4",
                    "--steps", "12", "--log-every", "1", "--eta", str(LM_ETA),
                    "--device", DEVICE]
 LM_EXAMPLE_LAUNCHES = {"fused_adam": 9, "gossip_adam_mix": 3}
+# the last three example drivers as a user runs them, each with its
+# defaults on the card: quickstart (K=8 DeepFM, 8 fields x 32 features,
+# 100 steps on the JAX example's reference backend: no kernel), serve_lm
+# (the reduced llama3.2-1b, 2 layers, buckets (1, 16) and (4, 16), five
+# prompts in three prefills a call, two calls around a hot swap: a flash
+# launch per layer per prefill) and online_serve (K=8 packed D-Adam at
+# p=4, 60 steps, publishing every 20: fused_adam on the 45 local steps,
+# gossip_adam_mix on the 15 comm steps)
+EXAMPLES = (("quickstart", {}),
+            ("serve_lm", {"flash_attention": 2 * 3 * 2}),
+            ("online_serve", {"fused_adam": 45, "gossip_adam_mix": 15}))
 # CD-Adam at full width cut to 4 layers (16 would take about 100 GB):
 # fused_adam on all 8 steps, sign_compress_stacked and consensus_mix once
 # per comm step
@@ -658,7 +712,35 @@ AXIS_SNAPSHOTS = {1: ("buf", "m", "v"), 3: ("buf", "m", "v"), 4: ("buf",)}
 # at most 1% of the elements
 AXIS_LOSS_RTOL = 1e-4
 AXIS_GROUP_TIMEOUT_S = 120
-AXIS_SPAWN_TIMEOUT_S = 300
+AXIS_SPAWN_TIMEOUT_S = 420
+# elastic membership inside the axis phase's world of 8 ranks: each plan
+# goes on from its path's state after the 12 steps, every rank of the
+# world calls trainer.resize with its old group, and each new membership
+# takes AXIS_ELASTIC_STEPS steps (one round) on its own global batches.
+# D-Adam tau=2 (the stacked churn path): K 8 -> 6 by clone (ranks 6 and 7
+# leave), then 6 -> 8 by the mean (they join again); CD-Adam 8 -> 6 by
+# clone, from hats at zero. Per member and membership: fused_adam on each
+# step, CD-Adam's round one consensus_mix and one sign_compress_stacked;
+# a rank outside a membership launches nothing. Every member's buffers
+# right after each resize and after each step are held equal to the bit
+# to its rows of the same run stacked on the card (its loss worker by
+# worker), by two exact int64 sums of their bit patterns (bit_sums)
+AXIS_ELASTIC = {"d-adam-straggler": ((6, "clone"), (8, "mean")),
+                "cd-adam": ((6, "clone"),)}
+AXIS_ELASTIC_STEPS = 4
+AXIS_ELASTIC_LAUNCHES = {
+    "d-adam-straggler": {"fused_adam": AXIS_ELASTIC_STEPS},
+    "cd-adam": {"fused_adam": AXIS_ELASTIC_STEPS, "consensus_mix": 1,
+                "sign_compress_stacked": 1}}
+BUFS = ("buf", "m", "v")
+# train_online under comm='axis' on the world of 8: packed D-Adam from the
+# axis phase's init over its 12 batches, the consensus mean published
+# every 4 steps (versions 1-3 at steps 4, 8, 12), then worker
+# AXIS_ONLINE_WORKER's replica; every published tree equal to the bit on
+# every rank and to the stacked run's publish_params (its loss worker by
+# worker). fused_adam on every step of every rank
+AXIS_ONLINE_EVERY, AXIS_ONLINE_WORKER = 4, 5
+AXIS_ONLINE_LAUNCHES = {"fused_adam": AXIS_STEPS}
 # comm='axis' with the 2D worker x model layout on the one card: K=4
 # workers of M=2 ranks each (8 ranks in a gloo group, host-staged), the
 # paper's experiment at full width through the trainer's packed mode
@@ -692,6 +774,13 @@ AXIS2D_MLP = dict(d_in=8192, d_out=1024, per_worker=64, steps=6, period=2)
 AXIS2D_CLI = ["--comm", "axis", "--workers", "2", "--backend", "packed",
               "--steps", "4", "--period", "2", "--log-every", "2",
               "--dist-backend", "gloo"]
+# elastic membership of the 2D layout: the D-Adam path's state after its
+# 12 steps at (K, M) = (4, 2) resized by clone to (2, 4) (a new row
+# layout: rows / 4 a rank), 2 steps, then one mean publish; held to the
+# stacked K=4 -> 2 run, its blocks repacked to (2, 4)'s layout, by
+# bit_sums. fused_adam on each step of each rank
+AXIS2D_ELASTIC = dict(K=2, M=4, strategy="clone", steps=2)
+AXIS2D_ELASTIC_LAUNCHES = {"fused_adam": AXIS2D_ELASTIC["steps"]}
 
 
 def emit(obj) -> None:
@@ -2257,20 +2346,38 @@ def axis_snapshot(state, step: int) -> dict:
 
 def axis_stacked_run(path: str, params, batches, per_worker: bool):
     """The path stacked on the card: its snapshots, last loss, consensus
-    and bytes per round."""
+    and bytes per round; for the per-worker run of an AXIS_ELASTIC path
+    also the bit sums of its elastic plan (``elastic``), and for D-Adam's
+    those of its publishes at AXIS_ONLINE_EVERY steps (``published``)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.serve.publish import publish_params
+
     trainer = axis_trainer(path, per_worker=per_worker)
-    snaps = {}
+    snaps, published = {}, []
+    online = per_worker and path == "d-adam"
 
     def hook(step, st):
         if step in AXIS_SNAPSHOTS:
             snaps.update(axis_snapshot(st, step))
+        if online and step % AXIS_ONLINE_EVERY == 0:
+            params = publish_params(st, mode="mean")
+            published.append({"step": step, "params": params, "sums": [
+                bit_sums(x) for x in tree_leaves(params)]})
 
     state, log = trainer.fit(trainer.init(params), iter(batches),
                              AXIS_STEPS, log_every=AXIS_STEPS, hook=hook,
                              hook_every=1)
-    return snaps, {"loss": log.loss[-1], "consensus": log.consensus[-1],
-                   "bytes_round_list": trainer.opt.comm_bytes_round_list(
-                       trainer.opt.params_of(state))}
+    rec = {"loss": log.loss[-1], "consensus": log.consensus[-1],
+           "bytes_round_list": trainer.opt.comm_bytes_round_list(
+               trainer.opt.params_of(state))}
+    if online:
+        rec["published"] = published
+        rec["worker_sums"] = [bit_sums(x) for x in tree_leaves(
+            publish_params(state, mode="worker",
+                           worker=AXIS_ONLINE_WORKER))]
+    if per_worker and path in AXIS_ELASTIC:
+        rec["elastic"] = axis_elastic_stacked(path, trainer, state, log)
+    return snaps, rec
 
 
 def axis_stacked_refs(folder: Path, params, batches) -> dict:
@@ -2280,7 +2387,7 @@ def axis_stacked_refs(folder: Path, params, batches) -> dict:
     the same path with the batched loss, as the ``slice`` phase runs it,
     held to the first by ``step3_check``'s measures (recorded, not
     gated). Returns each path's last losses, consensus and bytes per
-    round."""
+    round, and the elastic plans' and publishes' bit sums."""
     out = {}
     for path in AXIS_PATHS:
         snaps, rec = axis_stacked_run(path, params, batches, True)
@@ -2299,6 +2406,164 @@ def axis_stacked_refs(folder: Path, params, batches) -> dict:
         del snaps, batched
         torch.cuda.empty_cache()
     return out
+
+
+def bit_sums(x: torch.Tensor) -> list:
+    """Two int64 sums of ``x``'s bit patterns, plain and weighted by
+    position (mod 2^64, so the order of the sum does not matter): equal
+    for tensors equal to the bit; a difference in one element changes
+    both."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[x.element_size()]
+    b = x.detach().contiguous().reshape(-1).view(ints).to(torch.int64)
+    w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+    return [int(b.sum()), int((b * w).sum())]
+
+
+def axis_elastic_batches(k: int, segment: int):
+    """The global batches of an elastic membership of ``k`` workers (the
+    ``segment``-th of its plan), made on the CPU from a seed: the same in
+    the parent and in every rank."""
+    from repro_torch.data.synthetic import (ctr_batch_stacked, ctr_teacher,
+                                            make_ctr_task)
+
+    task = make_ctr_task(seed=0, n_fields=FULL["n_fields"],
+                         features_per_field=FULL["features_per_field"],
+                         embed_dim=FULL["embed_dim"])
+    teacher = ctr_teacher(task, "cpu")
+    gen = torch.Generator().manual_seed(20 + segment)
+    return [ctr_batch_stacked(teacher, gen, k, FULL["per_worker"])
+            for _ in range(AXIS_ELASTIC_STEPS)]
+
+
+def axis_elastic_stacked(path: str, trainer, state, log) -> list:
+    """The elastic plan of ``path`` stacked on the card, going on from its
+    state after the 12 steps: each worker's bit sums right after each
+    resize (``after``) and after each step (``steps``), and the last
+    loss."""
+    def rows(st, k):
+        return [{n: bit_sums(getattr(st, n)[r]) for n in BUFS}
+                for r in range(k)]
+
+    segs = []
+    for i, (k_new, strategy) in enumerate(AXIS_ELASTIC[path]):
+        state = trainer.resize(state, trainer.opt.rebuild(K=k_new),
+                               strategy=strategy)
+        seg = {"K": k_new, "after": rows(state, k_new), "steps": []}
+        state, log = trainer.fit(
+            state, iter(axis_elastic_batches(k_new, i)), AXIS_ELASTIC_STEPS,
+            log_every=AXIS_ELASTIC_STEPS, log=log,
+            hook=lambda step, st: seg["steps"].append(rows(st, k_new)),
+            hook_every=1)
+        seg["loss"] = log.loss[-1]
+        segs.append(seg)
+    return segs
+
+
+def axis_elastic_rank(path: str, trainer, state, log, group) -> list:
+    """A rank's part of the elastic plan of ``path``: for each membership a
+    new worker group over the world's first K' ranks, ``trainer.resize``
+    with the old group (the rank's state, or None when it held no worker),
+    ``share_log``, then the steps. Returns per membership the resize's
+    seconds and bytes, and for a member its buffers' bit sums right after
+    the resize and after each step, the cold ages, whether the hats are
+    zero, the step times, the loss and the launches."""
+    from repro_torch.core.api import make_optimizer
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_worker_group
+
+    spec = AXIS_PATHS[path]
+    old, segs = group, []
+    for i, (k_new, strategy) in enumerate(AXIS_ELASTIC[path]):
+        new = make_worker_group(k_new, device=DEVICE, backend="gloo",
+                                timeout_s=AXIS_GROUP_TIMEOUT_S)
+        opt = make_optimizer(spec["kind"], k_new, eta=ETA,
+                             period=AXIS_PERIOD, backend="packed",
+                             comm="axis", group=new, **spec["opt"])
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        old.reset_counts()
+        t0 = time.perf_counter()
+        state = trainer.resize(state, opt, strategy=strategy, group=old)
+        torch.cuda.synchronize()
+        seg = {"K": k_new, "strategy": strategy, "member": new.member,
+               "resize_s": time.perf_counter() - t0,
+               "resize_bytes": old.collective_summary()["resize"]}
+        if new.member:
+            log = trainer.share_log(log)
+            stale = getattr(state, "stale", None)
+            hats = ([state.hat_buf, *state.hat_nbr_bufs]
+                    if hasattr(state, "hat_buf") else [])
+            seg.update(after={n: bit_sums(getattr(state, n)) for n in BUFS},
+                       block=list(state.buf.shape), count=state.count,
+                       ages=None if stale is None else stale.age.tolist(),
+                       hats_zero=all(not bool(h.any()) for h in hats)
+                       if hats else None)
+            steps, stamps = [], [(0, time.perf_counter())]
+
+            def hook(step, st):
+                torch.cuda.synchronize()
+                stamps.append((step, time.perf_counter()))
+                steps.append({n: bit_sums(getattr(st, n)) for n in BUFS})
+                torch.cuda.synchronize()
+                stamps.append((step, time.perf_counter()))
+
+            state, log = trainer.fit(
+                state, iter(axis_elastic_batches(k_new, i)),
+                AXIS_ELASTIC_STEPS, log_every=AXIS_ELASTIC_STEPS, log=log,
+                hook=hook, hook_every=1)
+            dts = [(t1 - t0) * 1e3 for (_, t0), (_, t1)
+                   in zip(stamps[0::2], stamps[1::2])]
+            seg.update(steps=steps, loss=log.loss[-1],
+                       steps_total=log.steps_total, step_ms=dts,
+                       finite=bool(torch.isfinite(state.buf).all()))
+        seg["launches"] = ops.launch_counts()
+        segs.append(seg)
+        old = new
+    return segs
+
+
+def axis_online_rank(group, params, batches) -> dict:
+    """``train_online`` on this rank of the world's group of K=8: the
+    publish history, the bit sums of every published tree and of worker
+    AXIS_ONLINE_WORKER's replica, the launches, and the publish times
+    (median of 3, each synchronised) of both modes on the final state."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.serve.publish import ParamStore, publish_params
+    from repro_torch.train.online import train_online
+
+    trainer = axis_trainer("d-adam", group)
+    state = trainer.init(params)
+    store, sums = ParamStore(), []
+    publish = store.publish
+
+    def keep(p, **kw):
+        sums.append([bit_sums(x) for x in tree_leaves(p)])
+        return publish(p, **kw)
+
+    store.publish = keep
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    res = train_online(trainer, state, iter(batches), AXIS_STEPS,
+                       store=store, publish_every=AXIS_ONLINE_EVERY,
+                       mode="mean", log_every=AXIS_STEPS)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    ms = {}
+    for mode in ("mean", "worker"):
+        times = []
+        for _ in range(3):
+            _, dt = synced(lambda: publish_params(
+                res.state, mode=mode, worker=AXIS_ONLINE_WORKER,
+                group=group))
+            times.append(dt)
+        ms[mode] = statistics.median(times)
+    worker = publish_params(res.state, mode="worker",
+                            worker=AXIS_ONLINE_WORKER, group=group)
+    return {"published": res.published, "sums": sums,
+            "worker_sums": [bit_sums(x) for x in tree_leaves(worker)],
+            "launches": launches, "publish_ms": ms, "loss": res.log.loss[-1]}
 
 
 def axis_check(name: str, got, want) -> dict:
@@ -2383,8 +2648,12 @@ def axis_rank(rank: int, init_method: str, folder: str):
                 digests[str(dt)] = [hashlib.sha256(
                     t.cpu().numpy().tobytes()).hexdigest() for t in (x, got)]
             out["digests"] = digests
+        if path in AXIS_ELASTIC:
+            out[f"elastic-{path}"] = axis_elastic_rank(path, trainer, state,
+                                                       log, group)
         del trainer, state, refs
         torch.cuda.empty_cache()
+    out["online"] = axis_online_rank(group, params, batches)
     return out
 
 
@@ -2472,11 +2741,138 @@ def phase_axis():
             if ranks[k]["digests"][dt][1] != sent:
                 raise AssertionError(f"axis: rank {k} received a {dt} block "
                                      f"not equal to the bit to its sender's")
+    by_path.update(axis_elastic_checks(ranks, stacked))
+    by_path["axis-online"] = axis_online_checks(ranks, stacked["d-adam"])
     emit({"phase": "axis_exchange", "blocks_equal_to_the_bit":
           sorted(ranks[0]["digests"]), "ranks": K,
           "stacked_reference_s": t_ref,
           "seconds": time.perf_counter() - t0})
     return by_path
+
+
+def axis_elastic_checks(ranks, stacked) -> dict:
+    """Each elastic plan's memberships against the stacked run: exact
+    launches on every rank (none outside the membership), every member's
+    bit sums right after the resize and after each step equal to its
+    rows', cold ages and hats at zero, the count kept, the loss; one
+    record per plan. Returns the launches summed over the ranks."""
+    from repro_torch.core.dadam import COLD_AGE
+    from repro_torch.kernels import ops
+
+    by_path = {}
+    for path, plan in AXIS_ELASTIC.items():
+        segs_ref = stacked[path]["elastic"]
+        rec_segs = []
+        total = collections.Counter()
+        for i, (k_new, strategy) in enumerate(plan):
+            ref = segs_ref[i]
+            segs = [r[f"elastic-{path}"][i] for r in ranks]
+            for rank, seg in enumerate(segs):
+                what = f"axis_elastic {path} K={k_new} rank {rank}"
+                member = rank < k_new
+                want = {n: (AXIS_ELASTIC_LAUNCHES[path].get(n, 0) if member
+                            else 0) for n in ops.launch_counts()}
+                if seg["member"] != member or seg["launches"] != want:
+                    raise AssertionError(f"{what}: member {seg['member']}, "
+                                         f"launches {seg['launches']} != "
+                                         f"{want}")
+                total.update(seg["launches"])
+                if not member:
+                    continue
+                if seg["after"] != ref["after"][rank]:
+                    raise AssertionError(f"{what}: the resized buffers are "
+                                         "not its rows of the stacked "
+                                         "resize, to the bit")
+                for t, (got, want_t) in enumerate(zip(seg["steps"],
+                                                      ref["steps"])):
+                    if got != want_t[rank]:
+                        raise AssertionError(
+                            f"{what}: step {t + 1} buffers not equal to the "
+                            "bit to the stacked run's")
+                if seg["block"] != [1] + list(SHAPE[1:]) or \
+                        seg["count"] != AXIS_STEPS + i * AXIS_ELASTIC_STEPS:
+                    raise AssertionError(f"{what}: block {seg['block']}, "
+                                         f"count {seg['count']}")
+                if seg["ages"] is not None and \
+                        any(a != COLD_AGE for row in seg["ages"] for a in row):
+                    raise AssertionError(f"{what}: ages {seg['ages']}")
+                if seg["hats_zero"] is False:
+                    raise AssertionError(f"{what}: hats not zero")
+                if not seg["finite"] or not math.isclose(
+                        seg["loss"], ref["loss"], rel_tol=AXIS_LOSS_RTOL):
+                    raise AssertionError(f"{what}: loss {seg['loss']} "
+                                         f"against {ref['loss']}")
+            members = [s for s in segs if s["member"]]
+            rec_segs.append({
+                "K": k_new, "strategy": strategy,
+                "leavers_or_spares": [r for r, s in enumerate(segs)
+                                      if not s["member"]],
+                "block_per_rank": members[0]["block"],
+                "count": members[0]["count"], "ages": members[0]["ages"],
+                "hats_zero": members[0]["hats_zero"],
+                "steps_equal_to_the_bit": len(ref["steps"]),
+                "resize_s_per_rank": [s["resize_s"] for s in segs],
+                "resize_bytes_sent_per_rank": [s["resize_bytes"]["bytes"]
+                                               for s in segs],
+                "step_ms_per_rank": [s["step_ms"] for s in members],
+                "launches_per_member": members[0]["launches"],
+                "loss": members[0]["loss"], "loss_stacked": ref["loss"]})
+        emit({"phase": "axis_elastic", "path": path,
+              "kind": AXIS_PATHS[path]["kind"],
+              "config": {"K": K, "period": AXIS_PERIOD,
+                         "steps_per_membership": AXIS_ELASTIC_STEPS,
+                         **AXIS_PATHS[path]["opt"]},
+              "transport": ranks[0]["transport"],
+              "memberships": rec_segs,
+              "held_to": "the same plan stacked on the card, its loss "
+                         "worker by worker: bit_sums of buf, m and v"})
+        by_path[f"axis-elastic-{path}"] = dict(total)
+    return by_path
+
+
+def axis_online_checks(ranks, ref) -> dict:
+    """``train_online`` under axis against the stacked run's publishes:
+    the history, every published tree's bit sums on every rank, the
+    worker publish, the launches; the held-out AUC of each version (of
+    the stacked run's trees, equal to the bit). Returns the launches
+    summed over the ranks."""
+    from repro_torch.data.synthetic import ctr_teacher, make_ctr_task
+    from repro_torch.kernels import ops
+    from repro_torch.launch import deepfm_ctr
+    from repro_torch.models.deepfm import deepfm_logits
+
+    steps = [p["step"] for p in ref["published"]]
+    want_hist = [(s, i + 1) for i, s in enumerate(steps)]
+    total = collections.Counter()
+    for rank, r in enumerate(ranks):
+        rec = r["online"]
+        want = {n: AXIS_ONLINE_LAUNCHES.get(n, 0) for n in ops.launch_counts()}
+        what = f"axis_online rank {rank}"
+        if rec["launches"] != want:
+            raise AssertionError(f"{what}: launches {rec['launches']}")
+        if [tuple(p) for p in rec["published"]] != want_hist:
+            raise AssertionError(f"{what}: published {rec['published']}")
+        if rec["sums"] != [p["sums"] for p in ref["published"]] or \
+                rec["worker_sums"] != ref["worker_sums"]:
+            raise AssertionError(f"{what}: a published tree is not the "
+                                 "stacked run's, to the bit")
+        total.update(rec["launches"])
+    task = make_ctr_task(seed=0, n_fields=FULL["n_fields"],
+                         features_per_field=FULL["features_per_field"],
+                         embed_dim=FULL["embed_dim"])
+    teacher = ctr_teacher(task, DEVICE)
+    aucs = {v + 1: deepfm_ctr.heldout_auc(teacher, p["params"],
+                                          deepfm_logits)
+            for v, p in enumerate(ref["published"])}
+    emit({"phase": "axis_online", "K": K, "steps": AXIS_STEPS,
+          "publish_every": AXIS_ONLINE_EVERY, "mode": "mean",
+          "published": want_hist, "worker_publish": AXIS_ONLINE_WORKER,
+          "trees_equal_to_the_bit_on_every_rank_and_to_stacked": True,
+          "auc_by_version": aucs,
+          "publish_ms_per_rank": [r["online"]["publish_ms"] for r in ranks],
+          "launches_per_rank": ranks[0]["online"]["launches"],
+          "loss": ranks[0]["online"]["loss"]})
+    return dict(total)
 
 
 def axis2d_spec(spec1, M: int):
@@ -2591,6 +2987,8 @@ def axis2d_refs(folder: Path) -> dict:
                      "evals": log.grad_evals[-1],
                      "bytes_round_list": trainer.opt.comm_bytes_round_list(
                          trainer.opt.params_of(state))}
+        if path == "d-adam":
+            out["elastic"] = axis2d_elastic_stacked(trainer, state, log)
         del trainer, state, snaps, blocks
         torch.cuda.empty_cache()
     mparams, mbatches = mlp2d_inputs()
@@ -2604,6 +3002,91 @@ def axis2d_refs(folder: Path) -> dict:
                    folder / f"mlp-{kind}.pt")
         del trainer, state
     return out
+
+
+def axis2d_block_sums(state, M: int) -> list:
+    """bit_sums of every (worker, model block) of a stacked packed state's
+    buffers, repacked into the row-sharded layout of M shards: entry
+    ``w M + m`` is what global rank w M + m holds under (K, M)."""
+    from repro_torch.kernels import pack as packing
+
+    packed = {}
+    for n, spec in (("buf", state.spec), ("m", state.spec_m),
+                    ("v", state.spec_m)):
+        spec2 = axis2d_spec(spec, M)
+        packed[n] = (packing.pack(packing.unpack(getattr(state, n), spec),
+                                  spec2), spec2.local_rows)
+    return [{n: bit_sums(x[w:w + 1, m * rows:(m + 1) * rows])
+             for n, (x, rows) in packed.items()}
+            for w in range(state.buf.shape[0]) for m in range(M)]
+
+
+def axis2d_elastic_stacked(trainer, state, log) -> dict:
+    """The 2D elastic plan stacked on the card (AXIS2D_ELASTIC): the K=4
+    D-Adam state resized to K=2, the blocks' bit sums in the (2, 4)
+    layout right after and after each step, and the mean publish's."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.serve.publish import publish_params
+
+    E = AXIS2D_ELASTIC
+    state = trainer.resize(state, trainer.opt.rebuild(K=E["K"]),
+                           strategy=E["strategy"])
+    rec = {"after": axis2d_block_sums(state, E["M"]), "steps": []}
+    state, log = trainer.fit(
+        state, iter(axis_elastic_batches(E["K"], 9)), E["steps"],
+        log_every=E["steps"], log=log,
+        hook=lambda step, st: rec["steps"].append(
+            axis2d_block_sums(st, E["M"])), hook_every=1)
+    rec["published"] = [bit_sums(x) for x in tree_leaves(
+        publish_params(state, mode="mean"))]
+    rec["loss"] = log.loss[-1]
+    return rec
+
+
+def axis2d_elastic_rank(trainer, state, log, group) -> dict:
+    """This rank's part of AXIS2D_ELASTIC: a new group of (2, 4) over the
+    world, ``trainer.resize`` by clone, ``share_log``, the steps and one
+    mean publish; the resize's seconds and bytes, the block's bit sums
+    right after and after each step, the publish's, the launches."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core.api import make_optimizer
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_worker_group
+    from repro_torch.serve.publish import publish_params
+
+    E = AXIS2D_ELASTIC
+    new = make_worker_group(E["K"], device=DEVICE, backend="gloo",
+                            timeout_s=AXIS_GROUP_TIMEOUT_S,
+                            model_parallel=E["M"])
+    opt = make_optimizer("d-adam", E["K"], eta=ETA, period=AXIS_PERIOD,
+                         backend="packed", comm="axis", group=new)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    group.reset_counts()
+    t0 = time.perf_counter()
+    state = trainer.resize(state, opt, strategy=E["strategy"], group=group)
+    torch.cuda.synchronize()
+    rec = {"member": new.member, "worker": new.rank,
+           "model_rank": new.model_rank,
+           "resize_s": time.perf_counter() - t0,
+           "resize_bytes": group.collective_summary()["resize"],
+           "block": list(state.buf.shape), "rows": state.spec.rows,
+           "row_shards": state.spec.row_shards, "count": state.count,
+           "after": {n: bit_sums(getattr(state, n)) for n in BUFS},
+           "steps": []}
+    log = trainer.share_log(log)
+    state, log = trainer.fit(
+        state, iter(axis_elastic_batches(E["K"], 9)), E["steps"],
+        log_every=E["steps"], log=log,
+        hook=lambda step, st: rec["steps"].append(
+            {n: bit_sums(getattr(st, n)) for n in BUFS}), hook_every=1)
+    _, rec["publish_ms"] = synced(lambda: publish_params(
+        state, mode="mean", group=new))
+    rec["published"] = [bit_sums(x) for x in tree_leaves(
+        publish_params(state, mode="mean", group=new))]
+    rec["launches"] = ops.launch_counts()
+    rec["loss"] = log.loss[-1]
+    return rec
 
 
 def flip_budget(d: torch.Tensor) -> dict:
@@ -2705,6 +3188,9 @@ def axis2d_rank(rank: int, init_method: str, folder: str):
                     torch.sign(state.buf).to(dt)
                 got = shift_worker(x, 1, AXIS2D_K, group, tag=7)
                 rec["digests"][str(dt)] = [digest(x), digest(got)]
+            # the elastic plan goes on from this state, after the path's
+            # launches were read
+            out["elastic"] = axis2d_elastic_rank(trainer, state, log, group)
         out[path] = rec
         del trainer, state, refs
         torch.cuda.empty_cache()
@@ -2876,6 +3362,8 @@ def phase_axis2d():
                 raise AssertionError(f"axis2d: rank {r} received a {dt} "
                                      "block not equal to the bit to its "
                                      "sender's")
+    by_path["axis2d-elastic"] = axis2d_elastic_checks(ranks,
+                                                      stacked["elastic"])
     t_cli = time.perf_counter()
     cli = {m: train_cli.main(AXIS2D_CLI + ["--model-parallel", str(m)])
            for m in (1, 2)}
@@ -2894,6 +3382,54 @@ def phase_axis2d():
           "stacked_reference_s": t_ref, "ranks_s": t_ranks,
           "seconds": time.perf_counter() - t0})
     return by_path
+
+
+def axis2d_elastic_checks(ranks, ref) -> dict:
+    """The 2D elastic plan against the stacked run: exact launches, every
+    rank's block right after the resize and after each step equal to the
+    bit to its block of the stacked run in the (2, 4) layout, the mean
+    publish likewise, the count kept. Returns the launches summed over
+    the ranks."""
+    from repro_torch.kernels import ops
+
+    E = AXIS2D_ELASTIC
+    total = collections.Counter()
+    recs = [r["elastic"] for r in ranks]
+    for rank, rec in enumerate(recs):
+        what = f"axis2d_elastic rank {rank}"
+        want = {n: AXIS2D_ELASTIC_LAUNCHES.get(n, 0)
+                for n in ops.launch_counts()}
+        if rec["launches"] != want:
+            raise AssertionError(f"{what}: launches {rec['launches']}")
+        if (rec["worker"], rec["model_rank"]) != divmod(rank, E["M"]) or \
+                rec["row_shards"] != E["M"] or \
+                rec["block"] != [1, rec["rows"] // E["M"], 128] or \
+                rec["count"] != AXIS_STEPS:
+            raise AssertionError(f"{what}: worker {rec['worker']}, block "
+                                 f"{rec['block']}, count {rec['count']}")
+        if rec["after"] != ref["after"][rank]:
+            raise AssertionError(f"{what}: the resized block is not its "
+                                 "block of the stacked resize, to the bit")
+        for t, (got, want_t) in enumerate(zip(rec["steps"], ref["steps"])):
+            if got != want_t[rank]:
+                raise AssertionError(f"{what}: step {t + 1} block not equal "
+                                     "to the bit to the stacked run's")
+        if rec["published"] != ref["published"]:
+            raise AssertionError(f"{what}: the mean publish is not the "
+                                 "stacked run's, to the bit")
+        total.update(rec["launches"])
+    emit({"phase": "axis2d_elastic",
+          "from": {"K": AXIS2D_K, "M": AXIS2D_M}, "to": E,
+          "block_per_rank": recs[0]["block"], "count": recs[0]["count"],
+          "steps_equal_to_the_bit": len(ref["steps"]),
+          "publish_equal_to_the_bit": True,
+          "resize_s_per_rank": [r["resize_s"] for r in recs],
+          "resize_bytes_sent_per_rank": [r["resize_bytes"]["bytes"]
+                                         for r in recs],
+          "publish_ms_per_rank": [r["publish_ms"] for r in recs],
+          "launches_per_rank": recs[0]["launches"],
+          "loss": recs[0]["loss"], "loss_stacked": ref["loss"]})
+    return dict(total)
 
 
 def serve_prompts(cfg, lengths, seed=1):
@@ -4280,6 +4816,53 @@ def phase_lm_example():
     return launches
 
 
+def phase_examples():
+    """quickstart, serve_lm and online_serve (``repro_torch.launch``) as a
+    user runs them (``main(["--device", DEVICE])``), the launch counters
+    zeroed just before each and read just after: EXAMPLES' launches and
+    no other kernel; the quickstart's losses finite and falling, serve_lm
+    serving version 2 after its hot swap, online_serve's versions at
+    steps 20, 40 and 60. Returns the launches summed."""
+    import importlib
+
+    from repro_torch.kernels import ops
+
+    total = collections.Counter()
+    rec = {"phase": "examples"}
+    for name, want in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.launch.{name}")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out, wall_ms = synced(lambda: mod.main(["--device", DEVICE]))
+        launches = ops.launch_counts()
+        check_launches(f"examples {name}", launches, want)
+        total.update(launches)
+        if name == "quickstart":
+            log, _ = out
+            if not all(math.isfinite(x) for x in log.loss) or \
+                    not log.loss[-1] < log.loss[0]:
+                raise AssertionError(f"quickstart losses {log.loss}")
+            got = {"losses": log.loss, "comm_mb": log.comm_mb}
+        elif name == "serve_lm":
+            if out.engine.last_version != 2 or any(
+                    o.shape != out.outs[0][0].shape for o in out.outs[1]):
+                raise AssertionError("serve_lm: not version 2 after the "
+                                     "hot swap")
+            got = {"last_version": out.engine.last_version,
+                   "compile_counts": out.engine.compile_counts}
+        else:
+            result, auc_v = out
+            if result.published != [(20, 1), (40, 2), (60, 3)] or \
+                    not math.isfinite(auc_v):
+                raise AssertionError(f"online_serve: {result.published}, "
+                                     f"AUC {auc_v}")
+            got = {"published": result.published, "auc": auc_v,
+                   "loss": result.log.loss[-1]}
+        rec[name] = {**got, "wall_ms": wall_ms, "launches": launches}
+    emit(rec)
+    return dict(total)
+
+
 def adam_part_cap(steps: int, eta: float = LM_ETA, beta1: float = 0.9,
                   beta2: float = 0.999) -> float:
     """How far two runs of Adam (no bias correction) from one start can
@@ -4315,80 +4898,218 @@ def lm_outside(a, b, tol, spec, chunk: int = 1 << 26):
     return max_abs, outside / a.numel(), per_leaf
 
 
-def phase_lm_card_vs_cpu(arch: str, **cut):
+def lm_card_cpu_cfg(arch: str, cut: dict):
     """``arch`` at full width cut to LM_CARD_CPU_LAYERS layers (and by
-    ``cut``, config fields replaced: LM_CARD_CPU_CUTS), f32 compute, three
-    steps of packed D-Adam at period 3 on the card and on the CPU in lock
-    step, from one init (drawn on the CPU) and one set of batches (seq
-    64), through the library path: params and moments within LM_STEP1_TOL
-    after step 1 but for LM_STEP1_MAX_SHARE of them, and after step 3 at
-    most CARD_CPU_MAX_SHARE of them outside CARD_CPU_TOL, as
-    ``card_vs_cpu`` holds DeepFM's, in every leaf too. The params that
+    ``cut``), f32 compute."""
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(arch).model, **{
+        "n_layers": LM_CARD_CPU_LAYERS, "compute_dtype": torch.float32,
+        **cut})
+
+
+def lm_cpu_worker(items, acks, threads: int) -> None:
+    """The CPU sides of the LM card-vs-CPU phases, in a thread of this
+    process with ``threads`` torch threads: for each arch of LM_CPU_ORDER
+    the init (from the CPU's seed 0) and three packed D-Adam steps at p=3
+    on the CPU (the kernels' plain versions). Each step's state goes to
+    ``items`` (the init with step 1's; the step makes new buffers, so the
+    state handed over stays as it was); the main thread acknowledges each
+    on ``acks`` once it has compared it. A step starts only when every
+    state before its input has been acknowledged, and an arch's steps
+    only when the last arch's have: so at most the input state is pending,
+    and the worker holds what an in-line CPU side holds."""
+    import traceback
+
+    torch.set_num_threads(threads)
+    acked = set()
+
+    def wait_for(keys):
+        while not set(keys) <= acked:
+            key = acks.get()
+            if key is None:
+                raise SystemExit(0)
+            acked.add(key)
+
+    try:
+        last = []
+        for arch, cut in LM_CPU_ORDER:
+            cfg = lm_card_cpu_cfg(arch, cut)
+            api, run = lm_library_trainer(cfg, "d-adam", device="cpu",
+                                          period=3)
+            params = api.init(torch.Generator().manual_seed(0))
+            batches = lm_batches(cfg, seed=3, steps=3)
+            state, log = run.init(params), None
+            wait_for(last)
+            for t in range(3):
+                wait_for([(arch, u) for u in range(t - 1)])
+                t0 = time.perf_counter()
+                state, log = run.fit(state, iter(batches[t:t + 1]), 1,
+                                     log_every=1, log=log)
+                items.put({"arch": arch, "step": t,
+                           "params": params if t == 0 else None,
+                           "state": {n: getattr(state, n) for n in BUFS},
+                           "loss": log.loss[-1],
+                           "seconds_cpu": time.perf_counter() - t0,
+                           "params_per_worker": state.spec.n})
+            last = [(arch, t) for t in range(3)]
+            del state, run, api, params
+    except SystemExit:
+        pass
+    except BaseException:
+        items.put({"error": traceback.format_exc()})
+
+
+class LMCPUSides:
+    """The thread of :func:`lm_cpu_worker` and the main thread's side of
+    it: :meth:`poll` compares every CPU state that is ready with the
+    card's (between two phases), :meth:`finish` waits for the rest,
+    :meth:`close` stops the worker. The card side of an arch goes on from
+    its last step within one poll, and runs again from the init in a
+    later one. A thread, not a process: the states stay in this process's
+    memory, where the card copies them at the host's rate (copies out of
+    another process's shared memory ran many times slower on the H100
+    host), and the profiler records only the thread that starts it."""
+
+    def __init__(self):
+        import queue
+        import threading
+
+        self.items, self.acks = queue.Queue(), queue.Queue()
+        self.thread = threading.Thread(
+            target=lm_cpu_worker, args=(self.items, self.acks,
+                                        LM_CPU_THREADS), daemon=True)
+        self.thread.start()
+        self.left = [arch for arch, _ in LM_CPU_ORDER]
+        self.runs = {}
+
+    def poll(self, block: bool = False) -> None:
+        import queue
+
+        cursors = {}
+        try:
+            while self.left:
+                try:
+                    item = self.items.get(block=block, timeout=(
+                        LM_CPU_WAIT_S if block else None))
+                except queue.Empty:
+                    if block:
+                        raise TimeoutError(
+                            f"the LM CPU sides of {self.left} not ready "
+                            f"after {LM_CPU_WAIT_S} s")
+                    return
+                if "error" in item:
+                    raise AssertionError(f"LM CPU worker failed:\n"
+                                         f"{item['error']}")
+                arch, t = item["arch"], item["step"]
+                lm_card_vs_cpu_step(self.runs, cursors, arch,
+                                    dict(LM_CPU_ORDER)[arch], item)
+                del item
+                self.acks.put((arch, t))
+                if t == 2:
+                    self.left.remove(arch)
+                    lm_card_vs_cpu_emit(self.runs.pop(arch))
+                    cursors.pop(arch, None)
+        finally:
+            cursors.clear()
+            torch.cuda.empty_cache()
+
+    def finish(self) -> None:
+        self.poll(block=True)
+        self.thread.join(timeout=60)
+
+    def close(self) -> None:
+        self.acks.put(None)
+        self.thread.join(timeout=120)
+
+
+def lm_card_vs_cpu_step(runs: dict, cursors: dict, arch: str, cut: dict,
+                        cpu: dict) -> None:
+    """Step ``cpu["step"]`` of ``arch``'s card side against the CPU
+    state ``cpu["state"]``: ``arch`` at full width cut to
+    LM_CARD_CPU_LAYERS layers (and by ``cut``: LM_CARD_CPU_CUTS), f32
+    compute, packed D-Adam at period 3 on the card from the CPU side's
+    init and the same batches (seq 64), through the library path. The
+    card state goes on from ``cursors[arch]`` when it holds the step
+    before, else runs again from the init. Params and moments within
+    LM_STEP1_TOL after step 1 but for LM_STEP1_MAX_SHARE of them, and
+    after step 3 at most CARD_CPU_MAX_SHARE of them outside CARD_CPU_TOL,
+    as ``card_vs_cpu`` holds DeepFM's, in every leaf too. The params that
     part lie within ``adam_part_cap``: unlike DeepFM's (within eta), an
     LM's can part by more than eta (rwkv6's by 1.86 eta at step 3 on the
     H100, 1.1e-5 of them), as far as Adam's normalised steps reach; a
     wrong leaf, worker or neighbour shows as whole leaves apart."""
-    from repro_torch.configs import get_arch
+    t = cpu["step"]
+    if t == 0:
+        cfg = lm_card_cpu_cfg(arch, cut)
+        api, run = lm_library_trainer(cfg, "d-adam", device=DEVICE,
+                                      period=3)
+        runs[arch] = {"arch": arch, "cut": cut, "cfg": cfg, "run": run,
+                      "params": cpu["params"], "steps": [],
+                      "batches": lm_batches(cfg, seed=3, steps=3),
+                      "losses_card": [], "losses_cpu": [],
+                      "seconds_card": 0.0, "seconds_cpu": 0.0,
+                      "card_reruns": 0}
+    rec = runs[arch]
+    state, log, done = cursors.get(arch, (None, None, None))
+    if done != t - 1:
+        rec["card_reruns"] += t > 0
+        state, log, done = rec["run"].init(rec["params"]), None, -1
+    for u in range(done + 1, t + 1):
+        t0 = time.perf_counter()
+        state, log = rec["run"].fit(state, iter(rec["batches"][u:u + 1]),
+                                    1, log_every=1, log=log)
+        torch.cuda.synchronize()
+        if u == t:
+            rec["seconds_card"] += time.perf_counter() - t0
+    cursors[arch] = (state, log, t)
+    got = {}
+    for name in BUFS:
+        # compared on the card: the CPU's buffer is copied over
+        card = getattr(state, name)
+        host = cpu["state"][name].to(card.device)
+        tol = LM_STEP1_TOL if t == 0 else CARD_CPU_TOL
+        max_abs, share, per_leaf = lm_outside(card, host, tol, state.spec)
+        got[name] = {"max_abs_err": max_abs, "share_outside": share,
+                     "outside": round(share * card.numel()),
+                     "max_leaf_share": max(per_leaf)}
+        del host
+        share_cap = LM_STEP1_MAX_SHARE if t == 0 else CARD_CPU_MAX_SHARE
+        bad = share > share_cap or (t and max(per_leaf) > share_cap)
+        if name == "buf":
+            got[name]["cap"] = adam_part_cap(t + 1)
+            bad = bad or max_abs > got[name]["cap"]
+        if t in (0, 2) and bad:
+            raise AssertionError(f"{arch} step {t + 1} {name}: "
+                                 f"{got[name]} past share {share_cap}")
+    rec["steps"].append({"step": t + 1, **got})
+    rec["losses_card"].append(log.loss[-1])
+    rec["losses_cpu"].append(cpu["loss"])
+    rec["seconds_cpu"] += cpu["seconds_cpu"]
+    rec["params_per_worker"] = cpu["params_per_worker"]
 
-    cfg = dataclasses.replace(get_arch(arch).model, **{
-        "n_layers": LM_CARD_CPU_LAYERS, "compute_dtype": torch.float32,
-        **cut})
-    batches = lm_batches(cfg, seed=3, steps=3)
-    runs, states, logs = {}, {}, {}
-    seconds = {DEVICE: 0.0, "cpu": 0.0}
-    step_rec = []
-    for dev in (DEVICE, "cpu"):
-        api, runs[dev] = lm_library_trainer(cfg, "d-adam", device=dev,
-                                            period=3)
-    params = api.init(torch.Generator().manual_seed(0))
-    for dev in (DEVICE, "cpu"):
-        states[dev], logs[dev] = runs[dev].init(params), None
-    del params
-    for t in range(3):
-        for dev in (DEVICE, "cpu"):
-            t0 = time.perf_counter()
-            states[dev], logs[dev] = runs[dev].fit(
-                states[dev], iter(batches[t:t + 1]), 1, log_every=1,
-                log=logs[dev])
-            if dev == DEVICE:
-                torch.cuda.synchronize()
-            seconds[dev] += time.perf_counter() - t0
-        got = {}
-        spec = states["cpu"].spec
-        for name in ("buf", "m", "v"):
-            # compared on the card: the CPU's buffer is copied over
-            card = getattr(states[DEVICE], name)
-            cpu = getattr(states["cpu"], name).to(card.device)
-            tol = LM_STEP1_TOL if t == 0 else CARD_CPU_TOL
-            max_abs, share, per_leaf = lm_outside(card, cpu, tol, spec)
-            got[name] = {"max_abs_err": max_abs, "share_outside": share,
-                         "outside": round(share * card.numel()),
-                         "max_leaf_share": max(per_leaf)}
-            del cpu
-            share_cap = LM_STEP1_MAX_SHARE if t == 0 else CARD_CPU_MAX_SHARE
-            bad = share > share_cap or (t and max(per_leaf) > share_cap)
-            if name == "buf":
-                got[name]["cap"] = adam_part_cap(t + 1)
-                bad = bad or max_abs > got[name]["cap"]
-            if t in (0, 2) and bad:
-                raise AssertionError(f"{arch} step {t + 1} {name}: "
-                                     f"{got[name]} past share {share_cap}")
-        step_rec.append({"step": t + 1, **got})
-    loss_err = compare([torch.tensor(logs[DEVICE].loss)],
-                       [torch.tensor(logs["cpu"].loss)], CARD_CPU_TOL,
+
+def lm_card_vs_cpu_emit(rec: dict) -> None:
+    """The record of one arch's three steps: the losses within
+    CARD_CPU_TOL, each step's distances."""
+    arch = rec["arch"]
+    loss_err = compare([torch.tensor(rec["losses_card"])],
+                       [torch.tensor(rec["losses_cpu"])], CARD_CPU_TOL,
                        f"{arch} losses")[0]
     emit({"phase": "lm_card_vs_cpu", "arch": arch,
-          "n_layers": cfg.n_layers,
-          "cut": cut, "compute_dtype": "float32", "seq": 64, "period": 3,
-          "params_per_worker": states["cpu"].spec.n,
-          "losses_card": logs[DEVICE].loss, "losses_cpu": logs["cpu"].loss,
-          "loss_max_abs_err": loss_err, "steps": step_rec,
+          "n_layers": rec["cfg"].n_layers,
+          "cut": rec["cut"], "compute_dtype": "float32", "seq": 64,
+          "period": 3, "params_per_worker": rec["params_per_worker"],
+          "losses_card": rec["losses_card"],
+          "losses_cpu": rec["losses_cpu"],
+          "loss_max_abs_err": loss_err, "steps": rec["steps"],
           "step1_tol": LM_STEP1_TOL, "step1_max_share": LM_STEP1_MAX_SHARE,
           "tol": CARD_CPU_TOL,
           "max_share_outside": CARD_CPU_MAX_SHARE,
-          "seconds_card": seconds[DEVICE], "seconds_cpu": seconds["cpu"]})
-    del states, runs
-    torch.cuda.empty_cache()
+          "seconds_card": rec["seconds_card"],
+          "seconds_cpu": rec["seconds_cpu"],
+          "card_reruns": rec["card_reruns"],
+          "cpu_side": f"a worker thread, {LM_CPU_THREADS} torch threads"})
 
 
 def main() -> int:
@@ -4422,47 +5143,61 @@ def main() -> int:
         del trainer, state, res
     by_path.update(phase_axis())
     by_path.update(phase_axis2d())
-    phase_card_vs_cpu("d-adam")
-    phase_card_vs_cpu("cd-adam")
-    phase_card_vs_cpu("d-adam-straggler", period=1)
-    phase_card_vs_cpu("cd-adam-overlap", period=1)
-    by_path["damped"] = phase_damped()
-    phase_card_vs_cpu("d-adam", damping=DAMPING)
-    by_path["vision"] = phase_vision()
-    phase_vision_card_vs_cpu()
-    by_path["serve"] = phase_serve()
-    phase_serve_card_vs_cpu()
-    by_path["online"] = phase_online()
-    by_path["serve_rwkv"] = phase_serve_rwkv()
+    # after the axis phases, whose 8 ranks share the host's cores
+    lm_cpu = LMCPUSides()
+    try:
+        return run_phases(lm_cpu, records, by_path, card, smi)
+    finally:
+        lm_cpu.close()
+
+
+def run_phases(lm_cpu: LMCPUSides, records: list, by_path: dict,
+               card: str, smi: str) -> int:
+    """The phases after the axis phases, in order; between two phases the
+    card sides of the LM card-vs-CPU phases whose CPU sides are ready."""
+    def step(out=None):
+        lm_cpu.poll()
+        return out
+
+    step(phase_card_vs_cpu("d-adam"))
+    step(phase_card_vs_cpu("cd-adam"))
+    step(phase_card_vs_cpu("d-adam-straggler", period=1))
+    step(phase_card_vs_cpu("cd-adam-overlap", period=1))
+    by_path["damped"] = step(phase_damped())
+    step(phase_card_vs_cpu("d-adam", damping=DAMPING))
+    by_path["vision"] = step(phase_vision())
+    step(phase_vision_card_vs_cpu())
+    by_path["serve"] = step(phase_serve())
+    step(phase_serve_card_vs_cpu())
+    by_path["online"] = step(phase_online())
+    by_path["serve_rwkv"] = step(phase_serve_rwkv())
     from repro_torch.configs import get_arch
-    phase_serve_card_vs_cpu(
+    step(phase_serve_card_vs_cpu(
         cfg=dataclasses.replace(get_arch(SERVE_RWKV_ARCH).model, n_layers=2),
-        seq=128, new_tokens=5, batch=2, phase="serve_rwkv_card_vs_cpu")
-    by_path["serve_zamba2"] = phase_serve_zamba2()
-    phase_serve_card_vs_cpu(
+        seq=128, new_tokens=5, batch=2, phase="serve_rwkv_card_vs_cpu"))
+    by_path["serve_zamba2"] = step(phase_serve_zamba2())
+    step(phase_serve_card_vs_cpu(
         cfg=dataclasses.replace(get_arch(SERVE_ZAMBA2_ARCH).model,
                                 n_layers=2, shared_attn_period=1),
-        seq=128, new_tokens=5, batch=2, phase="serve_zamba2_card_vs_cpu")
-    by_path["serve_moe"] = phase_serve_moe()
-    by_path["serve_vlm"] = phase_serve_vlm()
-    phase_serve_card_vs_cpu(
+        seq=128, new_tokens=5, batch=2, phase="serve_zamba2_card_vs_cpu"))
+    by_path["serve_moe"] = step(phase_serve_moe())
+    by_path["serve_vlm"] = step(phase_serve_vlm())
+    step(phase_serve_card_vs_cpu(
         cfg=dataclasses.replace(get_arch(SERVE_VLM_ARCH).model, n_layers=2),
         seq=128, new_tokens=5, batch=2, phase="serve_vlm_card_vs_cpu",
-        f32_row_scale=True)
-    by_path["serve_whisper"] = phase_serve_whisper()
-    phase_serve_card_vs_cpu(
+        f32_row_scale=True))
+    by_path["serve_whisper"] = step(phase_serve_whisper())
+    step(phase_serve_card_vs_cpu(
         cfg=dataclasses.replace(get_arch(SERVE_WHISPER_ARCH).model,
                                 n_layers=2, n_encoder_layers=2),
-        seq=128, new_tokens=5, batch=2, phase="serve_whisper_card_vs_cpu")
-    by_path["lm_train"], f32_rec = phase_lm_train()
-    by_path["lm_train_bf16"], bf16_rec = phase_lm_train_bf16(f32_rec)
-    by_path["lm_train_damped"] = phase_lm_train_damped(f32_rec)
-    by_path["lm_train_cd"], lm_sign = phase_lm_train_cd()
+        seq=128, new_tokens=5, batch=2, phase="serve_whisper_card_vs_cpu"))
+    by_path["lm_train"], f32_rec = step(phase_lm_train())
+    by_path["lm_train_bf16"], bf16_rec = step(phase_lm_train_bf16(f32_rec))
+    by_path["lm_train_damped"] = step(phase_lm_train_damped(f32_rec))
+    by_path["lm_train_cd"], lm_sign = step(phase_lm_train_cd())
     records.append(lm_sign)
-    phase_lm_card_vs_cpu(LM_ARCH)
-    phase_lm_card_vs_cpu(SERVE_RWKV_ARCH)
-    for arch, cut in LM_CARD_CPU_CUTS.items():
-        phase_lm_card_vs_cpu(arch, **cut)
+    by_path["examples"] = step(phase_examples())
+    lm_cpu.finish()
     by_path["lm_example"] = phase_lm_example()
     lm_shape = {"float32": f32_rec["lm_shape"],
                 "bfloat16": bf16_rec["lm_shape"]}

@@ -248,7 +248,10 @@ def make_optimizer(
         (``launch.mesh.make_worker_group``): K ranks, this one's device.
         Only meaningful with ``comm="axis"``. A group of K x M ranks
         (``model_parallel=M``) selects the 2D layout for
-        ``backend="packed"``.
+        ``backend="packed"``. On a rank that is no member of the group
+        (past K x M ranks of a larger world) the optimizer is only the new
+        membership of ``core.elastic.resize_state``: its ``init``
+        raises.
       axis_name: the worker axis's name; the group's must equal it.
       staleness: bounded-staleness gossip (tau rounds), with
         ``straggler_rate`` / ``straggler_seed`` modelling late payloads.
@@ -362,6 +365,10 @@ def make_optimizer(
     def init(params: PyTree):
         on = resolve_device(dev)
         if group is not None:
+            if not group.member:
+                raise ValueError(
+                    f"global rank {group.global_rank} holds no worker of "
+                    f"this group of {K} x {group.M} ranks")
             params = take_worker(params, group.rank, K)
         state = init_fn(tree_map(lambda x: x.to(on), params))
         return take_model_block(state, group) if two_d else state

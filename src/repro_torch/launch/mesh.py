@@ -18,6 +18,16 @@ collectives: :func:`model_all_gather` and :func:`model_sum`, a sum whose
 order is the model index, so that every rank of a group holds the same
 bits.
 
+The group may be a prefix of a larger world: ``make_worker_group(K,
+model_parallel=M)`` over a world of at least K M ranks takes global ranks
+``0 .. K M - 1`` (a ``dist.new_group`` of its own when the world is
+larger), and a rank past them gets a :class:`WorkerGroup` that is not a
+:attr:`~WorkerGroup.member`: it holds no worker and takes part only in
+the collectives that change membership (``core.elastic.resize_state``).
+Every rank of the world makes every group, with the same arguments, in the
+same order, since each ``dist.new_group`` is collective over the world;
+elastic membership is a new group over another prefix of the same world.
+
 Transport, by the group's backend:
 
 * ``nccl``: CUDA tensors go to the wire directly. NCCL needs one card per
@@ -56,7 +66,8 @@ WORKER_AXIS = "worker"   # the comm='axis' worker axis name, as in JAX
 DEFAULT_TIMEOUT_S = 300.0
 # the collectives a WorkerGroup counts, by kind (collective_summary)
 COLLECTIVES = ("exchange", "model_all_gather", "model_sum",
-               "worker_all_gather", "all_reduce")
+               "worker_all_gather", "worker_broadcast", "all_reduce",
+               "resize")
 
 
 @dataclasses.dataclass
@@ -68,6 +79,8 @@ class WorkerGroup:
     global rank ``global_rank`` = w M + m; ``model_group`` is the process
     group of worker w's M ranks (None when M is 1) and ``worker_group``
     that of the K ranks of model index m (the whole group when M is 1).
+    A rank of the world at or past K M is no :attr:`member`: its
+    ``rank`` is ``global_rank // M`` (>= K) and it holds no group handle.
 
     ``counts`` holds ``[calls, bytes]`` of every collective by kind
     (:data:`COLLECTIVES`, :meth:`collective_summary`), the bytes being
@@ -90,6 +103,12 @@ class WorkerGroup:
     @property
     def global_rank(self) -> int:
         return self.rank * self.M + self.model_rank
+
+    @property
+    def member(self) -> bool:
+        """Whether this rank holds a worker of the group (its global rank
+        is below K M)."""
+        return self.rank < self.K
 
     @property
     def bytes_sent(self) -> int:
@@ -166,22 +185,30 @@ def make_worker_group(workers: int, *, backend: Optional[str] = None,
                       timeout_s: float = DEFAULT_TIMEOUT_S,
                       axis_name: str = WORKER_AXIS,
                       model_parallel: int = 1) -> WorkerGroup:
-    """Open (or join) the process group of ``workers`` x ``model_parallel``
-    ranks and return this rank's :class:`WorkerGroup`.
+    """Open (or join) the world and return this rank's
+    :class:`WorkerGroup` of ``workers`` x ``model_parallel`` ranks: global
+    ranks ``0 .. K M - 1`` of a world of at least K M.
 
-    Without ``init_method`` the group forms from the environment
+    Without ``init_method`` the world forms from the environment
     ``torchrun`` sets (``env://``: ``MASTER_ADDR``, ``MASTER_PORT``,
     ``RANK``, ``WORLD_SIZE``); with one (``file://...`` or
     ``tcp://localhost:<port>``) the rank comes from ``rank`` or
-    ``$RANK``. A group that is already initialised is joined as it is.
+    ``$RANK``, and the world's size from ``$WORLD_SIZE`` (K M when it is
+    not set). A world that is already initialised is joined as it is.
     ``backend`` defaults to :func:`default_backend`; every collective
     fails after ``timeout_s``. With ``model_parallel=M`` > 1 global rank
-    r is model index ``r % M`` of worker ``r // M``, and every rank
-    creates the K model groups and the M worker groups, in that order.
+    r is model index ``r % M`` of worker ``r // M``.
 
-    Raises ``ValueError`` when the group's size is not ``workers`` x
-    ``model_parallel``, or when ``nccl`` is asked for on the CPU or for
-    ranks sharing a card."""
+    Every rank of the world must call it, with the same arguments and in
+    the same order as every other rank: when the world is larger than K M
+    the group is a ``dist.new_group`` of its own, and under M > 1 every
+    rank creates the K model groups and the M worker groups, in that
+    order. A rank at or past K M gets a group that is not a
+    :attr:`~WorkerGroup.member`.
+
+    Raises ``ValueError`` when the world has fewer than ``workers`` x
+    ``model_parallel`` ranks, or when ``nccl`` is asked for on the CPU or
+    for ranks sharing a card."""
     if model_parallel < 1:
         raise ValueError(f"model_parallel must be >= 1, got "
                          f"{model_parallel}")
@@ -194,40 +221,49 @@ def make_worker_group(workers: int, *, backend: Optional[str] = None,
                     "make_worker_group needs the rank: run under torchrun, "
                     "or pass rank= (or set $RANK) with init_method=")
             rank = int(os.environ["RANK"])
-        dev = rank_device(device, rank, workers_total)
-        backend = backend or default_backend(dev, workers_total)
-        _check_backend(backend, dev, workers_total)
+        world_size = int(os.environ.get("WORLD_SIZE", workers_total))
+        dev = rank_device(device, rank, world_size)
+        backend = backend or default_backend(dev, world_size)
+        _check_backend(backend, dev, world_size)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         dist.init_process_group(
             backend, init_method=init_method or "env://",
-            world_size=workers_total, rank=rank,
+            world_size=world_size, rank=rank,
             timeout=datetime.timedelta(seconds=timeout_s))
     else:
         rank = dist.get_rank()
-        dev = rank_device(device, rank, workers_total)
+        dev = rank_device(device, rank, dist.get_world_size())
         backend = dist.get_backend()
-        _check_backend(backend, dev, workers_total)
+        _check_backend(backend, dev, dist.get_world_size())
     world = dist.get_world_size()
-    if world != workers_total:
+    if world < workers_total:
         raise ValueError(
             f"the process group has {world} ranks; comm='axis' with "
-            f"{workers} workers x model_parallel {M} needs {workers_total}")
-    wg = WorkerGroup(group=dist.group.WORLD, rank=rank // M, K=workers,
-                     device=dev, backend=backend, axis_name=axis_name,
-                     M=M, model_rank=rank % M, worker_group=dist.group.WORLD)
+            f"{workers} workers x model_parallel {M} needs at least "
+            f"{workers_total}")
+    timeout = datetime.timedelta(seconds=timeout_s)
+    member = rank < workers_total
+    group = dist.group.WORLD
+    if world > workers_total:
+        # collective over the world: every rank creates it
+        group = dist.new_group(list(range(workers_total)), timeout=timeout)
+    wg = WorkerGroup(group=group if member else None, rank=rank // M,
+                     K=workers, device=dev, backend=backend,
+                     axis_name=axis_name, M=M, model_rank=rank % M,
+                     worker_group=group if member else None)
     if M > 1:
-        timeout = datetime.timedelta(seconds=timeout_s)
+        wg.worker_group = None
         # every rank creates every subgroup, in one order
         for w in range(workers):
             g = dist.new_group([w * M + m for m in range(M)],
                                timeout=timeout)
-            if w == wg.rank:
+            if member and w == wg.rank:
                 wg.model_group = g
         for m in range(M):
             g = dist.new_group([w * M + m for w in range(workers)],
                                timeout=timeout)
-            if m == wg.model_rank:
+            if member and m == wg.model_rank:
                 wg.worker_group = g
     return wg
 
@@ -271,7 +307,9 @@ def exchange(x: torch.Tensor, src: int, dst: int, wg: WorkerGroup,
     ``tag``. Under the 2D layout the peers are the ranks of this rank's
     model index (global ranks ``src M + m`` and ``dst M + m``), so each
     model column ships its own block. With ``src == dst == rank`` it
-    returns a copy of ``x``.
+    returns a copy of ``x``. The peers are global ranks, which name the
+    right processes because the group is the world's first K M ranks
+    (worker w's rank of model index m is global rank ``w M + m``).
 
     The branch on the backend: a host-staged group (gloo, CUDA state)
     copies ``x`` to a host buffer, exchanges host buffers and copies the
@@ -314,13 +352,57 @@ def _gather(x: torch.Tensor, wg: WorkerGroup, n: int, group: Any,
     return [_unwire(p, x, x.shape) for p in parts]
 
 
-def all_gather_workers(x: torch.Tensor, wg: WorkerGroup) -> torch.Tensor:
+def all_gather_workers(x: torch.Tensor, wg: WorkerGroup,
+                       kind: str = "worker_all_gather") -> torch.Tensor:
     """The K workers' ``x`` (from the ranks of this rank's model index)
     concatenated along dim 0 in worker order, equal to the bit (every
     rank gets all of them; each rank's ``x`` must have the same shape and
-    dtype)."""
-    return torch.cat(_gather(x, wg, wg.K, wg.worker_group,
-                             "worker_all_gather"), dim=0)
+    dtype). Counted under ``kind``."""
+    return torch.cat(_gather(x, wg, wg.K, wg.worker_group, kind), dim=0)
+
+
+def _broadcast(x: torch.Tensor, src: int, group: Any, wg: WorkerGroup,
+               kind: str) -> torch.Tensor:
+    buf = _wire(x, wg).clone()
+    dist.broadcast(buf, src=src, group=group)
+    if wg.global_rank == src:
+        wg.count(kind, buf.numel())
+    return _unwire(buf, x, x.shape)
+
+
+def worker_broadcast(x: torch.Tensor, worker: int,
+                     wg: WorkerGroup) -> torch.Tensor:
+    """Worker ``worker``'s ``x`` (its rank of this rank's model index) on
+    every rank of this model index, equal to the bit; every such rank
+    passes a tensor of the same shape and dtype."""
+    return _broadcast(x, worker * wg.M + wg.model_rank, wg.worker_group,
+                      wg, "worker_broadcast")
+
+
+def broadcast_first(x: torch.Tensor, wg: WorkerGroup,
+                    kind: str = "resize") -> torch.Tensor:
+    """Global rank 0's ``x`` on every rank of the group, equal to the bit
+    (every member passes a tensor of the same shape and dtype)."""
+    return _broadcast(x, 0, wg.group, wg, kind)
+
+
+def send_world(x: torch.Tensor, dst: int, wg: WorkerGroup,
+               kind: str = "resize") -> None:
+    """Send ``x``'s bytes to global rank ``dst`` of the world (which need
+    not be in ``wg``: a rank joining another group), counted under
+    ``kind``; ``dst`` takes them with :func:`recv_world`."""
+    send = _wire(x, wg)
+    dist.send(send, dst)
+    wg.count(kind, send.numel())
+
+
+def recv_world(like: torch.Tensor, src: int, wg: WorkerGroup
+               ) -> torch.Tensor:
+    """The tensor global rank ``src`` sends with :func:`send_world`, of
+    ``like``'s shape, dtype and device."""
+    recv = torch.empty_like(_wire(like, wg))
+    dist.recv(recv, src)
+    return _unwire(recv, like, like.shape)
 
 
 def model_all_gather(x: torch.Tensor, wg: WorkerGroup,
@@ -380,7 +462,9 @@ def spawn(fn: Callable, workers: int, args: tuple = (), *,
           timeout_s: Optional[float] = DEFAULT_TIMEOUT_S,
           threads: Optional[int] = None) -> List[Any]:
     """Run ``fn(rank, init_method, *args)`` in ``workers`` new processes
-    (the ``spawn`` start method) and return their results in rank order.
+    (the ``spawn`` start method), the world of ``workers`` ranks, and
+    return their results in rank order; worker groups over a prefix of
+    it come from :func:`make_worker_group`.
     ``init_method`` is a ``file://`` store in a fresh temporary directory,
     for :func:`make_worker_group`; ``$RANK``, ``$LOCAL_RANK``,
     ``$WORLD_SIZE`` and ``$LOCAL_WORLD_SIZE`` are set as ``torchrun``

@@ -44,15 +44,17 @@ def take_worker(tree: PyTree, rank: int, K: int) -> PyTree:
     return tree_map(one, tree)
 
 
-def gather_workers(tree: PyTree, wg: WorkerGroup) -> PyTree:
+def gather_workers(tree: PyTree, wg: WorkerGroup,
+                   kind: str = "worker_all_gather") -> PyTree:
     """Every worker's ``(1, ...)`` slice of each tensor leaf, concatenated
     along the worker dim in worker order (equal to the bit), on every
     rank; non-tensor leaves pass as they are. Every rank must call it
     with a tree of the same structure and shapes; under the 2D layout the
-    slices come from the ranks of this rank's model index."""
+    slices come from the ranks of this rank's model index. The bytes are
+    counted under ``kind``."""
     def one(x):
         if isinstance(x, torch.Tensor) and x.dim() >= 1:
-            return all_gather_workers(x, wg)
+            return all_gather_workers(x, wg, kind)
         return x
 
     return tree_map(one, tree)

@@ -243,6 +243,11 @@ def _run(args: argparse.Namespace,
                                   device=args.device,
                                   timeout_s=args.dist_timeout,
                                   model_parallel=args.model_parallel)
+        if not group.member:
+            raise ValueError(
+                f"global rank {group.global_rank} is past the {args.workers}"
+                f" x {args.model_parallel} ranks the run uses: start it on "
+                f"{args.workers * args.model_parallel} ranks")
         dev = group.device
     else:
         dev = resolve_device(args.device)

@@ -22,6 +22,14 @@ Swap semantics, as in JAX:
 
 ``like=`` places each published leaf with ``.to(device=, dtype=)`` of its
 counterpart leaf before the swap (there is no sharding in the port yet).
+
+Under ``comm='axis'`` (``group=``, a rank's ``launch.mesh.WorkerGroup``) a
+publish is a collective over the group that gives every member the same
+tree, equal to the bit to the stacked publish of the gathered state: the
+mean sums the K workers' blocks of this rank's model index in worker
+order in f32 and divides by K, as ``pack.unpack_mean`` does, and under
+the 2D layout gathers the mean block over the model group (K + M blocks
+a rank, not K M); a worker's replica is broadcast from its ranks.
 """
 from __future__ import annotations
 
@@ -33,6 +41,9 @@ import torch
 from repro_torch._tree import tree_map
 from repro_torch.core.dadam import mean_params
 from repro_torch.kernels import pack as packing
+from repro_torch.launch.mesh import (WorkerGroup, all_gather_workers,
+                                     model_all_gather, worker_broadcast)
+from repro_torch.launch.shardings import gather_workers
 
 PyTree = Any
 
@@ -85,7 +96,8 @@ class ParamStore:
 
 
 def publish_params(state: Any, *, mode: str = "mean", worker: int = 0,
-                   like: Optional[PyTree] = None) -> PyTree:
+                   like: Optional[PyTree] = None,
+                   group: Optional[WorkerGroup] = None) -> PyTree:
     """One per-worker param tree out of an optimizer state (or a stacked
     param tree), without a K-way unpack for packed states.
 
@@ -93,12 +105,16 @@ def publish_params(state: Any, *, mode: str = "mean", worker: int = 0,
     decoded from its ``(K, rows, 128)`` buffer), a reference state
     (``.params``) or a stacked param tree. ``mode="mean"`` publishes the
     consensus mean, ``"worker"`` worker ``worker``'s replica. The result
-    has no leading K dim and shares no memory with the live state."""
+    has no leading K dim and shares no memory with the live state. With
+    ``group`` (``comm='axis'``: ``state`` is this rank's) every member of
+    the group must call it, and every member gets the same tree."""
     if mode not in ("mean", "worker"):
         raise ValueError(f"mode must be 'mean' or 'worker', got {mode!r}")
     buf = getattr(state, "buf", None)
     spec = getattr(state, "spec", None)
-    if buf is not None and isinstance(spec, packing.PackSpec):
+    if group is not None:
+        params = _publish_axis(state, mode, worker, group)
+    elif buf is not None and isinstance(spec, packing.PackSpec):
         if mode == "worker":
             params = packing.unpack_worker(buf, spec, worker)
         else:
@@ -114,13 +130,36 @@ def publish_params(state: Any, *, mode: str = "mean", worker: int = 0,
     return params
 
 
+def _publish_axis(state: Any, mode: str, worker: int,
+                  group: WorkerGroup) -> PyTree:
+    """:func:`publish_params` of a ``comm='axis'`` rank's state."""
+    if not 0 <= worker < group.K:
+        raise ValueError(f"worker index {worker} out of range for "
+                         f"K={group.K}")
+    buf = getattr(state, "buf", None)
+    spec = getattr(state, "spec", None)
+    if buf is None or not isinstance(spec, packing.PackSpec):
+        stacked = gather_workers(getattr(state, "params", state), group)
+        return publish_params(stacked, mode=mode, worker=worker)
+    if mode == "worker":
+        block = worker_broadcast(buf, worker, group)
+    else:
+        blocks = all_gather_workers(buf, group)
+        acc = blocks[:1].to(torch.float32, copy=True)
+        for i in range(1, group.K):
+            acc += blocks[i:i + 1]
+        block = (acc / group.K).to(buf.dtype)
+    return packing.unpack_worker(model_all_gather(block, group), spec, 0)
+
+
 def publish_from_state(store: ParamStore, state: Any, *,
                        mode: str = "mean", worker: int = 0,
-                       like: Optional[PyTree] = None) -> int:
+                       like: Optional[PyTree] = None,
+                       group: Optional[WorkerGroup] = None) -> int:
     """``publish_params`` then ``store.publish``; returns the new version.
     The hook ``train.online`` installs on the trainer."""
-    return store.publish(
-        publish_params(state, mode=mode, worker=worker, like=like))
+    return store.publish(publish_params(state, mode=mode, worker=worker,
+                                        like=like, group=group))
 
 
 def publish_hbm_bytes(state: Any, *, mode: str = "mean") -> dict:

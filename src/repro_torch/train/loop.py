@@ -18,6 +18,14 @@ each model index and then over the model group. The damping state is
 global, as in the JAX package: every rank keeps the ``(K,)`` state and
 updates it from the K workers' all-gathered losses, and each rank masks
 its own chunks with its worker's count.
+
+An elastic resize under ``comm='axis'`` (``resize``) is a collective over
+the world, which every rank makes with its old group: members of the new
+group get their worker's state, the damping state resized as the stacked
+trainer resizes it (a joiner's from global rank 0, so every member holds
+the same bits), and the trainer rebinds to the new optimizer; a leaver's
+trainer rebinds too and holds no state until it joins again.
+``share_log`` then gives every member the first rank's ``TrainLog``.
 """
 from __future__ import annotations
 
@@ -26,13 +34,15 @@ import time
 from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._tree import (tree_flatten, tree_leaves, tree_map,
                                tree_unflatten)
 from repro_torch.core.api import DecentralizedOptimizer
 from repro_torch.core.dadam import consensus_error, mean_params
 from repro_torch.kernels import pack as packing
-from repro_torch.launch.mesh import (all_gather_workers, all_reduce_sum,
+from repro_torch.launch.mesh import (WorkerGroup, all_gather_workers,
+                                     all_reduce_sum, broadcast_first,
                                      model_sum)
 from repro_torch.launch.shardings import take_worker
 from repro_torch.train import damping as damping_mod
@@ -173,7 +183,8 @@ class DecentralizedTrainer:
         return self.opt.init(stack_params(params, self.opt.K))
 
     def resize(self, state: Any, new_opt: DecentralizedOptimizer, *,
-               strategy: str = "clone") -> Any:
+               strategy: str = "clone",
+               group: Optional[WorkerGroup] = None) -> Any:
         """Elastic membership change: carry ``state`` over to ``new_opt``
         (built for the new K / topology) and rebind the trainer, its grad
         pipeline and its comm accounting to it. Params and Adam moments
@@ -181,15 +192,47 @@ class DecentralizedTrainer:
         workers round-robin, "mean" from the consensus mean); hats and
         straggler buffers restart cold. Per-worker damping signals follow
         the workers round-robin; the eval counter and the ceiling clock
-        carry through. The eager port has no compile to redo."""
+        carry through. The eager port has no compile to redo.
+
+        Under ``comm='axis'`` every rank of the world calls it
+        (``core.elastic.resize_state``): ``group`` is this rank's old
+        group, the trainer's own by default (a joiner whose trainer was
+        built on ``new_opt`` passes the group it had, and ``state=None``).
+        Members of ``new_opt``'s group get their state and the same
+        damping state, global rank 0's; other ranks get ``None``."""
         from repro_torch.core.elastic import resize_state
 
-        new_state = resize_state(state, new_opt, strategy=strategy)
-        if self._damping is not None:
-            self.damp_state = damping_mod.resize_damp(
-                self.damp_state, self._damping, new_opt.K)
+        new = new_opt.group
+        old = group if group is not None else self.opt.group
+        new_state = resize_state(state, new_opt, strategy=strategy,
+                                 group=old)
+        dcfg = self._damping
+        if dcfg is not None:
+            if old is None or old.member:
+                damp = damping_mod.resize_damp(self.damp_state, dcfg,
+                                               new_opt.K)
+            else:
+                damp = damping_mod.init_damping(dcfg, new_opt.K,
+                                                new_opt.device)
+            if new is not None and new.member:
+                damp = DampingState(*(broadcast_first(x, new)
+                                      for x in damp))
+            self.damp_state = damp
         self._build(new_opt)
         return new_state
+
+    def share_log(self, log: Optional[TrainLog]) -> TrainLog:
+        """Under ``comm='axis'`` global rank 0's ``log`` on every member
+        of the trainer's group (a collective over the group; a joiner
+        passes ``None`` or whatever it holds), so that ``fit`` goes on
+        with the same counters on every rank after a resize. Stacked: the
+        log itself (a new one for ``None``)."""
+        group = self.opt.group
+        if group is None:
+            return log or TrainLog()
+        box = [log]
+        dist.broadcast_object_list(box, src=0, group=group.group)
+        return box[0] or TrainLog()
 
     def _params_like(self, state) -> PyTree:
         """The params' shapes and dtypes for the byte accounting: of a

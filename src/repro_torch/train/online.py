@@ -53,20 +53,19 @@ def train_online(trainer: DecentralizedTrainer, state: Any,
     live optimizer state (``mode="worker"``: worker ``worker``'s row
     block; ``"mean"``: the packed-domain consensus mean), pushed into
     ``store`` behind its version counter. Pass ``result.log`` back in as
-    ``log=`` to continue the counters across calls."""
+    ``log=`` to continue the counters across calls. Under ``comm='axis'``
+    every rank of the trainer's group runs it with a store of its own:
+    each publish is a collective over the group at the same global step,
+    and every rank's store ends with the same ``(step, version)`` history
+    and the same trees."""
     if publish_every <= 0:
         raise ValueError(
             f"publish_every must be >= 1, got {publish_every}")
-    if trainer.opt.group is not None:
-        raise NotImplementedError(
-            "online publish under comm='axis' (a mean or a worker's block "
-            "gathered from the ranks) is not ported yet (ROADMAP queue 3: "
-            "multi-GPU comm)")
     published: List[Tuple[int, int]] = []
 
     def hook(global_step: int, live_state: Any) -> None:
         params = publish_params(live_state, mode=mode, worker=worker,
-                                like=like)
+                                like=like, group=trainer.opt.group)
         published.append((global_step, store.publish(params)))
 
     state, log = trainer.fit(state, stream, steps, log_every=log_every,

@@ -33,11 +33,13 @@ BACKEND = {"pallas": "packed", "reference": "reference"}
 D_H = 128   # the two-layer model's hidden width
 
 
-def run_jax(inputs, cases: dict, out) -> dict:
-    """JAX's runs of ``cases`` (``tests/_jax_axis_2d.py`` in a subprocess
-    with 8 host devices): ``{case: {field: array}}``."""
+def run_jax(inputs, cases: dict, out,
+            script: str = "_jax_axis_2d.py") -> dict:
+    """JAX's runs of ``cases`` (``tests/<script>``, by default
+    ``_jax_axis_2d.py``, in a subprocess with 8 host devices):
+    ``{case: {field: array}}``."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
-    script = Path(__file__).with_name("_jax_axis_2d.py")
+    script = Path(__file__).with_name(script)
     proc = subprocess.run(
         [sys.executable, str(script), str(inputs), json.dumps(cases),
          str(out)], capture_output=True, text=True, env=env,

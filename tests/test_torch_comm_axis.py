@@ -4,8 +4,8 @@ JAX package's comm='axis' (one controller, shard_map over a 'worker' mesh).
 * Validation: the JAX package's refusals (``tests/test_comm_axis.py``
   ``TestValidation`` / ``TestMeshValidation``), in-process: no group, a
   group of another size or axis name, dense mixing, a topology without
-  shift offsets, D-PSGD, CD-Adam staleness; and the options the port
-  leaves out under axis (elastic resize, online publish).
+  shift offsets, D-PSGD, CD-Adam staleness; damping, elastic resize and
+  online publish accepted under a group.
 * Port against JAX: the same numpy inputs (the ragged tree of
   ``tests/test_comm_axis.py``, K=4, weight decay 0.01, grads ``0.5 x +
   0.1 noise_t``) go through the port's axis runs, 4 gloo ranks spawned on
@@ -300,7 +300,10 @@ class TestValidation:
             make_optimizer("d-adam", K, comm="axis", group=fake_group(),
                            device="meta")
 
-    def test_options_left_out_under_axis_raise(self):
+    def test_damping_resize_and_online_publish_accepted_under_axis(
+            self, tmp_path, monkeypatch):
+        import torch.distributed as dist
+
         from repro_torch.core.elastic import resize_state
         from repro_torch.serve.publish import ParamStore
         from repro_torch.train.loop import DecentralizedTrainer
@@ -313,13 +316,29 @@ class TestValidation:
         tr = DecentralizedTrainer(loss, axis, damping="adadamp:2")
         assert tr.pipeline.damping_chunks == 2
         assert tr.damp_state.level.shape == (1,)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-            train_online(DecentralizedTrainer(loss, axis), None, iter(()),
-                         1, store=ParamStore(), publish_every=1)
+        # a resize onto an axis optimizer names the old group too
         stacked = make_optimizer("d-adam", K, device="cpu")
-        state = stacked.init({"x": torch.zeros(K, 3)})
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-            resize_state(state, axis)
+        with pytest.raises(ValueError, match="group="):
+            resize_state(stacked.init({"x": torch.zeros(K, 3)}), axis)
+        # elastic resize and online publish are accepted under a group
+        # (a world of one rank here; 8 ranks in
+        # tests/test_torch_elastic_axis.py and test_torch_online_axis.py)
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        wg = make_worker_group(1, init_method=f"file://{tmp_path}/store",
+                               rank=0, device="cpu", backend="gloo",
+                               timeout_s=60)
+        try:
+            one = make_optimizer("d-adam", 1, comm="axis", group=wg)
+            trainer = DecentralizedTrainer(loss, one)
+            res = train_online(trainer, trainer.init({"x": torch.zeros(3)}),
+                               iter([torch.ones(1, 3)]), 1,
+                               store=ParamStore(), publish_every=1)
+            assert res.published == [(1, 1)]
+            state = resize_state(res.state, make_optimizer(
+                "d-adam", 1, comm="axis", group=wg), group=wg)
+            assert state.moments.count == 1
+        finally:
+            dist.destroy_process_group()
 
     def test_group_checks_backend_and_rank(self, monkeypatch):
         monkeypatch.delenv("RANK", raising=False)
