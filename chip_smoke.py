@@ -207,6 +207,20 @@ script exits non-zero without the final ``ok`` line:
 34. examples (before lm_example): the ports of examples/quickstart.py,
    serve_lm.py and online_serve.py as a user runs them on the card, their
    launches exact (``EXAMPLES``).
+35. invariants (after axis2d): ``repro_torch.analysis``'s gate on the
+   card: the sweep's 20 stacked configs (reference and packed x D-Adam
+   and CD-Adam x plain, schedule, stale, overlap, damping; one period
+   each, the launches exact), the topology zoo, the serving gate
+   (``DecodeEngine``, no collective) and the known-bug corpus (its axis
+   items run in the axis phase's ranks and must fail); beside them the
+   reports of every axis rank body's fit, each run under the gate
+   (``gated_fit``: ``analysis.check.period_spec``, the collectives by
+   kind, the launches, no uncounted ``torch.distributed`` call). A
+   failing spec fails the phase.
+
+lm_train and lm_train_bf16 also record their model FLOPs (6 N D) and
+MFU at the card's bf16 peak, and each serving phase the MFU of its big
+bucket's prefill (2 N D, N the active params; ``analysis.roofline``).
 
 The CPU sides of the lm card-vs-CPU phases (16, 23, 28) run in a worker
 thread started after axis2d (``LMCPUSides``), beside the card phases;
@@ -271,6 +285,9 @@ T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.analysis.roofline import (H100_SXM,  # noqa: E402
+                                           flash_flops)
+
 DEVICE = "cuda"
 K = 8
 SHAPE = (K, 89344, 128)          # the resident buffer of full-width DeepFM
@@ -311,9 +328,10 @@ KERNEL_TOL = dict(rtol=1e-6, atol=1e-6)
 CARD_CPU_TOL = dict(rtol=2e-5, atol=2e-6)
 CARD_CPU_MAX_SHARE = 0.01
 # the H100 SXM's data-sheet memory rate (bytes/s) and f32 rate outside
-# the tensor cores (operations/s), at its full 700 W power limit
-MEM_RATE = 3.35e12
-F32_RATE = 67e12
+# the tensor cores (operations/s), at its full 700 W power limit; every
+# rate has one home, repro_torch.analysis.roofline.H100_SXM
+MEM_RATE = H100_SXM.hbm_bytes_per_s
+F32_RATE = H100_SXM.peak("float32")
 # The sign-compression scale is a sum: the kernel adds tiles and then a
 # fixed tree, the plain version calls torch.sum, so the two differ by the
 # order of the sum. q must be equal; hat moves by scale * sign and may
@@ -341,10 +359,10 @@ NO_STACKED_SUM = ("none: no single PyTorch call sums these operands "
                   "without first stacking them")
 GAMMA = 0.4
 PARAMS = 11_202_602
-# the dense bf16 and TF32 tensor-core peaks of the H100 SXM at 700 W
-# (operations/s)
-BF16_RATE = 989e12
-TF32_RATE = 495e12
+# the dense bf16 tensor-core peak of the H100 SXM at 700 W, and its f32
+# rate as three TF32 products (operations/s)
+BF16_RATE = H100_SXM.peak("bfloat16")
+F32_3XTF32_RATE = H100_SXM.peak("float32_3xtf32")
 # flash_attention against its plain version. Both accumulate in f32 and
 # differ by the order of the sums (f32: tests/test_kernels.py's 2e-5),
 # by the exponentials (ex2.approx, ~1e-6) and by the kernels' splits: the
@@ -769,6 +787,11 @@ AXIS2D_PATHS = {
 # package's flip budget for its sharded run (mean drift < 1e-4, < 1% of
 # the elements past 1e-3, none past 0.1)
 AXIS2D_MLP = dict(d_in=8192, d_out=1024, per_worker=64, steps=6, period=2)
+# a rank's launches in those 6 steps: fused_adam on each, CD-Adam's 3
+# rounds one consensus_mix and the reduce_axis form's 2 launches each
+AXIS2D_MLP_LAUNCHES = {"d-adam": {"fused_adam": 6},
+                       "cd-adam": {"fused_adam": 6, "consensus_mix": 3,
+                                   "sign_compress_stacked_reduce": 6}}
 # the training CLI at --model-parallel 2 against --model-parallel 1: the
 # reduced llama3.2-1b (the CLI's default), K=2 packed D-Adam, 4 steps
 AXIS2D_CLI = ["--comm", "axis", "--workers", "2", "--backend", "packed",
@@ -1367,16 +1390,6 @@ def phase_kernels():
     return records + flash_records() + rwkv_records()
 
 
-def attention_pairs(S: int, T: int, causal: bool, window: int) -> int:
-    """The (query, key) pairs the masks keep, per batch row and head."""
-    import numpy as np
-
-    i = np.arange(S)
-    hi = np.minimum(i, T - 1) if causal else np.full(S, T - 1)
-    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(S, int)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
-
-
 def attention_keep(S: int, T: int, causal: bool, window: int,
                    device=None) -> torch.Tensor:
     """The ``(S, T)`` boolean mask of the (query, key) pairs kept."""
@@ -1470,12 +1483,12 @@ def flash_records():
         del library
         size = q.element_size()
         n_bytes = (2 * q.numel() + k.numel() + v.numel()) * size
-        ops = 4 * D * B * Hq * attention_pairs(S, T, causal, window)
+        ops = flash_flops(B, S, T, Hq, D, causal, window)
         # bf16: the two products on the tensor cores; f32: each as three
         # TF32 products (3xTF32), the fastest f32-accurate product the card
-        # has, so 3 * ops at the TF32 peak
+        # has, so at a third of the TF32 peak
         t_ops = (ops / BF16_RATE if dt == torch.bfloat16
-                 else 3 * ops / TF32_RATE) * 1e3
+                 else ops / F32_3XTF32_RATE) * 1e3
         t_bytes = n_bytes / MEM_RATE * 1e3
         rec = {"name": "flash_attention", "route": "cuda",
                "design": ("wgmma" if dt == torch.bfloat16
@@ -2508,10 +2521,13 @@ def axis_elastic_rank(path: str, trainer, state, log, group) -> list:
                 torch.cuda.synchronize()
                 stamps.append((step, time.perf_counter()))
 
-            state, log = trainer.fit(
-                state, iter(axis_elastic_batches(k_new, i)),
-                AXIS_ELASTIC_STEPS, log_every=AXIS_ELASTIC_STEPS, log=log,
-                hook=hook, hook_every=1)
+            (state, log), seg["invariants"] = gated_fit(
+                f"axis_elastic {path} K={k_new}", trainer, state, new,
+                AXIS_ELASTIC_STEPS, AXIS_ELASTIC_LAUNCHES[path],
+                lambda: trainer.fit(
+                    state, iter(axis_elastic_batches(k_new, i)),
+                    AXIS_ELASTIC_STEPS, log_every=AXIS_ELASTIC_STEPS,
+                    log=log, hook=hook, hook_every=1))
             dts = [(t1 - t0) * 1e3 for (_, t0), (_, t1)
                    in zip(stamps[0::2], stamps[1::2])]
             seg.update(steps=steps, loss=log.loss[-1],
@@ -2566,6 +2582,36 @@ def axis_online_rank(group, params, batches) -> dict:
             "launches": launches, "publish_ms": ms, "loss": res.log.loss[-1]}
 
 
+def gated_fit(name: str, trainer, state, group, steps: int, launches,
+              fit, activation_bytes: int = 0):
+    """``fit()`` (``steps`` steps of ``trainer.fit`` from ``state``, one
+    log point) under the invariant gate: ``analysis.check.period_spec``
+    of those steps with ``launches`` exact, run by
+    ``analysis.invariants.check_invariants`` on ``group``. Returns
+    ``(fit(), report)``."""
+    from repro_torch.analysis.check import period_spec
+    from repro_torch.analysis.invariants import check_invariants
+
+    out = []
+    report = check_invariants(
+        lambda: out.append(fit()), (),
+        period_spec(name, trainer, state, steps=steps, launches=launches,
+                    activation_bytes=activation_bytes), group)
+    return out[0], report
+
+
+def gate_record(name: str, reports) -> dict:
+    """The ``invariants`` record of one config from its member ranks'
+    reports: raises with the first failing rank's report."""
+    for rank, rep in enumerate(reports):
+        if not rep.ok:
+            raise AssertionError(f"invariants {name} rank {rank}:\n"
+                                 + rep.format(verbose=False))
+    return {"config": name, "ok": True, "ranks": len(reports),
+            "checks": len(reports[0].checks),
+            "summary_rank0": reports[0].summary}
+
+
 def axis_check(name: str, got, want) -> dict:
     """A rank's buffer against its rows of the stacked run: step 1 within
     CARD_CPU_TOL everywhere, later steps by ``step3_check``'s rule."""
@@ -2611,11 +2657,13 @@ def axis_rank(rank: int, init_method: str, folder: str):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
-        group.reset_counts()
         stamps.append((0, time.perf_counter()))
-        state, log = trainer.fit(state, iter(batches), AXIS_STEPS,
-                                 log_every=AXIS_STEPS, hook=hook,
-                                 hook_every=1)
+        (state, log), report = gated_fit(
+            f"axis {path}", trainer, state, group, AXIS_STEPS,
+            AXIS_PATHS[path]["launches"],
+            lambda: trainer.fit(state, iter(batches), AXIS_STEPS,
+                                log_every=AXIS_STEPS, hook=hook,
+                                hook_every=1))
         launches = ops.launch_counts()
         sent = (group.bytes_sent, group.messages)
         # step t's time: from the end of step t-1's hook to the start of
@@ -2624,7 +2672,7 @@ def axis_rank(rank: int, init_method: str, folder: str):
                in zip(stamps[0::2], stamps[1::2])]
         rounds = AXIS_STEPS // AXIS_PERIOD
         out[path] = {
-            "launches": launches, "checks": checks,
+            "launches": launches, "checks": checks, "invariants": report,
             "loss": log.loss[-1], "consensus": log.consensus[-1],
             "local_step_ms_median": statistics.median(
                 d for s, d in dts if s % AXIS_PERIOD),
@@ -2654,6 +2702,8 @@ def axis_rank(rank: int, init_method: str, folder: str):
         del trainer, state, refs
         torch.cuda.empty_cache()
     out["online"] = axis_online_rank(group, params, batches)
+    from repro_torch.analysis.check import corpus_axis_reports
+    out["corpus"] = corpus_axis_reports(group)
     return out
 
 
@@ -2681,7 +2731,7 @@ def phase_axis():
         # one torch thread a rank: 8 ranks share the host's cores
         ranks = spawn(axis_rank, K, (folder,), timeout_s=AXIS_SPAWN_TIMEOUT_S,
                       threads=1)
-    by_path = {}
+    by_path, gates = {}, []
     for path, spec in AXIS_PATHS.items():
         want = {n: spec["launches"].get(n, 0) for n in ops.launch_counts()}
         recs = [r[path] for r in ranks]
@@ -2703,6 +2753,8 @@ def phase_axis():
                     f"stacked {stacked[path]['loss']}")
         by_path[f"axis-{path}"] = {n: sum(r["launches"][n] for r in recs)
                                    for n in want}
+        gates.append(gate_record(f"axis {path}",
+                                 [r["invariants"] for r in recs]))
         checks = {n: {"max_abs_err": max(r["checks"][n]["max_abs_err"]
                                          for r in recs),
                       "share_outside": max(r["checks"][n]["share_outside"]
@@ -2741,21 +2793,23 @@ def phase_axis():
             if ranks[k]["digests"][dt][1] != sent:
                 raise AssertionError(f"axis: rank {k} received a {dt} block "
                                      f"not equal to the bit to its sender's")
-    by_path.update(axis_elastic_checks(ranks, stacked))
+    by_path.update(axis_elastic_checks(ranks, stacked, gates))
     by_path["axis-online"] = axis_online_checks(ranks, stacked["d-adam"])
     emit({"phase": "axis_exchange", "blocks_equal_to_the_bit":
           sorted(ranks[0]["digests"]), "ranks": K,
           "stacked_reference_s": t_ref,
           "seconds": time.perf_counter() - t0})
-    return by_path
+    return by_path, gates, [r["corpus"] for r in ranks]
 
 
-def axis_elastic_checks(ranks, stacked) -> dict:
+def axis_elastic_checks(ranks, stacked, gates: list) -> dict:
     """Each elastic plan's memberships against the stacked run: exact
     launches on every rank (none outside the membership), every member's
     bit sums right after the resize and after each step equal to its
-    rows', cold ages and hats at zero, the count kept, the loss; one
-    record per plan. Returns the launches summed over the ranks."""
+    rows', cold ages and hats at zero, the count kept, the loss, the
+    members' invariant reports of the steps (their records appended to
+    ``gates``); one record per plan. Returns the launches summed over the
+    ranks."""
     from repro_torch.core.dadam import COLD_AGE
     from repro_torch.kernels import ops
 
@@ -2803,6 +2857,8 @@ def axis_elastic_checks(ranks, stacked) -> dict:
                     raise AssertionError(f"{what}: loss {seg['loss']} "
                                          f"against {ref['loss']}")
             members = [s for s in segs if s["member"]]
+            gates.append(gate_record(f"axis_elastic {path} K={k_new}",
+                                     [s["invariants"] for s in members]))
             rec_segs.append({
                 "K": k_new, "strategy": strategy,
                 "leavers_or_spares": [r for r, s in enumerate(segs)
@@ -3075,11 +3131,15 @@ def axis2d_elastic_rank(trainer, state, log, group) -> dict:
            "after": {n: bit_sums(getattr(state, n)) for n in BUFS},
            "steps": []}
     log = trainer.share_log(log)
-    state, log = trainer.fit(
-        state, iter(axis_elastic_batches(E["K"], 9)), E["steps"],
-        log_every=E["steps"], log=log,
-        hook=lambda step, st: rec["steps"].append(
-            {n: bit_sums(getattr(st, n)) for n in BUFS}), hook_every=1)
+    (state, log), rec["invariants"] = gated_fit(
+        "axis2d_elastic (2, 4)", trainer, state, new, E["steps"],
+        AXIS2D_ELASTIC_LAUNCHES,
+        lambda: trainer.fit(
+            state, iter(axis_elastic_batches(E["K"], 9)), E["steps"],
+            log_every=E["steps"], log=log,
+            hook=lambda step, st: rec["steps"].append(
+                {n: bit_sums(getattr(st, n)) for n in BUFS}),
+            hook_every=1))
     _, rec["publish_ms"] = synced(lambda: publish_params(
         state, mode="mean", group=new))
     rec["published"] = [bit_sums(x) for x in tree_leaves(
@@ -3147,16 +3207,19 @@ def axis2d_rank(rank: int, init_method: str, folder: str):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
-        group.reset_counts()
         stamps.append((0, time.perf_counter()))
-        state, log = trainer.fit(state, iter(batches), AXIS_STEPS,
-                                 log_every=AXIS_STEPS, hook=hook,
-                                 hook_every=1)
+        (state, log), report = gated_fit(
+            f"axis2d {path}", trainer, state, group, AXIS_STEPS,
+            AXIS2D_PATHS[path]["launches"],
+            lambda: trainer.fit(state, iter(batches), AXIS_STEPS,
+                                log_every=AXIS_STEPS, hook=hook,
+                                hook_every=1))
         launches = ops.launch_counts()
         coll = group.collective_summary()
         dts = [(step, (t1 - t0) * 1e3) for (_, t0), (step, t1)
                in zip(stamps[0::2], stamps[1::2])]
         rec = {"launches": launches, "checks": checks, "collectives": coll,
+               "invariants": report,
                "loss": log.loss[-1], "consensus": log.consensus[-1],
                "evals": log.grad_evals[-1],
                "block": list(state.buf.shape), "rows": state.spec.rows,
@@ -3200,18 +3263,23 @@ def axis2d_rank(rank: int, init_method: str, folder: str):
         trainer = mlp2d_trainer(kind, group)
         state = trainer.init(mparams)
         ops.reset_launches()
-        group.reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, log = trainer.fit(state, iter(mbatches), AXIS2D_MLP["steps"],
-                                 log_every=AXIS2D_MLP["steps"])
+        (state, log), report = gated_fit(
+            f"axis2d sharded-packed mlp {kind}", trainer, state, group,
+            AXIS2D_MLP["steps"], AXIS2D_MLP_LAUNCHES[kind],
+            lambda: trainer.fit(state, iter(mbatches), AXIS2D_MLP["steps"],
+                                log_every=AXIS2D_MLP["steps"]),
+            activation_bytes=4 * AXIS2D_MLP["per_worker"]
+            * AXIS2D_MLP["d_out"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, coll = ops.launch_counts(), group.collective_summary()
         got = trainer.opt.params_of(state)
         w = group.rank
         rec = {"mode": trainer.pipeline.mode, "launches": launches,
-               "collectives": coll, "loss": log.loss[-1],
+               "collectives": coll, "invariants": report,
+               "loss": log.loss[-1],
                "step_ms_mean": wall / AXIS2D_MLP["steps"] * 1e3}
         for n in ("bias", "w"):
             a, b = got[n][0], want[n][w].to(got[n].device)
@@ -3249,7 +3317,7 @@ def phase_axis2d():
         ranks = spawn(axis2d_rank, ranks_n, (folder,),
                       timeout_s=AXIS_SPAWN_TIMEOUT_S, threads=1)
     t_ranks = time.perf_counter() - t0 - t_ref
-    by_path = {}
+    by_path, gates = {}, []
     for path, spec in AXIS2D_PATHS.items():
         want = {n: spec["launches"].get(n, 0) for n in ops.launch_counts()}
         recs = [r[path] for r in ranks]
@@ -3282,6 +3350,8 @@ def phase_axis2d():
                     f"{stacked[path]['loss']}")
         by_path[f"axis2d-{path}"] = {n: sum(r["launches"][n] for r in recs)
                                      for n in want}
+        gates.append(gate_record(f"axis2d {path}",
+                                 [r["invariants"] for r in recs]))
         checks = {n: {"max_abs_err": max(r["checks"][n]["max_abs_err"]
                                          for r in recs),
                       "share_outside": max(r["checks"][n]["share_outside"]
@@ -3333,6 +3403,8 @@ def phase_axis2d():
         by_path[f"axis2d-mlp-{kind}"] = {
             n: sum(r["launches"][n] for r in recs)
             for n in ops.launch_counts()}
+        gates.append(gate_record(f"axis2d sharded-packed mlp {kind}",
+                                 [r["invariants"] for r in recs]))
         emit({"phase": "axis2d", "path": f"sharded-packed mlp {kind}",
               "config": {"K": AXIS2D_K, "M": AXIS2D_M, **AXIS2D_MLP,
                          **(CD_ADAM if kind == "cd-adam" else {})},
@@ -3364,6 +3436,8 @@ def phase_axis2d():
                                      "sender's")
     by_path["axis2d-elastic"] = axis2d_elastic_checks(ranks,
                                                       stacked["elastic"])
+    gates.append(gate_record("axis2d_elastic (2, 4)",
+                             [r["elastic"]["invariants"] for r in ranks]))
     t_cli = time.perf_counter()
     cli = {m: train_cli.main(AXIS2D_CLI + ["--model-parallel", str(m)])
            for m in (1, 2)}
@@ -3381,7 +3455,7 @@ def phase_axis2d():
                   cli[2].log.loss, "seconds": time.perf_counter() - t_cli},
           "stacked_reference_s": t_ref, "ranks_s": t_ranks,
           "seconds": time.perf_counter() - t0})
-    return by_path
+    return by_path, gates
 
 
 def axis2d_elastic_checks(ranks, ref) -> dict:
@@ -3432,6 +3506,41 @@ def axis2d_elastic_checks(ranks, ref) -> dict:
     return dict(total)
 
 
+def phase_invariants(gates: list, corpus) -> None:
+    """The invariant gates on the card (``repro_torch.analysis``): the
+    sweep's stacked configs (reference and packed x D-Adam and CD-Adam x
+    its five variants, one period each, their launches exact), the
+    topology zoo, the serving gate and the known-bug corpus (its axis
+    items ran in the axis phase's ranks: ``corpus``), beside the reports
+    ``gates`` of the axis phases' rank bodies (every path's fit, every
+    elastic membership's steps, the sharded MLP). One record with every
+    config's report and its per-kind summary; a failed spec or a corpus
+    item that does not fail raises."""
+    from repro_torch.analysis import check
+
+    t0 = time.perf_counter()
+    for cfg in check.sweep_configs():
+        if not cfg.axis:
+            gates.append(gate_record(cfg.name,
+                                     [check.check_config(cfg, DEVICE)]))
+    zoo = check.topology_reports()
+    for rep in zoo:
+        if not rep.ok:
+            raise AssertionError(rep.format(verbose=False))
+    serve = check.serve_decode_report(device=DEVICE)
+    gates.append(gate_record(serve.name, [serve]))
+    corpus_ok, corpus_lines = check.run_corpus(corpus)
+    if not corpus_ok:
+        raise AssertionError("invariants: the corpus did not fail as "
+                             "expected:\n" + "\n".join(corpus_lines))
+    names = [f"{n}-{k}" for n, k in check.TOPOLOGY_ZOO] + [
+        r.name for r in zoo[len(check.TOPOLOGY_ZOO):]]
+    emit({"phase": "invariants", "configs": gates,
+          "topology": dict(zip(names, (r.ok for r in zoo))),
+          "corpus": corpus_lines,
+          "passed": len(gates), "seconds": time.perf_counter() - t0})
+
+
 def serve_prompts(cfg, lengths, seed=1):
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     return [torch.randint(0, cfg.vocab_size, (L,), generator=gen,
@@ -3454,6 +3563,23 @@ def device_extras(cfg, batch: int, seed: int = 5) -> dict:
 
     return family_extras(cfg, batch,
                          torch.Generator(device=DEVICE).manual_seed(seed))
+
+
+def serve_prefill_mfu(cfg, B: int, S: int, times: dict) -> dict:
+    """The model FLOPs of a full (B, S) prefill, 2 N D with N the active
+    params (``analysis.roofline.prefill_model_flops``: a vlm's patch
+    positions, whisper's encoder over its frames), and their share of the
+    card's dense peak of the compute dtype by its median prefill ms."""
+    from repro_torch.analysis.roofline import mfu, prefill_model_flops
+
+    flops = prefill_model_flops(cfg, B, S)
+    dtype = ("bfloat16" if cfg.compute_dtype == torch.bfloat16
+             else "float32")
+    return {"bucket": f"{B}x{S}", "active_params": cfg.active_param_count(),
+            "model_flops": flops, "prefill_ms": times["prefill_ms"],
+            "mfu_at": f"{dtype} dense peak of the {H100_SXM.name} data "
+                      "sheet",
+            "mfu": mfu(flops, times["prefill_ms"] / 1e3, dtype=dtype)}
 
 
 def bucket_times(engine, cfg, buckets, new_tokens):
@@ -3587,6 +3713,7 @@ def serve_full_width(phase, cfg, buckets, lengths, new_tokens, kernel,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_bucket = bucket_times(engine, cfg, buckets, new_tokens)
     B, S = max(buckets)
+    prefill_mfu = serve_prefill_mfu(cfg, B, S, per_bucket[f"{B}x{S}"])
     toks = torch.randint(0, cfg.vocab_size, (B, S), device=DEVICE,
                          dtype=torch.int32)
     n_prof = min(profile_tokens, new_tokens)
@@ -3620,7 +3747,8 @@ def serve_full_width(phase, cfg, buckets, lengths, new_tokens, kernel,
                                                       for r in requests],
            "init_ms": init_ms,
            "serve_ms": walls, "tokens_per_s": n_out / walls[-1] * 1e3,
-           "per_bucket": per_bucket, "peak_mem_gb": peak_gb,
+           "per_bucket": per_bucket, "prefill_mfu": prefill_mfu,
+           "peak_mem_gb": peak_gb,
            "mem_gb_by_stage": mem, "last_version": engine.last_version,
            "compile_counts": engine.compile_counts, "launches": launches,
            "profile_batch": f"{B}x{S}, {n_prof} new tokens",
@@ -4441,6 +4569,22 @@ def lm_step_times(phase: str, trainer, box: list, batches, period: int,
             "period_wall_ms": prof["wall_ms"]}
 
 
+def lm_mfu(cfg, rec) -> dict:
+    """The LM step's model FLOPs, 6 N D with N the active params and D
+    the K workers' tokens a step, and their share of the card's dense
+    bf16 peak (``analysis.roofline``) by the step medians of ``rec``."""
+    from repro_torch.analysis.roofline import mfu, model_flops_for
+
+    tokens = LM_K * LM_BATCH * LM_SEQ
+    flops = model_flops_for(cfg.active_param_count(), tokens, "train")
+    return {"model_flops": flops, "tokens_per_step": tokens,
+            "mfu_at": f"bfloat16 dense peak of the {H100_SXM.name} "
+                      "data sheet",
+            **{f"mfu{part}": mfu(flops, rec[f"{key}_ms_median"] / 1e3)
+               for part, key in (("", "step"), ("_local", "local_step"),
+                                 ("_comm", "comm_step"))}}
+
+
 def lm_shape_times(phase: str, state, moment: str):
     """``fused_adam`` and ``gossip_adam_mix`` (K=2 ring) timed on the
     trained state's own resident buffers, (2, R, 128) f32 params with
@@ -4523,6 +4667,7 @@ def phase_lm_train():
     trainer, batches, box = run.trainer, run.batches, [run.state]
     del run
     rec.update(lm_step_times("lm_train", trainer, box, batches, LM_PERIOD))
+    rec.update(lm_mfu(cfg, rec))
     del trainer, batches
     state = box.pop()
     rec["lm_shape"] = lm_shape_times("lm_train", state, "float32")
@@ -4602,6 +4747,7 @@ def phase_lm_train_bf16(f32_rec):
            "launches": launches}
     rec.update(lm_step_times("lm_train_bf16", trainer, box, batches,
                              LM_PERIOD))
+    rec.update(lm_mfu(cfg, rec))
     del trainer, batches
     state = box.pop()
     rec["lm_shape"] = lm_shape_times("lm_train_bf16", state, "bfloat16")
@@ -5141,8 +5287,11 @@ def main() -> int:
         if path == "d-adam-straggler":
             phase_churn(trainer, state, res.teacher)
         del trainer, state, res
-    by_path.update(phase_axis())
-    by_path.update(phase_axis2d())
+    axis_paths, gates, corpus = phase_axis()
+    by_path.update(axis_paths)
+    axis2d_paths, gates2d = phase_axis2d()
+    by_path.update(axis2d_paths)
+    phase_invariants(gates + gates2d, corpus)
     # after the axis phases, whose 8 ranks share the host's cores
     lm_cpu = LMCPUSides()
     try:

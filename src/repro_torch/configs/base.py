@@ -3,8 +3,9 @@ architecture, parallelism/runtime, and the input shapes of the serving
 rules.
 
 The fields and their defaults are the JAX package's; dtypes are
-``torch.dtype``s (f32 params, bf16 compute). ``param_count`` is the same
-analytic count, so a config holds the same number on both sides.
+``torch.dtype``s (f32 params, bf16 compute). ``param_count`` and
+``active_param_count`` are the same analytic counts, so a config holds the
+same numbers on both sides.
 """
 from __future__ import annotations
 
@@ -106,6 +107,16 @@ class ModelConfig:
             raise ValueError(self.family)
         emb = V * d * (1 if self.tie_embeddings else 2)
         return int(body + emb)
+
+    def active_param_count(self) -> int:
+        """Active params per token (``analysis.roofline``'s N): a MoE
+        counts its top-k experts of each layer, not all of them."""
+        if self.family != "moe":
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        all_exp = L * self.n_experts * 3 * d * self.d_ff
+        act_exp = L * self.experts_per_token * 3 * d * self.d_ff
+        return int(self.param_count() - all_exp + act_exp)
 
 
 @dataclasses.dataclass(frozen=True)

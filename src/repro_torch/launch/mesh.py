@@ -40,9 +40,10 @@ Transport, by the group's backend:
 Every message travels as the bytes of its tensor (a ``uint8`` view), so
 any dtype crosses and arrives equal to the bit.
 
-Not ported: ``PEAK_FLOPS``, ``HBM_BW``, ``ICI_BW`` (TPU v5e figures),
-``make_production_mesh`` (256- and 512-chip TPU meshes), ``make_host_mesh``
-and ``n_chips``, which no port caller needs.
+Not ported: ``PEAK_FLOPS``, ``HBM_BW``, ``ICI_BW`` (TPU v5e figures;
+the H100's are ``analysis.roofline.H100_SXM``), ``make_production_mesh``
+(256- and 512-chip TPU meshes), ``make_host_mesh`` and ``n_chips``, which
+no port caller needs.
 """
 from __future__ import annotations
 
@@ -68,6 +69,15 @@ DEFAULT_TIMEOUT_S = 300.0
 COLLECTIVES = ("exchange", "model_all_gather", "model_sum",
                "worker_all_gather", "worker_broadcast", "all_reduce",
                "resize")
+# the names of the functions below whose torch.distributed calls a
+# WorkerGroup counts (on the sending rank): analysis.invariants takes
+# every other torch.distributed call for an uncounted one
+COUNTING: set = set()
+
+
+def _counting(fn: Callable) -> Callable:
+    COUNTING.add(fn.__name__)
+    return fn
 
 
 @dataclasses.dataclass
@@ -82,10 +92,11 @@ class WorkerGroup:
     A rank of the world at or past K M is no :attr:`member`: its
     ``rank`` is ``global_rank // M`` (>= K) and it holds no group handle.
 
-    ``counts`` holds ``[calls, bytes]`` of every collective by kind
-    (:data:`COLLECTIVES`, :meth:`collective_summary`), the bytes being
-    this rank's contribution; ``bytes_sent`` and ``messages`` are
-    :func:`exchange`'s, what this rank put on the wire."""
+    ``counts`` holds ``[calls, bytes, max_bytes]`` of every collective by
+    kind (:data:`COLLECTIVES`, :meth:`collective_summary`), the bytes
+    being this rank's contribution and ``max_bytes`` that of its largest
+    single call; ``bytes_sent`` and ``messages`` are :func:`exchange`'s,
+    what this rank put on the wire."""
 
     group: Any
     rank: int
@@ -98,7 +109,7 @@ class WorkerGroup:
     model_group: Any = None
     worker_group: Any = None
     counts: dict = dataclasses.field(
-        default_factory=lambda: {k: [0, 0] for k in COLLECTIVES})
+        default_factory=lambda: {k: [0, 0, 0] for k in COLLECTIVES})
 
     @property
     def global_rank(self) -> int:
@@ -122,17 +133,19 @@ class WorkerGroup:
         c = self.counts[kind]
         c[0] += 1
         c[1] += int(nbytes)
+        c[2] = max(c[2], int(nbytes))
 
     def reset_counts(self) -> None:
         for c in self.counts.values():
-            c[0] = c[1] = 0
+            c[:] = [0, 0, 0]
 
     def collective_summary(self) -> dict:
-        """``{kind: {"count", "bytes"}}`` of the collectives this rank made
-        since the last :meth:`reset_counts`: the port's form of the JAX
-        package's ``analysis.hlo.collective_summary``."""
-        return {k: {"count": c, "bytes": b}
-                for k, (c, b) in self.counts.items()}
+        """``{kind: {"count", "bytes", "max_bytes"}}`` of the collectives
+        this rank made since the last :meth:`reset_counts`: the port's
+        form of the JAX package's ``analysis.hlo.collective_summary``,
+        which ``analysis.invariants.evaluate`` gates."""
+        return {k: {"count": c, "bytes": b, "max_bytes": m}
+                for k, (c, b, m) in self.counts.items()}
 
     @property
     def host_staged(self) -> bool:
@@ -299,6 +312,7 @@ def _unwire(buf: torch.Tensor, like: torch.Tensor,
     return out.to(like.device)
 
 
+@_counting
 def exchange(x: torch.Tensor, src: int, dst: int, wg: WorkerGroup,
              tag: int = 0) -> torch.Tensor:
     """Send ``x`` to worker ``dst`` and return the tensor worker ``src``
@@ -329,6 +343,7 @@ def exchange(x: torch.Tensor, src: int, dst: int, wg: WorkerGroup,
     return _unwire(recv, x, x.shape)
 
 
+@_counting
 def all_reduce_sum(x: torch.Tensor, wg: WorkerGroup) -> torch.Tensor:
     """The sum of ``x`` (a new tensor on ``x``'s device) over the K
     workers of this rank's model index (every rank when M is 1), staged
@@ -343,6 +358,7 @@ def all_reduce_sum(x: torch.Tensor, wg: WorkerGroup) -> torch.Tensor:
     return buf.to(x.device)
 
 
+@_counting
 def _gather(x: torch.Tensor, wg: WorkerGroup, n: int, group: Any,
             kind: str) -> list:
     send = _wire(x, wg)
@@ -361,6 +377,7 @@ def all_gather_workers(x: torch.Tensor, wg: WorkerGroup,
     return torch.cat(_gather(x, wg, wg.K, wg.worker_group, kind), dim=0)
 
 
+@_counting
 def _broadcast(x: torch.Tensor, src: int, group: Any, wg: WorkerGroup,
                kind: str) -> torch.Tensor:
     buf = _wire(x, wg).clone()
@@ -386,6 +403,7 @@ def broadcast_first(x: torch.Tensor, wg: WorkerGroup,
     return _broadcast(x, 0, wg.group, wg, kind)
 
 
+@_counting
 def send_world(x: torch.Tensor, dst: int, wg: WorkerGroup,
                kind: str = "resize") -> None:
     """Send ``x``'s bytes to global rank ``dst`` of the world (which need
@@ -396,6 +414,7 @@ def send_world(x: torch.Tensor, dst: int, wg: WorkerGroup,
     wg.count(kind, send.numel())
 
 
+@_counting
 def recv_world(like: torch.Tensor, src: int, wg: WorkerGroup
                ) -> torch.Tensor:
     """The tensor global rank ``src`` sends with :func:`send_world`, of

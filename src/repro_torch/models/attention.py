@@ -11,8 +11,8 @@ passes ``"kernel"``.
 
 JAX's activation-sharding context (``activation_sharding`` /
 ``_shard_heads``) constrains q/k/v under a device mesh and is a no-op
-outside one; it is left out until the port has a mesh (ROADMAP queue 1:
-multi-GPU comm).
+outside one; it is left out until the port has sharding plans
+(``plan=`` / ``make_plan``, ROADMAP queue 4.3).
 
 The cache write position is a host int: positions, the rotating slot and
 the validity mask are decided on the host, so no decode step reads the

@@ -825,3 +825,23 @@ def test_cuda_axis_two_ranks_match_stacked_host_staged(cuda, tmp_path):
             for rank, res in enumerate(results):
                 assert_dumps_close(res[name]["dump"], want,
                                    f"{name} rank {rank}")
+
+
+@pytest.mark.gpu
+def test_cuda_invariant_gate_passes(cuda):
+    """``python -m repro_torch.analysis.check`` on the card: every training
+    layout's period (the stacked ones with their exact launches, the axis
+    ones in one world of 8 gloo ranks on the card, host-staged), the
+    topology zoo, the serving gate and the known-bug corpus; exit 0."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.check"],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(src)))
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
+    assert out.stdout.strip().endswith("check_invariants: PASS")

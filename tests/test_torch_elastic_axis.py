@@ -218,7 +218,8 @@ def test_resize_bytes_are_counted(name, torch_runs, inputs):
     for r, res in enumerate(torch_runs):
         got = res[name]["resize"]
         if r >= c["K0"] * c["M0"]:
-            assert got == {"count": 0, "bytes": 0}, (name, r)
+            assert got == {"count": 0, "bytes": 0, "max_bytes": 0}, \
+                (name, r)
             continue
         sent = per_worker * (1 + (joiners if r == 0 else 0))
         assert got["bytes"] == sent, (name, r, got)
