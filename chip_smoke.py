@@ -231,9 +231,12 @@ Every phase's line holds ``elapsed_s``, the seconds since the script
 started.
 
 The kernels phase holds ``fused_adam`` and ``gossip_adam_mix`` with
-bf16 moments too (m and v within one bf16 ulp, p within 2e-5) and at the
-vision phase's weight decay 1e-4, and takes
-the profiler's device time of every kernel beside its CUDA-event time. It
+bf16 moments too (``fused_adam`` to the bit, as with f32 moments;
+``gossip_adam_mix``'s m and v within one bf16 ulp, p within 2e-5) and at
+the vision phase's weight decay 1e-4, and takes
+the profiler's device time of every kernel beside its CUDA-event time
+(and of ``torch._fused_adam_`` beside ``fused_adam``, with both launch
+paths' ``host_us``: 1,000 back-to-back calls at 128 elements). It
 also holds ``flash_attention`` against its plain
 version at eighteen shapes: the serve bucket's prefill, an 8192-token
 prompt, a 512-key window, a non-causal f32 D=128 case, a ragged S=1021,
@@ -256,7 +259,10 @@ Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 
     python3 chip_smoke.py --parent DIR
 
-times the f32 ``flash_attention`` cases, ``gossip_adam_mix``,
+times ``fused_adam`` at the DeepFM buffer, one rank's K = 1 shard, with
+bf16 moments and at the LM's (2, 9655040, 128) f32 state beside
+``torch._fused_adam_`` (events, device ms, ``host_us``), the f32
+``flash_attention`` cases, ``gossip_adam_mix``,
 ``sign_compress_stacked`` over DeepFM's leaves and over lm_train_cd's
 layout, and one D-Adam and one CD-Adam period of full-width DeepFM
 (device and wall ms) of the tree at DIR (an earlier commit unpacked by
@@ -413,10 +419,19 @@ FLASH_CASES = (
     ("whisper cross-attention, f32", 8, 384, 1500, 20, 20, 64,
      torch.float32, False, 0),
 )
-# --parent: the f32 flash cases above that a tree takes, gossip_adam_mix
-# and sign_compress_stacked at SHAPE and the DeepFM periods (ab_side),
-# timed in one process per turn of parent (P) and change (C)
+# --parent: fused_adam at LM_SHAPE, SHAPE, one rank's K = 1 shard and
+# SHAPE with bf16 moments beside torch._fused_adam_, the f32 flash cases
+# above that a tree takes, gossip_adam_mix and sign_compress_stacked at
+# SHAPE and the DeepFM periods (ab_side), timed in one process per turn of
+# parent (P) and change (C)
 AB_ORDER = "PCCP"
+# fused_adam's launch path alone (host_us): the wall time of HOST_CALLS
+# back-to-back calls at HOST_N elements, where the kernel takes a few µs,
+# over HOST_CALLS, in HOST_BATCHES batches; the same for
+# torch._fused_adam_
+HOST_N = 128
+HOST_CALLS = 1000
+HOST_BATCHES = 5
 # serving: llama3.2-1b at full width over two buckets; the prompts fill
 # the (8, 1024) bucket (1024 x 5), pad it in seq and take the rewind
 # (1000 x 2, 700), split a group over the (1, 128) bucket (128 x 2) and
@@ -639,6 +654,8 @@ LM_CD_LAUNCHES = {"fused_adam": 8, "sign_compress_stacked": 2,
 LM_LOSS0_SLACK = 1.5
 # calls per timing at the LM shape (each moves 50-70 GB)
 LM_REPS = 5
+# lm_train's resident f32 state: llama3.2-1b at full width, LM_K workers
+LM_SHAPE = (LM_K, 9_655_040, 128)
 # card against CPU after the first LM step: summation orders only (f32
 # compute, no TF32). Adam's first step is about eta * 3.16 * g / (|g| +
 # 3.2e-5), so a gradient that is itself a cancellation near f32's
@@ -829,6 +846,54 @@ def median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> tuple[float, float]:
+    """Wall µs a call over ``calls`` back-to-back calls of ``fn``, the
+    card synchronised before and after: at HOST_N elements the launch
+    path's host time, which a short kernel's events include. The host's
+    speed wanders with its load, even within one process, so
+    HOST_BATCHES batches run after warm-up: (their median, their
+    least)."""
+    for _ in range(50):
+        fn()
+    times = []
+    for _ in range(HOST_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    return statistics.median(times), min(times)
+
+
+def fused_adam_library_call(p, g, m, v, hp, step):
+    """``torch._fused_adam_`` in place on lists of p, g, m and v: the
+    update of ``fused_adam`` (weight decay as L2 on g, tau as eps) once
+    its bias corrections are 1, which a step of 1e7 gives."""
+    steps = [step] * len(p)
+    return lambda: torch._fused_adam_(
+        p, g, m, v, [], steps, lr=hp["eta"], beta1=hp["beta1"],
+        beta2=hp["beta2"], weight_decay=hp["weight_decay"], eps=hp["tau"],
+        amsgrad=False, maximize=False)
+
+
+def fused_adam_host(fa, hp, moments=torch.float32, library=True):
+    """``host_us`` of ``fa.fused_adam`` and (f32 moments) of
+    ``torch._fused_adam_`` at HOST_N elements."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p, g, m, v = (torch.rand(HOST_N, generator=gen, device="cuda") * 0.01
+                  for _ in range(4))
+    m, v = m.to(moments), v.to(moments)
+    out = {"host_n": HOST_N}
+    out["host_us"], out["host_us_min"] = host_us(
+        lambda: fa.fused_adam(p, g, m, v, **hp))
+    if library:
+        out["library_host_us"], out["library_host_us_min"] = host_us(
+            fused_adam_library_call([p], [g], [m], [v], hp,
+                                    torch.tensor(1e7, device="cuda")))
+    return out
 
 
 def compare(got, want, tol, what: str):
@@ -1101,13 +1166,11 @@ def phase_kernels():
 
     def fused_adam_library(hp, p=p, g=g, m=m, v=v):
         lib = (p.clone(), m.clone(), v.clone())
+        step = fused_adam_library_call([lib[0]], [g], [lib[1]], [lib[2]],
+                                       hp, lib_step)
 
         def call():
-            torch._fused_adam_(
-                [lib[0]], [g], [lib[1]], [lib[2]], [], [lib_step],
-                lr=hp["eta"], beta1=hp["beta1"], beta2=hp["beta2"],
-                weight_decay=hp["weight_decay"], eps=hp["tau"],
-                amsgrad=False, maximize=False)
+            step()
             return lib
 
         err = compare(call(), fa.fused_adam_plain(p, g, m, v, **hp),
@@ -1144,6 +1207,12 @@ def phase_kernels():
     # bf16 moments (make_optimizer(moment_dtype=torch.bfloat16)): p and g
     # f32, m and v bf16; 20 bytes an element
     mb, vb = m.to(torch.bfloat16), v.to(torch.bfloat16)
+    # fused_adam: the plain version to the bit (the same f32 operations in
+    # the same order, bf16 rounded once to nearest-even in both), a second
+    # call equal to the first, the library call's device time beside the
+    # kernel's, the launch paths' host_us, and the persistent grid
+    f32_host = fused_adam_host(fa, adam)
+    grid = {t: fa.grid_blocks(p.device, t) for t in fa.MOMENT_DTYPES}
     # f32 operations per element: Adam half-step 12 (3 for m, 4 for v, 4
     # for the step incl. sqrt and division, 1 for p); mix 1 + 2 per offset
     cases = [
@@ -1151,7 +1220,9 @@ def phase_kernels():
              replaces="src/repro/kernels/fused_adam.py:66",
              kernel=lambda: fa.fused_adam(p, g, m, v, **adam),
              plain=lambda: fa.fused_adam_plain(p, g, m, v, **adam),
-             library=fused_adam_lib,
+             tol=BIT_EQUAL, repeat=True, extra=dict(
+                 f32_host, grid_blocks=grid[torch.float32]),
+             library=fused_adam_lib, library_device=True,
              library_desc="torch._fused_adam_ (state_steps 1e7: bias "
                           "corrections 1; checked against the plain "
                           "version within KERNEL_TOL)",
@@ -1161,7 +1232,10 @@ def phase_kernels():
              replaces="src/repro/kernels/fused_adam.py:66",
              kernel=lambda: fa.fused_adam(p, g, mb, vb, **adam),
              plain=lambda: fa.fused_adam_plain(p, g, mb, vb, **adam),
-             bf16_moments=True, library=None, bytes=20 * n, ops=12 * n,
+             tol=BIT_EQUAL, repeat=True, extra=dict(
+                 fused_adam_host(fa, adam, torch.bfloat16, library=False),
+                 grid_blocks=grid[torch.bfloat16]),
+             library=None, bytes=20 * n, ops=12 * n,
              device="fused_adam_kernel", variant="bf16 m and v"),
         # ResNet-20's weight decay (the paper's CIFAR setting): the
         # kernels' weight-decay operand, off on every other path
@@ -1169,7 +1243,10 @@ def phase_kernels():
              replaces="src/repro/kernels/fused_adam.py:66",
              kernel=lambda: fa.fused_adam(p, g, m, v, **adam_wd),
              plain=lambda: fa.fused_adam_plain(p, g, m, v, **adam_wd),
-             library=fused_adam_lib_wd,
+             tol=BIT_EQUAL, repeat=True, extra=dict(
+                 fused_adam_host(fa, adam_wd),
+                 grid_blocks=grid[torch.float32]),
+             library=fused_adam_lib_wd, library_device=True,
              library_desc="torch._fused_adam_(weight_decay=1e-4) (state_"
                           "steps 1e7; checked against the plain version "
                           "within KERNEL_TOL)",
@@ -1273,7 +1350,9 @@ def phase_kernels():
              replaces="src/repro/kernels/fused_adam.py:66",
              kernel=lambda: fa.fused_adam(p1, g1, m1, v1, **adam),
              plain=lambda: fa.fused_adam_plain(p1, g1, m1, v1, **adam),
-             library=fused_adam_lib_1,
+             tol=BIT_EQUAL, repeat=True, extra=dict(
+                 f32_host, grid_blocks=grid[torch.float32]),
+             library=fused_adam_lib_1, library_device=True,
              library_desc="torch._fused_adam_ (state_steps 1e7; checked "
                           "against the plain version within KERNEL_TOL)",
              library_err=fused_adam_library_err_1,
@@ -1341,6 +1420,8 @@ def phase_kernels():
             max_abs, max_rel = compare_bf16_moments(got, want, c["name"])
         else:
             max_abs, max_rel = compare(got, want, tol, c["name"])
+        if c.get("repeat"):
+            check_bitwise_repeat(got, c["kernel"], c["name"])
         del got, want
         ms = median_ms(c["kernel"])
         device_ms = device_kernel_ms(c["kernel"], c["device"],
@@ -1362,6 +1443,12 @@ def phase_kernels():
                            else c.get("library_note", NO_LIBRARY))}
         if "library_err" in c:
             rec["library_max_abs_err"] = c["library_err"]
+        if c.get("library_device"):
+            # every kernel the library call launches
+            rec["library_device_ms"] = device_kernel_ms(c["library"], "")
+        if c.get("repeat"):
+            rec["second_call_bit_equal"] = True
+        rec.update(c.get("extra", {}))
         if c.get("compressed"):
             rec.update(sign_extra(c["elements"],
                                   launches_per_call(c, ops)))
@@ -1620,8 +1707,80 @@ def device_kernel_ms(fn, kernel, reps: int = REPS, attempts: int = 3,
                          f"times")
 
 
+def fused_adam_sides(fa, gk) -> dict:
+    """``--parent``'s fused_adam cases, each turn's first (late in a
+    process the profiler loses records): at SHAPE, one rank's K = 1
+    shard, SHAPE with bf16 moments and LM_SHAPE (f32 moments; last: a
+    case timed right after its 69 GB were freed ran slower), the
+    kernel's CUDA-event ms of one call, its device ms and ``host_us``
+    (the launch path at HOST_N elements), and with f32 moments the same
+    of ``torch._fused_adam_``: in place on copies of p, m and v, at
+    LM_SHAPE on p, m and v themselves (no room for copies) after the
+    kernel's timings, a tensor a worker. At LM_SHAPE also the plain
+    version worker by worker (seven buffers leave no room for its
+    temporaries at once) and ``gossip_adam_mix`` on LM_K's ring."""
+    from repro_torch.core.topology import make_topology
+
+    ring = make_topology("ring", LM_K)
+    ring = (ring.offsets, ring.offset_weights, ring.self_weight)
+    hosts = {t: fused_adam_host(fa, ADAM, t, library=t == torch.float32)
+             for t in (torch.float32, torch.bfloat16)}
+    step = torch.tensor(1e7, device="cuda")
+    out = {}
+    for name, shape, moments in (
+            ("fused_adam", SHAPE, torch.float32),
+            ("fused_adam, K = 1", (1,) + SHAPE[1:], torch.float32),
+            ("fused_adam, bf16 m and v", SHAPE, torch.bfloat16),
+            ("fused_adam, LM_SHAPE", LM_SHAPE, torch.float32)):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        p = torch.randn(shape, generator=gen, device="cuda")
+        g = torch.randn(shape, generator=gen, device="cuda") * 0.1
+        m = (torch.randn(shape, generator=gen, device="cuda")
+             * 0.01).to(moments)
+        v = (torch.rand(shape, generator=gen, device="cuda")
+             * 0.01).to(moments)
+        lm = shape == LM_SHAPE
+        reps, warmup = (LM_REPS, 1) if lm else (REPS, 3)
+
+        def kernel():
+            return fa.fused_adam(p, g, m, v, **ADAM)
+
+        rec = {"ms": median_ms(kernel, reps=reps, warmup=warmup),
+               "device_ms": device_kernel_ms(kernel, "fused_adam_kernel",
+                                             reps=reps),
+               **hosts[moments]}
+        if lm:
+            def plain():
+                for k in range(LM_K):
+                    fa.fused_adam_plain(p[k:k + 1], g[k:k + 1], m[k:k + 1],
+                                        v[k:k + 1], **ADAM)
+
+            def mixed():
+                return gk.gossip_adam_mix(p, g, m, v, *ring, **ADAM)
+
+            rec["plain_ms"] = median_ms(plain, reps=reps, warmup=warmup)
+            out["gossip_adam_mix, LM_SHAPE"] = {
+                "ms": median_ms(mixed, reps=reps, warmup=warmup),
+                "device_ms": device_kernel_ms(
+                    mixed, "gossip_adam_mix_kernel", reps=reps)}
+        if moments == torch.float32:
+            lib = (p, m, v) if lm else (p.clone(), m.clone(), v.clone())
+            # a tensor a worker at LM_SHAPE, as lm_shape_times passes it
+            call = fused_adam_library_call(*(list(t) if lm else [t] for t in (
+                lib[0], g, lib[1], lib[2])), ADAM, step)
+            rec.update(library_ms=median_ms(call, reps=reps, warmup=warmup),
+                       library_device_ms=device_kernel_ms(call, "",
+                                                          reps=reps))
+            del lib, call
+        out[name] = rec
+        del p, g, m, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def ab_side(src: str) -> dict:
     """One turn of ``--parent``: the ``repro_torch`` under ``src`` timed
+    on ``fused_adam`` beside ``torch._fused_adam_`` (``fused_adam_sides``),
     on the f32 flash cases whose head dim it takes, on
     ``gossip_adam_mix`` at SHAPE over the ring and on
     ``sign_compress_stacked`` at SHAPE over DeepFM's leaves, on the inputs
@@ -1633,6 +1792,7 @@ def ab_side(src: str) -> dict:
     sys.path.insert(0, src)
     from repro_torch.core.topology import make_topology
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_adam as fad
     from repro_torch.kernels import gossip as gk
     from repro_torch.kernels import pack as packing
     from repro_torch.kernels import sign_compress as sc
@@ -1640,7 +1800,7 @@ def ab_side(src: str) -> dict:
     def timed(fn, kernel):
         return {"ms": median_ms(fn), "device_ms": device_kernel_ms(fn, kernel)}
 
-    out = {}
+    out = fused_adam_sides(fad, gk)
     for name, B, S, T, Hq, Hk, D, dt, causal, window in FLASH_CASES:
         if dt != torch.float32 or D not in fa.HEAD_DIMS[dt]:
             continue
@@ -1736,11 +1896,11 @@ def phase_parent_ab(parent: str):
               "times": rec})
 
     def med(side, case, key):
-        vals = [r[case][key] for r in runs[side]]
+        vals = [r[case].get(key) for r in runs[side]]
         return None if None in vals else statistics.median(vals)
 
     median = {case: {name: ({key: med(side, case, key)
-                             for key in ("ms", "device_ms")}
+                             for key in runs["C"][0][case]}
                             if case in runs[side][0] else None)
                      for side, name in (("P", "parent"), ("C", "change"))}
               for case in runs["C"][0]}
@@ -4618,12 +4778,9 @@ def lm_shape_times(phase: str, state, moment: str):
         ms = median_ms(fn, reps=LM_REPS, warmup=1)
         out[name] = {"ms": ms, "share_of_bound": bound_ms / ms}
     if m.dtype == torch.float32:
-        step = torch.tensor(1e7, device="cuda")
-        ms = median_ms(lambda: torch._fused_adam_(
-            list(p), list(g), list(m), list(v), [], [step] * p.shape[0],
-            lr=ADAM["eta"], beta1=ADAM["beta1"], beta2=ADAM["beta2"],
-            weight_decay=ADAM["weight_decay"], eps=ADAM["tau"],
-            amsgrad=False, maximize=False), reps=LM_REPS, warmup=1)
+        ms = median_ms(fused_adam_library_call(
+            list(p), list(g), list(m), list(v), ADAM,
+            torch.tensor(1e7, device="cuda")), reps=LM_REPS, warmup=1)
         out["fused_adam"].update(library_ms=ms,
                                  library="torch._fused_adam_, in place")
     emit({"phase": "lm_shape_kernels", "path": phase, **out})
@@ -5262,9 +5419,10 @@ def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="an earlier tree to time the f32 "
-                    "flash, gossip_adam_mix and sign_compress_stacked "
-                    "kernels and the DeepFM periods against")
+    ap.add_argument("--parent", help="an earlier tree to time fused_adam "
+                    "(beside torch._fused_adam_), the f32 flash, "
+                    "gossip_adam_mix and sign_compress_stacked kernels and "
+                    "the DeepFM periods against")
     ap.add_argument("--ab-side", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.ab_side:

@@ -5,46 +5,131 @@
 //
 // Bound on the H100: bytes. Per element it reads p, g, m, v and writes
 // p, m, v: 28 bytes with f32 moments, 20 with bf16 ones, against about 15
-// f32 operations, far below the card's operations-per-byte line. The
-// design spends nothing but the one pass: a grid-stride loop that moves
-// four elements a thread (16-byte loads and stores of f32, 8-byte ones of
-// bf16) where the pointers are aligned for them, a scalar tail, no shared
-// memory. Outputs are out of place. The moments are f32 or bf16 (one
-// template, two entry points); p and g are f32.
+// f32 operations, far below the card's operations-per-byte line. Each byte
+// is touched once, so the design keeps the copies in flight without
+// spending threads on them and streams through memory in order:
+//
+// - A persistent grid: the resident blocks an SM (by occupancy at this
+//   kernel's shared memory: 2 with f32 moments, 3 with bf16) times the SM
+//   count, fewer for a short body. The 16-byte-aligned body is dealt in
+//   whole tiles round robin, so each round of the grid's tiles is one
+//   contiguous window of every operand (blocks that each took one
+//   contiguous run measured slower: the memory serves a window in order
+//   better than hundreds of scattered streams), and what the last
+//   whole round leaves is split evenly, in 16-byte quanta (4 f32
+//   elements, 8 with bf16 moments), over all blocks: no ragged last wave.
+// - A ring of kStages stages in shared memory, each one tile (kTile
+//   elements) of p, g, m and v. Thread 0 fills a stage with four 1D bulk
+//   copies (cp.async.bulk, the TMA's linear form) that complete on the
+//   stage's mbarrier; all threads compute from the stage, write p, m and v
+//   back into it in place, and thread 0 sends them out with three bulk
+//   stores (one bulk group a tile). A stage is refilled with the tile
+//   kStages on once its stores have read it (wait_group.read 1, a tile
+//   later), so kStages - 1 tiles load while one computes. The copies carry
+//   an L2 cache policy (l2_policy): evict-normal, since evict-first, which
+//   bytes touched once would seem to want, measured no faster.
+// - The unaligned head (a view such as t[1:n+1]) and the ragged tail run
+//   as scalar code in the same launch, spread over the whole grid. Where
+//   the seven operands are misaligned by different amounts there is no
+//   body, and the whole call runs that scalar loop.
+//
+// The tile, the stages, the hints, and this design against a register-only
+// one (scripts/fused_adam_regs.cu) were chosen by scripts/fused_adam_ab.py:
+// on an NVIDIA H100 80GB HBM3 every design there, the kernel this one
+// replaced too, lands at 86-88% of the data-sheet rate: the card's memory,
+// not the kernel, is what is left.
+//
+// The host path (kernels/fused_adam.py) costs 16-27 us a call on that
+// card's hosts, up to a quarter of this kernel's time on one rank's
+// comm='axis' shard: three output allocations and the ctypes call with its
+// launch are most of it. The wrapper reads each operand once, computes the head and body, and
+// passes the seven constants as one cached struct; this launcher caches
+// the grid per device. The arithmetic is adam_math.cuh's adam_half_step,
+// shared with gossip_adam_mix. Outputs are out of place. The moments are
+// f32 or bf16 (one template, two entry points); p and g are f32.
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "adam_math.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTile = 2048;   // elements of each operand a stage holds
+constexpr int kStages = 3;
+constexpr int kMaxDevices = 64;
 
 template <typename M>
-__global__ void fused_adam_kernel(const float* __restrict__ p,
-                                  const float* __restrict__ g,
-                                  const M* __restrict__ m,
-                                  const M* __restrict__ v,
-                                  float* __restrict__ po,
-                                  M* __restrict__ mo,
-                                  M* __restrict__ vo, long long n,
-                                  long long n_vec, AdamConsts c) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (long long i = tid; i < n_vec; i += stride) {
-    float4 P = reinterpret_cast<const float4*>(p)[i];
-    float4 G = reinterpret_cast<const float4*>(g)[i];
-    float4 M4 = load_moment4(m, i);
-    float4 V = load_moment4(v, i);
-    float4 PO, MO, VO;
-    adam_half_step(P.x, G.x, M4.x, V.x, c, &PO.x, &MO.x, &VO.x);
-    adam_half_step(P.y, G.y, M4.y, V.y, c, &PO.y, &MO.y, &VO.y);
-    adam_half_step(P.z, G.z, M4.z, V.z, c, &PO.z, &MO.z, &VO.z);
-    adam_half_step(P.w, G.w, M4.w, V.w, c, &PO.w, &MO.w, &VO.w);
-    reinterpret_cast<float4*>(po)[i] = PO;
-    store_moment4(mo, i, MO);
-    store_moment4(vo, i, VO);
-  }
-  for (long long i = n_vec * 4 + tid; i < n; i += stride) {
+__host__ __device__ constexpr int stage_bytes() {
+  return kTile * (2 * (int)sizeof(float) + 2 * (int)sizeof(M));
+}
+
+// the body's unit: 16 bytes of the narrowest operand
+template <typename M>
+__host__ __device__ constexpr long long quantum() {
+  return 16 / (long long)sizeof(M);
+}
+
+// the L2 cache policy of every bulk copy
+__device__ __forceinline__ uint64_t l2_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// `bytes` (a multiple of 16) from 16-byte-aligned global memory into
+// shared memory; completion is counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(
+          hopper::smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(hopper::smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+// `bytes` from shared memory to 16-byte-aligned global memory, in the
+// thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0], [%1], %2, %3;\n" ::"l"(dst),
+      "r"(hopper::smem_addr(src)), "r"(bytes), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void store4_smem(float* dst, float4 x) {
+  *reinterpret_cast<float4*>(dst) = x;
+}
+
+__device__ __forceinline__ void store4_smem(__nv_bfloat16* dst, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&lo);
+  raw.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = raw;
+}
+
+template <typename M>
+__global__ void __launch_bounds__(kThreads)
+    fused_adam_kernel(const float* __restrict__ p,
+                      const float* __restrict__ g,
+                      const M* __restrict__ m, const M* __restrict__ v,
+                      float* __restrict__ po, M* __restrict__ mo,
+                      M* __restrict__ vo, long long n, long long head,
+                      long long body, AdamConsts c) {
+  // the scalar elements: the head [0, head) and the tail [head + body, n)
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
+       k < n - body; k += stride) {
+    const long long i = k < head ? k : k + body;
     float pn, mn, vn;
     adam_half_step(p[i], g[i], load_moment(m, i), load_moment(v, i), c, &pn,
                    &mn, &vn);
@@ -52,51 +137,172 @@ __global__ void fused_adam_kernel(const float* __restrict__ p,
     store_moment(mo, i, mn);
     store_moment(vo, i, vn);
   }
+  // this block's pieces of the body: whole tiles dealt round robin (a
+  // round of the grid's tiles is one contiguous window of each operand,
+  // so the card streams through memory in order), then its even share, in
+  // quanta, of what the last whole round leaves
+  const long long round = (long long)gridDim.x * kTile;
+  const long long rounds = body / round;
+  const long long rest = head + rounds * round;
+  const long long rest_units = (body - rounds * round) / quantum<M>();
+  const long long rest_lo =
+      rest + (long long)blockIdx.x * rest_units / gridDim.x * quantum<M>();
+  const long long rest_hi =
+      rest + ((long long)blockIdx.x + 1) * rest_units / gridDim.x *
+                 quantum<M>();
+  const int tiles = (int)rounds + (rest_hi > rest_lo ? 1 : 0);
+  if (tiles == 0) return;
+  auto tile_base = [&](int t) {
+    return t < rounds ? head + ((long long)t * gridDim.x + blockIdx.x) * kTile
+                      : rest_lo;
+  };
+  auto tile_len = [&](int t) {
+    return t < rounds ? kTile : (int)(rest_hi - rest_lo);
+  };
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  auto stage = [&](int s) { return smem + s * stage_bytes<M>(); };
+  // the stage's operands: p and g f32, then m and v
+  auto sp = [&](int s) { return reinterpret_cast<float*>(stage(s)); };
+  auto sg = [&](int s) { return sp(s) + kTile; };
+  auto sm = [&](int s) { return reinterpret_cast<M*>(sp(s) + 2 * kTile); };
+  auto sv = [&](int s) { return sm(s) + kTile; };
+
+  uint64_t policy = 0;
+  auto fill = [&](int t, int s) {
+    const long long base = tile_base(t);
+    const uint32_t len = (uint32_t)tile_len(t);
+    hopper::mbar_arrive_expect_tx(&full[s],
+                                  len * (2 * sizeof(float) + 2 * sizeof(M)));
+    bulk_load(sp(s), p + base, len * sizeof(float), &full[s], policy);
+    bulk_load(sg(s), g + base, len * sizeof(float), &full[s], policy);
+    bulk_load(sm(s), m + base, len * sizeof(M), &full[s], policy);
+    bulk_load(sv(s), v + base, len * sizeof(M), &full[s], policy);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_fence_init();
+    policy = l2_policy();
+    for (int t = 0; t < kStages && t < tiles; ++t) fill(t, t);
+  }
+  __syncthreads();
+
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t % kStages;
+    hopper::mbar_wait(&full[s], (uint32_t)(t / kStages) & 1u);
+    const int len = tile_len(t);
+    float* ps = sp(s);
+    const float* gs = sg(s);
+    M* ms = sm(s);
+    M* vs = sv(s);
+    for (int i = threadIdx.x * 4; i < len; i += kThreads * 4) {
+      const float4 P = *reinterpret_cast<const float4*>(ps + i);
+      const float4 G = *reinterpret_cast<const float4*>(gs + i);
+      const float4 M4 = load_moment4(ms, i / 4);
+      const float4 V = load_moment4(vs, i / 4);
+      float4 PO, MO, VO;
+      adam_half_step(P.x, G.x, M4.x, V.x, c, &PO.x, &MO.x, &VO.x);
+      adam_half_step(P.y, G.y, M4.y, V.y, c, &PO.y, &MO.y, &VO.y);
+      adam_half_step(P.z, G.z, M4.z, V.z, c, &PO.z, &MO.z, &VO.z);
+      adam_half_step(P.w, G.w, M4.w, V.w, c, &PO.w, &MO.w, &VO.w);
+      store4_smem(ps + i, PO);
+      store4_smem(ms + i, MO);
+      store4_smem(vs + i, VO);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const long long base = tile_base(t);
+      bulk_store(po + base, ps, len * sizeof(float), policy);
+      bulk_store(mo + base, ms, len * sizeof(M), policy);
+      bulk_store(vo + base, vs, len * sizeof(M), policy);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      // the previous tile's stores have read their stage: refill it
+      if (t >= 1 && t - 1 + kStages < tiles) {
+        asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+        fill(t - 1 + kStages, (t - 1) % kStages);
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 1;
+// Blocks of the persistent grid on `device` (resident blocks an SM at the
+// kernel's shared memory, times the SM count), found once per device.
+template <typename M>
+cudaError_t grid_limit(int device, int* blocks) {
+  static int cached[kMaxDevices] = {};
+  if (device >= 0 && device < kMaxDevices && cached[device] > 0) {
+    *blocks = cached[device];
+    return cudaSuccess;
   }
-  return sms;
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(fused_adam_kernel<M>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               stage_bytes<M>() * kStages);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_adam_kernel<M>, kThreads, stage_bytes<M>() * kStages);
+  }
+  if (err != cudaSuccess) return err;
+  *blocks = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  if (device >= 0 && device < kMaxDevices) cached[device] = *blocks;
+  return cudaSuccess;
 }
 
 template <typename M>
 int launch_fused_adam(const float* p, const float* g, const M* m, const M* v,
-                      float* po, M* mo, M* vo, long long n, int vec,
-                      AdamConsts c, void* stream) {
+                      float* po, M* mo, M* vo, long long n, long long head,
+                      long long body, const AdamConsts* c, void* stream) {
   if (n <= 0) return 0;
-  const long long n_vec = vec ? n / 4 : 0;
-  const long long work = n_vec > 0 ? n_vec : n;
-  long long blocks = (work + kThreads - 1) / kThreads;
-  const long long cap = (long long)sm_count() * 16;
-  if (blocks > cap) blocks = cap;
-  fused_adam_kernel<M><<<(unsigned)blocks, kThreads, 0,
+  int device = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = grid_limit<M>(device, &limit);
+  if (err != cudaSuccess) return (int)err;
+  // a tile a block at least, or a thread an element of the scalar part
+  long long blocks = body > 0 ? (body + kTile - 1) / kTile
+                              : (n + kThreads - 1) / kThreads;
+  if (blocks > limit) blocks = limit;
+  if (blocks < 1) blocks = 1;
+  fused_adam_kernel<M><<<(unsigned)blocks, kThreads,
+                         body > 0 ? stage_bytes<M>() * kStages : 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      p, g, m, v, po, mo, vo, n, n_vec, c);
+      p, g, m, v, po, mo, vo, n, head, body, *c);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Both entry points return cudaGetLastError() after the launch (0 when it
-// was accepted). vec != 0 promises that the four elements of each group
-// are one aligned load or store: the f32 pointers 16-byte aligned, the
-// bf16 ones 8-byte aligned.
+// Blocks of the persistent grid on `device` with f32 (moment_bytes 4) or
+// bf16 (2) moments: at most this many run, fewer for a short body; a
+// negative cudaError_t on failure.
+extern "C" int fused_adam_grid(int device, int moment_bytes) {
+  int blocks = 0;
+  const cudaError_t err = moment_bytes == 2
+                              ? grid_limit<__nv_bfloat16>(device, &blocks)
+                              : grid_limit<float>(device, &blocks);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+// Both entry points return a cudaError_t (0 when the launch was
+// accepted). Elements [head, head + body) are the body: head + body <= n,
+// body a multiple of 16 bytes of the narrowest operand (4 elements with
+// f32 moments, 8 with bf16 ones), and when body > 0 all seven pointers
+// advanced by head elements are 16-byte aligned. The rest run as scalars.
+// c points to the seven f32 constants in host memory, read at the launch.
 extern "C" int fused_adam_f32(const float* p, const float* g, const float* m,
                               const float* v, float* po, float* mo, float* vo,
-                              long long n, int vec, float eta, float beta1,
-                              float one_minus_beta1, float beta2,
-                              float one_minus_beta2, float tau,
-                              float weight_decay, void* stream) {
-  return launch_fused_adam(p, g, m, v, po, mo, vo, n, vec,
-                           AdamConsts{eta, beta1, one_minus_beta1, beta2,
-                                      one_minus_beta2, tau, weight_decay},
-                           stream);
+                              long long n, long long head, long long body,
+                              const AdamConsts* c, void* stream) {
+  return launch_fused_adam(p, g, m, v, po, mo, vo, n, head, body, c, stream);
 }
 
 // f32 p and g, bf16 m and v.
@@ -104,13 +310,8 @@ extern "C" int fused_adam_f32_bf16m(const float* p, const float* g,
                                     const __nv_bfloat16* m,
                                     const __nv_bfloat16* v, float* po,
                                     __nv_bfloat16* mo, __nv_bfloat16* vo,
-                                    long long n, int vec, float eta,
-                                    float beta1, float one_minus_beta1,
-                                    float beta2, float one_minus_beta2,
-                                    float tau, float weight_decay,
+                                    long long n, long long head,
+                                    long long body, const AdamConsts* c,
                                     void* stream) {
-  return launch_fused_adam(p, g, m, v, po, mo, vo, n, vec,
-                           AdamConsts{eta, beta1, one_minus_beta1, beta2,
-                                      one_minus_beta2, tau, weight_decay},
-                           stream);
+  return launch_fused_adam(p, g, m, v, po, mo, vo, n, head, body, c, stream);
 }

@@ -132,11 +132,19 @@ def check(status: int, what: str) -> None:
 
 def launch(entry, device: torch.device, *args) -> int:
     """Call the C entry point with ``args`` and then the current stream of
-    ``device``, with ``device`` current. It switches the current device
-    only when another one is current, and reads the raw stream handle
-    (``torch.cuda.current_stream`` builds a Stream object): both cost more
-    host time than a short kernel takes on the card."""
-    if device.index == torch.cuda.current_device():
-        return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
-    with torch.cuda.device(device):
+    ``device``, with ``device`` current (``launch_index``)."""
+    return launch_index(entry, device.index, *args)
+
+
+def launch_index(entry, index: int, *args) -> int:
+    """``launch`` on the CUDA device numbered ``index``. It switches the
+    current device only when another one is current, and reads the
+    current device and the raw stream handle from ``torch._C``
+    (``torch.cuda.current_device`` checks the lazy init,
+    ``torch.cuda.current_stream`` builds a Stream object): both cost more
+    host time than a short kernel takes on the card. The caller holds a
+    CUDA tensor, so CUDA is initialised."""
+    if index == torch._C._cuda_getDevice():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
         return entry(*args, torch.cuda.current_stream().cuda_stream)

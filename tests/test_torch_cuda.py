@@ -58,18 +58,59 @@ def cuda():
     return torch.device("cuda")
 
 
+# n of the fused_adam edge cases: the scalar-only sizes and a quantum's
+# edges (16 bytes: 4 f32 elements, 8 with bf16 moments), a ring stage's
+# tile (TILE elements) and one wave (the persistent grid's blocks times a
+# tile) each side of their edges, and several waves; the named ones are
+# worked out on the card
+ADAM_SIZES = [0, 1, 3, 4, 5, 127, 128, "tile-1", "tile", "tile+1",
+              "wave-tile", "wave+tile", "3 waves+17"]
+
+
+def adam_size(n, moment_dtype) -> int:
+    if isinstance(n, int):
+        return n
+    tile = tfa.TILE
+    wave = tile * tfa.grid_blocks(
+        torch.device("cuda", torch.cuda.current_device()), moment_dtype)
+    return {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+            "wave-tile": wave - tile, "wave+tile": wave + tile,
+            "3 waves+17": 3 * wave + 17}[n]
+
+
+def bit_equal(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def check_fused_adam(args, kw):
+    """One launch a call (none for no elements), a second call equal to
+    the first to the bit, and the outputs equal to the plain version's to
+    the bit: the kernel does its f32 operations in the plain version's
+    order without FMA contraction (tau = 0's rsqrtf is the instruction
+    torch.rsqrt runs on the card), and rounds bf16 moments once to
+    nearest-even as .to(bfloat16) does."""
+    before = tfa.fused_adam.launches
+    got = tfa.fused_adam(*args, **kw)
+    again = tfa.fused_adam(*args, **kw)
+    want = tfa.fused_adam_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert tfa.fused_adam.launches - before == (2 if args[0].numel() else 0)
+    bit_equal(got, again)
+    bit_equal(got, want)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 128, 1000, 32768 + 17])
+@pytest.mark.parametrize("n", ADAM_SIZES)
 @pytest.mark.parametrize("variant", sorted(ADAM_VARIANTS))
 def test_cuda_fused_adam_matches_plain(cuda, n, variant):
+    """Aligned operands, then views 1-3 elements in (against the
+    wrapper's aligned outputs: the whole call scalar, in one launch)."""
     kw = dict(eta=1e-3, **ADAM_VARIANTS[variant])
-    ins = adam_inputs((n + 1,))
-    for sl in (slice(0, n), slice(1, n + 1)):   # aligned and unaligned
-        args = [t[sl] for t in ins]
-        got = tfa.fused_adam(*args, **kw)
-        want = tfa.fused_adam_plain(*args, **kw)
-        torch.cuda.synchronize()
-        close(got, want, **CARD_TOL)
+    n = adam_size(n, torch.float32)
+    ins = adam_inputs((n + 3,))
+    for off in range(4):
+        check_fused_adam([t[off:off + n] for t in ins], kw)
 
 
 # (graph, K): the elastic resize's K=6, the main path's K=8 (every graph
@@ -124,18 +165,56 @@ def close_bf16_moments(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 128, 1000, 32768 + 17])
+@pytest.mark.parametrize("n", ADAM_SIZES)
 @pytest.mark.parametrize("variant", sorted(ADAM_VARIANTS))
 def test_cuda_fused_adam_bf16_moments_match_plain(cuda, n, variant):
     kw = dict(eta=1e-3, **ADAM_VARIANTS[variant])
-    p, g, m, v = adam_inputs((n + 1,), seed=5)
+    n = adam_size(n, torch.bfloat16)
+    p, g, m, v = adam_inputs((n + 3,), seed=5)
     m, v = m.to(torch.bfloat16), v.to(torch.bfloat16)
-    for sl in (slice(0, n), slice(1, n + 1)):   # aligned and unaligned
-        args = [t[sl] for t in (p, g, m, v)]
-        got = tfa.fused_adam(*args, **kw)
-        want = tfa.fused_adam_plain(*args, **kw)
-        torch.cuda.synchronize()
-        close_bf16_moments(got, want)
+    for off in range(4):   # aligned, then views 1-3 elements in
+        check_fused_adam([t[off:off + n] for t in (p, g, m, v)], kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+def test_cuda_fused_adam_axis_shard_matches_plain(cuda, moments):
+    """One comm='axis' rank's (1, 89344, 128) DeepFM shard, the K = 1
+    launches of the axis paths."""
+    p, g, m, v = adam_inputs((1, 89344, 128), seed=8)
+    m, v = m.to(moments), v.to(moments)
+    check_fused_adam([p, g, m, v], dict(eta=1e-3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+def test_cuda_fused_adam_kernel_runs_head_body_and_tail(cuda, moments):
+    """All seven operands the same 0 .. quantum - 1 elements past a
+    16-byte boundary: the plan's scalar head, its body of bulk-copied
+    tiles and its scalar tail, in one launch of the C entry (the wrapper's
+    own outputs are aligned, so only a direct call reaches a head)."""
+    size = torch.finfo(moments).bits // 8
+    quantum = 16 // size
+    kw = dict(eta=1e-3, beta1=0.9, beta2=0.999, tau=1e-6, weight_decay=0.0)
+    for n in (5, 1000, 3 * tfa.TILE + 11):
+        p, g, m, v = adam_inputs((n + quantum,), seed=9)
+        m, v = m.to(moments), v.to(moments)
+        for off in range(quantum):
+            ins = [t[off:off + n] for t in (p, g, m, v)]
+            outs = [torch.empty(n + quantum, dtype=t.dtype,
+                                device="cuda")[off:off + n]
+                    for t in (p, m, v)]
+            ptrs = [t.data_ptr() for t in ins + outs]
+            head, body = tfa.plan(n, size, *ptrs)
+            if n >= 2 * quantum:
+                assert body > 0 and head == (-off) % quantum
+            status = tfa._entry(moments)(
+                *ptrs, n, head, body, tfa._consts_arg(*kw.values())[1],
+                torch.cuda.current_stream().cuda_stream)
+            assert status == 0
+            want = tfa.fused_adam_plain(*ins, **kw)
+            torch.cuda.synchronize()
+            bit_equal(outs, want)
 
 
 @pytest.mark.gpu
@@ -706,8 +785,8 @@ def test_cuda_adam_kernels_at_the_paper_weight_decay(cuda, n):
     operations of the plain version in its order."""
     kw = dict(eta=1e-3, tau=1e-6, weight_decay=1e-4)
     p, g, m, v = adam_inputs((n,), seed=9)
-    close(tfa.fused_adam(p, g, m, v, **kw),
-          tfa.fused_adam_plain(p, g, m, v, **kw), **CARD_TOL)
+    bit_equal(tfa.fused_adam(p, g, m, v, **kw),
+              tfa.fused_adam_plain(p, g, m, v, **kw))
     topo = make_topology("ring", K)
     args = (topo.offsets, topo.offset_weights, topo.self_weight)
     p, g, m, v = adam_inputs((K, 12, 128), seed=10)
