@@ -217,6 +217,21 @@ script exits non-zero without the final ``ok`` line:
    (``gated_fit``: ``analysis.check.period_spec``, the collectives by
    kind, the launches, no uncounted ``torch.distributed`` call). A
    failing spec fails the phase.
+36. lm_train_bf16p (after lm_train_bf16): llama3.2-1b at full width with
+   ``param_dtype=torch.bfloat16`` through lm_train_bf16's library path
+   (neither CLI has a parameter-dtype flag), moments by default (bf16):
+   the buffer, m and v bf16, lm_train's launches, finite losses falling
+   from near ln(vocab), a peak below lm_train_bf16's, the share of the
+   first step's updates that bf16 rounding swallowed (no f32 master copy,
+   as in JAX); step times, a profile of one period, MFU, and both Adam
+   kernels at the LM shape, each held to the bit to its plain version
+   there row range by row range;
+37. lm_train_cd_bf16p and lm_train_tau2_bf16p (after lm_train_cd): at
+   LM_CD_LAYERS layers with bf16 params, CD-Adam as lm_train_cd runs it
+   (sign_compress_stacked and consensus_mix on bf16 buffers; then the
+   sign kernel record on its trained bf16 state) and D-Adam with
+   staleness 2 at straggler rate 0.3 (payload_mix on bf16 buffers), each
+   run's launches exact.
 
 lm_train and lm_train_bf16 also record their model FLOPs (6 N D) and
 MFU at the card's bf16 peak, and each serving phase the MFU of its big
@@ -230,7 +245,15 @@ phases once its CPU side is ready, the last before lm_example.
 Every phase's line holds ``elapsed_s``, the seconds since the script
 started.
 
-The kernels phase holds ``fused_adam`` and ``gossip_adam_mix`` with
+The kernels phase holds every bf16-param form at the DeepFM shape too
+(``fused_adam`` and ``gossip_adam_mix`` with bf16 params and bf16 or f32
+moments, ``gossip_mix``, ``consensus_mix``, ``payload_mix`` over 2 and 5
+payloads, ``sign_compress_stacked`` over the leaves and in its
+``reduce_axis`` form, ``sign_compress``), each to the bit (the sign
+records' hats at the kernel's own scales), beside its bf16 byte bound;
+``torch._fused_adam_`` on all-bf16 tensors beside ``fused_adam``; the
+``{"kernels"}`` line counts a bf16-param form's launches on the bf16-param
+paths only. It holds ``fused_adam`` and ``gossip_adam_mix`` with
 bf16 moments too (``fused_adam`` to the bit, as with f32 moments;
 ``gossip_adam_mix``'s m and v within one bf16 ulp, p within 2e-5) and at
 the vision phase's weight decay 1e-4, and takes
@@ -349,6 +372,24 @@ BIT_EQUAL = dict(rtol=0.0, atol=0.0)
 # but where a tie would break the other way), p, which stays f32, within
 # the f32 tolerance of tests/test_kernels.py
 BF16_MOMENT_P_TOL = dict(rtol=2e-5, atol=2e-5)
+# bf16 parameter buffers (a model's param_dtype=bfloat16): every kernel
+# widens to f32, does the plain version's f32 operations in its order and
+# rounds each output once to its dtype, to nearest-even, as .to(bfloat16)
+# does, so it is held to the plain version to the bit (BIT_EQUAL); the
+# sign records' scales are sums in another order (SCALE_RTOL), and their
+# bf16 hat is held to the bit to round(hat + scale * q) at the kernel's own
+# scales. torch._fused_adam_ on all-bf16 tensors computes the same update
+# in another order of f32 operations (lerp for m, one product for the
+# step), so it may round a bf16 output the other way: held within one bf16
+# ulp, 2**-7 of the value (BF16_LIBRARY_TOL).
+BF16_LIBRARY_TOL = dict(rtol=8e-3, atol=1e-6)
+# the sign records' bytes without L2 reuse in bf16: x, hat (2 + 2), q (1),
+# then hat, q (2 + 1) and hat_out (2)
+SIGN_NO_REUSE_BYTES_BF16 = 10
+NO_MIXED_LIBRARY = ("none: torch._fused_adam_ takes one dtype for its "
+                    "params and moments")
+NO_BF16_EINSUM = ("none: one einsum takes W and x in one dtype, and the "
+                  "ring's 1/3 weights in bf16 are another function")
 # the one kernel of a sign_compress[_stacked] call, and the three of the
 # design it replaced: a profile of this tree that records one of those
 # fails its phase; --parent matches either tree's names
@@ -649,6 +690,29 @@ EXAMPLES = (("quickstart", {}),
 LM_CD_LAYERS = 4
 LM_CD_LAUNCHES = {"fused_adam": 8, "sign_compress_stacked": 2,
                   "consensus_mix": 2}
+# bf16 parameter buffers on the LM (lm_train_bf16p): llama3.2-1b with
+# param_dtype=bfloat16 through lm_train_bf16's library path, moments by
+# default (the buffer's dtype, so bf16), lm_train's launches. No f32 master
+# copy is kept, as the JAX package keeps none: an Adam step below half an
+# ulp of its bf16 parameter is lost, as in JAX's run
+# (tests/test_torch_bf16_params.py). The share lost in the first step is
+# read on every SWALLOW_STRIDE-th row of each worker (1/64 of the buffer,
+# 77 MB, so the peak stays the run's own).
+SWALLOW_STRIDE = 64
+# the plain versions at the LM shape take f32 temporaries of their operands:
+# they are compared with the kernels LM_CHECK_ROWS rows of every worker at a
+# time
+LM_CHECK_ROWS = 1 << 19
+# then, at LM_CD_LAYERS layers with bf16 params (lm_train_cd_bf16p and
+# lm_train_tau2_bf16p): CD-Adam as lm_train_cd runs it (sign_compress_stacked
+# and consensus_mix on bf16 buffers), then D-Adam with staleness 2 at
+# straggler rate 0.3 (payload_mix on bf16 buffers at each of its 2 rounds;
+# the synchronous gossip_mix is not on that path)
+LM_TAU2 = dict(staleness=2, straggler_rate=0.3, straggler_seed=1)
+LM_TAU2_LAUNCHES = {"fused_adam": LM_STEPS, "payload_mix": 2}
+# the paths whose buffers are bf16: the kernel records of the bf16-param
+# forms count their launches there, the others everywhere else
+BF16P_PATHS = ("lm_train_bf16p", "lm_train_cd_bf16p", "lm_train_tau2_bf16p")
 # the first loss of random weights lies near ln(vocab): the logits' spread
 # at init adds about half its square
 LM_LOSS0_SLACK = 1.5
@@ -954,27 +1018,50 @@ def launches_per_call(c: dict, ops) -> int:
     return got
 
 
-def sign_extra(elements: int, per_call: int) -> dict:
-    """The sign_compress record's 18-byte figure beside its 13-byte
-    bound, and its launch and equality checks."""
-    return {"bytes_no_reuse": SIGN_NO_REUSE_BYTES * elements,
-            "no_reuse_ms": SIGN_NO_REUSE_BYTES * elements / MEM_RATE * 1e3,
+def sign_extra(elements: int, per_call: int,
+               no_reuse: int = SIGN_NO_REUSE_BYTES) -> dict:
+    """The sign_compress record's two-pass figure (18 bytes an element in
+    f32, 10 in bf16) beside its one-pass bound, and its launch and
+    equality checks."""
+    return {"bytes_no_reuse": no_reuse * elements,
+            "no_reuse_ms": no_reuse * elements / MEM_RATE * 1e3,
             "launches_per_call": per_call, "second_call_bit_equal": True}
 
 
-def check_hat_at_scales(got, hat, ranges, what: str) -> None:
-    """The kernel's hat equal to the bit to the plain arithmetic
-    ``hat + scale * q`` at the kernel's own scales (its scales' sums
-    differ from the plain version's by their order only)."""
+def check_hat_at_scales(got, hat, bounds, what: str) -> None:
+    """A bf16 (or f32) hat equal to the bit to ``hat + scale * q`` at the
+    kernel's own scales, rounded once to hat's dtype; ``bounds`` are the
+    segments' element ranges in a worker, the scales ``(K, L)``, ``(K,)``
+    or ``()``."""
     q, scale, hat_new = got
-    rows = torch.tensor([b - a for a, b in ranges], device=q.device)
-    sc = torch.repeat_interleave(scale, rows, dim=1,
-                                 output_size=q.shape[1])[:, :, None]
-    want = hat + sc * q.to(torch.float32)
-    if not torch.equal(hat_new, want):
+    kw = q.shape[0] if q.dim() > 1 else 1
+    sc = scale.reshape(kw, -1)
+    lengths = torch.tensor([b - a for a, b in bounds], device=q.device)
+    scale_el = torch.repeat_interleave(sc, lengths, dim=1,
+                                       output_size=q.numel() // kw)
+    want = (hat.reshape(kw, -1).to(torch.float32)
+            + scale_el * q.reshape(kw, -1).to(torch.float32)).to(hat.dtype)
+    bad = int((hat_new.reshape(kw, -1) != want).sum())
+    if bad:
         raise AssertionError(f"{what}: hat differs from hat + scale * q at "
-                             f"the kernel's scales in "
-                             f"{int((hat_new != want).sum())} elements")
+                             f"the kernel's scales in {bad} elements")
+
+
+def compare_compressed_bf16(got, want, hat, bounds, what: str):
+    """bf16 sign records: q equal, the f32 scales within SCALE_RTOL, hat
+    bf16 and held by ``check_hat_at_scales``. Returns hat's max abs
+    distance from the plain version's (a rounding of the scales' sums may
+    move a bf16 hat by one ulp) and the scales' max rel error."""
+    q, scale, hat_new = got
+    if not torch.equal(q, want[0]):
+        raise AssertionError(f"{what}: q differs in "
+                             f"{int((q != want[0]).sum())} elements")
+    if hat_new.dtype != hat.dtype:
+        raise AssertionError(f"{what}: hat {hat_new.dtype}, not {hat.dtype}")
+    rel = compare([scale], [want[1]], dict(rtol=SCALE_RTOL, atol=0.0),
+                  f"{what} scale")[1]
+    check_hat_at_scales(got, hat, bounds, what)
+    return float((hat_new.float() - want[2].float()).abs().max()), rel
 
 
 def compare_bf16_moments(got, want, what: str):
@@ -1074,23 +1161,39 @@ def phase_env():
 
 
 def kernel_label(mangled: str) -> str:
-    """``name<dtype,D>`` of a mangled kernel: the name is the one
-    "<length><name>" that ends in ``_kernel``, then its template args
-    ("I...E"; the dtype where the template takes one, the head dim)."""
+    """``name<args>`` of a mangled kernel: the name is the one
+    "<length><name>" that ends in ``_kernel``, then each of its template
+    args ("I...E"): f32 (``f``), bf16 (``13__nv_bfloat16``, or a
+    substitution ``S..._``, which in these kernels can only repeat it), or
+    an int (``Li<n>E``, the head dim)."""
     for at in range(len(mangled)):
         digits = re.match(r"\d+", mangled[at:])
         if not digits:
             continue
         start = at + digits.end()
         name = mangled[start:start + int(digits.group())]
-        if re.fullmatch(r"[a-z_][a-z0-9_]*_kernel", name):
-            args = re.match(r"I.*?E", mangled[start + len(name):])
-            if not args:
-                return name
-            dt = ("bf16," if "bfloat16" in args.group() else
-                  "f32," if args.group().startswith("If") else "")
-            d = re.search(r"Li(\d+)E", args.group())
-            return f"{name}<{dt}{d.group(1) if d else '?'}>"
+        if not re.fullmatch(r"[a-z_][a-z0-9_]*_kernel", name):
+            continue
+        rest = mangled[start + len(name):]
+        if not rest.startswith("I"):
+            return name
+        args, i = [], 1
+        while i < len(rest) and rest[i] != "E":
+            if rest.startswith("Li", i):
+                j = rest.index("E", i)
+                args.append(rest[i + 2:j])
+            elif rest[i] == "S":
+                j = rest.index("_", i)
+                args.append("bf16")
+            elif rest[i].isdigit():
+                d = re.match(r"\d+", rest[i:]).group()
+                j = i + len(d) + int(d) - 1
+                args.append("bf16" if "bfloat16" in rest[i:j + 1] else "?")
+            else:
+                j = i
+                args.append("f32" if rest[i] == "f" else "?")
+            i = j + 1
+        return f"{name}<{','.join(args)}>"
     return "?"
 
 
@@ -1113,7 +1216,8 @@ def phase_build():
             elif "Used" in ln:
                 regs[f"{name}:{entry}"] = ln.split("ptxas info    : ")[-1]
     sign = sorted(k for k in regs if k.startswith("sign_compress:"))
-    if sign != ["sign_compress:sign_compress_kernel"]:
+    if sign != ["sign_compress:sign_compress_kernel<bf16>",
+                "sign_compress:sign_compress_kernel<f32>"]:
         raise AssertionError(f"the sign_compress library holds {sign}")
     emit({"phase": "build", "seconds": round(seconds, 3),
           "libs": {n: str(p.relative_to(ROOT)) for n, p in libs.items()},
@@ -1207,6 +1311,35 @@ def phase_kernels():
     # bf16 moments (make_optimizer(moment_dtype=torch.bfloat16)): p and g
     # f32, m and v bf16; 20 bytes an element
     mb, vb = m.to(torch.bfloat16), v.to(torch.bfloat16)
+    # bf16 parameter buffers (a model's param_dtype=bfloat16): p, g, the
+    # payloads, x and the hats bf16, the moments f32 or bf16 (the packed
+    # default at bf16 params: bf16); 3 bytes of p's dtype and 4 of the
+    # moments' an element for the Adam kernels
+    bf = torch.bfloat16
+    pb, gb, xb, hsb, hn1b, hn2b, xsb, hs1b, x2b, hs2b = (
+        t.to(bf) for t in (p, g, x, hs, hn1, hn2, xs, hs1, x2, hs2))
+    grid_b = {t: fa.grid_blocks(p.device, t, bf) for t in fa.MOMENT_DTYPES}
+    leaf_bounds = tuple((a * 128, b * 128) for a, b in ranges)
+    leaf_bounds2 = tuple((a * 128, b * 128) for a, b in ranges2)
+    # torch._fused_adam_ on all-bf16 p, g, m, v (one dtype for its lists),
+    # on copies; its first call is held to the plain version within
+    # BF16_LIBRARY_TOL, and where it lies farther it is no yardstick
+    lib_b = (pb.clone(), mb.clone(), vb.clone())
+    lib_b_step = fused_adam_library_call([lib_b[0]], [gb], [lib_b[1]],
+                                         [lib_b[2]], adam, lib_step)
+
+    def fused_adam_lib_b():
+        lib_b_step()
+        return lib_b
+
+    lib_b_pairs = list(zip(fused_adam_lib_b(),
+                           fa.fused_adam_plain(pb, gb, mb, vb, **adam)))
+    lib_b_err = max(float((a.float() - b.float()).abs().max())
+                    for a, b in lib_b_pairs)
+    lib_b_bad = sum(int((~torch.isclose(a.float(), b.float(),
+                                        **BF16_LIBRARY_TOL)).sum())
+                    for a, b in lib_b_pairs)
+    del lib_b_pairs
     # fused_adam: the plain version to the bit (the same f32 operations in
     # the same order, bf16 rounded once to nearest-even in both), a second
     # call equal to the first, the library call's device time beside the
@@ -1329,7 +1462,8 @@ def phase_kernels():
              plain=lambda: sc.sign_compress_stacked_plain(
                  x2, hs2, n_true=spec2.sizes, row_ranges=ranges2,
                  reduce_axis=two_shards),
-             compressed=True, same_scale_hat=(hs2, ranges2), library=None,
+             compressed=True, same_scale_hat=(hs2, leaf_bounds2),
+             library=None,
              bytes=13 * n2, ops=8 * n2, device=SIGN_KERNELS, per_call=2,
              elements=n2,
              variant="reduce_axis (the 2D layout): one rank's "
@@ -1400,6 +1534,128 @@ def phase_kernels():
              ops=(1 + 2 * 5) * n, library_note=NO_STACKED_SUM,
              device="payload_mix_kernel",
              variant="one-peer-exponential union: 5 payloads"),
+        # bf16 parameter buffers: every form to the bit but the sign
+        # records' hats (compare_compressed_bf16)
+        dict(name="fused_adam", source="src/repro_torch/csrc/fused_adam.cu",
+             replaces="src/repro/kernels/fused_adam.py:66",
+             kernel=lambda: fa.fused_adam(pb, gb, mb, vb, **adam),
+             plain=lambda: fa.fused_adam_plain(pb, gb, mb, vb, **adam),
+             tol=BIT_EQUAL, repeat=True, params=bf,
+             extra=dict(grid_blocks=grid_b[bf],
+                        library_outside_tol=lib_b_bad),
+             library=fused_adam_lib_b if not lib_b_bad else None,
+             library_device=not lib_b_bad,
+             library_desc="torch._fused_adam_ on bf16 p, g, m, v "
+                          "(state_steps 1e7; within BF16_LIBRARY_TOL of "
+                          "the plain version)",
+             library_note=f"none: torch._fused_adam_ on bf16 lies outside "
+                          f"BF16_LIBRARY_TOL in {lib_b_bad} elements",
+             library_err=lib_b_err, bytes=14 * n, ops=12 * n,
+             device="fused_adam_kernel", variant="bf16 params, bf16 m and v"),
+        dict(name="fused_adam", source="src/repro_torch/csrc/fused_adam.cu",
+             replaces="src/repro/kernels/fused_adam.py:66",
+             kernel=lambda: fa.fused_adam(pb, gb, m, v, **adam),
+             plain=lambda: fa.fused_adam_plain(pb, gb, m, v, **adam),
+             tol=BIT_EQUAL, repeat=True, params=bf,
+             extra=dict(grid_blocks=grid_b[torch.float32]), library=None,
+             library_note=NO_MIXED_LIBRARY, bytes=22 * n, ops=12 * n,
+             device="fused_adam_kernel", variant="bf16 params, f32 m and v"),
+        dict(name="gossip_adam_mix", source="src/repro_torch/csrc/gossip.cu",
+             replaces="src/repro/kernels/gossip.py:258",
+             kernel=lambda: gk.gossip_adam_mix(pb, gb, mb, vb, *mix, **adam),
+             plain=lambda: gk.gossip_adam_mix_plain(pb, gb, mb, vb, *mix,
+                                                    **adam),
+             tol=BIT_EQUAL, params=bf, library=None, bytes=14 * n,
+             ops=((deg + 1) * 12 + 1 + 2 * deg) * n,
+             device="gossip_adam_mix_kernel",
+             variant="bf16 params, bf16 m and v"),
+        dict(name="gossip_adam_mix", source="src/repro_torch/csrc/gossip.cu",
+             replaces="src/repro/kernels/gossip.py:258",
+             kernel=lambda: gk.gossip_adam_mix(pb, gb, m, v, *mix, **adam),
+             plain=lambda: gk.gossip_adam_mix_plain(pb, gb, m, v, *mix,
+                                                    **adam),
+             tol=BIT_EQUAL, params=bf, library=None, bytes=22 * n,
+             ops=((deg + 1) * 12 + 1 + 2 * deg) * n,
+             device="gossip_adam_mix_kernel",
+             variant="bf16 params, f32 m and v"),
+        dict(name="gossip_mix", source="src/repro_torch/csrc/gossip.cu",
+             replaces="src/repro/kernels/gossip.py:124",
+             kernel=lambda: (gk.gossip_mix(pb, *mix),),
+             plain=lambda: (gk.gossip_mix_plain(pb, *mix),),
+             tol=BIT_EQUAL, params=bf, library=None,
+             library_note=NO_BF16_EINSUM, bytes=4 * n,
+             ops=(1 + 2 * deg) * n, device="gossip_mix_kernel",
+             variant="bf16 buffer"),
+        dict(name="consensus_mix", source="src/repro_torch/csrc/gossip.cu",
+             replaces="src/repro/kernels/gossip.py:307",
+             kernel=lambda: (gk.consensus_mix(xb, hsb, (hn1b, hn2b),
+                                              topo.offset_weights, GAMMA),),
+             plain=lambda: (gk.consensus_mix_plain(
+                 xb, hsb, (hn1b, hn2b), topo.offset_weights, GAMMA),),
+             tol=BIT_EQUAL, params=bf, library=None,
+             bytes=(3 + deg) * 2 * n, ops=(2 + 3 * deg) * n,
+             device="consensus_mix_kernel", variant="bf16 buffers"),
+        dict(name="payload_mix", source="src/repro_torch/csrc/gossip.cu",
+             replaces="src/repro/kernels/gossip.py:161",
+             kernel=lambda: (gk.payload_mix(pb, (gb, xb),
+                                            topo.offset_weights,
+                                            topo.self_weight),),
+             plain=lambda: (gk.payload_mix_plain(
+                 pb, (gb, xb), topo.offset_weights, topo.self_weight),),
+             tol=BIT_EQUAL, params=bf, library=None,
+             bytes=(2 + deg) * 2 * n, ops=(1 + 2 * deg) * n,
+             library_note=NO_STACKED_SUM, device="payload_mix_kernel",
+             variant="bf16 buffers, ring: 2 payloads"),
+        dict(name="payload_mix", source="src/repro_torch/csrc/gossip.cu",
+             replaces="src/repro/kernels/gossip.py:161",
+             kernel=lambda: (gk.payload_mix(pb, (gb, xb, hsb, hn1b, hn2b),
+                                            union.offset_weights,
+                                            union.self_weight),),
+             plain=lambda: (gk.payload_mix_plain(
+                 pb, (gb, xb, hsb, hn1b, hn2b), union.offset_weights,
+                 union.self_weight),),
+             tol=BIT_EQUAL, params=bf, library=None, bytes=7 * 2 * n,
+             ops=(1 + 2 * 5) * n, library_note=NO_STACKED_SUM,
+             device="payload_mix_kernel",
+             variant="bf16 buffers, one-peer-exponential union: 5 "
+                     "payloads"),
+        dict(name="sign_compress_stacked",
+             source="src/repro_torch/csrc/sign_compress.cu",
+             replaces="src/repro/kernels/sign_compress.py:174",
+             kernel=lambda: sc.sign_compress_stacked(
+                 xb, hsb, n_true=spec.sizes, row_ranges=ranges),
+             plain=lambda: sc.sign_compress_stacked_plain(
+                 xb, hsb, n_true=spec.sizes, row_ranges=ranges),
+             compressed_bf16=(hsb, leaf_bounds), params=bf, library=None,
+             bytes=7 * n, ops=8 * n, device=SIGN_KERNELS, per_call=1,
+             elements=n,
+             variant="bf16 x and hat, scales='leaf': DeepFM's 11 leaf "
+                     "segments"),
+        dict(name="sign_compress_stacked_reduce",
+             source="src/repro_torch/csrc/sign_compress.cu",
+             replaces="src/repro/kernels/sign_compress.py:174, 192 "
+                      "(reduce_axis, :187-188)",
+             kernel=lambda: sc.sign_compress_stacked(
+                 x2b, hs2b, n_true=spec2.sizes, row_ranges=ranges2,
+                 reduce_axis=two_shards),
+             plain=lambda: sc.sign_compress_stacked_plain(
+                 x2b, hs2b, n_true=spec2.sizes, row_ranges=ranges2,
+                 reduce_axis=two_shards),
+             compressed_bf16=(hs2b, leaf_bounds2), params=bf, library=None,
+             bytes=7 * n2, ops=8 * n2, device=SIGN_KERNELS, per_call=2,
+             elements=n2,
+             variant="bf16 x and hat, reduce_axis: one rank's "
+                     f"{tuple(x2.shape)} block at M = {AXIS2D_M}"),
+        dict(name="sign_compress",
+             source="src/repro_torch/csrc/sign_compress.cu",
+             replaces="src/repro/kernels/sign_compress.py:65",
+             kernel=lambda: sc.sign_compress(xsb, hs1b),
+             plain=lambda: sc.sign_compress_plain(xsb, hs1b),
+             compressed_bf16=(hs1b, ((0, PARAMS),)), params=bf,
+             library=None, bytes=7 * PARAMS, ops=8 * PARAMS,
+             device=SIGN_KERNELS, per_call=1, elements=PARAMS,
+             variant="bf16 x and hat, one worker's 11,202,602 elements, "
+                     "flat"),
     ]
     records = []
     for c in cases:
@@ -1415,6 +1671,12 @@ def phase_kernels():
             if c.get("same_scale_hat"):
                 tol["hat_given_the_kernels_scales"] = "equal"
                 check_hat_at_scales(got, *c["same_scale_hat"], c["name"])
+        elif c.get("compressed_bf16"):
+            tol = {"q": "equal", "scale_rtol": SCALE_RTOL,
+                   "hat_given_the_kernels_scales": "equal"}
+            max_abs, max_rel = compare_compressed_bf16(
+                got, want, *c["compressed_bf16"], c["name"])
+            check_bitwise_repeat(got, c["kernel"], c["name"])
         elif c.get("bf16_moments"):
             tol = {"p": BF16_MOMENT_P_TOL, "m, v": "within 1 bf16 ulp"}
             max_abs, max_rel = compare_bf16_moments(got, want, c["name"])
@@ -1449,11 +1711,14 @@ def phase_kernels():
         if c.get("repeat"):
             rec["second_call_bit_equal"] = True
         rec.update(c.get("extra", {}))
-        if c.get("compressed"):
-            rec.update(sign_extra(c["elements"],
-                                  launches_per_call(c, ops)))
+        if c.get("compressed") or c.get("compressed_bf16"):
+            rec.update(sign_extra(
+                c["elements"], launches_per_call(c, ops),
+                SIGN_NO_REUSE_BYTES_BF16 if c.get("compressed_bf16")
+                else SIGN_NO_REUSE_BYTES))
         if "variant" in c:
             rec["variant"] = c["variant"]
+        rec["params"] = str(c.get("params", torch.float32)).split(".")[-1]
         emit({"phase": "kernel", **rec})
         records.append(rec)
 
@@ -1472,6 +1737,7 @@ def phase_kernels():
           "bytes": nbr_bytes, "offsets": deg})
     del p, g, m, v, mb, vb, x, hs, hn1, hn2, xs, hs1, q, scales, cases
     del p1, g1, m1, v1, x1, hs_1, hn1_1, hn2_1, x2, hs2
+    del pb, gb, xb, hsb, hn1b, hn2b, xsb, hs1b, x2b, hs2b, lib_b
     del fused_adam_lib, fused_adam_lib_wd, fused_adam_lib_1
     torch.cuda.empty_cache()
     return records + flash_records() + rwkv_records()
@@ -4745,42 +5011,74 @@ def lm_mfu(cfg, rec) -> dict:
                                  ("_comm", "comm_step"))}}
 
 
+def lm_bit_check(what: str, got, plain, rows: int) -> int:
+    """The kernel's outputs ``got`` ((K, rows, 128) each) equal to the bit
+    to ``plain(a, b)``, the plain version on rows [a, b) of every worker,
+    LM_CHECK_ROWS rows at a time (an Adam update is elementwise and the
+    mix takes every worker at one index, so a row range is computed as in
+    the whole call). Returns the elements compared."""
+    for a in range(0, rows, LM_CHECK_ROWS):
+        b = min(a + LM_CHECK_ROWS, rows)
+        for x, y in zip(got, plain(a, b)):
+            bad = int((x[:, a:b] != y).sum())
+            if bad:
+                raise AssertionError(f"{what}: {bad} elements of rows "
+                                     f"[{a}, {b}) differ from the plain "
+                                     f"version")
+    return got[0].numel()
+
+
 def lm_shape_times(phase: str, state, moment: str):
     """``fused_adam`` and ``gossip_adam_mix`` (K=2 ring) timed on the
-    trained state's own resident buffers, (2, R, 128) f32 params with
-    ``moment`` m and v, and a gradient drawn to their shape: the median
-    CUDA-event time of LM_REPS calls each (the wrapper's host time, tens
-    of µs, is under 0.5% of a call here; the profiler dropped launches of
-    these 20-30 ms calls), beside the byte bound. Seven buffers of this
-    size leave no room for the plain version's temporaries; the
-    comparison with it stays at SHAPE. With f32 moments, then
-    ``torch._fused_adam_`` the same way, the library call beside
-    ``fused_adam`` (in place on p, m and v, one tensor a worker, after the
-    kernels' timings; phase_kernels holds it to the plain version)."""
+    trained state's own resident buffers, (2, R, 128) params (f32, or bf16
+    on lm_train_bf16p) with ``moment`` m and v, and a gradient drawn to
+    their shape and dtype: the median CUDA-event time of LM_REPS calls
+    each (the wrapper's host time, tens of µs, is under 0.5% of a call
+    here; the profiler dropped launches of these 10-30 ms calls), beside
+    the byte bound. With f32 params seven buffers of this size leave no
+    room for the plain version's temporaries, and the comparison with it
+    stays at SHAPE; with bf16 params each kernel's outputs are held to the
+    bit to the plain version row range by row range (``lm_bit_check``).
+    Where p and m share a dtype, then ``torch._fused_adam_`` the same way,
+    the library call beside ``fused_adam`` (in place on p, m and v, one
+    tensor a worker, after the kernels' timings; phase_kernels holds it to
+    the plain version)."""
     from repro_torch.core.topology import make_topology
     from repro_torch.kernels import fused_adam as fa
     from repro_torch.kernels import gossip as gk
 
     p, m, v = state.buf, state.m, state.v
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    g = torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+    gen = torch.Generator(device=p.device).manual_seed(5)
+    g = (torch.randn(p.shape, generator=gen, device=p.device) * 1e-3).to(
+        p.dtype)
     topo = make_topology("ring", LM_K)
     mix = (topo.offsets, topo.offset_weights, topo.self_weight)
     n = p.numel()
-    n_bytes = n * (3 * 4 + 4 * m.element_size())
+    n_bytes = n * (3 * p.element_size() + 4 * m.element_size())
     bound_ms = n_bytes / MEM_RATE * 1e3
     out = {"shape": list(p.shape), "rows": int(p.shape[1]),
-           "moments": moment, "bytes": n_bytes, "bound_ms": bound_ms}
-    for name, fn in (
-            ("fused_adam", lambda: fa.fused_adam(p, g, m, v, **ADAM)),
-            ("gossip_adam_mix", lambda: gk.gossip_adam_mix(
-                p, g, m, v, *mix, **ADAM))):
+           "params": str(p.dtype).split(".")[-1], "moments": moment,
+           "bytes": n_bytes, "bound_ms": bound_ms}
+    kernels = (
+        ("fused_adam", lambda: fa.fused_adam(p, g, m, v, **ADAM),
+         lambda a, b: fa.fused_adam_plain(
+             p[:, a:b], g[:, a:b], m[:, a:b], v[:, a:b], **ADAM)),
+        ("gossip_adam_mix", lambda: gk.gossip_adam_mix(
+            p, g, m, v, *mix, **ADAM),
+         lambda a, b: gk.gossip_adam_mix_plain(
+             p[:, a:b], g[:, a:b], m[:, a:b], v[:, a:b], *mix, **ADAM)))
+    for name, fn, plain in kernels:
         ms = median_ms(fn, reps=LM_REPS, warmup=1)
         out[name] = {"ms": ms, "share_of_bound": bound_ms / ms}
-    if m.dtype == torch.float32:
+        if p.dtype == torch.bfloat16:
+            got = fn()
+            out[name]["bit_equal_to_plain"] = lm_bit_check(
+                f"{phase} {name}", got, plain, int(p.shape[1]))
+            del got
+    if m.dtype == p.dtype:
         ms = median_ms(fused_adam_library_call(
             list(p), list(g), list(m), list(v), ADAM,
-            torch.tensor(1e7, device="cuda")), reps=LM_REPS, warmup=1)
+            torch.tensor(1e7, device=p.device)), reps=LM_REPS, warmup=1)
         out["fused_adam"].update(library_ms=ms,
                                  library="torch._fused_adam_, in place")
     emit({"phase": "lm_shape_kernels", "path": phase, **out})
@@ -4849,12 +5147,15 @@ def lm_library_trainer(cfg, kind: str, device=None, period=LM_PERIOD,
     return api, DecentralizedTrainer(stacked_loss(api.loss), opt)
 
 
-def lm_library_run(phase: str, cfg, kind: str, want, **opt_kw):
+def lm_library_run(phase: str, cfg, kind: str, want, first_step=None,
+                   **opt_kw):
     """Init from the CLI's seed and ``LM_STEPS`` steps on the CLI's
     stream, one ``fit`` call a step (as the CLI's ``--log-every 1``), the
     counters zeroed before and read after, the peak memory of init and
-    the steps. Returns (trainer, [state], log, batches, launches, peak
-    GB)."""
+    the steps. ``first_step(state)``, where given, is called on the state
+    after init and returns a callable that is called on the state after
+    the first step. Returns (trainer, [state], log, batches, launches,
+    peak GB)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
@@ -4868,8 +5169,11 @@ def lm_library_run(phase: str, cfg, kind: str, want, **opt_kw):
     batches = train.make_batch_iter(cfg, LM_K, LM_BATCH, LM_SEQ, 0.5,
                                     torch.device(DEVICE))
     log = None
-    for _ in range(LM_STEPS):
+    after = first_step(state) if first_step is not None else None
+    for i in range(LM_STEPS):
         state, log = trainer.fit(state, batches, 1, log_every=1, log=log)
+        if after is not None and i == 0:
+            after(state)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -4912,6 +5216,122 @@ def phase_lm_train_bf16(f32_rec):
     del state
     torch.cuda.empty_cache()
     return launches, rec
+
+
+def swallowed_probe(out: dict):
+    """A ``first_step`` probe for ``lm_library_run``: of the elements of
+    every SWALLOW_STRIDE-th row whose first Adam step is not zero (m != 0
+    after it; the first step is a local one), the share whose bf16
+    parameter it left unchanged, into ``out``."""
+    def before(state):
+        b0 = state.buf[:, ::SWALLOW_STRIDE].clone()
+
+        def after(state):
+            moved = state.m[:, ::SWALLOW_STRIDE] != 0
+            same = (state.buf[:, ::SWALLOW_STRIDE].view(torch.int16)
+                    == b0.view(torch.int16))
+            out.update(swallowed_share=float((moved & same).sum()
+                                             / moved.sum()),
+                       swallowed_sampled=int(moved.sum()),
+                       swallowed_stride_rows=SWALLOW_STRIDE)
+        return after
+    return before
+
+
+def phase_lm_train_bf16p(f32_rec, bf16m_rec):
+    """``lm_train_bf16``'s library path with bf16 parameter buffers: the
+    model built with ``param_dtype=torch.bfloat16`` (neither CLI has a
+    parameter-dtype flag), moments by default (bf16): the buffer, m and v
+    bf16, lm_train's launches on them, finite losses falling from near
+    ln(vocab), a peak below lm_train_bf16's; the share of the first
+    step's updates that bf16 rounding swallowed; the same step times,
+    profile, MFU and LM-shape kernel times (each kernel held to the bit to
+    its plain version there). Returns (launches, record)."""
+    from repro_torch.configs import get_arch
+
+    bf = torch.bfloat16
+    cfg = dataclasses.replace(get_arch(LM_ARCH).model, param_dtype=bf)
+    swallowed = {}
+    trainer, box, log, batches, launches, peak_gb = lm_library_run(
+        "lm_train_bf16p", cfg, "d-adam", LM_LAUNCHES,
+        first_step=swallowed_probe(swallowed))
+    st = box[0]
+    if (st.buf.dtype, st.m.dtype, st.v.dtype) != (bf, bf, bf):
+        raise AssertionError(f"lm_train_bf16p: buffer {st.buf.dtype}, "
+                             f"moments {st.m.dtype} {st.v.dtype}")
+    if st.spec.n != LM_PARAMS or not bool(torch.isfinite(st.buf).all()):
+        raise AssertionError(f"lm_train_bf16p: {st.spec.n} params, or not "
+                             f"finite")
+    if not peak_gb < bf16m_rec["peak_mem_gb"]:
+        raise AssertionError(f"lm_train_bf16p: peak {peak_gb} GB not below "
+                             f"lm_train_bf16's {bf16m_rec['peak_mem_gb']}")
+    rec = {"phase": "lm_train_bf16p", "params": "bfloat16",
+           "moments": "bfloat16", "buffer_shape": list(st.buf.shape),
+           "buffer_gb": st.buf.numel() * st.buf.element_size() / 1e9,
+           "losses": log.loss, "losses_f32": f32_rec["losses"],
+           "losses_bf16_moments": bf16m_rec["losses"],
+           "peak_mem_gb": peak_gb, "peak_mem_gb_f32": f32_rec["peak_mem_gb"],
+           "peak_mem_gb_bf16_moments": bf16m_rec["peak_mem_gb"],
+           **swallowed, "launches": launches}
+    del st
+    rec.update(lm_step_times("lm_train_bf16p", trainer, box, batches,
+                             LM_PERIOD))
+    rec.update(lm_mfu(cfg, rec))
+    del trainer, batches
+    state = box.pop()
+    rec["lm_shape"] = lm_shape_times("lm_train_bf16p", state, "bfloat16")
+    emit(rec)
+    del state
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def phase_lm_bf16p_paths():
+    """llama3.2-1b at full width cut to LM_CD_LAYERS layers with bf16
+    params through the library path: CD-Adam as lm_train_cd runs it
+    (sign_compress_stacked and consensus_mix on bf16 buffers, the hats
+    bf16), then the kernel record of sign_compress_stacked on its trained
+    bf16 state; then D-Adam with staleness 2 at straggler rate 0.3
+    (payload_mix on bf16 buffers). Each run's launches exact. Returns
+    (CD-Adam's launches, D-Adam tau=2's launches, the sign record)."""
+    from repro_torch.configs import get_arch
+
+    bf = torch.bfloat16
+    cfg = dataclasses.replace(get_arch(LM_ARCH).model,
+                              n_layers=LM_CD_LAYERS, param_dtype=bf)
+    trainer, box, log, batches, cd_launches, peak_gb = lm_library_run(
+        "lm_train_cd_bf16p", cfg, "cd-adam", LM_CD_LAUNCHES, **CD_ADAM)
+    state = box.pop()
+    dts = {t.dtype for t in (state.buf, state.m, state.v, state.hat_buf,
+                             *state.hat_nbr_bufs)}
+    if dts != {bf}:
+        raise AssertionError(f"lm_train_cd_bf16p: buffers {dts}")
+    emit({"phase": "lm_train_cd_bf16p", "n_layers": cfg.n_layers,
+          "params": "bfloat16", "params_per_worker": state.spec.n,
+          "buffer_shape": list(state.buf.shape), "losses": log.loss,
+          "consensus": log.consensus, "comm_mb": log.comm_mb,
+          "peak_mem_gb": peak_gb, "launches": cd_launches})
+    del trainer, batches, box
+    torch.cuda.empty_cache()
+    sign = lm_sign_record(state, "lm_train_cd_bf16p")
+    del state
+    torch.cuda.empty_cache()
+    trainer, box, log, batches, tau_launches, peak_gb = lm_library_run(
+        "lm_train_tau2_bf16p", cfg, "d-adam", LM_TAU2_LAUNCHES, **LM_TAU2)
+    state = box.pop()
+    dts = {t.dtype for t in (state.buf, state.m, state.v,
+                             *state.stale.bufs)}
+    if dts != {bf}:
+        raise AssertionError(f"lm_train_tau2_bf16p: buffers {dts}")
+    emit({"phase": "lm_train_tau2_bf16p", "n_layers": cfg.n_layers,
+          "params": "bfloat16", **LM_TAU2,
+          "buffer_shape": list(state.buf.shape), "losses": log.loss,
+          "consensus": log.consensus, "comm_mb": log.comm_mb,
+          "stale_age_max": int(state.stale.age.max()),
+          "peak_mem_gb": peak_gb, "launches": tau_launches})
+    del trainer, batches, box, state
+    torch.cuda.empty_cache()
+    return cd_launches, tau_launches, sign
 
 
 def phase_lm_train_damped(f32_rec):
@@ -5009,24 +5429,28 @@ def phase_lm_train_cd():
     return launches, sign
 
 
-def lm_sign_record(state) -> dict:
-    """``sign_compress_stacked`` on lm_train_cd's trained state: x its
-    params, hat its own xhat, (2, R, 128) f32 over the model's leaf
-    segments. Held to the plain version worker by worker (the plain
-    version's temporaries for both workers would take about 25 GB), and a
-    second call to the first to the bit; the median CUDA-event time of
-    LM_REPS single calls, the device time per call from events around
-    LM_REPS calls queued back to back (the profiler drops launches at
-    this size: ``lm_shape_times``), the plain version's time over both
-    workers, the 13-byte bound and the 18-byte figure. One launch a call:
-    the wrapper's counter must count each call once, and the build found
-    ``sign_compress_kernel`` the library's only kernel."""
+def lm_sign_record(state, phase: str = "lm_train_cd") -> dict:
+    """``sign_compress_stacked`` on lm_train_cd's (or, in bf16,
+    lm_train_cd_bf16p's) trained state: x its params, hat its own xhat,
+    (2, R, 128) f32 or bf16 over the model's leaf segments. Held to the
+    plain version worker by worker (the plain version's temporaries for
+    both workers would take about 25 GB), and a second call to the first
+    to the bit; the median CUDA-event time of LM_REPS single calls, the
+    device time per call from events around LM_REPS calls queued back to
+    back (the profiler drops launches at this size: ``lm_shape_times``),
+    the plain version's time over both workers, the one-pass bound (13
+    bytes an element, 7 in bf16) and the two-pass figure (18, 10 in bf16).
+    One launch a call: the wrapper's counter must count each call once,
+    and the build found ``sign_compress_kernel`` the library's only
+    kernel."""
     from repro_torch.kernels import pack as packing
     from repro_torch.kernels import sign_compress as sc
 
     x, hat = state.buf, state.hat_buf
     kw = dict(n_true=state.spec.sizes,
               row_ranges=packing.leaf_row_ranges(state.spec))
+    bf16 = x.dtype == torch.bfloat16
+    bounds = tuple((a * 128, b * 128) for a, b in kw["row_ranges"])
 
     calls = [0]
 
@@ -5046,12 +5470,14 @@ def lm_sign_record(state) -> dict:
     for k in range(x.shape[0]):
         want = sc.sign_compress_stacked_plain(x[k:k + 1], hat[k:k + 1],
                                               **kw)
-        err = compare_compressed(tuple(t[k:k + 1] for t in got), want,
-                                 f"lm_train_cd sign_compress_stacked, "
-                                 f"worker {k}")
+        mine = tuple(t[k:k + 1] for t in got)
+        what = f"{phase} sign_compress_stacked, worker {k}"
+        err = (compare_compressed_bf16(mine, want, hat[k:k + 1], bounds,
+                                       what) if bf16
+               else compare_compressed(mine, want, what))
         max_abs, max_rel = max(max_abs, err[0]), max(max_rel, err[1])
         del want
-    check_bitwise_repeat(got, kernel, "lm_train_cd sign_compress_stacked")
+    check_bitwise_repeat(got, kernel, f"{phase} sign_compress_stacked")
     del got
     torch.cuda.empty_cache()
     n = x.numel()
@@ -5068,26 +5494,33 @@ def lm_sign_record(state) -> dict:
     device_ms = start.elapsed_time(end) / LM_REPS
     launched = sc.sign_compress_stacked.launches - launched
     if launched != calls[0]:
-        raise AssertionError(f"lm_train_cd sign_compress_stacked: "
+        raise AssertionError(f"{phase} sign_compress_stacked: "
                              f"{launched} launches in {calls[0]} calls")
     plain_ms = median_ms(plain, reps=LM_REPS, warmup=1)
-    t_bytes, t_ops = 13 * n / MEM_RATE * 1e3, 8 * n / F32_RATE * 1e3
+    # x and hat read, q and hat written: 13 bytes an element, 7 in bf16
+    one_pass = 7 if bf16 else 13
+    t_bytes, t_ops = one_pass * n / MEM_RATE * 1e3, 8 * n / F32_RATE * 1e3
     rec = {"name": "sign_compress_stacked", "route": "cuda",
            "source": "src/repro_torch/csrc/sign_compress.cu",
            "replaces": "src/repro/kernels/sign_compress.py:174",
            "launches": None, "max_abs_err": max_abs, "max_rel_err": max_rel,
-           "tol": {"q": "equal", "scale_rtol": SCALE_RTOL,
-                   "hat": f"{KERNEL_TOL} + max scale * {SCALE_RTOL}"},
+           "tol": ({"q": "equal", "scale_rtol": SCALE_RTOL,
+                    "hat_given_the_kernels_scales": "equal"} if bf16 else
+                   {"q": "equal", "scale_rtol": SCALE_RTOL,
+                    "hat": f"{KERNEL_TOL} + max scale * {SCALE_RTOL}"}),
            "ms": ms, "kernel_ms": ms, "kernel_device_ms": device_ms,
            "kernel_device_ms_by": f"CUDA events around {LM_REPS} calls "
                                   f"back to back",
            "plain_ms": plain_ms, "plain": "worker by worker",
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": 13 * n, "library_ms": None, "library": NO_LIBRARY,
-           "variant": f"lm_train_cd's trained state {list(x.shape)}, "
+           "bytes": one_pass * n, "library_ms": None, "library": NO_LIBRARY,
+           "variant": f"{phase}'s trained state {list(x.shape)}, "
                       f"{len(kw['n_true'])} leaf segments",
-           **sign_extra(n, launched // calls[0])}
+           "params": str(x.dtype).split(".")[-1],
+           **sign_extra(n, launched // calls[0],
+                        SIGN_NO_REUSE_BYTES_BF16 if bf16
+                        else SIGN_NO_REUSE_BYTES)}
     emit({"phase": "kernel", **rec})
     return rec
 
@@ -5500,24 +5933,38 @@ def run_phases(lm_cpu: LMCPUSides, records: list, by_path: dict,
         seq=128, new_tokens=5, batch=2, phase="serve_whisper_card_vs_cpu"))
     by_path["lm_train"], f32_rec = step(phase_lm_train())
     by_path["lm_train_bf16"], bf16_rec = step(phase_lm_train_bf16(f32_rec))
+    by_path["lm_train_bf16p"], bf16p_rec = step(
+        phase_lm_train_bf16p(f32_rec, bf16_rec))
     by_path["lm_train_damped"] = step(phase_lm_train_damped(f32_rec))
     by_path["lm_train_cd"], lm_sign = step(phase_lm_train_cd())
     records.append(lm_sign)
+    (by_path["lm_train_cd_bf16p"], by_path["lm_train_tau2_bf16p"],
+     lm_sign_bf16) = step(phase_lm_bf16p_paths())
+    records.append(lm_sign_bf16)
     by_path["examples"] = step(phase_examples())
     lm_cpu.finish()
     by_path["lm_example"] = phase_lm_example()
     lm_shape = {"float32": f32_rec["lm_shape"],
-                "bfloat16": bf16_rec["lm_shape"]}
+                "bfloat16": bf16_rec["lm_shape"],
+                "bf16 params": bf16p_rec["lm_shape"]}
     for rec in records:
+        # a bf16-param form counts the launches of the bf16-param paths,
+        # every other form those of the other paths
+        bf16p = rec.get("params") == "bfloat16"
         rec["launches_by_path"] = {k: c[rec["name"]]
-                                   for k, c in by_path.items()}
+                                   for k, c in by_path.items()
+                                   if (k in BF16P_PATHS) == bf16p}
         rec["launches"] = sum(rec["launches_by_path"].values())
         if rec["name"] in ("fused_adam", "gossip_adam_mix"):
-            # the same kernel at the LM shape, on lm_train's (f32) and
-            # lm_train_bf16's (bf16) state
-            moment = ("bfloat16" if rec.get("variant") == "bf16 m and v"
-                      else "float32")
-            lm = lm_shape[moment]
+            # the same kernel at the LM shape, on lm_train's (f32),
+            # lm_train_bf16's (bf16 moments) and lm_train_bf16p's (bf16
+            # params and moments) state
+            key = {"bf16 m and v": "bfloat16",
+                   "bf16 params, bf16 m and v": "bf16 params"}.get(
+                       rec.get("variant"), "float32")
+            if bf16p and key == "float32":
+                continue        # bf16 params with f32 moments: no LM run
+            lm = lm_shape[key]
             rec["lm_shape"] = {"shape": lm["shape"], "bound_ms":
                                lm["bound_ms"], **lm[rec["name"]]}
     emit({"kernels": records})

@@ -23,7 +23,9 @@ line per case, then the card as ``nvidia-smi`` names it.
 
 With ``--parent DIR`` (an earlier tree, unpacked with ``git archive``)
 its ``csrc/fused_adam.cu`` joins as design "P", built the same way and
-called through its own C interface (a vector flag and seven floats).
+called through its own C interface (an entry per moment dtype,
+``fused_adam_f32`` and ``fused_adam_f32_bf16m``, without the element
+widths).
 With ``--host`` it times the launch paths instead (``host_times``), the
 parent's wrapper among them with ``--parent``.
 
@@ -79,10 +81,10 @@ HOST_CALLS = 1000
 HOST_BATCHES = 10
 
 
-# the parent's entries: p, g, m, v, po, mo, vo, n, vec, seven floats, the
-# stream
-PARENT_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_float] * 7 + [ctypes.c_void_p])
+# the parent's entries: p, g, m, v, po, mo, vo, n, head, body, the
+# constants' address, the stream
+PARENT_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 3
+                   + [ctypes.c_void_p] * 2)
 
 
 def build_variants():
@@ -121,9 +123,16 @@ def ptxas_lines(log: str) -> list:
             if "Used" in ln]
 
 
-def entry(lib, moment_dtype, argtypes):
-    fn = getattr(lib, "fused_adam_f32" + fa.MOMENT_DTYPES[moment_dtype])
-    fn.argtypes = argtypes
+def entry(lib, design, moment_dtype):
+    """The design's C entry for f32 params and ``moment_dtype``
+    moments."""
+    if design == "P":
+        fn = getattr(lib, "fused_adam_f32" + (
+            "_bf16m" if moment_dtype is torch.bfloat16 else ""))
+        fn.argtypes = PARENT_ARGTYPES
+    else:
+        fn = lib.fused_adam
+        fn.argtypes = fa.ENTRY_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -135,11 +144,9 @@ def caller(design, fn, ins, outs):
     ptrs = tuple(t.data_ptr() for t in (p, g, m, v, *outs))
     n = p.numel()
     head, body = fa.plan(n, m.element_size(), *ptrs)
-    if design == "P":
-        # four elements a load where every pointer allows it
-        args = (int(head == 0 and body > 0), *fa.adam_consts(*ADAM.values()))
-    else:
-        args = (head, body, fa._consts_arg(*ADAM.values())[1])
+    args = (head, body, fa._consts_arg(*ADAM.values())[1])
+    if design != "P":
+        args += (p.element_size(), m.element_size())
     stream = torch.cuda.current_stream().cuda_stream
 
     def call():
@@ -247,7 +254,7 @@ def host_times(parent):
         "three empty_like": lambda: (torch.empty_like(p),
                                      torch.empty_like(m),
                                      torch.empty_like(v)),
-        "C entry alone": caller("A", fa._entry(torch.float32),
+        "C entry alone": caller("A", fa._entry(),
                                 (p, g, m, v), outs)}
     if parent:
         pfa = parent_module(parent)
@@ -297,8 +304,7 @@ def main() -> int:
     kept_log = (_build.build()["fused_adam"].parent
                 / "libfused_adam.log").read_text()
     built["A"] = (kept, ptxas_lines(kept_log))
-    fns = {d: {t: entry(built[d][0], t, PARENT_ARGTYPES if d == "P"
-                        else fa.ENTRY_ARGTYPES) for t in fa.MOMENT_DTYPES}
+    fns = {d: {t: entry(built[d][0], d, t) for t in fa.MOMENT_DTYPES}
            for d in DESIGNS}
     print(json.dumps({"ptxas": {d: built[d][1] for d in DESIGNS}}),
           flush=True)

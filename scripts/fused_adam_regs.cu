@@ -71,11 +71,11 @@ __global__ void __launch_bounds__(kThreads)
        k < n - body; k += stride) {
     const long long i = k < head ? k : k + body;
     float pn, mn, vn;
-    adam_half_step(p[i], g[i], load_moment(m, i), load_moment(v, i), c, &pn,
+    adam_half_step(p[i], g[i], load1(m, i), load1(v, i), c, &pn,
                    &mn, &vn);
     po[i] = pn;
-    store_moment(mo, i, mn);
-    store_moment(vo, i, vn);
+    store1(mo, i, mn);
+    store1(vo, i, vn);
   }
   // the kept kernel's deal, in chunks of kThreads * kPerThread: whole
   // chunks round robin, then an even share in quanta of the rest
@@ -170,20 +170,18 @@ int launch(const float* p, const float* g, const M* m, const M* v, float* po,
 
 }  // namespace
 
-// The kept kernel's entry points, argument for argument.
-extern "C" int fused_adam_f32(const float* p, const float* g, const float* m,
-                              const float* v, float* po, float* mo, float* vo,
-                              long long n, long long head, long long body,
-                              const AdamConsts* c, void* stream) {
-  return launch(p, g, m, v, po, mo, vo, n, head, body, c, stream);
-}
-
-extern "C" int fused_adam_f32_bf16m(const float* p, const float* g,
-                                    const __nv_bfloat16* m,
-                                    const __nv_bfloat16* v, float* po,
-                                    __nv_bfloat16* mo, __nv_bfloat16* vo,
-                                    long long n, long long head,
-                                    long long body, const AdamConsts* c,
-                                    void* stream) {
-  return launch(p, g, m, v, po, mo, vo, n, head, body, c, stream);
+// The kept kernel's entry, argument for argument; f32 params only.
+extern "C" int fused_adam(const void* p, const void* g, const void* m,
+                          const void* v, void* po, void* mo, void* vo,
+                          long long n, long long head, long long body,
+                          const AdamConsts* c, int param_bytes,
+                          int moment_bytes, void* stream) {
+  if (param_bytes != 4) return (int)cudaErrorInvalidValue;
+  return with_dtype(moment_bytes, [&](auto mt) {
+    using M = typename decltype(mt)::type;
+    return launch(static_cast<const float*>(p), static_cast<const float*>(g),
+                  static_cast<const M*>(m), static_cast<const M*>(v),
+                  static_cast<float*>(po), static_cast<M*>(mo),
+                  static_cast<M*>(vo), n, head, body, c, stream);
+  });
 }

@@ -35,6 +35,16 @@ def tensor_from_numpy(a, device: "str | torch.device" = "cuda"
     return t.to(resolve_device(device))
 
 
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host as numpy; a bfloat16 tensor as an
+    ``ml_dtypes.bfloat16`` array of the same bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def params_from_numpy(tree: PyTree, device: "str | torch.device" = "cuda"
                       ) -> PyTree:
     """A nested dict/list of numpy arrays becomes the port's params, with
@@ -46,14 +56,7 @@ def params_to_numpy(tree: PyTree) -> PyTree:
     """The reverse of :func:`params_from_numpy`; bfloat16 leaves come back
     as ``ml_dtypes.bfloat16`` arrays, as ``np.asarray`` gives them for a
     JAX array."""
-    def one(t):
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            import ml_dtypes
-            return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
-        return t.numpy()
-
-    return tree_map(one, tree)
+    return tree_map(_to_numpy, tree)
 
 
 def _resident_buffers(named, params_like: PyTree, device):
@@ -71,8 +74,6 @@ def _resident_buffers(named, params_like: PyTree, device):
     return spec, bufs
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
 
 
 def dadam_state_from_numpy(buf, m, v, count, params_like: PyTree,

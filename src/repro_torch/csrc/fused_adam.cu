@@ -4,20 +4,23 @@
 // (_adam_kernel, pallas_call at line 66).
 //
 // Bound on the H100: bytes. Per element it reads p, g, m, v and writes
-// p, m, v: 28 bytes with f32 moments, 20 with bf16 ones, against about 15
-// f32 operations, far below the card's operations-per-byte line. Each byte
+// p, m, v: 3 of the parameter dtype T and 4 of the moment dtype M, 28
+// bytes at f32 / f32, 22 at bf16 params and f32 moments, 20 at f32 params
+// and bf16 moments, 14 at bf16 / bf16, against about 15 f32 operations,
+// far below the card's operations-per-byte line. Each byte
 // is touched once, so the design keeps the copies in flight without
 // spending threads on them and streams through memory in order:
 //
 // - A persistent grid: the resident blocks an SM (by occupancy at this
-//   kernel's shared memory: 2 with f32 moments, 3 with bf16) times the SM
-//   count, fewer for a short body. The 16-byte-aligned body is dealt in
-//   whole tiles round robin, so each round of the grid's tiles is one
-//   contiguous window of every operand (blocks that each took one
-//   contiguous run measured slower: the memory serves a window in order
-//   better than hundreds of scattered streams), and what the last
-//   whole round leaves is split evenly, in 16-byte quanta (4 f32
-//   elements, 8 with bf16 moments), over all blocks: no ragged last wave.
+//   kernel's shared memory: 2 at f32 / f32, 3 with one operand pair bf16, 4 at
+//   bf16 / bf16) times the SM count, fewer for a short body. The
+//   16-byte-aligned body is dealt in whole tiles round robin, so each round of
+//   the grid's tiles is one contiguous window of every operand (blocks that
+//   each took one contiguous run measured slower: the memory serves a window
+//   in order better than hundreds of scattered streams), and what the last
+//   whole round leaves is split evenly, in quanta of 16 bytes of the narrowest
+//   operand (4 elements at f32 / f32, else 8), over all blocks: no ragged last
+//   wave.
 // - A ring of kStages stages in shared memory, each one tile (kTile
 //   elements) of p, g, m and v. Thread 0 fills a stage with four 1D bulk
 //   copies (cp.async.bulk, the TMA's linear form) that complete on the
@@ -42,11 +45,14 @@
 // The host path (kernels/fused_adam.py) costs 16-27 us a call on that
 // card's hosts, up to a quarter of this kernel's time on one rank's
 // comm='axis' shard: three output allocations and the ctypes call with its
-// launch are most of it. The wrapper reads each operand once, computes the head and body, and
-// passes the seven constants as one cached struct; this launcher caches
-// the grid per device. The arithmetic is adam_math.cuh's adam_half_step,
-// shared with gossip_adam_mix. Outputs are out of place. The moments are
-// f32 or bf16 (one template, two entry points); p and g are f32.
+// launch are most of it. The wrapper reads each operand once, computes the
+// head and body, and passes the seven constants as one cached struct; this
+// launcher caches the grid per device. The arithmetic is adam_math.cuh's
+// adam_half_step, shared with gossip_adam_mix. Outputs are out of place. p and
+// g are f32 or bf16 (T), m and v f32 or bf16 (M): one template, one entry
+// that takes both widths and picks the instance. A stage holds kTile elements of each operand whatever its dtype, so
+// a bf16 operand halves its bytes in the stage: 48 KB of ring at bf16 / bf16,
+// 72 KB with one pair bf16, 96 KB at f32 / f32.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -61,15 +67,15 @@ constexpr int kTile = 2048;   // elements of each operand a stage holds
 constexpr int kStages = 3;
 constexpr int kMaxDevices = 64;
 
-template <typename M>
+template <typename T, typename M>
 __host__ __device__ constexpr int stage_bytes() {
-  return kTile * (2 * (int)sizeof(float) + 2 * (int)sizeof(M));
+  return kTile * (2 * (int)sizeof(T) + 2 * (int)sizeof(M));
 }
 
 // the body's unit: 16 bytes of the narrowest operand
-template <typename M>
+template <typename T, typename M>
 __host__ __device__ constexpr long long quantum() {
-  return 16 / (long long)sizeof(M);
+  return 16 / (long long)(sizeof(T) < sizeof(M) ? sizeof(T) : sizeof(M));
 }
 
 // the L2 cache policy of every bulk copy
@@ -104,25 +110,11 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src,
       : "memory");
 }
 
-__device__ __forceinline__ void store4_smem(float* dst, float4 x) {
-  *reinterpret_cast<float4*>(dst) = x;
-}
-
-__device__ __forceinline__ void store4_smem(__nv_bfloat16* dst, float4 x) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const unsigned*>(&lo);
-  raw.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = raw;
-}
-
-template <typename M>
+template <typename T, typename M>
 __global__ void __launch_bounds__(kThreads)
-    fused_adam_kernel(const float* __restrict__ p,
-                      const float* __restrict__ g,
+    fused_adam_kernel(const T* __restrict__ p, const T* __restrict__ g,
                       const M* __restrict__ m, const M* __restrict__ v,
-                      float* __restrict__ po, M* __restrict__ mo,
+                      T* __restrict__ po, M* __restrict__ mo,
                       M* __restrict__ vo, long long n, long long head,
                       long long body, AdamConsts c) {
   // the scalar elements: the head [0, head) and the tail [head + body, n)
@@ -131,11 +123,11 @@ __global__ void __launch_bounds__(kThreads)
        k < n - body; k += stride) {
     const long long i = k < head ? k : k + body;
     float pn, mn, vn;
-    adam_half_step(p[i], g[i], load_moment(m, i), load_moment(v, i), c, &pn,
-                   &mn, &vn);
-    po[i] = pn;
-    store_moment(mo, i, mn);
-    store_moment(vo, i, vn);
+    adam_half_step(load1(p, i), load1(g, i), load1(m, i), load1(v, i), c,
+                   &pn, &mn, &vn);
+    store1(po, i, pn);
+    store1(mo, i, mn);
+    store1(vo, i, vn);
   }
   // this block's pieces of the body: whole tiles dealt round robin (a
   // round of the grid's tiles is one contiguous window of each operand,
@@ -144,12 +136,12 @@ __global__ void __launch_bounds__(kThreads)
   const long long round = (long long)gridDim.x * kTile;
   const long long rounds = body / round;
   const long long rest = head + rounds * round;
-  const long long rest_units = (body - rounds * round) / quantum<M>();
+  const long long rest_units = (body - rounds * round) / quantum<T, M>();
   const long long rest_lo =
-      rest + (long long)blockIdx.x * rest_units / gridDim.x * quantum<M>();
+      rest + (long long)blockIdx.x * rest_units / gridDim.x * quantum<T, M>();
   const long long rest_hi =
       rest + ((long long)blockIdx.x + 1) * rest_units / gridDim.x *
-                 quantum<M>();
+                 quantum<T, M>();
   const int tiles = (int)rounds + (rest_hi > rest_lo ? 1 : 0);
   if (tiles == 0) return;
   auto tile_base = [&](int t) {
@@ -162,9 +154,9 @@ __global__ void __launch_bounds__(kThreads)
 
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[kStages];
-  auto stage = [&](int s) { return smem + s * stage_bytes<M>(); };
-  // the stage's operands: p and g f32, then m and v
-  auto sp = [&](int s) { return reinterpret_cast<float*>(stage(s)); };
+  auto stage = [&](int s) { return smem + s * stage_bytes<T, M>(); };
+  // the stage's operands: p and g, then m and v
+  auto sp = [&](int s) { return reinterpret_cast<T*>(stage(s)); };
   auto sg = [&](int s) { return sp(s) + kTile; };
   auto sm = [&](int s) { return reinterpret_cast<M*>(sp(s) + 2 * kTile); };
   auto sv = [&](int s) { return sm(s) + kTile; };
@@ -174,9 +166,9 @@ __global__ void __launch_bounds__(kThreads)
     const long long base = tile_base(t);
     const uint32_t len = (uint32_t)tile_len(t);
     hopper::mbar_arrive_expect_tx(&full[s],
-                                  len * (2 * sizeof(float) + 2 * sizeof(M)));
-    bulk_load(sp(s), p + base, len * sizeof(float), &full[s], policy);
-    bulk_load(sg(s), g + base, len * sizeof(float), &full[s], policy);
+                                  len * (2 * sizeof(T) + 2 * sizeof(M)));
+    bulk_load(sp(s), p + base, len * sizeof(T), &full[s], policy);
+    bulk_load(sg(s), g + base, len * sizeof(T), &full[s], policy);
     bulk_load(sm(s), m + base, len * sizeof(M), &full[s], policy);
     bulk_load(sv(s), v + base, len * sizeof(M), &full[s], policy);
   };
@@ -193,29 +185,29 @@ __global__ void __launch_bounds__(kThreads)
     const int s = t % kStages;
     hopper::mbar_wait(&full[s], (uint32_t)(t / kStages) & 1u);
     const int len = tile_len(t);
-    float* ps = sp(s);
-    const float* gs = sg(s);
+    T* ps = sp(s);
+    const T* gs = sg(s);
     M* ms = sm(s);
     M* vs = sv(s);
     for (int i = threadIdx.x * 4; i < len; i += kThreads * 4) {
-      const float4 P = *reinterpret_cast<const float4*>(ps + i);
-      const float4 G = *reinterpret_cast<const float4*>(gs + i);
-      const float4 M4 = load_moment4(ms, i / 4);
-      const float4 V = load_moment4(vs, i / 4);
+      const float4 P = load4(ps, i / 4);
+      const float4 G = load4(gs, i / 4);
+      const float4 M4 = load4(ms, i / 4);
+      const float4 V = load4(vs, i / 4);
       float4 PO, MO, VO;
       adam_half_step(P.x, G.x, M4.x, V.x, c, &PO.x, &MO.x, &VO.x);
       adam_half_step(P.y, G.y, M4.y, V.y, c, &PO.y, &MO.y, &VO.y);
       adam_half_step(P.z, G.z, M4.z, V.z, c, &PO.z, &MO.z, &VO.z);
       adam_half_step(P.w, G.w, M4.w, V.w, c, &PO.w, &MO.w, &VO.w);
-      store4_smem(ps + i, PO);
-      store4_smem(ms + i, MO);
-      store4_smem(vs + i, VO);
+      store4(ps, i / 4, PO);
+      store4(ms, i / 4, MO);
+      store4(vs, i / 4, VO);
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     if (threadIdx.x == 0) {
       const long long base = tile_base(t);
-      bulk_store(po + base, ps, len * sizeof(float), policy);
+      bulk_store(po + base, ps, len * sizeof(T), policy);
       bulk_store(mo + base, ms, len * sizeof(M), policy);
       bulk_store(vo + base, vs, len * sizeof(M), policy);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -233,7 +225,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // Blocks of the persistent grid on `device` (resident blocks an SM at the
 // kernel's shared memory, times the SM count), found once per device.
-template <typename M>
+template <typename T, typename M>
 cudaError_t grid_limit(int device, int* blocks) {
   static int cached[kMaxDevices] = {};
   if (device >= 0 && device < kMaxDevices && cached[device] > 0) {
@@ -244,13 +236,14 @@ cudaError_t grid_limit(int device, int* blocks) {
   cudaError_t err =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(fused_adam_kernel<M>,
+    err = cudaFuncSetAttribute(fused_adam_kernel<T, M>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               stage_bytes<M>() * kStages);
+                               stage_bytes<T, M>() * kStages);
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_adam_kernel<M>, kThreads, stage_bytes<M>() * kStages);
+        &per_sm, fused_adam_kernel<T, M>, kThreads,
+        stage_bytes<T, M>() * kStages);
   }
   if (err != cudaSuccess) return err;
   *blocks = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
@@ -258,60 +251,65 @@ cudaError_t grid_limit(int device, int* blocks) {
   return cudaSuccess;
 }
 
-template <typename M>
-int launch_fused_adam(const float* p, const float* g, const M* m, const M* v,
-                      float* po, M* mo, M* vo, long long n, long long head,
+template <typename T, typename M>
+int launch_fused_adam(const T* p, const T* g, const M* m, const M* v, T* po,
+                      M* mo, M* vo, long long n, long long head,
                       long long body, const AdamConsts* c, void* stream) {
   if (n <= 0) return 0;
   int device = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = grid_limit<M>(device, &limit);
+  if (err == cudaSuccess) err = grid_limit<T, M>(device, &limit);
   if (err != cudaSuccess) return (int)err;
   // a tile a block at least, or a thread an element of the scalar part
   long long blocks = body > 0 ? (body + kTile - 1) / kTile
                               : (n + kThreads - 1) / kThreads;
   if (blocks > limit) blocks = limit;
   if (blocks < 1) blocks = 1;
-  fused_adam_kernel<M><<<(unsigned)blocks, kThreads,
-                         body > 0 ? stage_bytes<M>() * kStages : 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  fused_adam_kernel<T, M><<<(unsigned)blocks, kThreads,
+                            body > 0 ? stage_bytes<T, M>() * kStages : 0,
+                            static_cast<cudaStream_t>(stream)>>>(
       p, g, m, v, po, mo, vo, n, head, body, *c);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Blocks of the persistent grid on `device` with f32 (moment_bytes 4) or
-// bf16 (2) moments: at most this many run, fewer for a short body; a
-// negative cudaError_t on failure.
-extern "C" int fused_adam_grid(int device, int moment_bytes) {
+// Blocks of the persistent grid on `device` with f32 (4) or bf16 (2)
+// params (param_bytes) and moments (moment_bytes): at most this many run,
+// fewer for a short body; a negative cudaError_t on failure.
+extern "C" int fused_adam_grid(int device, int param_bytes,
+                               int moment_bytes) {
   int blocks = 0;
-  const cudaError_t err = moment_bytes == 2
-                              ? grid_limit<__nv_bfloat16>(device, &blocks)
-                              : grid_limit<float>(device, &blocks);
-  return err == cudaSuccess ? blocks : -(int)err;
+  const int err = with_dtype(param_bytes, [&](auto t) {
+    return with_dtype(moment_bytes, [&](auto mt) {
+      return (int)grid_limit<typename decltype(t)::type,
+                             typename decltype(mt)::type>(device, &blocks);
+    });
+  });
+  return err == 0 ? blocks : -err;
 }
 
-// Both entry points return a cudaError_t (0 when the launch was
-// accepted). Elements [head, head + body) are the body: head + body <= n,
-// body a multiple of 16 bytes of the narrowest operand (4 elements with
-// f32 moments, 8 with bf16 ones), and when body > 0 all seven pointers
-// advanced by head elements are 16-byte aligned. The rest run as scalars.
-// c points to the seven f32 constants in host memory, read at the launch.
-extern "C" int fused_adam_f32(const float* p, const float* g, const float* m,
-                              const float* v, float* po, float* mo, float* vo,
-                              long long n, long long head, long long body,
-                              const AdamConsts* c, void* stream) {
-  return launch_fused_adam(p, g, m, v, po, mo, vo, n, head, body, c, stream);
-}
-
-// f32 p and g, bf16 m and v.
-extern "C" int fused_adam_f32_bf16m(const float* p, const float* g,
-                                    const __nv_bfloat16* m,
-                                    const __nv_bfloat16* v, float* po,
-                                    __nv_bfloat16* mo, __nv_bfloat16* vo,
-                                    long long n, long long head,
-                                    long long body, const AdamConsts* c,
-                                    void* stream) {
-  return launch_fused_adam(p, g, m, v, po, mo, vo, n, head, body, c, stream);
+// Returns a cudaError_t (0 when the launch was accepted). p, g and po hold
+// param_bytes an element, m, v, mo and vo moment_bytes (4: f32, 2: bf16).
+// Elements [head, head + body) are the body: head + body <= n, body a
+// multiple of 16 bytes of the narrowest operand (4 elements at f32 / f32,
+// else 8), and when body > 0 all seven pointers advanced by head elements
+// are 16-byte aligned. The rest run as scalars. c points to the seven f32
+// constants in host memory, read at the launch.
+extern "C" int fused_adam(const void* p, const void* g, const void* m,
+                          const void* v, void* po, void* mo, void* vo,
+                          long long n, long long head, long long body,
+                          const AdamConsts* c, int param_bytes,
+                          int moment_bytes, void* stream) {
+  return with_dtype(param_bytes, [&](auto t) {
+    return with_dtype(moment_bytes, [&](auto mt) {
+      using T = typename decltype(t)::type;
+      using M = typename decltype(mt)::type;
+      return launch_fused_adam(
+          static_cast<const T*>(p), static_cast<const T*>(g),
+          static_cast<const M*>(m), static_cast<const M*>(v),
+          static_cast<T*>(po), static_cast<M*>(mo), static_cast<M*>(vo), n,
+          head, body, c, stream);
+    });
+  });
 }

@@ -1,4 +1,5 @@
-// CHOCO error-feedback sign compression over f32 buffers viewed as (K, n).
+// CHOCO error-feedback sign compression over f32 or bf16 buffers viewed as
+// (K, n).
 //
 // Replaces src/repro/kernels/sign_compress.py:sign_compress_stacked
 // (_absmean_stacked_kernel, pallas_call at line 174; _apply_stacked_kernel,
@@ -11,14 +12,18 @@
 // with sign(d) = (d > 0) - (d < 0), so zeros (and the zero padding of the
 // resident buffer) stay zero in q and hat_out.
 //
-// Bound on the H100: bytes. The function must read x and hat once and write
-// q (1 byte) and hat_out (4 bytes) once: 13 bytes an element. No q can be
-// scaled before its segment's sum is known, a sum over up to 9.75 M
-// elements a worker (DeepFM's embedding leaf), so hat is read twice. But
-// q = sign(x - hat) needs no scale: the first pass writes it, and the
-// second pass reads hat and q (5 bytes) in place of x and hat (8 bytes).
-// That is 18 bytes an element with no reuse at all, against the 21 of the
-// three launches this kernel replaces (absmean_kernel, scale_kernel and
+// x, hat and hat_out share one dtype T, f32 or bf16: d, |d| and the sums
+// are f32 over the widened values, and hat_out is rounded once to T, at
+// the store, to nearest-even (dtype.cuh), as the TPU kernel's .astype.
+//
+// Bound on the H100: bytes. The function must read x and hat once and write q
+// (1 byte) and hat_out (4 bytes) once: 13 bytes an element (7 in bf16). No q
+// can be scaled before its segment's sum is known, a sum over up to 9.75 M
+// elements a worker (DeepFM's embedding leaf), so hat is read twice. But q =
+// sign(x - hat) needs no scale: the first pass writes it, and the second pass
+// reads hat and q (5 bytes) in place of x and hat (8 bytes). That is 18 bytes
+// an element with no reuse at all (10 in bf16), against the 21 of the three
+// launches this kernel replaces (absmean_kernel, scale_kernel and
 // apply_kernel, which read x and hat twice); whatever of hat and q the
 // second pass finds in the 50 MB L2 brings it closer to 13.
 //
@@ -74,9 +79,12 @@
 //     true counts), so no B item waits.
 // Phase 0 is the one launch above. The bytes are the same 18 an element
 // over the two launches.
-// Loads are 16 bytes (float4) and q accesses 4 (char4) when vec != 0; the
-// last (b - a) % 4 elements of a tile then take the scalar path.
+// Loads move four elements (16 bytes of f32, 8 of bf16) and q accesses 4
+// (char4) when vec != 0; the last (b - a) % 4 elements of a tile then take
+// the scalar path.
 #include <cuda_runtime.h>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -85,11 +93,12 @@ constexpr int kThreads = 256;
 // at most 80 registers a thread, 3 blocks fit on an SM (78 on sm_90a)
 constexpr int kUnroll = 4;
 
+// x, hat and hat_out point to T (the kernel's template argument)
 struct Args {
-  const float* x;
-  const float* hat;
+  const void* x;
+  const void* hat;
   signed char* q;
-  float* hat_out;
+  void* hat_out;
   float* scales;
   float* partials;
   // counters[0]: the next item; counters[1 + k * L + s]: segment (k, s)
@@ -138,24 +147,59 @@ __device__ __forceinline__ unsigned long long evict_first_policy() {
 }
 
 // x and hat are not written by the kernel: the non-coherent path, not
-// allocated in L1; ld_hint adds an L2 priority
-__device__ __forceinline__ float4 ld_in(const float4* p) {
+// allocated in L1; ld_hint adds an L2 priority. Four elements from group
+// i4 on, widened to f32.
+__device__ __forceinline__ float4 ld_in(const float* p, long long i4) {
   float4 v;
   asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "l"(p));
+               : "l"(p + 4 * i4));
   return v;
 }
 
-__device__ __forceinline__ float4 ld_hint(const float4* p,
+__device__ __forceinline__ float4 ld_in(const __nv_bfloat16* p,
+                                        long long i4) {
+  uint2 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v2.b32 {%0, %1}, [%2];"
+               : "=r"(r.x), "=r"(r.y)
+               : "l"(p + 4 * i4));
+  return widen4(r);
+}
+
+__device__ __forceinline__ float4 ld_hint(const float* p, long long i4,
                                           unsigned long long pol) {
   float4 v;
   asm volatile(
       "ld.global.nc.L1::no_allocate.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, "
       "[%4], %5;"
       : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-      : "l"(p), "l"(pol));
+      : "l"(p + 4 * i4), "l"(pol));
   return v;
+}
+
+__device__ __forceinline__ float4 ld_hint(const __nv_bfloat16* p,
+                                          long long i4,
+                                          unsigned long long pol) {
+  uint2 r;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.L2::cache_hint.v2.b32 {%0, %1}, [%2], "
+      "%3;"
+      : "=r"(r.x), "=r"(r.y)
+      : "l"(p + 4 * i4), "l"(pol));
+  return widen4(r);
+}
+
+// hat_out is written once and not read in the launch: a streaming store
+__device__ __forceinline__ void st_stream(float* p, long long i4, float4 v) {
+  __stcs(reinterpret_cast<float4*>(p) + i4, v);
+}
+
+__device__ __forceinline__ void st_stream(__nv_bfloat16* p, long long i4,
+                                          float4 v) {
+  const uint2 r = narrow4(v);
+  asm volatile("st.global.cs.v2.b32 [%0], {%1, %2};" ::"l"(p + 4 * i4),
+               "r"(r.x), "r"(r.y)
+               : "memory");
 }
 
 // q is written by other blocks of this launch: read at L2 (.cg)
@@ -179,14 +223,15 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
 
 // The first pass over [a, b) of the worker at base: writes q, returns this
 // thread's sum of |x - hat|.
+template <typename T>
 __device__ __forceinline__ float first_pass(const Args& g, long long base,
                                             long long a, long long b) {
   const unsigned long long stream = evict_first_policy();
+  const T* x = static_cast<const T*>(g.x) + base;
+  const T* hat = static_cast<const T*>(g.hat) + base;
   float acc = 0.f;
   long long tail = a;
   if (g.vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(g.x + base);
-    const float4* h4 = reinterpret_cast<const float4*>(g.hat + base);
     char4* q4 = reinterpret_cast<char4*>(g.q + base);
     const long long e = b / 4;
     for (long long i0 = a / 4 + threadIdx.x; i0 < e;
@@ -196,8 +241,8 @@ __device__ __forceinline__ float first_pass(const Args& g, long long base,
       for (int u = 0; u < kUnroll; ++u) {
         const long long i = i0 + (long long)u * kThreads;
         if (i < e) {
-          X[u] = ld_hint(x4 + i, stream);
-          H[u] = ld_in(h4 + i);
+          X[u] = ld_hint(x, i, stream);
+          H[u] = ld_in(hat, i);
         }
       }
 #pragma unroll
@@ -218,7 +263,7 @@ __device__ __forceinline__ float first_pass(const Args& g, long long base,
     tail = b / 4 * 4;
   }
   for (long long i = tail + threadIdx.x; i < b; i += kThreads) {
-    const float d = g.x[base + i] - g.hat[base + i];
+    const float d = load1(x, i) - load1(hat, i);
     acc += fabsf(d);
     g.q[base + i] = (signed char)sgn(d);
   }
@@ -226,15 +271,16 @@ __device__ __forceinline__ float first_pass(const Args& g, long long base,
 }
 
 // The second pass over [a, b): hat_out = hat + sc * q.
+template <typename T>
 __device__ __forceinline__ void second_pass(const Args& g, long long base,
                                             long long a, long long b,
                                             float sc) {
   const unsigned long long drop = evict_first_policy();
+  const T* hat = static_cast<const T*>(g.hat) + base;
+  T* out = static_cast<T*>(g.hat_out) + base;
   long long tail = a;
   if (g.vec) {
-    const float4* h4 = reinterpret_cast<const float4*>(g.hat + base);
     const char4* q4 = reinterpret_cast<const char4*>(g.q + base);
-    float4* o4 = reinterpret_cast<float4*>(g.hat_out + base);
     const long long e = b / 4;
     for (long long i0 = a / 4 + threadIdx.x; i0 < e;
          i0 += kThreads * kUnroll) {
@@ -244,7 +290,7 @@ __device__ __forceinline__ void second_pass(const Args& g, long long base,
       for (int u = 0; u < kUnroll; ++u) {
         const long long i = i0 + (long long)u * kThreads;
         if (i < e) {
-          H[u] = ld_hint(h4 + i, drop);
+          H[u] = ld_hint(hat, i, drop);
           Q[u] = ld_q(q4 + i, drop);
         }
       }
@@ -252,21 +298,21 @@ __device__ __forceinline__ void second_pass(const Args& g, long long base,
       for (int u = 0; u < kUnroll; ++u) {
         const long long i = i0 + (long long)u * kThreads;
         if (i < e) {
-          __stcs(o4 + i, make_float4(H[u].x + sc * (float)Q[u].x,
-                                     H[u].y + sc * (float)Q[u].y,
-                                     H[u].z + sc * (float)Q[u].z,
-                                     H[u].w + sc * (float)Q[u].w));
+          st_stream(out, i, make_float4(H[u].x + sc * (float)Q[u].x,
+                                        H[u].y + sc * (float)Q[u].y,
+                                        H[u].z + sc * (float)Q[u].z,
+                                        H[u].w + sc * (float)Q[u].w));
         }
       }
     }
     tail = b / 4 * 4;
   }
   for (long long i = tail + threadIdx.x; i < b; i += kThreads) {
-    g.hat_out[base + i] =
-        g.hat[base + i] + sc * (float)__ldcg(g.q + base + i);
+    store1(out, i, load1(hat, i) + sc * (float)__ldcg(g.q + base + i));
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
     sign_compress_kernel(const Args g) {
   __shared__ int next_item;
@@ -293,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, 3)
     unsigned* seg_count = g.counters + 1 + k * g.L + s;
     const unsigned tiles = (unsigned)(g.seg_first[s + 1] - g.seg_first[s]);
     if ((code & 1) == 0) {
-      const float sum = block_sum(first_pass(g, base, a, b));
+      const float sum = block_sum(first_pass<T>(g, base, a, b));
       if (threadIdx.x == 0) {
         g.partials[(long long)k * g.T + t] = sum;
         __threadfence();
@@ -323,7 +369,7 @@ __global__ void __launch_bounds__(kThreads, 3)
         seg_scale = __ldcg(g.scales + k * g.L + s);
       }
       __syncthreads();
-      second_pass(g, base, a, b, seg_scale);
+      second_pass<T>(g, base, a, b, seg_scale);
     }
     if (threadIdx.x == 0) next_item = ahead;
     __syncthreads();
@@ -331,46 +377,15 @@ __global__ void __launch_bounds__(kThreads, 3)
   }
 }
 
-}  // namespace
-
-// Blocks of the persistent grid on `device`: resident blocks per SM by
-// occupancy times the SM count; a negative cudaError_t on failure.
-extern "C" int sign_compress_grid(int device) {
-  int sms = 0, per_sm = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sign_compress_kernel, kThreads, 0);
-  }
-  if (err != cudaSuccess) return -(int)err;
-  return sms * (per_sm > 0 ? per_sm : 1);
-}
-
-// x, hat, hat_out: K * n f32; q: K * n int8; scales: K * L f32; partials:
-// K * T f32 scratch; counters: 1 + K * L uint32 scratch, zeroed here on the
-// stream. tile_start / tile_end (int64), tile_seg (int32, T entries),
-// seg_first (int32, L + 1 entries), n_true (f32, L entries) and items
-// (int32, n_items entries: ((k * T + t) << 1) | pass; 2 K T in phase 0,
-// the K T A items in phase 1, the K T B items in phase 2) are device
-// tables. In phase 1 `scales` receives the raw per-segment sums and n_true
-// is not read; in phase 2 `scales` is read and partials are not used.
-// vec != 0 promises that every tile starts at a multiple of 4
-// within its worker, that every worker starts 16 bytes aligned (K == 1 or
-// n a multiple of 4) and that x, hat, q and hat_out are 16-byte aligned.
-// Launches min(grid, n_items) blocks. Returns the first non-zero
-// cudaError_t of the memset and the launch.
-extern "C" int sign_compress_f32(const float* x, const float* hat,
-                                 signed char* q, float* hat_out,
-                                 float* scales, float* partials,
-                                 unsigned* counters,
-                                 const long long* tile_start,
-                                 const long long* tile_end,
-                                 const int* tile_seg, const int* seg_first,
-                                 const float* n_true, const int* items,
-                                 int n_items, int K, int T, int L,
-                                 long long n, int vec, int grid, int phase,
-                                 void* stream) {
+template <typename T>
+int launch_sign_compress(const T* x, const T* hat, signed char* q,
+                         T* hat_out, float* scales, float* partials,
+                         unsigned* counters, const long long* tile_start,
+                         const long long* tile_end, const int* tile_seg,
+                         const int* seg_first, const float* n_true,
+                         const int* items, int n_items, int K, int T_,
+                         int L, long long n, int vec, int grid, int phase,
+                         void* stream) {
   if (K <= 0 || L <= 0 || n <= 0 || n_items <= 0) return 0;
   if (K > 65535 || grid <= 0 || phase < 0 || phase > 2) {
     return (int)cudaErrorInvalidValue;
@@ -382,8 +397,60 @@ extern "C" int sign_compress_f32(const float* x, const float* hat,
   const Args g{x,        hat,        q,        hat_out,  scales,
                partials, counters,   tile_start, tile_end, tile_seg,
                seg_first, n_true,    items,    n_items,  K,
-               T,        L,          n,        vec,      phase};
-  sign_compress_kernel<<<grid < n_items ? grid : n_items, kThreads, 0, s>>>(
-      g);
+               T_,       L,          n,        vec,      phase};
+  sign_compress_kernel<T><<<grid < n_items ? grid : n_items, kThreads, 0,
+                            s>>>(g);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Blocks of the persistent grid on `device` for x of param_bytes (4: f32,
+// 2: bf16): resident blocks per SM by occupancy times the SM count; a
+// negative cudaError_t on failure.
+extern "C" int sign_compress_grid(int device, int param_bytes) {
+  int sms = 0, per_sm = 0;
+  int err =
+      (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == 0) {
+    err = with_dtype(param_bytes, [&](auto t) {
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, sign_compress_kernel<typename decltype(t)::type>, kThreads,
+          0);
+    });
+  }
+  if (err != 0) return -err;
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+// x, hat, hat_out: K * n elements of param_bytes (4: f32, 2: bf16); q:
+// K * n int8; scales: K * L f32; partials: K * T f32 scratch; counters:
+// 1 + K * L uint32 scratch, zeroed here on the stream. tile_start /
+// tile_end (int64), tile_seg (int32, T entries), seg_first (int32, L + 1
+// entries), n_true (f32, L entries) and items (int32, n_items entries:
+// ((k * T + t) << 1) | pass; 2 K T in phase 0, the K T A items in phase
+// 1, the K T B items in phase 2) are device tables. In phase 1 `scales`
+// receives the raw per-segment sums and n_true is not read; in phase 2
+// `scales` is read and partials are not used. vec != 0 promises that
+// every tile starts at a multiple of 4 within its worker, that every
+// worker starts 16 bytes aligned (K == 1 or n a multiple of 4) and that x,
+// hat, q and hat_out are 16-byte aligned. Launches min(grid, n_items)
+// blocks. Returns the first non-zero cudaError_t of the memset and the
+// launch.
+extern "C" int sign_compress(const void* x, const void* hat, signed char* q,
+                             void* hat_out, float* scales, float* partials,
+                             unsigned* counters, const long long* tile_start,
+                             const long long* tile_end, const int* tile_seg,
+                             const int* seg_first, const float* n_true,
+                             const int* items, int n_items, int K, int T_,
+                             int L, long long n, int vec, int grid, int phase,
+                             int param_bytes, void* stream) {
+  return with_dtype(param_bytes, [&](auto t) {
+    using T = typename decltype(t)::type;
+    return launch_sign_compress(
+        static_cast<const T*>(x), static_cast<const T*>(hat), q,
+        static_cast<T*>(hat_out), scales, partials, counters, tile_start,
+        tile_end, tile_seg, seg_first, n_true, items, n_items, K, T_, L, n,
+        vec, grid, phase, stream);
+  });
 }

@@ -11,10 +11,10 @@ accumulated in f32, the self term first, then the offsets in order.
 ``gossip_adam_mix`` replaces ``src/repro/kernels/gossip.py:gossip_adam_mix``
 (``_gossip_adam_kernel``, ``pallas_call`` at line 258): the Adam half-step
 of worker k and of each source worker, each rounded to p's dtype, mixed as
-above; returns (mixed p, worker k's own m, v). p and g are f32, m and v
-f32 or bf16 (computed in f32, rounded to their dtype at the store). It
-agrees with the two-pass ``fused_adam`` -> ``gossip_mix`` sequence within
-f32 rounding; it is not held to be bit for bit equal.
+above; returns (mixed p, worker k's own m, v). p and g are f32 or bf16, m
+and v f32 or bf16 (computed in f32, rounded to their dtype at the store).
+It agrees with the two-pass ``fused_adam`` -> ``gossip_mix`` sequence
+within f32 rounding; it is not held to be bit for bit equal.
 
 ``consensus_mix`` replaces ``src/repro/kernels/gossip.py:consensus_mix``
 (``_consensus_kernel``, ``pallas_call`` at line 307), CD-Adam's line 8::
@@ -36,8 +36,11 @@ order. Each payload already holds, for every destination worker, the
 neighbour value the round chose (fresh or buffered), so every operand is
 read at the same index.
 
-All four are bound by bytes on the H100; ``csrc/gossip.cu`` says what
-the design reads against the least it must. ``src_j(k)`` comes from a
+Every buffer of a call shares one dtype, f32 or bf16 (the parameter
+buffer's: a model's ``param_dtype``); the sums run in f32 and round once to
+that dtype at the store, as the TPU kernels' ``.astype`` does. All four
+are bound by bytes on the H100; ``csrc/gossip.cu`` says what the design
+reads against the least it must. ``src_j(k)`` comes from a
 ``(deg, K)`` int32 table built once per topology from
 :func:`~repro_torch.core.topology.offset_perm`, so ring offsets and torus
 ``GridShift`` offsets take one path. ``kernels.ops`` picks the kernel for
@@ -54,15 +57,15 @@ import torch
 
 from repro_torch.core.topology import GridShift, offset_perm
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_adam import (MOMENT_DTYPES, adam_consts,
-                                            adam_half_step_plain,
-                                            check_adam_cuda, check_f32_cuda,
+from repro_torch.kernels.fused_adam import (adam_consts, adam_half_step_plain,
+                                            check_adam_cuda, check_param_cuda,
                                             f32)
 from repro_torch.kernels.pack import LANE
 
 # the shared-memory source table of gossip_mix holds this many offsets
 # (denser graphs take the einsum in core.dadam.gossip_packed); one
 # payload_mix launch takes this many payloads, and more chain launches
+# through an f32 accumulator
 MAX_FUSED_DEGREE = 32
 # gossip_adam_mix reads 4 * (deg + 1) operand buffers per output; denser
 # graphs take the two-pass sequence
@@ -219,43 +222,53 @@ def _check_gossip_adam(p, g, m, v, offsets, offset_weights) -> int:
 
 
 def _check_aligned(*ts: torch.Tensor) -> None:
+    """gossip_adam_mix moves groups of four elements."""
     if any(t.data_ptr() % (4 * t.element_size()) for t in ts):
-        raise ValueError("the gossip kernels load four elements at a time "
-                         "and need buffers aligned to that: 16 bytes for "
+        raise ValueError("gossip_adam_mix loads four elements at a time "
+                         "and needs buffers aligned to that: 16 bytes for "
                          "f32, 8 for bf16")
 
 
+def _check_aligned16(*ts: torch.Tensor) -> None:
+    """gossip_mix, payload_mix and consensus_mix move 16-byte vectors (4
+    f32 or 8 bf16 elements)."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("the gossip mixes load 16-byte vectors and need "
+                         "16-byte aligned buffers")
+
+
+# the C entries' parameters, by entry (pointers as c_void_p); each ends in
+# the element widths (the buffer's, then gossip_adam_mix's moments') and
+# the stream
+ARGTYPES = {
+    "gossip_mix": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    "gossip_adam_mix": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+    + [ctypes.c_longlong] + [ctypes.c_float] * 7 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p],
+    "consensus_mix": [ctypes.c_void_p] * 5
+    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+       ctypes.c_void_p],
+    "payload_mix": [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    + [ctypes.c_void_p] * 2
+    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+       ctypes.c_void_p],
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _entries():
-    lib = _build.load("gossip")
-    mix = lib.gossip_mix_f32
-    mix.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                    + [ctypes.c_longlong, ctypes.c_void_p])
-    mix.restype = ctypes.c_int
-    gam = {}
-    for dt, suffix in MOMENT_DTYPES.items():
-        fn = getattr(lib, "gossip_adam_mix_f32" + suffix)
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
-                       + [ctypes.c_longlong] + [ctypes.c_float] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        gam[dt] = fn
-    con = lib.consensus_mix_f32
-    con.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
-                                             ctypes.c_float, ctypes.c_void_p])
-    con.restype = ctypes.c_int
-    pay = lib.payload_mix_f32
-    pay.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                                             ctypes.c_float, ctypes.c_void_p])
-    pay.restype = ctypes.c_int
-    return mix, gam, con, pay
+def _entry(name: str):
+    fn = getattr(_build.load("gossip"), name)
+    fn.argtypes = ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def gossip_mix(x: torch.Tensor, offsets: Sequence,
                offset_weights: Sequence[float],
                self_weight: float) -> torch.Tensor:
-    """Launch the CUDA mix on a contiguous f32 ``(K, rows, 128)`` CUDA
-    buffer; the output is a new tensor."""
+    """Launch the CUDA mix on a contiguous f32 or bf16 ``(K, rows, 128)``
+    CUDA buffer; the output is a new tensor."""
     K = _check_buf(x)
     offs, weights = _offsets(offsets, offset_weights)
     if not offs:
@@ -263,14 +276,14 @@ def gossip_mix(x: torch.Tensor, offsets: Sequence,
     if len(offs) > MAX_FUSED_DEGREE:
         raise ValueError(f"degree {len(offs)} > MAX_FUSED_DEGREE="
                          f"{MAX_FUSED_DEGREE}; take the einsum")
-    check_f32_cuda(x)
+    check_param_cuda(x)
     src, w = mix_table(offs, weights, float(self_weight), K, x.device)
     out = torch.empty_like(x)
-    _check_aligned(x, out)
-    mix, _, _, _ = _entries()
-    status = _build.launch(mix, x.device, x.data_ptr(), out.data_ptr(),
+    _check_aligned16(x, out)
+    status = _build.launch(_entry("gossip_mix"), x.device,
+                           x.data_ptr(), out.data_ptr(),
                            src.data_ptr(), w.data_ptr(), K, len(offs),
-                           x[0].numel())
+                           x[0].numel(), x.element_size())
     _build.check(status, "gossip_mix")
     gossip_mix.launches += 1
     return out
@@ -282,22 +295,24 @@ def gossip_adam_mix(p, g, m, v, offsets: Sequence,
                     tau: float = 1e-6, weight_decay: float = 0.0
                     ) -> Tensors3:
     """Launch the fused Adam half-step + mix on contiguous
-    ``(K, rows, 128)`` CUDA buffers: f32 p and g, f32 or bf16 m and v
-    (computed in f32, rounded to their dtype at the store); the outputs
-    are new tensors."""
+    ``(K, rows, 128)`` CUDA buffers: p and g f32 or bf16, m and v f32 or
+    bf16 (computed in f32, each half-step rounded to p's dtype before the
+    mix, each output rounded to its dtype at the store); the outputs are
+    new tensors."""
     K = _check_gossip_adam(p, g, m, v, offsets, offset_weights)
     offs, weights = _offsets(offsets, offset_weights)
-    mdt = check_adam_cuda(p, g, m, v)
+    check_adam_cuda(p, g, m, v)
     src, w = mix_table(offs, weights, float(self_weight), K, p.device)
     po, mo, vo = (torch.empty_like(p), torch.empty_like(m),
                   torch.empty_like(v))
     _check_aligned(p, g, m, v, po, mo, vo)
-    _, gam, _, _ = _entries()
-    status = _build.launch(gam[mdt], p.device, p.data_ptr(), g.data_ptr(),
+    status = _build.launch(_entry("gossip_adam_mix"), p.device,
+                           p.data_ptr(), g.data_ptr(),
                            m.data_ptr(), v.data_ptr(), po.data_ptr(),
                            mo.data_ptr(), vo.data_ptr(), src.data_ptr(),
                            w.data_ptr(), K, len(offs), p[0].numel(),
-                           *adam_consts(eta, beta1, beta2, tau, weight_decay))
+                           *adam_consts(eta, beta1, beta2, tau, weight_decay),
+                           p.element_size(), m.element_size())
     _build.check(status, "gossip_adam_mix")
     gossip_adam_mix.launches += 1
     return po, mo, vo
@@ -307,8 +322,8 @@ def consensus_mix(x: torch.Tensor, hat_self: torch.Tensor,
                   hat_nbrs: Sequence[torch.Tensor],
                   offset_weights: Sequence[float],
                   gamma: float) -> torch.Tensor:
-    """Launch the CUDA consensus update on contiguous f32
-    ``(K, rows, 128)`` CUDA buffers; the output is a new tensor."""
+    """Launch the CUDA consensus update on contiguous ``(K, rows, 128)``
+    CUDA buffers, all f32 or all bf16; the output is a new tensor."""
     hat_nbrs, weights = _check_consensus(x, hat_self, hat_nbrs,
                                          offset_weights)
     if not hat_nbrs:
@@ -316,18 +331,19 @@ def consensus_mix(x: torch.Tensor, hat_self: torch.Tensor,
     if len(hat_nbrs) > MAX_CONSENSUS_DEGREE:
         raise ValueError(f"degree {len(hat_nbrs)} > MAX_CONSENSUS_DEGREE="
                          f"{MAX_CONSENSUS_DEGREE}")
-    check_f32_cuda(x, hat_self, *hat_nbrs)
+    check_param_cuda(x, hat_self, *hat_nbrs)
     out = torch.empty_like(x)
-    _check_aligned(x, hat_self, out, *hat_nbrs)
+    _check_aligned16(x, hat_self, out, *hat_nbrs)
     deg = len(hat_nbrs)
     # the neighbour pointers and weights go by value, in a host array the
     # C entry copies into the kernel's parameter block
     ptrs = (ctypes.c_void_p * deg)(*(h.data_ptr() for h in hat_nbrs))
     w = (ctypes.c_float * deg)(*(f32(v) for v in weights))
-    _, _, con, _ = _entries()
-    status = _build.launch(con, x.device, x.data_ptr(), hat_self.data_ptr(),
+    status = _build.launch(_entry("consensus_mix"), x.device,
+                           x.data_ptr(), hat_self.data_ptr(),
                            out.data_ptr(), ctypes.addressof(ptrs),
-                           ctypes.addressof(w), deg, x.numel(), f32(gamma))
+                           ctypes.addressof(w), deg, x.numel(), f32(gamma),
+                           x.element_size())
     _build.check(status, "consensus_mix")
     consensus_mix.launches += 1
     return out
@@ -336,35 +352,40 @@ def consensus_mix(x: torch.Tensor, hat_self: torch.Tensor,
 def payload_mix(x: torch.Tensor, payloads: Sequence[torch.Tensor],
                 offset_weights: Sequence[float],
                 self_weight: float) -> torch.Tensor:
-    """Launch the CUDA payload mix on contiguous f32 ``(K, rows, 128)``
-    CUDA buffers; the output is a new tensor. One launch takes at most
-    ``MAX_FUSED_DEGREE`` payloads; past that the launches chain, each
-    adding the next payloads to the previous output with self weight 1.0
-    (``1.0f * acc == acc``), so the sum runs in the plain version's order
-    and stays equal to it to the bit."""
+    """Launch the CUDA payload mix on contiguous ``(K, rows, 128)``
+    CUDA buffers, all f32 or all bf16; the output is a new tensor. One
+    launch takes at most ``MAX_FUSED_DEGREE`` payloads; past that the
+    launches chain, each going on from the previous one's f32 sum (an f32
+    scratch buffer) with the next payloads, so the sum runs in the plain
+    version's order, rounds to the buffer's dtype once, and stays equal to
+    the plain version to the bit."""
     payloads, weights = _check_payloads(x, payloads, offset_weights)
     if not payloads:
         return x
-    check_f32_cuda(x, *payloads)
-    _check_aligned(x, *payloads)
-    _, _, _, pay = _entries()
-    out, w_self = x, self_weight
+    check_param_cuda(x, *payloads)
+    _check_aligned16(x, *payloads)
+    pay = _entry("payload_mix")
+    acc = None
     for i in range(0, len(payloads), MAX_FUSED_DEGREE):
         chunk = payloads[i:i + MAX_FUSED_DEGREE]
-        acc, out = out, torch.empty_like(x)
-        _check_aligned(out)
+        last = i + MAX_FUSED_DEGREE >= len(payloads)
+        out = (torch.empty_like(x) if last else
+               torch.empty(x.shape, dtype=torch.float32, device=x.device))
+        _check_aligned16(out)
         # the payload pointers and weights go by value, in a host array
         # the C entry copies into the kernel's parameter block
         ptrs = (ctypes.c_void_p * len(chunk))(*(p.data_ptr() for p in chunk))
         w = (ctypes.c_float * len(chunk))(
             *(f32(v) for v in weights[i:i + MAX_FUSED_DEGREE]))
-        status = _build.launch(pay, x.device, acc.data_ptr(),
-                               out.data_ptr(), ctypes.addressof(ptrs),
-                               ctypes.addressof(w), len(chunk), x.numel(),
-                               f32(w_self))
+        status = _build.launch(pay, x.device, x.data_ptr(),
+                               None if acc is None else acc.data_ptr(),
+                               out.data_ptr(), int(not last),
+                               ctypes.addressof(ptrs), ctypes.addressof(w),
+                               len(chunk), x.numel(), f32(self_weight),
+                               x.element_size())
         _build.check(status, "payload_mix")
         payload_mix.launches += 1
-        w_self = 1.0
+        acc = out
     return out
 
 

@@ -43,6 +43,12 @@ order and divides by the true count, so the scale is the same from run to
 run; it differs from the plain version's ``torch.sum`` by the order of the
 sum only. ``sign(d)`` is ``(d > 0) - (d < 0)``: zero, including the
 buffer's zero padding, maps to zero in ``q`` and in ``hat``.
+
+``x`` and ``hat`` share one dtype, f32 or bf16 (the parameter buffer's,
+as CD-Adam's hats take the parameters' dtype): ``d``, ``|d|`` and the
+sums are f32 over the widened values, ``scale`` is f32, and ``hat_new``
+is rounded once to that dtype at the store, as the TPU kernel's
+``.astype``.
 """
 from __future__ import annotations
 
@@ -54,7 +60,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_adam import check_f32_cuda, f32
+from repro_torch.kernels.fused_adam import check_param_cuda, f32
 from repro_torch.kernels.pack import LANE
 
 # elements per work item: four sweeps of the kernel's 256 threads x 4
@@ -248,24 +254,32 @@ def device_tables(bounds: Bounds, n_trues: Tuple[int, ...], K: int,
     return tabs, len(sch.tile_start), len(items)
 
 
+# the C entries' parameters: sign_compress (its last but one the buffers'
+# element width) and sign_compress_grid(device, the element width)
+ENTRY_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+                  + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p])
+GRID_ARGTYPES = [ctypes.c_int] * 2
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("sign_compress")
-    lib.sign_compress_f32.argtypes = (
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
-        + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.sign_compress_f32.restype = ctypes.c_int
-    lib.sign_compress_grid.argtypes = [ctypes.c_int]
+    lib.sign_compress.argtypes = ENTRY_ARGTYPES
+    lib.sign_compress.restype = ctypes.c_int
+    lib.sign_compress_grid.argtypes = GRID_ARGTYPES
     lib.sign_compress_grid.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def grid_blocks(device: torch.device) -> int:
-    """The persistent grid on ``device``: resident blocks per SM (by the
-    kernel's occupancy) times the SM count."""
+def grid_blocks(device: torch.device,
+                dtype: torch.dtype = torch.float32) -> int:
+    """The persistent grid on ``device`` for ``dtype`` buffers: resident
+    blocks per SM (by the kernel's occupancy) times the SM count."""
     with torch.cuda.device(device):
-        got = _lib().sign_compress_grid(device.index)
+        got = _lib().sign_compress_grid(device.index,
+                                        torch.finfo(dtype).bits // 8)
     if got <= 0:
         raise RuntimeError(f"sign_compress_grid failed with cudaError_t "
                            f"{-got}")
@@ -280,8 +294,8 @@ def _launch(x: torch.Tensor, hat: torch.Tensor, K: int, n: int,
     ``reduce_axis`` one launch; with it two (phases 1 and 2), the sums of
     the first summed over the model group and divided by ``n_trues`` on
     the device between them."""
-    check_f32_cuda(x, hat)
-    grid = grid_blocks(x.device)
+    dt = check_param_cuda(x, hat)
+    grid = grid_blocks(x.device, dt)
     split = reduce_axis is not None
     tabs, T, n_items = device_tables(bounds, n_trues, K, x.device, grid,
                                      split)
@@ -292,17 +306,19 @@ def _launch(x: torch.Tensor, hat: torch.Tensor, K: int, n: int,
     scratch = torch.empty(2 * K * L + K * T + 1, dtype=torch.float32,
                           device=x.device)
     at = scratch.data_ptr()
-    # 16-byte accesses when every tile of every worker starts aligned
+    # four-element accesses when every tile of every worker starts
+    # aligned (16 bytes of f32, 8 of bf16; the pointers 16-byte aligned)
     vec = int((K == 1 or n % 4 == 0) and all(a % 4 == 0 for a, _ in bounds)
               and all(t.data_ptr() % 16 == 0 for t in (x, hat, q, hat_new)))
     ptrs = [t.data_ptr() for t in tabs]
+    entry = _lib().sign_compress
 
     def run(scales: int, items: int, count: int, phase: int) -> None:
         status = _build.launch(
-            _lib().sign_compress_f32, x.device, x.data_ptr(),
+            entry, x.device, x.data_ptr(),
             hat.data_ptr(), q.data_ptr(), hat_new.data_ptr(), scales,
             at + 4 * K * L, at + 4 * (K * L + K * T), *ptrs[:5], items,
-            count, K, T, L, n, vec, grid, phase)
+            count, K, T, L, n, vec, grid, phase, x.element_size())
         _build.check(status, "sign_compress")
 
     if not split:
@@ -321,8 +337,8 @@ def _launch(x: torch.Tensor, hat: torch.Tensor, K: int, n: int,
 def sign_compress_stacked(x: torch.Tensor, hat: torch.Tensor, *,
                           n_true=None, row_ranges=None,
                           reduce_axis=None) -> Tensors3:
-    """Per-worker sign compression of a contiguous f32 CUDA tensor
-    ``(K, ...)``.
+    """Per-worker sign compression of a contiguous f32 or bf16 CUDA
+    tensor ``(K, ...)`` (``hat`` of the same dtype).
 
     Returns ``(q int8 [x.shape], scale f32, hat_new [hat.shape])``. Without
     ``row_ranges``, ``scale`` is ``(K,)``: the sum over worker k's
@@ -360,7 +376,8 @@ def _stacked_reduce(x: torch.Tensor, hat: torch.Tensor, *, n_true=None,
 
 
 def sign_compress(x: torch.Tensor, hat: torch.Tensor) -> Tensors3:
-    """One scale over the whole contiguous f32 CUDA tensor: returns
+    """One scale over the whole contiguous f32 or bf16 CUDA tensor
+    (``hat`` of the same dtype): returns
     ``(q int8 [x.shape], scale f32 [], hat_new [hat.shape])``."""
     if hat.shape != x.shape:
         raise ValueError(f"hat shape {tuple(hat.shape)} != x "

@@ -67,12 +67,13 @@ ADAM_SIZES = [0, 1, 3, 4, 5, 127, 128, "tile-1", "tile", "tile+1",
               "wave-tile", "wave+tile", "3 waves+17"]
 
 
-def adam_size(n, moment_dtype) -> int:
+def adam_size(n, moment_dtype, param_dtype=torch.float32) -> int:
     if isinstance(n, int):
         return n
     tile = tfa.TILE
     wave = tile * tfa.grid_blocks(
-        torch.device("cuda", torch.cuda.current_device()), moment_dtype)
+        torch.device("cuda", torch.cuda.current_device()), moment_dtype,
+        param_dtype)
     return {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
             "wave-tile": wave - tile, "wave+tile": wave + tile,
             "3 waves+17": 3 * wave + 17}[n]
@@ -208,9 +209,9 @@ def test_cuda_fused_adam_kernel_runs_head_body_and_tail(cuda, moments):
             head, body = tfa.plan(n, size, *ptrs)
             if n >= 2 * quantum:
                 assert body > 0 and head == (-off) % quantum
-            status = tfa._entry(moments)(
-                *ptrs, n, head, body, tfa._consts_arg(*kw.values())[1],
-                torch.cuda.current_stream().cuda_stream)
+            status = tfa._entry()(
+                *ptrs, n, head, body, tfa._consts_arg(*kw.values())[1], 4,
+                size, torch.cuda.current_stream().cuda_stream)
             assert status == 0
             want = tfa.fused_adam_plain(*ins, **kw)
             torch.cuda.synchronize()
@@ -248,9 +249,16 @@ def test_cuda_adam_kernels_reject_other_moment_dtypes(cuda):
             tfa.fused_adam(p, g, mm, vv, eta=1e-3)
         with pytest.raises(ValueError, match="moments"):
             tgossip.gossip_adam_mix(p, g, mm, vv, *mix, eta=1e-3)
-    with pytest.raises(ValueError, match="f32"):
-        tfa.fused_adam(p.to(torch.bfloat16), g, m.to(torch.bfloat16),
-                       v.to(torch.bfloat16), eta=1e-3)
+    # bf16 p with bf16 moments is a form the kernel takes (the packed
+    # default at bf16 params): its result, equal to the plain version's;
+    # f16 and p and g of two dtypes stay refused
+    pb, gb, mb, vb = (t.to(torch.bfloat16) for t in (p, g, m, v))
+    bit_equal(tfa.fused_adam(pb, gb, mb, vb, eta=1e-3),
+              tfa.fused_adam_plain(pb, gb, mb, vb, eta=1e-3))
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        tfa.fused_adam(p.half(), g.half(), m, v, eta=1e-3)
+    with pytest.raises(ValueError, match="one dtype"):
+        tfa.fused_adam(pb, g, mb, vb, eta=1e-3)
     bad = torch.zeros(K * ROWS * 128 + 1, dtype=torch.bfloat16,
                       device="cuda")[1:].view(K, ROWS, 128)
     with pytest.raises(ValueError, match="aligned"):
@@ -924,3 +932,245 @@ def test_cuda_invariant_gate_passes(cuda):
         env=dict(os.environ, PYTHONPATH=str(src)))
     assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
     assert out.stdout.strip().endswith("check_invariants: PASS")
+
+
+# ------------------------- bf16 parameter buffers ---------------------------
+# A model with param_dtype=bfloat16 packs a bf16 buffer: p, g, the payloads
+# and the hats bf16, the moments bf16 by default (or f32). The kernels widen
+# to f32, do the plain version's f32 operations in its order and round each
+# output once to its dtype, to nearest-even, as .to(bfloat16) does: equal to
+# the plain version to the bit. sign_compress's scales are sums in another
+# order (SCALE_TOL); its hat is then held to the plain arithmetic at the
+# kernel's own scales, to the bit.
+
+BF16 = torch.bfloat16
+MOMENTS = {"f32m": torch.float32, "bf16m": BF16}
+
+
+def bf16_adam_inputs(shape, moments, seed):
+    p, g, m, v = adam_inputs(shape, seed=seed)
+    return p.to(BF16), g.to(BF16), m.to(moments), v.to(moments)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moments", sorted(MOMENTS))
+@pytest.mark.parametrize("n", ADAM_SIZES)
+@pytest.mark.parametrize("variant", sorted(ADAM_VARIANTS))
+def test_cuda_fused_adam_bf16_params_match_plain(cuda, moments, n, variant):
+    """Aligned operands, then views 1-3 elements in (the whole call
+    scalar, in one launch)."""
+    kw = dict(eta=1e-3, **ADAM_VARIANTS[variant])
+    n = adam_size(n, MOMENTS[moments], BF16)
+    ins = bf16_adam_inputs((n + 3,), MOMENTS[moments], seed=11)
+    for off in range(4):
+        check_fused_adam([t[off:off + n] for t in ins], kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moments", sorted(MOMENTS))
+def test_cuda_fused_adam_bf16_params_axis_shard(cuda, moments):
+    """One comm='axis' rank's (1, 89344, 128) DeepFM shard in bf16."""
+    ins = bf16_adam_inputs((1, 89344, 128), MOMENTS[moments], seed=12)
+    check_fused_adam(list(ins), dict(eta=1e-3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moments", sorted(MOMENTS))
+def test_cuda_fused_adam_bf16_params_head_body_and_tail(cuda, moments):
+    """All seven operands 0 .. 7 elements past a 16-byte boundary (the
+    quantum is 8 elements whenever one pair is bf16): the plan's scalar
+    head, its body and its tail in one launch of the C entry."""
+    mdt = MOMENTS[moments]
+    quantum = 8
+    kw = dict(eta=1e-3, beta1=0.9, beta2=0.999, tau=1e-6, weight_decay=0.0)
+    for n in (5, 1000, 3 * tfa.TILE + 11):
+        p, g, m, v = bf16_adam_inputs((n + quantum,), mdt, seed=13)
+        for off in range(quantum):
+            ins = [t[off:off + n] for t in (p, g, m, v)]
+            outs = [torch.empty(n + quantum, dtype=t.dtype,
+                                device="cuda")[off:off + n]
+                    for t in (p, m, v)]
+            ptrs = [t.data_ptr() for t in ins + outs]
+            head, body = tfa.plan(n, m.element_size(), *ptrs, 2)
+            if n >= 2 * quantum:
+                assert body > 0 and head == (-off) % quantum
+            status = tfa._entry()(
+                *ptrs, n, head, body, tfa._consts_arg(*kw.values())[1], 2,
+                m.element_size(), torch.cuda.current_stream().cuda_stream)
+            assert status == 0
+            want = tfa.fused_adam_plain(*ins, **kw)
+            torch.cuda.synchronize()
+            bit_equal(outs, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moments", sorted(MOMENTS))
+@pytest.mark.parametrize("name,workers", [("ring", 2), ("ring", 8),
+                                          ("torus", 8), ("exponential", 8),
+                                          ("ring", 12), ("ring", 3072)])
+def test_cuda_gossip_bf16_params_match_plain(cuda, moments, name, workers):
+    """gossip_mix (16-byte vectors of 8 bf16 elements) and gossip_adam_mix
+    (each half-step rounded through bf16 before the f32 mix) at K = 2 (the
+    LM path), 8 (the main path), 12 and 3072 (the tile's edges)."""
+    topo = make_topology(name, workers)
+    args = (topo.offsets, topo.offset_weights, topo.self_weight)
+    p, g, m, v = bf16_adam_inputs((workers, 12, 128), MOMENTS[moments],
+                                  seed=14)
+    bit_equal([tgossip.gossip_mix(p, *args)],
+              [tgossip.gossip_mix_plain(p, *args)])
+    for kw in (dict(eta=1e-2, weight_decay=1e-4), dict(eta=1e-2, tau=0.0)):
+        got = tgossip.gossip_adam_mix(p, g, m, v, *args, **kw)
+        want = tgossip.gossip_adam_mix_plain(p, g, m, v, *args, **kw)
+        torch.cuda.synchronize()
+        bit_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", GRAPHS)
+@pytest.mark.parametrize("workers", [1, K])
+def test_cuda_consensus_mix_bf16_matches_plain(cuda, name, workers):
+    """K = 1 is one comm='axis' rank's shard with the graph's neighbour
+    copies."""
+    topo = make_topology(name, K)
+    deg = len(topo.offsets)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x, hs, *hns = torch.randn((2 + deg, workers, ROWS, 128), generator=gen,
+                              device="cuda").to(BF16)
+    got = tgossip.consensus_mix(x, hs, hns, topo.offset_weights, 0.4)
+    want = tgossip.consensus_mix_plain(x, hs, hns, topo.offset_weights, 0.4)
+    bit_equal([got], [want])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deg", [1, 2, 5, 32, 33, 70])
+def test_cuda_payload_mix_bf16_matches_plain(cuda, deg):
+    """Past MAX_FUSED_DEGREE payloads the launches chain through an f32
+    sum, so the bf16 result rounds once, as the plain version's."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x, *pay = torch.randn((1 + deg, K, ROWS, 128), generator=gen,
+                          device="cuda").to(BF16)
+    weights = [0.5 / deg] * deg
+    before = tgossip.payload_mix.launches
+    got = tgossip.payload_mix(x, pay, weights, 0.5)
+    assert tgossip.payload_mix.launches - before == -(-deg // 32)
+    bit_equal([got], [tgossip.payload_mix_plain(x, pay, weights, 0.5)])
+
+
+def hat_at_own_scales(got, hat, bounds):
+    """The kernel's bf16 hat equal to the bit to round(hat + scale * q) at
+    the kernel's own scales; ``bounds`` are the segments' element ranges
+    in a worker (the scales (K, L), or (K,) for one segment)."""
+    q, scale, hat_new = got
+    Kw = q.shape[0]
+    sc = scale.reshape(Kw, -1)
+    lengths = torch.tensor([b - a for a, b in bounds], device="cuda")
+    scale_el = torch.repeat_interleave(sc, lengths, dim=1,
+                                       output_size=q[0].numel())
+    want = (hat.reshape(Kw, -1).float()
+            + scale_el * q.reshape(Kw, -1).float()).to(hat.dtype)
+    assert torch.equal(hat_new.reshape(Kw, -1), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["whole", "n_true", "table", "flat_odd",
+                                  "unaligned", "k1_table", "many_segments",
+                                  "repeat_bitwise", "reduce_axis"])
+def test_cuda_sign_compress_bf16_matches_plain(cuda, case):
+    """bf16 x and hat: q equal, the f32 scales within SCALE_TOL, hat_new
+    bf16 and equal to the plain arithmetic at the kernel's scales."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    shape = {"many_segments": (2, 210, 128), "k1_table": (1, 776, 128)}.get(
+        case, (K, 3 * 256 + 8, 128))
+    x = torch.randn(shape, generator=gen, device="cuda").to(BF16)
+    hat = torch.randn(x.shape, generator=gen, device="cuda").to(BF16)
+    n = x[0].numel()
+    rows = ((0, 256), (256, 768), (768, 768), (768, 776))
+    table = dict(row_ranges=rows, n_true=(32768, 40_000, 0, 5))
+    bounds = ((0, n),)
+    kw = {}
+    if case == "n_true":
+        x.reshape(K, -1)[:, 70_000:] = 0
+        hat.reshape(K, -1)[:, 70_000:] = 0
+        kw = dict(n_true=70_000)
+    elif case == "many_segments":
+        rows = tuple((3 * i, 3 * i + 3) for i in range(70))
+        kw = dict(row_ranges=rows,
+                  n_true=tuple(3 * 128 - i for i in range(70)))
+    elif case in ("table", "k1_table", "repeat_bitwise"):
+        kw = table
+    elif case == "reduce_axis":
+        kw = dict(row_ranges=rows, n_true=(2 * 32768, 2 * 65536, 0, 2000),
+                  reduce_axis=lambda s: s + s)
+    if "row_ranges" in kw:
+        bounds = tuple((a * 128, b * 128) for a, b in kw["row_ranges"])
+    if case in ("flat_odd", "unaligned"):   # the scalar path
+        n = 100_001 if case == "flat_odd" else 40_000
+        sl = slice(0, n) if case == "flat_odd" else slice(1, n + 1)
+        xs, hs = x.reshape(-1)[sl], hat.reshape(-1)[sl]
+        got = tsc.sign_compress(xs, hs)
+        want = tsc.sign_compress_plain(xs, hs)
+        xs, hs, bounds = xs.reshape(1, -1), hs.reshape(1, -1), ((0, n),)
+        own = (got[0].reshape(1, -1), got[1], got[2].reshape(1, -1))
+    else:
+        got = tsc.sign_compress_stacked(x, hat, **kw)
+        want = tsc.sign_compress_stacked_plain(x, hat, **kw)
+        hs, own = hat, got
+    torch.cuda.synchronize()
+    assert got[2].dtype == BF16 and got[1].dtype == torch.float32
+    assert torch.equal(got[0], want[0])
+    close([got[1]], [want[1]], **SCALE_TOL)
+    hat_at_own_scales(own, hs, bounds)
+    if case == "repeat_bitwise":
+        again = tsc.sign_compress_stacked(x, hat, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_take_bf16_params_and_refuse_the_rest(cuda):
+    """Each wrapper launches on bf16 buffers and raises, naming the fault,
+    on f16, on parameter-side operands of two dtypes and on CPU tensors."""
+    from repro_torch.kernels import ops
+
+    p, g, m, v = bf16_adam_inputs((K, ROWS, 128), BF16, seed=18)
+    topo = make_topology("ring", K)
+    mix = (topo.offsets, topo.offset_weights, topo.self_weight)
+    calls = {
+        "fused_adam": lambda p, g, m, v: tfa.fused_adam(p, g, m, v,
+                                                        eta=1e-3),
+        "gossip_mix": lambda p, g, m, v: tgossip.gossip_mix(p, *mix),
+        "gossip_adam_mix": lambda p, g, m, v: tgossip.gossip_adam_mix(
+            p, g, m, v, *mix, eta=1e-3),
+        "consensus_mix": lambda p, g, m, v: tgossip.consensus_mix(
+            p, g, (g, p), topo.offset_weights, 0.4),
+        "payload_mix": lambda p, g, m, v: tgossip.payload_mix(
+            p, (g, g), topo.offset_weights, topo.self_weight),
+        "sign_compress_stacked": lambda p, g, m, v:
+            tsc.sign_compress_stacked(p, g, row_ranges=((0, 4), (4, ROWS))),
+        "sign_compress_stacked_reduce": lambda p, g, m, v:
+            tsc.sign_compress_stacked(p, g, reduce_axis=lambda s: s),
+        "sign_compress": lambda p, g, m, v: tsc.sign_compress(p, g),
+    }
+    ops.reset_launches()
+    for call in calls.values():
+        call(p, g, m, v)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert {k: counts[k] for k in calls} == {
+        **{k: 1 for k in calls}, "sign_compress_stacked_reduce": 2}
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="f32 or bf16"):
+            call(p.half(), g.half(), m, v)
+        if name != "gossip_mix":    # it has one buffer
+            with pytest.raises(ValueError, match="one dtype"):
+                call(p, g.float(), m, v)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call(p.cpu(), g.cpu(), m.cpu(), v.cpu())
+    with pytest.raises(ValueError, match="one dtype"):
+        tsc.sign_compress_stacked(p.float(), g)     # bf16 hat, f32 x
+    bad = torch.zeros(K * ROWS * 128 + 1, dtype=BF16,
+                      device="cuda")[1:].view(K, ROWS, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        tgossip.gossip_mix(bad, *mix)
+    with pytest.raises(ValueError, match="aligned"):
+        tgossip.gossip_adam_mix(bad, bad, m, v, *mix, eta=1e-3)

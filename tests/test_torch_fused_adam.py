@@ -3,8 +3,9 @@
 The kernel runs only on the card (``tests/test_torch_cuda.py``); what its
 wrapper works out on the host is held here: the f32 constants against
 the ones JAX's kernel multiplies by, the ``ctypes`` argument types against
-the C prototypes (a pointer passed as a 32-bit int would be cut), and the
-head / body / tail plan against a brute-force split.
+the C prototypes (a pointer passed as a 32-bit int would be cut), those of
+the packed path's other kernels (``gossip.cu``, ``sign_compress.cu``) with
+them, and the head / body / tail plan against a brute-force split.
 """
 import ctypes
 import re
@@ -15,6 +16,8 @@ import numpy as np
 import pytest
 
 from repro_torch.kernels import fused_adam as tfa
+from repro_torch.kernels import gossip as tgossip
+from repro_torch.kernels import sign_compress as tsc
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
@@ -70,20 +73,31 @@ def c_prototypes(path: Path) -> dict:
     return out
 
 
-ENTRIES = {"fused_adam_f32": tfa.ENTRY_ARGTYPES,
-           "fused_adam_f32_bf16m": tfa.ENTRY_ARGTYPES,
-           "fused_adam_grid": tfa.GRID_ARGTYPES}
+FUSED_ADAM_CU = "src/repro_torch/csrc/fused_adam.cu"
+# {(source, C entry): the argtypes its wrapper sets}: every entry of the
+# packed path's sources, one a kernel (it takes the element widths), and
+# the register-only design that scripts/fused_adam_ab.py calls as the kept
+# kernel is called
+ENTRIES = {
+    (FUSED_ADAM_CU, "fused_adam"): tfa.ENTRY_ARGTYPES,
+    (FUSED_ADAM_CU, "fused_adam_grid"): tfa.GRID_ARGTYPES,
+    **{("src/repro_torch/csrc/gossip.cu", name): argtypes
+       for name, argtypes in tgossip.ARGTYPES.items()},
+    ("src/repro_torch/csrc/sign_compress.cu", "sign_compress"):
+        tsc.ENTRY_ARGTYPES,
+    ("src/repro_torch/csrc/sign_compress.cu", "sign_compress_grid"):
+        tsc.GRID_ARGTYPES,
+    ("scripts/fused_adam_regs.cu", "fused_adam"): tfa.ENTRY_ARGTYPES}
 
 
-@pytest.mark.parametrize("source,name", [
-    ("src/repro_torch/csrc/fused_adam.cu", name) for name in ENTRIES] + [
-    ("scripts/fused_adam_regs.cu", "fused_adam_f32"),
-    ("scripts/fused_adam_regs.cu", "fused_adam_f32_bf16m")])
+@pytest.mark.parametrize("source,name", sorted(ENTRIES))
 def test_fused_adam_argtypes_match_the_c_prototypes(source, name):
+    """The entry's parameters are the argtypes its wrapper sets, and the
+    source has no entry that no wrapper loads."""
     protos = c_prototypes(ROOT / source)
-    assert protos[name] == ENTRIES[name]
+    assert protos[name] == ENTRIES[source, name]
     if source.startswith("src/"):
-        assert sorted(protos) == sorted(ENTRIES)
+        assert sorted(protos) == sorted(n for s, n in ENTRIES if s == source)
 
 
 def test_tile_is_the_kernels():
