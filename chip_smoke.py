@@ -96,7 +96,8 @@ script exits non-zero without the final ``ok`` line:
    examples, one signal per worker) on full-width DeepFM, K=8 packed
    D-Adam at p=4, 20 steps through ``DecentralizedTrainer(damping=)``:
    the D-Adam launches, every worker's chunk count non-decreasing in
-   [1, 8], the evaluations their sum, the loss falling; step times, a
+   [1, 8], the evaluations their sum, the loss falling, one step
+   signature under ``recompile_limit=1``; step times, a
    profile of one period, the peak; then card vs CPU as in 7, damped,
    the per-worker counts equal on both devices and parting between
    workers;
@@ -205,8 +206,13 @@ script exits non-zero without the final ``ok`` line:
    rank's block equal to the bit to its block of the stacked K=4 -> 2 run
    in the (2, 4) layout, the launches exact.
 34. examples (before lm_example): the ports of examples/quickstart.py,
-   serve_lm.py and online_serve.py as a user runs them on the card, their
-   launches exact (``EXAMPLES``).
+   serve_lm.py, online_serve.py and compressed_comm.py as a user runs
+   them on the card, their launches exact (``EXAMPLES``); compressed_comm
+   with ``--backend packed`` (150 steps at p=4: D-Adam's 113 ``fused_adam``
+   and 37 ``gossip_adam_mix``, sign CD-Adam's 150 ``fused_adam`` and 37
+   each of ``sign_compress_stacked`` and ``consensus_mix``; top-k and
+   quantize on the reference backend), each row's comm MB the JAX
+   accounting's;
 35. invariants (after axis2d): ``repro_torch.analysis``'s gate on the
    card: the sweep's 20 stacked configs (reference and packed x D-Adam
    and CD-Adam x plain, schedule, stale, overlap, damping; one period
@@ -232,6 +238,13 @@ script exits non-zero without the final ``ok`` line:
    sign kernel record on its trained bf16 state) and D-Adam with
    staleness 2 at straggler rate 0.3 (payload_mix on bf16 buffers), each
    run's launches exact.
+38. claims (after examples): the paper's four claims on the card, the
+   six runs of tests/test_system.py (K=8 ring, DeepFM at 8 fields x 32
+   features, hidden (32, 32), 32 examples a worker, 120 steps) through
+   ``launch.deepfm_ctr.run``: D-Adam at p = 1, 4, 8 and 8 and sign
+   CD-Adam at p = 4 packed, D-PSGD on the reference backend; each run's
+   launches exact and its comm MB the JAX accounting's, and the claims at
+   that file's thresholds (``CLAIMS``).
 
 lm_train and lm_train_bf16 also record their model FLOPs (6 N D) and
 MFU at the card's bf16 peak, and each serving phase the MFU of its big
@@ -243,7 +256,9 @@ each step's card side and comparison run in the main thread between two
 phases once its CPU side is ready, the last before lm_example.
 
 Every phase's line holds ``elapsed_s``, the seconds since the script
-started.
+started. Every profile is read through ``profile_tables`` (the
+profiler's raw kineto events), not through torch's FunctionEvent list,
+whose building takes tens of seconds for one LM period.
 
 The kernels phase holds every bf16-param form at the DeepFM shape too
 (``fused_adam`` and ``gossip_adam_mix`` with bf16 params and bf16 or f32
@@ -681,9 +696,63 @@ LM_EXAMPLE_LAUNCHES = {"fused_adam": 9, "gossip_adam_mix": 3}
 # launch per layer per prefill) and online_serve (K=8 packed D-Adam at
 # p=4, 60 steps, publishing every 20: fused_adam on the 45 local steps,
 # gossip_adam_mix on the 15 comm steps)
-EXAMPLES = (("quickstart", {}),
-            ("serve_lm", {"flash_attention": 2 * 3 * 2}),
-            ("online_serve", {"fused_adam": 45, "gossip_adam_mix": 15}))
+# gossip_adam_mix on the 15 comm steps), and the compressor study
+# (compressed_comm, the port of examples/compressed_comm.py, at its 150
+# steps on --backend packed: its D-Adam and sign rows on the packed path,
+# its top-k and quantize rows on the reference one, which launches no
+# kernel): (name, arguments beside --device, launches)
+COMPRESSED_STEPS, COMPRESSED_PERIOD = 150, 4
+
+
+def dadam_launches(steps: int, period: int) -> collections.Counter:
+    """Packed synchronous D-Adam on a stacked ring: ``fused_adam`` on each
+    local step, one ``gossip_adam_mix`` (the Adam step and the mix in one
+    pass) on each comm step, every ``period``-th."""
+    comm = steps // period
+    return collections.Counter(fused_adam=steps - comm,
+                               gossip_adam_mix=comm)
+
+
+def cdadam_launches(steps: int, period: int) -> collections.Counter:
+    """Packed sign CD-Adam on a stacked ring: ``fused_adam`` on every step,
+    one ``sign_compress_stacked`` and one ``consensus_mix`` on each comm
+    step."""
+    comm = steps // period
+    return collections.Counter(fused_adam=steps, sign_compress_stacked=comm,
+                               consensus_mix=comm)
+
+
+EXAMPLES = (("quickstart", [], {}),
+            ("serve_lm", [], {"flash_attention": 2 * 3 * 2}),
+            ("online_serve", [], {"fused_adam": 45, "gossip_adam_mix": 15}),
+            ("compressed_comm", ["--backend", "packed"], dict(
+                dadam_launches(COMPRESSED_STEPS, COMPRESSED_PERIOD)
+                + cdadam_launches(COMPRESSED_STEPS, COMPRESSED_PERIOD))))
+# each row's comm MB after its 150 steps: the JAX package's byte accounting
+# for the example's configuration (tests/test_torch_compressed_comm.py
+# holds the port's equal to it), exact
+COMPRESSED_COMM_MB = {"full precision": 3.618896000000003,
+                      "sign (paper)": 0.9073879999999998,
+                      "topk 1/16 [reference]": 0.45347199999999976,
+                      "quantize 16 levels [reference]": 0.9073879999999998}
+# the paper's four claims (tests/test_system.py, tests/test_torch_system.py)
+# on the card: its six runs (K=8 ring, DeepFM 8 fields x 32 features, embed
+# 10, hidden (32, 32), 32 examples a worker, 120 steps at eta 1e-3; AUC of
+# the consensus mean on 256 held-out examples a worker from seed 999) at its
+# thresholds, D-Adam and CD-Adam packed, D-PSGD on the reference backend
+# (it has no kernel backend): (name, kind, options, comm MB). The comm MB
+# is the JAX package's byte accounting for each run, exact
+CLAIMS_STEPS = 120
+CLAIMS_RUN = dict(hidden=(32, 32), per_worker=32, heldout=(256, 999))
+CLAIMS = (("vanilla p=1", "d-adam", dict(period=1), 6.238080000000003),
+          ("fig1 p=4", "d-adam", dict(period=4), 1.5595200000000007),
+          ("fig1 p=8", "d-adam", dict(period=8), 0.7797600000000003),
+          ("fig2 p=8", "d-adam", dict(period=8), 0.7797600000000003),
+          ("fig34 cd-adam sign p=4", "cd-adam",
+           dict(period=4, gamma=GAMMA, compressor="sign"),
+           0.3920400000000002),
+          ("d-psgd", "d-psgd", dict(backend="reference"),
+           6.238080000000003))
 # CD-Adam at full width cut to 4 layers (16 would take about 100 GB):
 # fused_adam on all 8 steps, sign_compress_stacked and consensus_mix once
 # per comm step
@@ -1901,11 +1970,77 @@ def card_profile():
         yield prof
 
 
-def card_events(prof):
-    """The profile's aggregated CUDA kernel events, the pad left out."""
-    return [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")
-            and PAD_KERNEL not in e.key]
+# names torch's profiler leaves out of its FunctionEvent list
+PROFILER_FILTERED = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new",
+    "profiler::_record_function_exit", "aten::is_leaf", "aten::output_nr",
+    "aten::_version"))
+
+
+@dataclasses.dataclass
+class ProfileTables:
+    """What the smoke reads from a profile: ``kernels``, name -> [device
+    µs, launches] of the card's activities (kernels, copies, fills), the
+    pad left out; ``torch_calls``, the top-level ``aten::`` ops by name
+    (each a call from Python); ``ranges``, each ``repro_torch.`` range's
+    device ms (the card time of the ops inside it) and calls."""
+
+    kernels: dict
+    torch_calls: collections.Counter
+    ranges: dict
+
+
+def profile_tables(prof) -> ProfileTables:
+    """The sums that ``key_averages()`` and ``events()`` give, read from
+    the profiler's raw kineto events: torch builds its FunctionEvent list
+    at ~70 µs an event, tens of seconds for a model's period (20.6 s of
+    lm_train's, against 1.8 s here, with equal sums; NVIDIA H100 80GB
+    HBM3 host), to give the device time of each activity name and the CPU
+    ops without a CPU parent. As torch does, a CPU op's parent is the
+    innermost op on its thread that spans it, and an op whose start and
+    end threads differ is async and has none. A profile that holds a
+    ``repro_torch.`` range (CD-Adam's periods: a few hundred ops) takes
+    the ranges from ``key_averages()``."""
+    from torch.autograd import DeviceType
+
+    kernels, threads, calls = {}, {}, collections.Counter()
+    has_ranges = False
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name in PROFILER_FILTERED:
+            continue
+        if e.device_type() == DeviceType.CUDA:
+            # a range shows on the card's timeline too, as no activity
+            if PAD_KERNEL in name or name.startswith("repro_torch."):
+                continue
+            got = kernels.setdefault(name, [0.0, 0])
+            got[0] += (e.end_ns() - e.start_ns()) / 1e3
+            got[1] += 1
+        elif e.device_type() == DeviceType.CPU:
+            has_ranges |= name.startswith("repro_torch.")
+            if e.is_async() or e.start_thread_id() != e.end_thread_id():
+                if name.startswith("aten::"):
+                    calls[name] += 1
+                continue
+            threads.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), -e.end_ns(), name))
+    for evs in threads.values():
+        evs.sort()
+        ends = []       # the ends of the open ops, outermost first
+        for start, neg_end, name in evs:
+            while ends and (start >= ends[-1] or -neg_end > ends[-1]):
+                ends.pop()
+            if not ends and name.startswith("aten::"):
+                calls[name] += 1
+            ends.append(-neg_end)
+    ranges = {}
+    if has_ranges:
+        for e in prof.key_averages():
+            if e.key.startswith("repro_torch."):
+                ranges[e.key] = {"device_ms": e.device_time_total / 1e3,
+                                 "calls": e.count}
+    return ProfileTables(kernels, calls, ranges)
 
 
 def launched_kernels(fn) -> list:
@@ -1914,28 +2049,27 @@ def launched_kernels(fn) -> list:
     with card_profile() as prof:
         fn()
         torch.cuda.synchronize()
-    return sorted({e.key[:60] for e in card_events(prof)})
+    return sorted({k[:60] for k in profile_tables(prof).kernels})
 
 
-def check_no_old_sign_kernel(prof, what: str) -> None:
-    """Raise if the profile recorded a launch of one of the three kernels
-    that the persistent sign_compress kernel replaced."""
-    old = sorted({e.key[:60] for e in card_events(prof)
-                  if OLD_SIGN_KERNEL.search(e.key)})
+def check_no_old_sign_kernel(kernels: dict, what: str) -> None:
+    """Raise if a profile's ``kernels`` (``ProfileTables.kernels``) hold a
+    launch of one of the three kernels that the persistent sign_compress
+    kernel replaced."""
+    old = sorted({k[:60] for k in kernels if OLD_SIGN_KERNEL.search(k)})
     if old:
         raise AssertionError(f"{what}: the profile recorded {old}, kernels "
                              f"of the replaced sign_compress design")
 
 
-def matched_device_us(prof, names) -> tuple[float, int]:
-    """(device µs, calls) of the profiled CUDA kernels whose name holds
-    one of ``names``."""
+def matched_device_us(kernels: dict, names) -> tuple[float, int]:
+    """(device µs, calls) of the kernels of a profile's ``kernels`` whose
+    name holds one of ``names``."""
     us, calls = 0.0, 0
-    for e in card_events(prof):
-        if any(n in e.key for n in names):
-            t = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if t is None else t
-            calls += e.count
+    for k, (t, n) in kernels.items():
+        if any(name in k for name in names):
+            us += t
+            calls += n
     return us, calls
 
 
@@ -1960,9 +2094,10 @@ def device_kernel_ms(fn, kernel, reps: int = REPS, attempts: int = 3,
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        kernels = profile_tables(prof).kernels
         if not old_ok:
-            check_no_old_sign_kernel(prof, str(kernel))
-        us, calls = matched_device_us(prof, names)
+            check_no_old_sign_kernel(kernels, str(kernel))
+        us, calls = matched_device_us(kernels, names)
         if per_call is not None and calls > per_call * reps:
             raise AssertionError(f"{kernel}: {calls} launches in {reps} "
                                  f"calls, not {per_call} a call")
@@ -2392,35 +2527,21 @@ def device_profile(fn, kernel_names=(), old_ok: bool = False):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    tables = profile_tables(prof)
     if not old_ok:
-        check_no_old_sign_kernel(prof, "device_profile")
-    rows, ranges = [], {}
-    for e in prof.key_averages():
-        if e.key.startswith("repro_torch."):
-            total = getattr(e, "device_time_total", None)
-            if total is None:
-                total = e.cuda_time_total
-            got = ranges.setdefault(e.key, {"device_ms": 0.0, "calls": 0})
-            got["device_ms"] = max(got["device_ms"], total / 1e3)
-            got["calls"] = max(got["calls"], e.count)
-            continue
-        if not str(e.device_type).endswith("CUDA") or PAD_KERNEL in e.key:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        rows.append((us / 1e3, e.count, e.key[:90]))
-    rows.sort(reverse=True)
+        check_no_old_sign_kernel(tables.kernels, "device_profile")
+    rows = sorted(((us / 1e3, n, k[:90])
+                   for k, (us, n) in tables.kernels.items()), reverse=True)
     device_ms = sum(r[0] for r in rows)
-    calls = collections.Counter(
-        e.name for e in prof.events()
-        if e.cpu_parent is None and e.name.startswith("aten::"))
-    kernel_us, kernel_calls = matched_device_us(prof, kernel_names)
+    calls = tables.torch_calls
+    kernel_us, kernel_calls = matched_device_us(tables.kernels,
+                                                kernel_names)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "kernel_ms": kernel_us / 1e3, "kernel_calls": kernel_calls,
             "busy_share": device_ms / wall_ms if wall_ms else None,
             "torch_calls": sum(calls.values()),
-            "torch_calls_top": calls.most_common(8), "ranges": ranges,
+            "torch_calls_top": calls.most_common(8),
+            "ranges": tables.ranges,
             "top": [{"kernel": k, "ms": ms, "calls": n}
                     for ms, n, k in rows[:16]]}
 
@@ -4649,6 +4770,22 @@ def phase_serve_whisper(cfg=None, buckets=SERVE_WHISPER_BUCKETS,
 # ------------------------- damping and vision --------------------------------
 
 
+def watch_cost_us(*args, calls: int = 200) -> float:
+    """Median host µs of one ``observe`` and ``check`` of a recompile
+    watch over ``args`` (what ``fit`` adds to a step under
+    ``recompile_limit``), over ``calls`` calls."""
+    from repro_torch.analysis.recompile import SignatureWatch
+
+    watch = SignatureWatch("cost", limit=1)
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        watch.observe(*args)
+        watch.check()
+        times.append((time.perf_counter() - t0) * 1e6)
+    return statistics.median(times)
+
+
 def phase_damped():
     """Adaptive batch damping on the paper's experiment at full width
     through ``DecentralizedTrainer(damping=...).fit``: the launch counters
@@ -4690,7 +4827,8 @@ def phase_damped():
     torch.cuda.reset_peak_memory_stats()
     opt = make_optimizer("d-adam", K=K, eta=ETA, period=DAMPED_PERIOD,
                          backend="packed", device=DEVICE)
-    trainer = DecentralizedTrainer(deepfm_loss, opt, damping=dcfg)
+    trainer = DecentralizedTrainer(deepfm_loss, opt, damping=dcfg,
+                                   recompile_limit=1)
     state = trainer.init(init_deepfm(
         torch.Generator(device=DEVICE).manual_seed(0), task.n_features,
         task.n_fields, FULL["embed_dim"], FULL["hidden"]))
@@ -4708,6 +4846,12 @@ def phase_damped():
     launches = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_launches("damped", launches, DAMPED_LAUNCHES)
+    # every level of every worker ran one step signature (limit 1, so fit
+    # raises on a second)
+    signatures = len(trainer.recompile_watch.signatures)
+    if signatures != 1:
+        raise AssertionError(f"damped: {signatures} step signatures")
+    watch_us = watch_cost_us(state, trainer.damp_state, next(batches))
     per_step = torch.stack(counts[:DAMPED_STEPS]).tolist()
     flat = [c for row in per_step for c in row]
     if (min(flat) < 1 or max(flat) > dcfg.max_chunks
@@ -4739,7 +4883,9 @@ def phase_damped():
     emit({"phase": "damped", "damping": DAMPING, "K": K,
           "period": DAMPED_PERIOD, "steps": DAMPED_STEPS, **FULL,
           "hidden": list(FULL["hidden"]),
-          "chunk_counts": per_step, "losses": log.loss,
+          "chunk_counts": per_step, "step_signatures": signatures,
+          "watch_us": watch_us,
+          "losses": log.loss,
           "heldout_loss_before_after": heldout,
           "grad_evals": log.grad_evals, "auc_after_fit": auc,
           "comm_mb": log.comm_mb[-1], "peak_mem_gb": peak_gb,
@@ -5553,23 +5699,25 @@ def phase_lm_example():
 
 
 def phase_examples():
-    """quickstart, serve_lm and online_serve (``repro_torch.launch``) as a
-    user runs them (``main(["--device", DEVICE])``), the launch counters
-    zeroed just before each and read just after: EXAMPLES' launches and
-    no other kernel; the quickstart's losses finite and falling, serve_lm
-    serving version 2 after its hot swap, online_serve's versions at
-    steps 20, 40 and 60. Returns the launches summed."""
+    """quickstart, serve_lm, online_serve and compressed_comm
+    (``repro_torch.launch``) as a user runs them (``main(["--device",
+    DEVICE, ...])``), the launch counters zeroed just before each and read
+    just after: EXAMPLES' launches and no other kernel; the quickstart's
+    losses finite and falling, serve_lm serving version 2 after its hot
+    swap, online_serve's versions at steps 20, 40 and 60, compressed_comm's
+    four rows in order with finite losses, AUCs above 0.5 and each row's
+    comm MB equal to COMPRESSED_COMM_MB. Returns the launches summed."""
     import importlib
 
     from repro_torch.kernels import ops
 
     total = collections.Counter()
     rec = {"phase": "examples"}
-    for name, want in EXAMPLES:
+    for name, args, want in EXAMPLES:
         mod = importlib.import_module(f"repro_torch.launch.{name}")
         torch.cuda.synchronize()
         ops.reset_launches()
-        out, wall_ms = synced(lambda: mod.main(["--device", DEVICE]))
+        out, wall_ms = synced(lambda: mod.main(["--device", DEVICE] + args))
         launches = ops.launch_counts()
         check_launches(f"examples {name}", launches, want)
         total.update(launches)
@@ -5586,7 +5734,7 @@ def phase_examples():
                                      "hot swap")
             got = {"last_version": out.engine.last_version,
                    "compile_counts": out.engine.compile_counts}
-        else:
+        elif name == "online_serve":
             result, auc_v = out
             if result.published != [(20, 1), (40, 2), (60, 3)] or \
                     not math.isfinite(auc_v):
@@ -5594,8 +5742,74 @@ def phase_examples():
                                      f"AUC {auc_v}")
             got = {"published": result.published, "auc": auc_v,
                    "loss": result.log.loss[-1]}
+        else:
+            mb = {r.label: r.comm_mb for r in out}
+            if list(mb) != list(COMPRESSED_COMM_MB) or mb != \
+                    COMPRESSED_COMM_MB or not all(
+                        math.isfinite(r.loss) and 0.5 < r.auc < 1.0
+                        for r in out):
+                raise AssertionError(f"compressed_comm: rows {out}")
+            got = {"rows": [r._asdict() for r in out]}
         rec[name] = {**got, "wall_ms": wall_ms, "launches": launches}
     emit(rec)
+    return dict(total)
+
+
+def phase_claims():
+    """The paper's four claims on the card (CLAIMS, the runs of
+    tests/test_system.py through ``launch.deepfm_ctr.run``), the launch
+    counters zeroed just before each run and read just after: each run's
+    launches exact (``dadam_launches``, ``cdadam_launches``; none for
+    D-PSGD) and its comm MB the JAX accounting's; then Fig. 1 (p = 4 and 8
+    within 1.35x + 0.05 of p = 1's loss and 0.05 of its AUC), Fig. 2 (p =
+    8's bytes under 1/6 of p = 1's), Figs. 3-4 (CD-Adam's AUC within 0.06
+    of p = 1's at under 1/12 of its bytes), Adam's AUC 0.03 above
+    D-PSGD's, and p = 1's AUC above 0.62. One record with each run's loss,
+    AUC, comm MB, wall ms and launches. Returns the launches summed."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import deepfm_ctr
+
+    total = collections.Counter()
+    runs = {}
+    for name, kind, kw, want_mb in CLAIMS:
+        kw = {"backend": "packed", **kw}
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        res, wall_ms = synced(lambda: deepfm_ctr.run(
+            name, "deepfm", kind, CLAIMS_STEPS, device=DEVICE, **CLAIMS_RUN,
+            **kw))
+        launches = ops.launch_counts()
+        if kw["backend"] == "reference":
+            want = {}
+        elif kind == "cd-adam":
+            want = cdadam_launches(CLAIMS_STEPS, kw["period"])
+        else:
+            want = dadam_launches(CLAIMS_STEPS, kw["period"])
+        check_launches(f"claims {name}", launches, want)
+        total.update(launches)
+        mb = res.log.comm_mb[-1]
+        if mb != want_mb or not math.isfinite(res.log.loss[-1]):
+            raise AssertionError(f"claims {name}: loss {res.log.loss[-1]}, "
+                                 f"comm {mb} MB != {want_mb}")
+        runs[name] = {"loss": res.log.loss[-1], "auc": res.auc,
+                      "comm_mb": mb, "wall_ms": wall_ms,
+                      "launches": launches}
+        del res
+    v, sign, sgd = runs["vanilla p=1"], runs["fig34 cd-adam sign p=4"], \
+        runs["d-psgd"]
+    claims = {
+        "fig1": all(runs[n]["loss"] < v["loss"] * 1.35 + 0.05
+                    and runs[n]["auc"] > v["auc"] - 0.05
+                    for n in ("fig1 p=4", "fig1 p=8")),
+        "fig2": runs["fig2 p=8"]["comm_mb"] < v["comm_mb"] / 6,
+        "fig34": sign["auc"] > v["auc"] - 0.06
+        and sign["comm_mb"] < v["comm_mb"] / 12,
+        "adam_beats_sgd": v["auc"] > sgd["auc"] + 0.03,
+        "learns": v["auc"] > 0.62}
+    emit({"phase": "claims", "steps": CLAIMS_STEPS, "K": K, **CLAIMS_RUN,
+          "claims": claims, "runs": runs})
+    if not all(claims.values()):
+        raise AssertionError(f"claims: {claims}")
     return dict(total)
 
 
@@ -5942,6 +6156,7 @@ def run_phases(lm_cpu: LMCPUSides, records: list, by_path: dict,
      lm_sign_bf16) = step(phase_lm_bf16p_paths())
     records.append(lm_sign_bf16)
     by_path["examples"] = step(phase_examples())
+    by_path["claims"] = step(phase_claims())
     lm_cpu.finish()
     by_path["lm_example"] = phase_lm_example()
     lm_shape = {"float32": f32_rec["lm_shape"],

@@ -30,6 +30,8 @@ from repro_torch.train.loop import DecentralizedTrainer, TrainLog
 from repro_torch.train.metrics import auc
 
 K = 8
+# one printed row of the comparison (examples/deepfm_ctr.py's format)
+ROW = "{name:28s} loss={loss:.4f} AUC={auc:.4f} comm={mb:8.1f} MB"
 MODELS = {
     "deepfm": (init_deepfm, deepfm_loss, deepfm_logits),
     "widedeep": (init_widedeep, widedeep_loss, widedeep_logits),
@@ -54,10 +56,12 @@ def batch_stream(teacher: CTRTeacher, per_worker: int,
 
 
 def heldout_auc(teacher: CTRTeacher, params: Any,
-                logits_fn: Callable, per_worker: int = 512) -> float:
+                logits_fn: Callable, per_worker: int = 512,
+                seed: int = 99) -> float:
     """AUC of the consensus-mean ``params`` on a held-out batch of
-    ``per_worker`` examples from each worker's distribution."""
-    gen = torch.Generator(device=teacher.embed.device).manual_seed(99)
+    ``per_worker`` examples from each worker's distribution, drawn from a
+    generator seeded ``seed``."""
+    gen = torch.Generator(device=teacher.embed.device).manual_seed(seed)
     test = ctr_batch_stacked(teacher, gen, K, per_worker)
     ids = test["feat_ids"].reshape(1, -1, teacher.n_fields)
     one = tree_map(lambda x: x[None], params)
@@ -73,14 +77,17 @@ def run(name: str = "d-adam p=4", model: str = "deepfm",
         backend: str = "packed", device: "str | torch.device" = "cuda",
         topology: Any = "ring", log_every: Optional[int] = None,
         hook: Optional[Callable[[int, Any], None]] = None,
-        hook_every: int = 0, **opt_kw) -> RunResult:
+        hook_every: int = 0, heldout: Tuple[int, int] = (512, 99),
+        row: str = ROW, **opt_kw) -> RunResult:
     """Train one row of the comparison and print its loss, AUC and comm
     MB. The defaults are the example's sizes (8 fields x 32 features,
     hidden (64, 64)); the paper's widths are 39 fields x 25,000 features,
     embedding 10 and hidden (400, 400, 400). ``topology`` is a zoo name, a
     schedule spec (``"one-peer-exp"``) or a built one. ``log_every``
     defaults to logging the last step only; ``hook``/``hook_every`` go to
-    ``fit``."""
+    ``fit``. The AUC is ``heldout_auc``'s on ``heldout = (per_worker,
+    seed)``; ``row`` formats the printed line from ``name``, ``loss``,
+    ``auc`` and ``mb``."""
     dev = resolve_device(device)
     task = make_ctr_task(seed=0, n_fields=n_fields,
                          features_per_field=features_per_field,
@@ -97,9 +104,10 @@ def run(name: str = "d-adam p=4", model: str = "deepfm",
     state, log = trainer.fit(state, batches, steps,
                              log_every=log_every or steps,
                              hook=hook, hook_every=hook_every)
-    a = heldout_auc(teacher, trainer.averaged_params(state), logits_fn)
-    print(f"{name:28s} loss={log.loss[-1]:.4f} AUC={a:.4f} "
-          f"comm={log.comm_mb[-1]:8.1f} MB", flush=True)
+    a = heldout_auc(teacher, trainer.averaged_params(state), logits_fn,
+                    *heldout)
+    print(row.format(name=name, loss=log.loss[-1], auc=a,
+                     mb=log.comm_mb[-1]), flush=True)
     return RunResult(trainer, state, log, a, teacher, batches)
 
 

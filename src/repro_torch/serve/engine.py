@@ -49,18 +49,21 @@ The positions, the rewind and the rotating slot are host ints, so no
 decode step reads the device; the tokens stay on the device until the
 final ``stack``. JAX pins one compiled program per bucket with
 ``RecompileWatch``; the port runs eagerly and keeps the same contract with
-:class:`SignatureWatch` over the leaf shapes and dtypes of each phase's
-inputs (CUDA-graph capture per bucket is later work).
+:class:`~repro_torch.analysis.recompile.SignatureWatch` (the trainer's
+too) over the signature of each phase's inputs: their structure, each
+tensor's shape, dtype and device, each host value's type (CUDA-graph
+capture per bucket is later work).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, \
+from typing import Any, Callable, List, NamedTuple, Optional, \
     Sequence, Tuple
 
 import torch
 
-from repro_torch._tree import tree_leaves, tree_map
+from repro_torch._tree import tree_map
+from repro_torch.analysis.recompile import RecompileError, SignatureWatch
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import attention, hybrid, rwkv6, whisper
 from repro_torch.models.registry import build_model, impl_kwargs
@@ -252,37 +255,6 @@ def select_bucket(buckets: Sequence[Tuple[int, int]], batch: int, seq: int,
     fits = [b for b in fits if b[1] == best_seq]
     exact = [b for b in fits if b[0] >= batch]
     return min(exact) if exact else max(fits)
-
-
-class RecompileError(RuntimeError):
-    pass
-
-
-class SignatureWatch:
-    """Counts the distinct input signatures of one engine phase: the
-    shapes, dtypes and devices of every tensor leaf (host ints such as the
-    cache index are not part of it). More than ``limit`` means the bucket
-    set was escaped; :meth:`check` raises then."""
-
-    def __init__(self, name: str, limit: int):
-        self.name = name
-        self.limit = int(limit)
-        self.signatures: Dict[Any, int] = {}
-
-    def observe(self, *trees: Any) -> int:
-        sig = tuple((tuple(x.shape), x.dtype, x.device)
-                    for x in tree_leaves(list(trees))
-                    if isinstance(x, torch.Tensor))
-        self.signatures[sig] = self.signatures.get(sig, 0) + 1
-        return len(self.signatures)
-
-    def check(self) -> None:
-        n = len(self.signatures)
-        if n > self.limit:
-            raise RecompileError(
-                f"`{self.name}` saw {n} distinct input signatures (limit "
-                f"{self.limit}): each one is a program shape outside the "
-                "bucket set. Pad requests into the buckets")
 
 
 class DecodeEngine:

@@ -38,6 +38,7 @@ import torch.distributed as dist
 
 from repro_torch._tree import (tree_flatten, tree_leaves, tree_map,
                                tree_unflatten)
+from repro_torch.analysis.recompile import SignatureWatch
 from repro_torch.core.api import DecentralizedOptimizer
 from repro_torch.core.dadam import consensus_error, mean_params
 from repro_torch.kernels import pack as packing
@@ -135,9 +136,16 @@ class DecentralizedTrainer:
     ``sharded_loss``: the model-parallel loss of the 2D layout's
     ``'sharded-packed'`` grad pipeline, ``(chunks, batch, ctx) ->
     scalar`` (``train.grad``); without a 2D optimizer it is not used.
-    ``plan`` (GSPMD sharding constraints) and ``recompile_limit`` (a
-    guard on jit recompiles) have no torch meaning yet and raise
-    ``NotImplementedError`` when given.
+    ``recompile_limit``: the JAX trainer's recompile gate. Each
+    rebind (construction, ``resize``, an lr-decay rebuild) makes a fresh
+    ``analysis.recompile.SignatureWatch`` named ``"trainer.step"``
+    (``recompile_watch``, ``None`` when the option is not given), and
+    ``fit`` observes each step's ``(state, batch)``, or ``(state,
+    damp_state, batch)`` when damped, and raises ``RecompileError`` past
+    the limit: damping levels keep one signature, a batch-shape change
+    does not. ``plan`` (GSPMD sharding constraints) has no torch meaning
+    yet; the grad pipeline raises ``NotImplementedError`` when it is
+    given.
     """
 
     def __init__(self, loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
@@ -145,10 +153,6 @@ class DecentralizedTrainer:
                  sharded_loss: Optional[Callable] = None, plan: Any = None,
                  recompile_limit: Optional[int] = None,
                  damping: "None | str | DampingConfig" = None):
-        if recompile_limit is not None:
-            raise NotImplementedError(
-                "recompile_limit guards jit recompiles, which the eager port "
-                "does not have yet (ROADMAP queue 4: tooling)")
         self.loss_fn = loss_fn
         self._microbatch = microbatch
         self._sharded_loss = sharded_loss
@@ -160,12 +164,16 @@ class DecentralizedTrainer:
                 "chunk count); pass damping= OR microbatch=, not both")
         self.damp_state: Optional[DampingState] = None
         self._lr_decays = 0
+        self._recompile_limit = recompile_limit
+        self.recompile_watch: Optional[SignatureWatch] = None
         self._build(opt)
 
     def _build(self, opt: DecentralizedOptimizer) -> None:
         """(Re)bind the trainer to an optimizer and its grad pipeline: at
         construction, on an elastic resize and on a damping lr decay. The
-        damping state is made once and kept across rebinds."""
+        damping state is made once and kept across rebinds; the recompile
+        watch is made fresh at each, since each is one legitimate new
+        program shape."""
         self.opt = opt
         dcfg = self._damping
         self.pipeline = make_grad_pipeline(
@@ -176,6 +184,9 @@ class DecentralizedTrainer:
         if dcfg is not None and self.damp_state is None:
             self.damp_state = damping_mod.init_damping(dcfg, opt.K,
                                                        opt.device)
+        if self._recompile_limit is not None:
+            self.recompile_watch = SignatureWatch("trainer.step",
+                                                  self._recompile_limit)
 
     def init(self, params: PyTree) -> Any:
         """Stack one worker's ``params`` K times and build the optimizer
@@ -361,8 +372,13 @@ class DecentralizedTrainer:
         evals_per_step = self.opt.K * self.pipeline.microbatch
         t0 = time.perf_counter()
         for t in range(steps):
-            state, loss = self.step(state,
-                                    self._place_batch(next(batch_iter)))
+            batch = self._place_batch(next(batch_iter))
+            watch = self.recompile_watch
+            if watch is not None:
+                watch.observe(*((state, self.damp_state, batch) if damped
+                                else (state, batch)))
+                watch.check()
+            state, loss = self.step(state, batch)
             # the optimizer communicates when its cumulative step count
             # is a multiple of the period, also across resumed fits
             if (step0 + t + 1) % self.opt.cfg.period == 0:

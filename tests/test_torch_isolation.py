@@ -58,7 +58,8 @@ def test_importing_the_port_loads_no_jax():
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.core.api import make_optimizer
     from repro_torch.data.synthetic import ctr_teacher, make_ctr_task
-    from repro_torch.launch import decentralized_lm, deepfm_ctr
+    from repro_torch.launch import compressed_comm, decentralized_lm, \
+        deepfm_ctr
     from repro_torch.models.deepfm import deepfm_loss
     from repro_torch.train.loop import DecentralizedTrainer
 
@@ -75,6 +76,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         deepfm_ctr.run(steps=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         decentralized_lm.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compressed_comm.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         ctr_teacher(make_ctr_task(0, 2, 4))
     # asking for the CPU is the one way to run without a card

@@ -194,12 +194,15 @@ def test_stack_params_with_an_injected_init():
 
 def test_trainer_options_not_ported_raise():
     opt = make_optimizer("d-adam", K, device="cpu")
-    # recompile_limit and plan wait for the tooling queue; sharded_loss is
-    # the 2D layout's (tests/test_torch_grad_2d.py) and, without a 2D
-    # optimizer, is not used, as in JAX
-    for kw in (dict(recompile_limit=2), dict(plan=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 4"):
-            DecentralizedTrainer(deepfm.deepfm_loss, opt, **kw)
+    # plan waits for the tooling queue; sharded_loss is the 2D layout's
+    # (tests/test_torch_grad_2d.py) and, without a 2D optimizer, is not
+    # used, as in JAX
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 4"):
+        DecentralizedTrainer(deepfm.deepfm_loss, opt, plan=object())
+    # recompile_limit is ported (tests/test_torch_recompile.py)
+    watch = DecentralizedTrainer(deepfm.deepfm_loss, opt,
+                                 recompile_limit=2).recompile_watch
+    assert watch.name == "trainer.step" and watch.limit == 2
     for kw in (dict(sharded_loss=lambda *a: 0.0),
                dict(damping="adadamp:4", sharded_loss=lambda *a: 0.0)):
         assert DecentralizedTrainer(deepfm.deepfm_loss, opt,
