@@ -184,9 +184,10 @@ script exits non-zero without the final ``ok`` line:
    (``sharded_mlp_loss`` at 8192 x 1024, no model-group all-gather)
    against the stacked run of ``mlp_loss``; CD-Adam's scales equal to the
    bit on every rank of a worker, every block received equal to its
-   sender's; and the training CLI at ``--model-parallel 2`` against
-   ``--model-parallel 1`` (reduced llama3.2-1b, 4 steps). The kernels
-   phase holds the ``reduce_axis`` form on one rank's block.
+   sender's; and the training CLI's run at ``--model-parallel 2`` (its
+   sharding plan) against ``--model-parallel 1`` (reduced llama3.2-1b at
+   f32 compute, 4 steps). The kernels phase holds the ``reduce_axis``
+   form on one rank's block.
 32. axis_elastic and axis_online (inside axis's spawn): ranks that leave
    and join the worker group in the world of 8 (``trainer.resize`` on
    every rank with its old group, ``share_log``): D-Adam tau=2 from its
@@ -213,6 +214,22 @@ script exits non-zero without the final ``ok`` line:
    each of ``sign_compress_stacked`` and ``consensus_mix``; top-k and
    quantize on the reference backend), each row's comm MB the JAX
    accounting's;
+34b. axis2d_plan (after axis2d): the sharding plan (slice 22).
+   llama3.2-1b at full width (f32 params, bf16 compute) through the
+   training CLI at ``--comm axis --workers 2 --model-parallel 2 --backend
+   packed`` on 4 gloo ranks of the one card (each held to PLAN_RANK_SHARE
+   of it), packed D-Adam at p=2, 4 steps, PLAN_BATCH x PLAN_SEQ tokens a
+   worker: each rank holds one (1, 4827904, 128) block and its plan shard
+   of every matrix; no model all-gather, 2 redistributions and 100 model
+   sums a step, 4 ``fused_adam`` launches a rank; the losses held within
+   PLAN_LOSS_RTOL of the stacked twin's (``--comm stacked``, the same
+   params and batches); the peak a rank, the step medians and the
+   collectives a step; the packed route without the plan at the same
+   setting beside it (its peak, or the share it runs out of). Then the
+   planned route on the card against the CPU at the four dense configs
+   reduced (f32 compute, 2 steps; step 1's loss within LM_STEP1_TOL, the
+   blocks by step3_check), the planned config's invariant gate, and
+   ``fused_adam``'s record at a rank's block beside ``torch._fused_adam_``.
 35. invariants (after axis2d): ``repro_torch.analysis``'s gate on the
    card: the sweep's 20 stacked configs (reference and packed x D-Adam
    and CD-Adam x plain, schedule, stale, overlap, damping; one period
@@ -221,8 +238,8 @@ script exits non-zero without the final ``ok`` line:
    items run in the axis phase's ranks and must fail); beside them the
    reports of every axis rank body's fit, each run under the gate
    (``gated_fit``: ``analysis.check.period_spec``, the collectives by
-   kind, the launches, no uncounted ``torch.distributed`` call). A
-   failing spec fails the phase.
+   kind, the launches, no uncounted ``torch.distributed`` call) and the
+   planned 2D config's (axis2d_plan). A failing spec fails the phase.
 36. lm_train_bf16p (after lm_train_bf16): llama3.2-1b at full width with
    ``param_dtype=torch.bfloat16`` through lm_train_bf16's library path
    (neither CLI has a parameter-dtype flag), moments by default (bf16):
@@ -942,8 +959,10 @@ AXIS2D_MLP = dict(d_in=8192, d_out=1024, per_worker=64, steps=6, period=2)
 AXIS2D_MLP_LAUNCHES = {"d-adam": {"fused_adam": 6},
                        "cd-adam": {"fused_adam": 6, "consensus_mix": 3,
                                    "sign_compress_stacked_reduce": 6}}
-# the training CLI at --model-parallel 2 against --model-parallel 1: the
-# reduced llama3.2-1b (the CLI's default), K=2 packed D-Adam, 4 steps
+# the training CLI's run at --model-parallel 2 against --model-parallel 1:
+# the reduced llama3.2-1b (the CLI's default) at f32 compute, K=2 packed
+# D-Adam, 4 steps; at 2 the CLI builds the arch's sharding plan, whose
+# products sum in another order (at bf16 the two would part by rounding)
 AXIS2D_CLI = ["--comm", "axis", "--workers", "2", "--backend", "packed",
               "--steps", "4", "--period", "2", "--log-every", "2",
               "--dist-backend", "gloo"]
@@ -954,6 +973,58 @@ AXIS2D_CLI = ["--comm", "axis", "--workers", "2", "--backend", "packed",
 # bit_sums. fused_adam on each step of each rank
 AXIS2D_ELASTIC = dict(K=2, M=4, strategy="clone", steps=2)
 AXIS2D_ELASTIC_LAUNCHES = {"fused_adam": AXIS2D_ELASTIC["steps"]}
+# the 2D layout's sharding plan (slice 22) at full width: llama3.2-1b
+# whole (f32 params, bf16 compute) through the training CLI at --comm
+# axis --workers 2 --model-parallel 2 --backend packed: 4 gloo ranks on the
+# one card, each holding one (1, 4827904, 128) block and, in a step, its
+# plan shard of every matrix; packed D-Adam at p=2, 4 steps, one fit call a
+# step (--log-every 1). Each rank is held to a quarter of the card
+# (PLAN_RANK_SHARE of the caching allocator; four of them and the four
+# CUDA contexts fill the 79.18 GiB card), so a rank that outgrows its share
+# fails alone instead of starving the others. The data: PLAN_BATCH
+# sequences of PLAN_SEQ tokens a worker, half of lm_train's 2 x 1024: at 2
+# x 1024 the naive attention's probabilities took every rank past its
+# share in step 1's forward (NVIDIA H100 80GB HBM3, 700 W)
+PLAN_K, PLAN_M, PLAN_PERIOD, PLAN_STEPS = 2, 2, 2, 4
+PLAN_BATCH, PLAN_SEQ = 1, 1024
+PLAN_RANK_SHARE = 0.24
+PLAN_BLOCK = [1, 4_827_904, 128]
+
+
+def plan_args() -> list:
+    """The CLI's arguments of the planned run's stacked twin (lm_train's
+    route, ``--comm stacked``) at PLAN_BATCH x PLAN_SEQ tokens a
+    worker."""
+    out = list(LM_ARGS)
+    for flag, val in (("--period", PLAN_PERIOD), ("--steps", PLAN_STEPS),
+                      ("--batch", PLAN_BATCH), ("--seq", PLAN_SEQ)):
+        out[out.index(flag) + 1] = str(val)
+    return out
+
+
+PLAN_AXIS = ["--comm", "axis", "--model-parallel", str(PLAN_M),
+             "--dist-backend", "gloo"]
+# a rank's launches: fused_adam on every step (under axis the mixes are
+# torch ops); its model sums a step: 6 L + 3 = 99 of the loss
+# (train.grad.plan_model_sums) and one of each log point's consensus
+PLAN_LAUNCHES = {"fused_adam": PLAN_STEPS}
+PLAN_SUMS_PER_STEP = 6 * 16 + 3 + 1
+# the planned products sum in another order than the stacked run's (f32
+# partials added across the model group, then rounded to bf16 once): at
+# bf16 compute the two runs part by rounding, as JAX's planned and
+# unplanned runs do (2e-4 relative at step 1 on the reduced llama). The
+# losses are held within PLAN_LOSS_RTOL of the stacked run's, ten times
+# that distance: a wrong shard, a lost sum or a gradient scaled by M moves
+# a loss by far more after one Adam step
+PLAN_LOSS_RTOL = 2e-3
+# card against CPU (b): the four dense configs reduced, at f32 compute,
+# the planned trainer for 2 steps at p=2 on the same 4 ranks' card group
+# and CPU group, from one init and one batch stream; the losses within
+# LM_STEP1_TOL, the blocks by step3_check
+PLAN_CARD_CPU_ARCHS = ("llama3.2-1b", "yi-6b", "starcoder2-15b",
+                       "qwen1.5-32b")
+PLAN_CARD_CPU_STEPS = 2
+PLAN_CARD_CPU_LAUNCHES = {"fused_adam": PLAN_CARD_CPU_STEPS}
 
 
 def emit(obj) -> None:
@@ -3845,12 +3916,12 @@ def phase_axis2d():
     paper's experiment at full width on each path of AXIS2D_PATHS held
     against the same path stacked on the card (its loss worker by
     worker), the sharded-packed mode at AXIS2D_MLP's widths, digests of
-    the scales and blocks, and the training CLI at --model-parallel 2
-    against 1. NCCL, which needs a card per rank, does not run here."""
+    the scales and blocks, and the training CLI's run at --model-parallel
+    2 (its sharding plan) against 1, at f32 compute. NCCL, which needs a
+    card per rank, does not run here."""
     import tempfile
 
     from repro_torch.kernels import ops
-    from repro_torch.launch import train as train_cli
     from repro_torch.launch.mesh import spawn
 
     torch.cuda.synchronize()
@@ -3986,23 +4057,43 @@ def phase_axis2d():
     gates.append(gate_record("axis2d_elastic (2, 4)",
                              [r["elastic"]["invariants"] for r in ranks]))
     t_cli = time.perf_counter()
-    cli = {m: train_cli.main(AXIS2D_CLI + ["--model-parallel", str(m)])
+    cli = {m: spawn(axis2d_cli_f32_rank, 2 * m,
+                    (AXIS2D_CLI + ["--model-parallel", str(m)],),
+                    timeout_s=AXIS_SPAWN_TIMEOUT_S, threads=1)[0]
            for m in (1, 2)}
-    for a, b in zip(cli[2].log.loss, cli[1].log.loss):
+    if cli[2]["mode"] != "planned":
+        raise AssertionError(f"axis2d CLI: mode {cli[2]['mode']}")
+    for a, b in zip(cli[2]["loss"], cli[1]["loss"]):
         if not math.isclose(a, b, rel_tol=AXIS_LOSS_RTOL):
             raise AssertionError(f"axis2d CLI: --model-parallel 2 losses "
-                                 f"{cli[2].log.loss} against 1's "
-                                 f"{cli[1].log.loss}")
+                                 f"{cli[2]['loss']} against 1's "
+                                 f"{cli[1]['loss']}")
     emit({"phase": "axis2d_exchange",
           "scales_equal_across_each_model_group": True,
           "blocks_equal_to_the_bit": sorted(ranks[0]["d-adam"]["digests"]),
           "ranks": ranks_n,
-          "cli": {"argv": AXIS2D_CLI, "losses_model_parallel_1":
-                  cli[1].log.loss, "losses_model_parallel_2":
-                  cli[2].log.loss, "seconds": time.perf_counter() - t_cli},
+          "cli": {"argv": AXIS2D_CLI, "compute": "float32",
+                  "losses_model_parallel_1": cli[1]["loss"],
+                  "losses_model_parallel_2": cli[2]["loss"],
+                  "mode_model_parallel_2": cli[2]["mode"],
+                  "seconds": time.perf_counter() - t_cli},
           "stacked_reference_s": t_ref, "ranks_s": t_ranks,
           "seconds": time.perf_counter() - t0})
     return by_path, gates
+
+
+def axis2d_cli_f32_rank(rank: int, init_method: str, argv: list) -> dict:
+    """One rank of the training CLI's run (``launch.train._run``, what
+    ``main`` spawns) with the reduced configs at f32 compute."""
+    from repro_torch.launch import train as cli
+
+    reduced = cli.get_reduced
+    cli.get_reduced = lambda arch_id: dataclasses.replace(
+        reduced(arch_id), model=dataclasses.replace(
+            reduced(arch_id).model, compute_dtype=torch.float32))
+    run = cli._run(cli.parser().parse_args(argv), init_method=init_method)
+    return {"loss": list(run.log.loss),
+            "mode": run.trainer.pipeline.mode}
 
 
 def axis2d_elastic_checks(ranks, ref) -> dict:
@@ -4051,6 +4142,294 @@ def axis2d_elastic_checks(ranks, ref) -> dict:
           "launches_per_rank": recs[0]["launches"],
           "loss": recs[0]["loss"], "loss_stacked": ref["loss"]})
     return dict(total)
+
+
+def axis2d_plan_rank(rank: int, init_method: str, argv: list,
+                     route: str) -> dict:
+    """One rank of the training CLI's run (``launch.train._run``, what
+    ``main`` spawns) at ``argv``, held to PLAN_RANK_SHARE of the card:
+    ``route`` 'plan' as the CLI builds it, 'allgather' with the plan left
+    out (the packed 2D route that gathers the worker's whole buffer a
+    step). The rank's losses, step times (each step a fit call whose log
+    point reads the device), peak, collectives, launches and block; an
+    out-of-memory error comes back as the record's ``oom``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+
+    torch.cuda.set_per_process_memory_fraction(PLAN_RANK_SHARE)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    if route == "allgather":
+        cli.make_plan = lambda *a, **k: None
+    try:
+        run = cli._run(cli.parser().parse_args(argv),
+                       init_method=init_method)
+    except torch.OutOfMemoryError as e:
+        return {"oom": str(e).splitlines()[0],
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.synchronize()
+    group, log = run.trainer.opt.group, run.log
+    walls = [0.0] + list(log.wall_s)
+    step_ms = [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
+    return {"mode": run.trainer.pipeline.mode, "loss": list(log.loss),
+            "step_ms": step_ms,
+            "local_step_ms_median": statistics.median(
+                d for c, d in zip(log.step, step_ms) if c % PLAN_PERIOD),
+            "comm_step_ms_median": statistics.median(
+                d for c, d in zip(log.step, step_ms)
+                if c % PLAN_PERIOD == 0),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "collectives": group.collective_summary(),
+            "launches": ops.launch_counts(),
+            "block": list(run.state.buf.shape),
+            "finite": bool(torch.isfinite(run.state.buf).all()),
+            "worker": group.rank, "model_rank": group.model_rank,
+            "transport": group.transport}
+
+
+def plan_card_cpu_rank(rank: int, init_method: str, archs) -> dict:
+    """Card against CPU for the planned route: on this rank's card group
+    and CPU group (both K=2 x M=2 over the one world), each reduced dense
+    config of ``archs`` at f32 compute trained PLAN_CARD_CPU_STEPS planned
+    steps from one init and one batch stream; then the invariant gate of
+    ``analysis.check``'s planned config (the reduced llama, one period)
+    on the card group."""
+    from repro_torch._tree import tree_map
+    from repro_torch.analysis import check
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.api import make_optimizer
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_worker_group
+    from repro_torch.launch.shardings import make_plan
+    from repro_torch.launch.train import make_batch_iter
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import DecentralizedTrainer, stacked_loss
+
+    groups = {dev: make_worker_group(
+        PLAN_K, model_parallel=PLAN_M, init_method=init_method, rank=rank,
+        device=dev, backend="gloo", timeout_s=AXIS_GROUP_TIMEOUT_S)
+        for dev in ("cuda", "cpu")}
+    out = {}
+    for arch_id in archs:
+        arch = get_reduced(arch_id)
+        arch = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, compute_dtype=torch.float32))
+        api = build_model(arch.model)
+        params = api.init(torch.Generator().manual_seed(0))
+        res = {}
+        for dev, g in groups.items():
+            ops.reset_launches()
+            opt = make_optimizer("d-adam", PLAN_K, backend="packed",
+                                 comm="axis", group=g, eta=LM_ETA,
+                                 period=PLAN_PERIOD)
+            trainer = DecentralizedTrainer(stacked_loss(api.loss), opt,
+                                           plan=make_plan(arch, g))
+            state = trainer.init(tree_map(lambda x: x.to(g.device),
+                                          params))
+            it = make_batch_iter(arch.model, PLAN_K, 2, 16, 0.5,
+                                 torch.device("cpu"))
+            state, log = trainer.fit(state, it, PLAN_CARD_CPU_STEPS,
+                                     log_every=1)
+            res[dev] = (log.loss, state.buf.cpu(), ops.launch_counts(),
+                        trainer.pipeline.mode)
+        card, cpu = res["cuda"], res["cpu"]
+        out[arch_id] = {
+            "losses": card[0], "losses_cpu": cpu[0], "mode": card[3],
+            "launches": card[2],
+            "step1": compare(
+                [torch.tensor(card[0][0])], [torch.tensor(cpu[0][0])],
+                LM_STEP1_TOL, f"axis2d_plan card vs CPU {arch_id} step 1"),
+            "blocks": step3_check(f"axis2d_plan card vs CPU {arch_id}",
+                                  card[1], cpu[1])}
+    cfg = check.SweepConfig("axis2d-plan", "d-adam", "plain", K=PLAN_K,
+                            M=PLAN_M)
+    out["invariants"] = check.check_config(cfg, "cuda", groups["cuda"])
+    return out
+
+
+def plan_block_record() -> dict:
+    """``fused_adam`` at one rank's block of the planned full-width run,
+    ``(1, 4827904, 128)`` f32 (llama3.2-1b's packed rows at M=2), on
+    drawn buffers, alone on the card: held to the plain version to the
+    bit, the kernel's CUDA-event and device ms, the plain version's and
+    ``torch._fused_adam_``'s (in place on copies; held to the plain
+    version within KERNEL_TOL) beside the byte bound (28 B an element).
+    A record of the ``kernels`` line (its launches summed by path in
+    ``run_phases``)."""
+    from repro_torch.kernels import fused_adam as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    p = torch.randn(PLAN_BLOCK, generator=gen, device="cuda")
+    g = torch.randn(PLAN_BLOCK, generator=gen, device="cuda") * 0.1
+    m = torch.randn(PLAN_BLOCK, generator=gen, device="cuda") * 0.01
+    v = torch.rand(PLAN_BLOCK, generator=gen, device="cuda") * 0.01
+    n = p.numel()
+
+    def kernel():
+        return fa.fused_adam(p, g, m, v, **ADAM)
+
+    def plain():
+        return fa.fused_adam_plain(p, g, m, v, **ADAM)
+
+    got, want = kernel(), plain()
+    max_abs, max_rel = compare(got, want, BIT_EQUAL, "fused_adam at the "
+                               "planned run's block")
+    lib = [p.clone()], [m.clone()], [v.clone()]
+    call = fused_adam_library_call(lib[0], [g], lib[1], lib[2], ADAM,
+                                   torch.tensor(1e7, device="cuda"))
+    call()
+    lib_err = compare((lib[0][0], lib[1][0], lib[2][0]), want, KERNEL_TOL,
+                      "torch._fused_adam_ against fused_adam_plain at the "
+                      "planned run's block")[0]
+    del got, want
+    ms = median_ms(kernel, reps=LM_REPS, warmup=1)
+    rec = {"name": "fused_adam", "route": "cuda",
+           "source": "src/repro_torch/csrc/fused_adam.cu",
+           "replaces": "src/repro/kernels/fused_adam.py:66",
+           "launches": None, "max_abs_err": max_abs, "max_rel_err": max_rel,
+           "tol": BIT_EQUAL, "ms": ms, "kernel_ms": ms,
+           "kernel_device_ms": device_kernel_ms(kernel, "fused_adam_kernel",
+                                                reps=LM_REPS),
+           "plain_ms": median_ms(plain, reps=LM_REPS, warmup=1),
+           "bound_ms": max(7 * 4 * n / MEM_RATE, 12 * n / F32_RATE) * 1e3,
+           "bound_by": "bytes", "bytes": 7 * 4 * n,
+           "library_ms": median_ms(call, reps=LM_REPS, warmup=1),
+           "library_device_ms": device_kernel_ms(call, "", reps=LM_REPS),
+           "library": "torch._fused_adam_ (state_steps 1e7; checked "
+                      "against the plain version within KERNEL_TOL)",
+           "library_max_abs_err": lib_err,
+           "variant": f"the planned run's block {PLAN_BLOCK}: one rank's "
+                      "1/M of llama3.2-1b's packed rows at M=2",
+           "params": "float32"}
+    emit({"phase": "kernel", **rec})
+    del p, g, m, v, lib, call
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_axis2d_plan():
+    """The sharding plan on the card (slice 22): (a) llama3.2-1b at full
+    width through the CLI at --model-parallel 2 on 4 gloo ranks of the
+    one card, held to its stacked twin (lm_train's route, the same params
+    and batches), with the peak a rank, the step medians, the collectives
+    a step, no model all-gather and the fused_adam launches; the packed
+    route without the plan at the same setting beside it (its peak, or
+    the setting at which it runs out of its share); (b) the planned route
+    on the card against the CPU at the four dense configs reduced; (c)
+    the planned config's invariant gate; then ``fused_adam``'s record at
+    a rank's block. Returns (launches summed over the ranks of (a), the
+    gate records, that record)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import spawn
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    stacked_argv = plan_args()
+    argv = stacked_argv + PLAN_AXIS
+    ranks_n = PLAN_K * PLAN_M
+    ranks = spawn(axis2d_plan_rank, ranks_n, (argv, "plan"),
+                  timeout_s=AXIS_SPAWN_TIMEOUT_S, threads=2)
+    t_plan = time.perf_counter() - t0
+    want = {n: PLAN_LAUNCHES.get(n, 0) for n in ops.launch_counts()}
+    for rank, rec in enumerate(ranks):
+        what = f"axis2d_plan rank {rank}"
+        if "oom" in rec:
+            raise AssertionError(f"{what}: out of its share of the card at "
+                                 f"{PLAN_BATCH} x {PLAN_SEQ}: {rec['oom']}")
+        coll = rec["collectives"]
+        if rec["mode"] != "planned" or rec["block"] != PLAN_BLOCK \
+                or not rec["finite"]:
+            raise AssertionError(f"{what}: mode {rec['mode']}, block "
+                                 f"{rec['block']}, finite {rec['finite']}")
+        if rec["launches"] != want:
+            raise AssertionError(f"{what}: launches {rec['launches']}")
+        if coll["model_all_gather"]["count"] != 0 or \
+                coll["model_redistribute"]["count"] != 2 * PLAN_STEPS or \
+                coll["model_sum"]["count"] != PLAN_SUMS_PER_STEP * PLAN_STEPS:
+            raise AssertionError(f"{what}: collectives {coll}")
+        if rec["loss"] != ranks[0]["loss"]:
+            raise AssertionError(f"{what}: losses {rec['loss']} against "
+                                 f"rank 0's {ranks[0]['loss']}")
+    torch.cuda.empty_cache()
+    stacked, stacked_ms = synced(lambda: train_cli.main(stacked_argv))
+    want_losses = list(stacked.log.loss)
+    del stacked
+    torch.cuda.empty_cache()
+    # finite and from near ln(vocab); whether 4 steps of 1 x 1024 tokens
+    # lower the loss depends on the batches, which the stacked twin shares
+    cfg = get_arch(LM_ARCH).model
+    losses = ranks[0]["loss"]
+    if not all(math.isfinite(x) for x in losses) or abs(
+            losses[0] - math.log(cfg.vocab_size)) > LM_LOSS0_SLACK:
+        raise AssertionError(f"axis2d_plan: losses {losses} (ln vocab "
+                             f"{math.log(cfg.vocab_size):.3f})")
+    rel = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["loss"],
+                                                 want_losses)]
+    if max(rel) > PLAN_LOSS_RTOL:
+        raise AssertionError(f"axis2d_plan: losses {ranks[0]['loss']} "
+                             f"against the stacked run's {want_losses}")
+    t_gather = time.perf_counter()
+    gather = spawn(axis2d_plan_rank, ranks_n, (argv, "allgather"),
+                   timeout_s=AXIS_SPAWN_TIMEOUT_S, threads=2)
+    t_gather = time.perf_counter() - t_gather
+    torch.cuda.empty_cache()
+    t_cpu = time.perf_counter()
+    cc = spawn(plan_card_cpu_rank, ranks_n, (PLAN_CARD_CPU_ARCHS,),
+               timeout_s=AXIS_SPAWN_TIMEOUT_S, threads=2)
+    t_cpu = time.perf_counter() - t_cpu
+    per_step = {k: {"count": v["count"] / PLAN_STEPS,
+                    "bytes": v["bytes"] / PLAN_STEPS,
+                    "max_bytes": v["max_bytes"]}
+                for k, v in ranks[0]["collectives"].items() if v["count"]}
+    gate = gate_record("axis2d-plan/d-adam/plain (K=2, M=2)",
+                       [r["invariants"] for r in cc])
+    card_cpu = {}
+    for arch_id in PLAN_CARD_CPU_ARCHS:
+        recs = [r[arch_id] for r in cc]
+        if any(r["mode"] != "planned" or r["launches"] != {
+                n: PLAN_CARD_CPU_LAUNCHES.get(n, 0) for n in r["launches"]}
+               for r in recs):
+            raise AssertionError(f"axis2d_plan card vs CPU {arch_id}: "
+                                 f"{[(r['mode'], r['launches']) for r in recs]}")
+        card_cpu[arch_id] = {
+            "losses": recs[0]["losses"], "losses_cpu": recs[0]["losses_cpu"],
+            "step1_max_abs_err": max(r["step1"][0] for r in recs),
+            "blocks": {k: max(r["blocks"][k] for r in recs)
+                       for k in recs[0]["blocks"]}}
+    emit({"phase": "axis2d_plan", "argv": argv,
+          "config": {"arch": LM_ARCH, "full": True, "K": PLAN_K,
+                     "M": PLAN_M, "period": PLAN_PERIOD,
+                     "steps": PLAN_STEPS, "batch": PLAN_BATCH,
+                     "seq": PLAN_SEQ, "params": "float32",
+                     "compute": "bfloat16",
+                     "rank_share_of_card": PLAN_RANK_SHARE},
+          "transport": ranks[0]["transport"],
+          "block_per_rank": ranks[0]["block"],
+          "losses": ranks[0]["loss"], "losses_stacked": want_losses,
+          "loss_rel_err": rel, "loss_rtol": PLAN_LOSS_RTOL,
+          "stacked_main_ms": stacked_ms,
+          "peak_mem_gb_per_rank": [r["peak_gb"] for r in ranks],
+          "step_ms_per_rank": [r["step_ms"] for r in ranks],
+          "local_step_ms_median_per_rank": [
+              r["local_step_ms_median"] for r in ranks],
+          "comm_step_ms_median_per_rank": [
+              r["comm_step_ms_median"] for r in ranks],
+          "collectives_per_step_rank0": per_step,
+          "model_all_gathers_per_step": 0,
+          "launches_per_rank": ranks[0]["launches"],
+          "allgather_route": [
+              {k: r[k] for k in ("oom", "peak_gb", "local_step_ms_median",
+                                 "comm_step_ms_median", "loss") if k in r}
+              for r in gather],
+          "card_vs_cpu": card_cpu,
+          "seconds": {"plan": t_plan, "allgather": t_gather,
+                      "card_vs_cpu": t_cpu,
+                      "total": time.perf_counter() - t0}})
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in want}
+    return launches, [gate], plan_block_record()
 
 
 def phase_invariants(gates: list, corpus) -> None:
@@ -6096,7 +6475,9 @@ def main() -> int:
     by_path.update(axis_paths)
     axis2d_paths, gates2d = phase_axis2d()
     by_path.update(axis2d_paths)
-    phase_invariants(gates + gates2d, corpus)
+    by_path["axis2d_plan"], gates_plan, plan_block = phase_axis2d_plan()
+    records.append(plan_block)
+    phase_invariants(gates + gates2d + gates_plan, corpus)
     # after the axis phases, whose 8 ranks share the host's cores
     lm_cpu = LMCPUSides()
     try:

@@ -3,8 +3,8 @@
 
 One entry point (:func:`run`, ``python -m repro_torch.analysis.check``)
 sweeps the execution configs (reference / packed / axis / axis2d and the
-port's own axis2d-packed × D-Adam / CD-Adam × plain / schedule / stale /
-overlap / damping) and gates one communication period of each (``period=2``:
+port's own axis2d-packed and axis2d-plan × D-Adam / CD-Adam × plain /
+schedule / stale / overlap / damping) and gates one communication period of each (``period=2``:
 one local step and one comm step, through ``DecentralizedTrainer.fit``,
 which logs once) against :func:`spec_for`'s
 :class:`~.invariants.InvariantSpec`; then the topology zoo (INV006/INV007),
@@ -99,7 +99,11 @@ class SweepConfig:
         return self.backend.startswith("axis")
 
 
-BACKENDS = ("reference", "packed", "axis", "axis2d", "axis2d-packed")
+BACKENDS = ("reference", "packed", "axis", "axis2d", "axis2d-packed",
+            "axis2d-plan")
+# the planned 2D config's model and tokens: the reduced llama3.2-1b under
+# its sharding plan, 2 sequences of 16 tokens a worker
+PLAN_ARCH, PLAN_BATCH, PLAN_SEQ = "llama3.2-1b", 2, 16
 KINDS = ("d-adam", "cd-adam")
 VARIANTS = ("plain", "schedule", "stale", "overlap", "damping")
 
@@ -107,13 +111,16 @@ VARIANTS = ("plain", "schedule", "stale", "overlap", "damping")
 def sweep_configs(backends: Sequence[str] = BACKENDS,
                   kinds: Sequence[str] = KINDS,
                   variants: Sequence[str] = VARIANTS) -> List[SweepConfig]:
-    """The JAX sweep's configs and exclusions, and ``axis2d-packed``: the
-    2D layout without a sharded loss, D-Adam plain only."""
+    """The JAX sweep's configs and exclusions, and the port's own two:
+    ``axis2d-packed``, the 2D layout without a sharded loss, and
+    ``axis2d-plan``, the 2D layout under a sharding plan (the reduced
+    llama3.2-1b, ``PLAN_ARCH``), D-Adam plain only."""
     out = []
     for b in backends:
         for k in kinds:
             for v in variants:
-                if b == "axis2d-packed" and (k, v) != ("d-adam", "plain"):
+                if b in ("axis2d-packed", "axis2d-plan") and \
+                        (k, v) != ("d-adam", "plain"):
                     continue
                 # config validation rejects these combinations: staleness
                 # buffers are per-worker payload copies (no row-sharding,
@@ -155,8 +162,31 @@ def _build(cfg: SweepConfig, device: "str | torch.device",
     if cfg.backend == "axis2d":
         extra["sharded_loss"] = _sharded_loss
     opt = make_optimizer(cfg.kind, cfg.K, **kw)
+    if cfg.backend == "axis2d-plan":
+        return _build_planned(cfg, opt, device)
     trainer = DecentralizedTrainer(stacked_loss(_loss), opt, **extra)
     return trainer, trainer.init(_params()), _batch(cfg.K)
+
+
+def _build_planned(cfg: SweepConfig, opt, device):
+    """The planned 2D config: the reduced ``PLAN_ARCH`` under
+    ``make_plan(arch, group)``, its params from a seed on the group's
+    device and ``PLAN_BATCH`` x ``PLAN_SEQ`` tokens a worker."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.shardings import make_plan
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import DecentralizedTrainer, stacked_loss
+
+    arch = get_reduced(PLAN_ARCH)
+    api = build_model(arch.model)
+    trainer = DecentralizedTrainer(stacked_loss(api.loss), opt,
+                                   plan=make_plan(arch, opt.group))
+    params = api.init(torch.Generator(device=opt.device).manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 1)
+    tokens = rng.integers(0, arch.model.vocab_size,
+                          (cfg.K, PLAN_BATCH, PLAN_SEQ + 1))
+    return (trainer, trainer.init(params),
+            {"tokens": torch.from_numpy(tokens.astype(np.int64))})
 
 
 def expected_launches(cfg: SweepConfig) -> Dict[str, int]:
@@ -221,15 +251,22 @@ def period_spec(name: str, trainer, state, *, steps: int,
       bytes + 16;
     * ``worker_all_gather``: none, but one a step of the worker's f32 loss
       under damping (the global damping state);
-    * ``model_all_gather``: under the 2D layout's packed mode (no
-      sharded loss) exactly one a step of this rank's block, the port's
+    * ``model_all_gather``: under the 2D layout's packed mode without a
+      sharding plan exactly one a step of this rank's block, the port's
       deliberate difference from JAX's spec, which holds every 2D config
       to 0 all-gathers: the mode gathers the worker's M blocks once and
       differentiates the whole buffer, moving one worker's parameters a
-      step (as JAX's GSPMD does through ``unpack``, which JAX's sweep does
-      not run). None in the sharded-packed mode, as in JAX's, and in 1D;
+      step. None with a plan (the planned mode), JAX's figure, none in
+      the sharded-packed mode, as in JAX's, and none in 1D;
+    * ``model_redistribute``: with a plan exactly 2 a step (the block out
+      to the plan shards, the gradients back), each at most one block;
+      none otherwise;
     * ``model_sum`` (2D): at most ``max(activation_bytes, 4096)`` a call,
-      the sharded loss's activation sums, JAX's bound;
+      the loss's activation sums, JAX's bound. With a plan the count is
+      exact: ``grad.plan_model_sums`` a chunk (``6 L + 3`` for the SwiGLU
+      configs) times the chunks a step (microbatch, or damping's
+      ``max_chunks``) times the steps, one for the log point's consensus,
+      and one a round for CD-Adam's scales;
     * ``worker_broadcast`` and ``resize``: none;
     * no uncounted ``torch.distributed`` call, and ``launches`` exactly
       where the run is on CUDA.
@@ -248,14 +285,24 @@ def period_spec(name: str, trainer, state, *, steps: int,
     per_round = opt.comm_bytes_round_list(_wire_like(opt, state))
     block = int(state.buf.nbytes)
     damped = trainer._damping is not None
-    gathers = (steps if group.M > 1 and trainer.pipeline.mode == "packed"
-               else 0)
+    mode = trainer.pipeline.mode
+    planned = mode == "planned"
+    gathers = steps if group.M > 1 and mode == "packed" else 0
     exact = {"all_reduce": 1,
              "worker_all_gather": steps if damped else 0,
              "model_all_gather": gathers, "worker_broadcast": 0,
-             "resize": 0}
+             "resize": 0, "model_redistribute": 2 * steps if planned else 0}
+    if planned:
+        from repro_torch.train.grad import plan_model_sums
+
+        plan = trainer._plan
+        chunks = trainer.pipeline.damping_chunks or trainer.pipeline.microbatch
+        exact["model_sum"] = (
+            steps * chunks * plan_model_sums(plan, state.spec,
+                                             plan.model_cfg)
+            + 1 + (len(rounds) if opt.name in ("cd-adam", "cdadam") else 0))
     single = {"exchange": block, "worker_all_gather": 4,
-              "model_all_gather": block,
+              "model_all_gather": block, "model_redistribute": block,
               "model_sum": max(activation_bytes, 4096),
               "all_reduce": 2 * block + 16}
     return InvariantSpec(
@@ -270,9 +317,15 @@ def period_spec(name: str, trainer, state, *, steps: int,
 def spec_for(cfg: SweepConfig, trainer, state) -> InvariantSpec:
     """The spec one period of a sweep config must satisfy
     (:func:`period_spec` with the config's launches)."""
+    act = 4 * B * DOUT
+    if cfg.backend == "axis2d-plan":
+        from repro_torch.train.grad import plan_sum_bytes
+
+        act = plan_sum_bytes(trainer._plan.model_cfg, PLAN_BATCH * PLAN_SEQ,
+                             cfg.M)
     return period_spec(cfg.name, trainer, state, steps=PERIOD,
                        launches=expected_launches(cfg),
-                       activation_bytes=4 * B * DOUT)
+                       activation_bytes=act)
 
 
 def _period(trainer, state, batch, hook=None):

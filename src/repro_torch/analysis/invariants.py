@@ -44,9 +44,11 @@ INV007   mixing weights doubly stochastic
 The kinds are ``launch.mesh.COLLECTIVES``. Against the JAX package's five
 HLO kinds: ``exchange`` is ``collective-permute``;
 ``model_all_gather`` and ``worker_all_gather`` are ``all-gather``;
-``all_reduce`` and ``model_sum`` are ``all-reduce``; ``worker_broadcast``
-and ``resize`` have no HLO counterpart, and ``reduce-scatter`` and
-``all-to-all`` have no port counterpart. Bytes are this rank's
+``all_reduce`` and ``model_sum`` are ``all-reduce``;
+``model_redistribute`` (the sharding plan's shards out of the packed
+blocks and back) is the port's form of what GSPMD's layout changes move;
+``worker_broadcast`` and ``resize`` have no HLO counterpart, and
+``reduce-scatter`` and ``all-to-all`` have no port counterpart. Bytes are this rank's
 contribution: what it sends, or puts into a gather or a sum.
 """
 from __future__ import annotations

@@ -69,8 +69,7 @@ from repro_torch.core.schedule import (SCHEDULES, TopologySchedule,
 from repro_torch.core.topology import Topology, make_topology
 from repro_torch.kernels import pack as packing
 from repro_torch.launch.mesh import model_all_gather
-from repro_torch.launch.shardings import (gather_workers, take_model_block,
-                                          take_worker)
+from repro_torch.launch.shardings import gather_workers, take_worker
 
 PyTree = Any
 
@@ -369,9 +368,9 @@ def make_optimizer(
                 raise ValueError(
                     f"global rank {group.global_rank} holds no worker of "
                     f"this group of {K} x {group.M} ranks")
-            params = take_worker(params, group.rank, K)
-        state = init_fn(tree_map(lambda x: x.to(on), params))
-        return take_model_block(state, group) if two_d else state
+            # the 2D layout packs the rank's block straight from a view
+            params = take_worker(params, group.rank, K, copy=not two_d)
+        return init_fn(tree_map(lambda x: x.to(on), params))
 
     def params_of(state):
         if two_d and hasattr(state, "spec"):

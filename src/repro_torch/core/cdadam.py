@@ -60,8 +60,9 @@ from repro_torch._tree import (tree_flatten, tree_leaves, tree_map,
 from repro_torch.core.compression import Compressor
 from repro_torch.core.dadam import (AdamMoments, DAdamConfig, _axis,
                                     _comm_due, _fused_local_packed,
-                                    _round_index, init_moments, local_rows,
-                                    local_update, round_view, select_workers,
+                                    _round_index, init_moments, lazy_zeros,
+                                    local_rows, local_update, model_block,
+                                    round_view, select_workers,
                                     shift_worker)
 from repro_torch.launch.mesh import model_sum
 from repro_torch.core.schedule import TopologySchedule, comm_offsets
@@ -179,22 +180,24 @@ class PackedCDAdamState:
                            self.hat_nbrs)
 
     @classmethod
-    def from_unpacked(cls, state: CDAdamState, *,
-                      row_shards: int = 1) -> "PackedCDAdamState":
+    def from_unpacked(cls, state: CDAdamState, *, row_shards: int = 1,
+                      block: Optional[int] = None) -> "PackedCDAdamState":
         """``row_shards=M`` packs into the row-sharded 2D layout (whole
-        buffers)."""
+        buffers), or with ``block=j`` straight into block j's."""
         spec = packing.make_spec(state.params, stacked=True,
                                  block_rows=BLOCK_ROWS, leaf_align=True,
                                  row_shards=row_shards)
         spec_m = packing.make_spec(state.moments.m, stacked=True,
                                    block_rows=BLOCK_ROWS, leaf_align=True,
                                    row_shards=row_shards)
-        return cls(packing.pack(state.params, spec),
-                   packing.pack(state.moments.m, spec_m),
-                   packing.pack(state.moments.v, spec_m),
-                   state.moments.count,
-                   packing.pack(state.hat_self, spec),
-                   tuple(packing.pack(h, spec) for h in state.hat_nbrs),
+
+        def pk(tree, sp):
+            return packing.pack(tree, sp, block=block)
+
+        return cls(pk(state.params, spec), pk(state.moments.m, spec_m),
+                   pk(state.moments.v, spec_m), state.moments.count,
+                   pk(state.hat_self, spec),
+                   tuple(pk(h, spec) for h in state.hat_nbrs),
                    spec, spec_m)
 
 
@@ -283,14 +286,16 @@ def init(params_stacked: PyTree, cfg: CDAdamConfig,
     if not offs and topo.K > 1:
         raise ValueError("CD-Adam runtime requires a shift-invariant topology")
     tau = _wire_tau(cfg)
-    zeros = tree_map(torch.zeros_like, params_stacked)
-    hat_nbrs = tuple(tree_map(torch.zeros_like, params_stacked)
-                     for _ in offs)
-    state = CDAdamState(params_stacked, init_moments(params_stacked, cfg),
+    packed_init = cfg.backend == "packed"
+    zero = lazy_zeros if packed_init else torch.zeros_like
+    zeros = tree_map(zero, params_stacked)
+    hat_nbrs = tuple(tree_map(zero, params_stacked) for _ in offs)
+    state = CDAdamState(params_stacked,
+                        init_moments(params_stacked, cfg, lazy=packed_init),
                         zeros, hat_nbrs)
-    if cfg.backend == "packed":
+    if packed_init:
         packed = PackedCDAdamState.from_unpacked(
-            state, row_shards=cfg.model_parallel)
+            state, row_shards=cfg.model_parallel, block=model_block(cfg))
         if tau > 0:
             K, rows = packed.buf.shape[:2]
             per_worker = (() if cfg.scales == "worker"

@@ -200,13 +200,24 @@ class AdamMoments(NamedTuple):
     count: int  # host step counter
 
 
-def init_moments(params: PyTree,
-                 cfg: Optional[DAdamConfig] = None) -> AdamMoments:
-    """Zero m and v in ``cfg.moment_dtype``, or in each param's dtype."""
+def lazy_zeros(x: torch.Tensor,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Zeros of ``x``'s shape as one expanded scalar: what a packed init
+    copies into its buffers, without a leaf-sized zero tensor."""
+    return torch.zeros((), dtype=dtype or x.dtype,
+                       device=x.device).expand(x.shape)
+
+
+def init_moments(params: PyTree, cfg: Optional[DAdamConfig] = None,
+                 lazy: bool = False) -> AdamMoments:
+    """Zero m and v in ``cfg.moment_dtype``, or in each param's dtype
+    (:func:`lazy_zeros` when ``lazy``: for a packed init, which copies
+    them)."""
     dt = cfg.moment_dtype if cfg is not None else None
-    zeros = tree_map(lambda x: torch.zeros_like(x, dtype=dt or x.dtype),
-                     params)
-    return AdamMoments(m=zeros, v=tree_map(torch.zeros_like, zeros),
+    make = lazy_zeros if lazy else (
+        lambda x, d: torch.zeros_like(x, dtype=d or x.dtype))
+    zeros = tree_map(lambda x: make(x, dt), params)
+    return AdamMoments(m=zeros, v=tree_map(lambda z: make(z, None), zeros),
                        count=0)
 
 
@@ -330,6 +341,25 @@ def _mix_trees(params: PyTree, nbrs, topo: Topology) -> PyTree:
     return tree_map(mix, params, *nbrs)
 
 
+def _mix_received(x: torch.Tensor, nbrs, topo: Topology,
+                  rows: int = 1 << 24) -> torch.Tensor:
+    """:func:`_mix_trees`'s mix of one buffer with neighbour copies that
+    this round received (tensors of its own), made in the first copy's
+    memory: the same products and sums in the same order (the first sum,
+    which is commutative, taken the other way round), equal to the bit,
+    with ``rows`` elements of ``w_self * x`` at a time as the only
+    temporary. An axis round then holds one received block beside its
+    buffers, not three (at full width, four ranks' state on one card)."""
+    acc = nbrs[0].to(torch.float32).mul_(f32(topo.offset_weights[0]))
+    flat_acc, flat_x = acc.view(-1), x.reshape(-1)
+    for i in range(0, flat_x.numel(), rows):
+        flat_acc[i:i + rows].add_(
+            f32(topo.self_weight) * flat_x[i:i + rows].to(torch.float32))
+    for w, nb in zip(topo.offset_weights[1:], nbrs[1:]):
+        acc.add_(nb.to(torch.float32).mul_(f32(w)))
+    return acc.to(x.dtype)
+
+
 def _shift_tree(params: PyTree, s: Any, K: int, axis: Any,
                 tags: Iterator[int]) -> PyTree:
     """Every leaf shifted by ``s``, one message (and tag) a leaf."""
@@ -384,8 +414,10 @@ def gossip_packed(buf: torch.Tensor, topo: Topology,
         if not topo.offsets:
             raise ValueError("comm='axis' gossip needs a shift-invariant "
                              "topology")
-        return _mix_trees(buf, [shift_worker(buf, s, topo.K, cfg.group, i)
-                                for i, s in enumerate(topo.offsets)], topo)
+        return _mix_received(buf, [shift_worker(buf, s, topo.K, cfg.group,
+                                                i)
+                                   for i, s in enumerate(topo.offsets)],
+                             topo)
     fusable = all(isinstance(s, (int, np.integer, GridShift))
                   for s in topo.offsets)
     if (cfg.mixing == "dense" or not topo.offsets or not fusable
@@ -724,20 +756,20 @@ class PackedDAdamState:
         return DAdamState(self.params, self.moments)
 
     @classmethod
-    def from_unpacked(cls, state: DAdamState, *,
-                      row_shards: int = 1) -> "PackedDAdamState":
+    def from_unpacked(cls, state: DAdamState, *, row_shards: int = 1,
+                      block: Optional[int] = None) -> "PackedDAdamState":
         """``row_shards=M`` packs into the row-sharded 2D layout (whole
         buffers; ``launch.shardings.take_model_block`` cuts a rank's
-        block out)."""
+        block out), or with ``block=j`` straight into block j's."""
         spec = packing.make_spec(state.params, stacked=True,
                                  block_rows=BLOCK_ROWS, leaf_align=True,
                                  row_shards=row_shards)
         spec_m = packing.make_spec(state.moments.m, stacked=True,
                                    block_rows=BLOCK_ROWS, leaf_align=True,
                                    row_shards=row_shards)
-        return cls(packing.pack(state.params, spec),
-                   packing.pack(state.moments.m, spec_m),
-                   packing.pack(state.moments.v, spec_m),
+        return cls(packing.pack(state.params, spec, block=block),
+                   packing.pack(state.moments.m, spec_m, block=block),
+                   packing.pack(state.moments.v, spec_m, block=block),
                    state.moments.count, spec, spec_m)
 
 
@@ -774,8 +806,9 @@ def init(params_stacked: PyTree, cfg: DAdamConfig,
     """The state of ``params_stacked``: all K workers' under
     ``comm='stacked'``, this rank's ``(1, ...)`` slice under
     ``comm='axis'``. Under the 2D layout the packed buffers are the
-    worker's whole row-sharded ones; ``make_optimizer``'s ``init`` keeps
-    the rank's block."""
+    rank's block of its worker's row-sharded ones, packed straight from
+    the params (no whole buffer is made). A packed init takes its zero
+    moments as expanded scalars (``lazy_zeros``)."""
     cfg.validate()
     workers = 1 if cfg.comm == "axis" else None
     needs_bufs = cfg.staleness is not None or cfg.overlap
@@ -784,10 +817,12 @@ def init(params_stacked: PyTree, cfg: DAdamConfig,
             "cfg.staleness/cfg.overlap buffer one payload per topology "
             "offset; init needs the topology (pass topo=, as "
             "make_optimizer does)")
-    state = DAdamState(params_stacked, init_moments(params_stacked, cfg))
-    if cfg.backend == "packed":
+    packed_init = cfg.backend == "packed"
+    state = DAdamState(params_stacked, init_moments(params_stacked, cfg,
+                                                    lazy=packed_init))
+    if packed_init:
         packed = PackedDAdamState.from_unpacked(
-            state, row_shards=cfg.model_parallel)
+            state, row_shards=cfg.model_parallel, block=model_block(cfg))
         if needs_bufs:
             packed = packed.with_stale(init_stale(packed.buf, topo,
                                                   workers))

@@ -208,10 +208,13 @@ def _write_leaf(dst: torch.Tensor, g: torch.Tensor, sz: int, c: int,
 
 
 def pack(tree: PyTree, spec: PackSpec,
-         dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+         dtype: Optional[torch.dtype] = None,
+         block: Optional[int] = None) -> torch.Tensor:
     """Copy ``tree`` into a fresh zero-filled ``spec.buf_shape()`` buffer,
     on the device of its first leaf. ``dtype`` defaults to the widest
-    dtype among the leaves."""
+    dtype among the leaves. With ``block=j`` (a row-sharded spec) only
+    shard block j is made, ``spec.block_shape()``: equal to the bit to
+    rows ``[j local_rows, (j + 1) local_rows)`` of the whole buffer."""
     leaves = tree_leaves(tree)
     got = tuple(tuple(l.shape) for l in leaves)
     if got != spec.shapes:
@@ -222,6 +225,20 @@ def pack(tree: PyTree, spec: PackSpec,
         dt = leaves[0].dtype
         for l in leaves[1:]:
             dt = torch.promote_types(dt, l.dtype)
+    if block is not None:
+        if spec.row_shards == 1 or not 0 <= block < spec.row_shards:
+            raise ValueError(f"block {block} of a spec of "
+                             f"{spec.row_shards} row shards")
+        buf = torch.zeros(spec.block_shape(), dtype=dt,
+                          device=leaves[0].device)
+        flat = buf.view(spec.k, -1)
+        for l, o, c, sz in zip(leaves, spec.offsets, _shard_chunks(spec),
+                               spec.sizes):
+            lo = block * c
+            n = max(0, min(c, sz - lo))
+            if n:
+                flat[:, o:o + n].copy_(l.reshape(spec.k, sz)[:, lo:lo + n])
+        return buf
     buf = torch.zeros(spec.buf_shape(), dtype=dt, device=leaves[0].device)
     if spec.row_shards > 1:
         blocks = _blocks(buf, spec)

@@ -14,9 +14,10 @@ neighbours' blocks by point-to-point messages with the ranks of the same
 model index (:func:`exchange`, called by ``core.dadam.shift_worker`` once
 per graph offset, where JAX has one ``ppermute`` over the worker axis),
 and reaches the other ranks of its worker through the model-group
-collectives: :func:`model_all_gather` and :func:`model_sum`, a sum whose
+collectives: :func:`model_all_gather`, :func:`model_sum`, a sum whose
 order is the model index, so that every rank of a group holds the same
-bits.
+bits, and :func:`model_redistribute`, the point-to-point exchange that
+moves a sharding plan's shards out of the packed blocks and back.
 
 The group may be a prefix of a larger world: ``make_worker_group(K,
 model_parallel=M)`` over a world of at least K M ranks takes global ranks
@@ -56,7 +57,7 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -67,8 +68,8 @@ WORKER_AXIS = "worker"   # the comm='axis' worker axis name, as in JAX
 DEFAULT_TIMEOUT_S = 300.0
 # the collectives a WorkerGroup counts, by kind (collective_summary)
 COLLECTIVES = ("exchange", "model_all_gather", "model_sum",
-               "worker_all_gather", "worker_broadcast", "all_reduce",
-               "resize")
+               "model_redistribute", "worker_all_gather",
+               "worker_broadcast", "all_reduce", "resize")
 # the names of the functions below whose torch.distributed calls a
 # WorkerGroup counts (on the sending rank): analysis.invariants takes
 # every other torch.distributed call for an uncounted one
@@ -349,10 +350,9 @@ def all_reduce_sum(x: torch.Tensor, wg: WorkerGroup) -> torch.Tensor:
     workers of this rank's model index (every rank when M is 1), staged
     through host memory for a host-staged group. The backend picks the
     order of the sum: for values that need not agree to the bit (the
-    log)."""
-    buf = x.detach().clone()
-    if wg.host_staged:
-        buf = buf.cpu()
+    log). A host-staged group reduces a host copy of ``x``, so the card
+    holds no second one during the call."""
+    buf = x.detach().cpu() if wg.host_staged else x.detach().clone()
     dist.all_reduce(buf, group=wg.worker_group)
     wg.count("all_reduce", buf.numel() * buf.element_size())
     return buf.to(x.device)
@@ -448,6 +448,45 @@ def model_sum(x: torch.Tensor, wg: WorkerGroup) -> torch.Tensor:
     for p in parts[1:]:
         acc = acc + p
     return acc
+
+
+@_counting
+def model_redistribute(sends: Dict[int, torch.Tensor],
+                       sizes: Dict[int, int],
+                       wg: WorkerGroup) -> Dict[int, torch.Tensor]:
+    """Send ``sends[k]`` (a flat tensor) to model index k of this rank's
+    worker and return what each such peer k sends here, ``sizes[k]``
+    elements of the same dtype, flat, on the sends' device: all of it in
+    one ``batch_isend_irecv`` over the model group (host-staged for a
+    host-staged group). Every rank of the group calls it with its own
+    peers; a pair whose message is empty exchanges nothing. Counted as
+    one ``model_redistribute`` call of the bytes this rank sends. The
+    sharding plan's exchange of a rank's packed block for its plan shards
+    and back (``launch.shardings.Redistribution``)."""
+    if wg.M == 1 or not sends:
+        return {}
+    like = next(iter(sends.values()))
+    ops, recvs, nbytes = [], {}, 0
+    for k in sorted(sends):
+        if k == wg.model_rank:
+            raise ValueError("model_redistribute sends nothing to itself")
+        peer = wg.rank * wg.M + k
+        send = _wire(sends[k], wg)
+        n = int(sizes[k]) * like.element_size()
+        if send.numel():
+            ops.append(dist.P2POp(dist.isend, send, peer, wg.group))
+            nbytes += send.numel()
+        if n:
+            recvs[k] = torch.empty(n, dtype=torch.uint8, device=send.device)
+            ops.append(dist.P2POp(dist.irecv, recvs[k], peer, wg.group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    wg.count("model_redistribute", nbytes)
+    out = {k: like.new_empty(0) for k in sends}
+    out.update({k: _unwire(r, like, (r.numel() // like.element_size(),))
+                for k, r in recvs.items()})
+    return out
 
 
 def barrier(wg: WorkerGroup) -> None:

@@ -33,9 +33,16 @@ by default nccl when every rank has a card of its own.
 worker x model layout: each of the K workers is a group of M ranks, each
 holding one ``(1, rows / M, 128)`` block of its worker's row-sharded
 state; gossip crosses only the worker axis and CD-Adam's scales are
-summed over the M ranks. Without torchrun ``--workers K`` spawns K x M
-ranks; under torchrun it takes K x M of them. Rank (w, 0) of each worker
-counts toward the log, and global rank 0 prints it.
+summed over the M ranks. As the JAX CLI does, it builds the arch's
+sharding plan (``launch.shardings.make_plan(arch, group, mode='axis')``):
+each step a rank moves its block out to its plan shard of every matrix,
+computes the worker's loss and gradient multiplying with its shards
+(``train.grad``'s planned mode), and moves the gradient back into its
+block; no rank holds the worker's whole buffer. The plan runs the dense
+family (other families raise ``NotImplementedError``). Without torchrun
+``--workers K`` spawns K x M ranks; under torchrun it takes K x M of
+them. Rank (w, 0) of each worker counts toward the log, and global rank
+0 prints it.
 
     PYTHONPATH=src python -m repro_torch.launch.train --comm axis \
         --workers 2 --device cpu --steps 4 --period 2 --seq 16 --batch 1
@@ -68,6 +75,7 @@ from repro_torch.checkpoint.io import save
 from repro_torch.configs import get_arch, get_reduced, list_archs
 from repro_torch.core.api import make_optimizer
 from repro_torch.launch.mesh import DEFAULT_TIMEOUT_S, make_worker_group, spawn
+from repro_torch.launch.shardings import make_plan
 from repro_torch.data.synthetic import lm_batch
 from repro_torch.models.registry import build_model, family_extras
 from repro_torch.train.damping import make_damping
@@ -276,9 +284,13 @@ def _run(args: argparse.Namespace,
             raise SystemExit(
                 f"--damping max_chunks {damping.max_chunks} must divide "
                 f"--batch {args.batch}")
+    # the 2D layout: the arch's sharding plan over the worker group, as
+    # the JAX CLI threads make_plan(arch, mesh, mode='axis') into its loss
+    plan = (make_plan(arch, group, mode="axis")
+            if args.model_parallel > 1 else None)
     trainer = DecentralizedTrainer(stacked_loss(api.loss), opt,
                                    microbatch=args.microbatch,
-                                   damping=damping)
+                                   damping=damping, plan=plan)
     params = api.init(torch.Generator(device=dev).manual_seed(PARAM_SEED))
     n_params = sum(x.numel() for x in tree_leaves(params))
     state = trainer.init(params)
@@ -297,7 +309,8 @@ def _run(args: argparse.Namespace,
                 f"model group ({args.workers * group.M} ranks); packed "
                 f"rows cut {group.M} ways, one (1, rows/{group.M}, 128) "
                 f"block a rank; compression scales summed over the model "
-                f"group", flush=True)
+                f"group; sharding plan: each rank multiplies with its "
+                f"1/{group.M} of every matrix", flush=True)
     if args.backend == "packed":
         # packed-resident state: params + moments live in the stacked
         # (K, rows, 128) kernel layout across steps; grads come back packed

@@ -9,10 +9,13 @@ through ``kernels.ops.flash_attention``: JAX's ``impl="pallas"``).
 elements per head on, naive below. The serving path (``DecodeEngine``)
 passes ``"kernel"``.
 
+Under a sharding plan (``shard=``, a ``train.grad.PlanCtx``) the q, k
+and v projections and ``wo`` multiply with the rank's shards (q, k and v
+from one input, their partials in one sum) and come out whole, so the
+attention runs whole on every rank, as the scores do under JAX's layout.
 JAX's activation-sharding context (``activation_sharding`` /
-``_shard_heads``) constrains q/k/v under a device mesh and is a no-op
-outside one; it is left out until the port has sharding plans
-(``plan=`` / ``make_plan``, ROADMAP queue 4.3).
+``_shard_heads``, q/k/v constraints for its serving meshes) is not
+ported.
 
 The cache write position is a host int: positions, the rotating slot and
 the validity mask are decided on the host, so no decode step reads the
@@ -55,13 +58,17 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
 
 
 def _project_qkv(params: PyTree, x: torch.Tensor, n_heads: int, n_kv: int,
-                 head_dim: int
+                 head_dim: int, shard: Any = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
     dt = x.dtype
-    q = x @ params["wq"].to(dt)
-    k = x @ params["wk"].to(dt)
-    v = x @ params["wv"].to(dt)
+    if shard is not None:
+        q, k, v = shard.project(x, [(params[n], n)
+                                    for n in ("wq", "wk", "wv")])
+    else:
+        q = x @ params["wq"].to(dt)
+        k = x @ params["wk"].to(dt)
+        v = x @ params["wv"].to(dt)
     if "bq" in params:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
@@ -214,16 +221,19 @@ def attention_forward(params: PyTree, x: torch.Tensor, *, n_heads: int,
                       causal: bool = True, window: int = 0,
                       positions: Optional[torch.Tensor] = None,
                       use_rope: bool = True,
-                      impl: str = "auto") -> torch.Tensor:
-    """Full-sequence attention (training / prefill). x: (B, S, d_model)."""
+                      impl: str = "auto", shard: Any = None) -> torch.Tensor:
+    """Full-sequence attention (training / prefill). x: (B, S, d_model).
+    ``shard``: a sharding plan's context (see the module's docstring)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim, shard)
     pos = (positions if positions is not None
            else torch.arange(S, device=x.device))
     if use_rope:
         q = common.apply_rope(q, pos.expand(B, S), rope_theta)
         k = common.apply_rope(k, pos.expand(B, S), rope_theta)
     out = sdpa(q, k, v, causal=causal, window=window, impl=impl)
+    if shard is not None:
+        return shard.project(out, [(params["wo"], "wo")])[0]
     return out @ params["wo"].to(out.dtype)
 
 

@@ -13,9 +13,9 @@ JAX's rounding points: the router runs in f32 (``x.astype(f32) @
 router``), the one-hot dispatch and combine tensors and the expert einsums
 in the hidden's dtype. ``torch.topk`` and ``lax.top_k`` agree but on ties,
 which random f32 probabilities do not have. Expert parallelism (the
-experts sharded over a mesh axis) waits for the port's sharding plans
-(``plan=`` / ``make_plan``, ROADMAP queue 4.3); on one device every
-expert is local.
+experts sharded over a mesh axis) waits for the sharding plan's MoE slice
+(``launch.shardings.make_plan`` runs the dense family; ROADMAP queue
+4.3); on one device every expert is local.
 """
 from __future__ import annotations
 

@@ -20,6 +20,14 @@ the layers and ``loss_fn`` adds ``router_aux_weight`` times it.
 ``loss_fn`` is what LM training differentiates: through ``sdpa``'s naive
 or chunked path, never the flash kernel (it has no backward), with the
 ``remat`` policy around each layer.
+
+``loss_fn(..., shard=ctx)`` is the dense family's loss under a sharding
+plan (``train.grad``'s planned mode): ``params`` hold the rank's plan
+shards, and every product with a cut matrix goes through ``ctx`` (a
+``train.grad.PlanCtx``): the vocab-parallel embedding, the attention
+projections, the MLP, and a vocab-parallel cross-entropy in place of
+``unembed``, so the logits are never whole on a rank. Norms and biases
+are whole. Without a plan every function computes what it did.
 """
 from __future__ import annotations
 
@@ -86,39 +94,47 @@ def _norm(x, w, b, kind, eps):
     return common.rms_norm(x, w, eps)
 
 
-def _ffn(layer: PyTree, hn: torch.Tensor, cfg: ModelConfig
+def _ffn(layer: PyTree, hn: torch.Tensor, cfg: ModelConfig,
+         shard: Any = None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(the feed-forward output, the MoE aux loss or ``None``)."""
     if "moe" in layer:
+        if shard is not None:
+            raise NotImplementedError(
+                "a sharding plan's MoE expert placement is not ported "
+                "(ROADMAP queue 4.3)")
         return moe.moe_forward(layer["moe"], hn,
                                top_k=cfg.experts_per_token,
                                capacity_factor=cfg.capacity_factor,
                                group_size=cfg.moe_group_size)
     if cfg.mlp_kind == "gelu":
-        return mlp.gelu_mlp_forward(layer["mlp"], hn), None
-    return mlp.swiglu_forward(layer["mlp"], hn), None
+        return mlp.gelu_mlp_forward(layer["mlp"], hn, shard), None
+    return mlp.swiglu_forward(layer["mlp"], hn, shard), None
 
 
 def _layer_forward(layer: PyTree, h: torch.Tensor, cfg: ModelConfig,
-                   positions: torch.Tensor, attn_impl: str = "auto"
+                   positions: torch.Tensor, attn_impl: str = "auto",
+                   shard: Any = None
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Returns (h, this layer's f32 aux loss, ``None`` without experts)."""
+    """Returns (h, this layer's f32 aux loss, ``None`` without experts).
+    ``shard``: a sharding plan's context (the module's docstring)."""
     hn = _norm(h, layer["norm1"], layer.get("norm1_b"), cfg.norm_kind,
                cfg.norm_eps)
     h = h + attention.attention_forward(
         layer["attn"], hn, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
         causal=True, window=cfg.sliding_window, positions=positions,
-        impl=attn_impl)
+        impl=attn_impl, shard=shard)
     hn = _norm(h, layer["norm2"], layer.get("norm2_b"), cfg.norm_kind,
                cfg.norm_eps)
-    out, aux = _ffn(layer, hn, cfg)
+    out, aux = _ffn(layer, hn, cfg, shard)
     return h + out, aux
 
 
 def backbone(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
              positions: torch.Tensor, remat: str = "none",
-             attn_impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+             attn_impl: str = "auto", shard: Any = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embed-space in, embed-space out. Returns (h, total_aux), the sum of
     the layers' aux losses (0 for the dense family). ``remat`` ("none",
     "dots", "full") is the activation-checkpoint policy around each layer
@@ -127,7 +143,7 @@ def backbone(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
     auxes = []
     for layer in common.layer_views(params["layers"]):
         h, aux = common.remat_call(_layer_forward, remat, layer, h, cfg,
-                                   positions, attn_impl)
+                                   positions, attn_impl, shard)
         if aux is not None:
             auxes.append(aux)
     if not auxes:
@@ -136,7 +152,10 @@ def backbone(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
 
 
 def embed_tokens(params: PyTree, tokens: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, shard: Any = None) -> torch.Tensor:
+    if shard is not None:
+        return shard.embed(params["embed"], "embed", tokens,
+                           cfg.compute_dtype)
     return params["embed"][tokens.long()].to(cfg.compute_dtype)
 
 
@@ -164,16 +183,43 @@ def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 
 def loss_fn(params: PyTree, batch: PyTree, cfg: ModelConfig, *,
-            remat: str = "none") -> torch.Tensor:
-    """batch: {'tokens': (B, S+1)} (+ optional 'extra_embeds', 'mask')."""
+            remat: str = "none", shard: Any = None) -> torch.Tensor:
+    """batch: {'tokens': (B, S+1)} (+ optional 'extra_embeds', 'mask').
+    ``shard``: a sharding plan's context (the module's docstring)."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    if shard is not None:
+        return _planned_loss(params, batch, cfg, shard, remat, inputs,
+                             labels)
     logits, aux = forward(params, inputs, cfg,
                           extra_embeds=batch.get("extra_embeds"),
                           remat=remat)
     if batch.get("extra_embeds") is not None:
         logits = logits[:, batch["extra_embeds"].shape[1]:]
     ce = common.cross_entropy_loss(logits, labels, batch.get("mask"))
+    return ce + cfg.router_aux_weight * aux
+
+
+def _planned_loss(params: PyTree, batch: PyTree, cfg: ModelConfig,
+                  shard: Any, remat: str, inputs: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+    """``loss_fn`` through a sharding plan's context: the forward of
+    ``forward`` with the rank's shards, and the cross-entropy taken
+    vocab-parallel from the final norm's output."""
+    if remat != "none" or batch.get("extra_embeds") is not None:
+        raise ValueError(
+            "a sharding plan's loss takes the dense family's tokens with "
+            "remat='none' (remat would run the layers' sums over the model "
+            "group again in the backward)")
+    h = embed_tokens(params, inputs, cfg, shard)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, aux = backbone(params, h, cfg, positions, shard=shard)
+    h = _norm(h, params["final_norm"], params.get("final_norm_b"),
+              cfg.norm_kind, cfg.norm_eps)
+    tied = cfg.tie_embeddings
+    ce = shard.vocab_loss(h, params["embed" if tied else "lm_head"],
+                          "embed" if tied else "lm_head", labels,
+                          batch.get("mask"), transposed=tied)
     return ce + cfg.router_aux_weight * aux
 
 

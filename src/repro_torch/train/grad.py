@@ -32,6 +32,20 @@ a :class:`GradPipeline` in one of three modes:
   the group's collectives are the loss's own sums (counted on the
   ``WorkerGroup`` as ``model_sum``).
 
+* **planned**: the 2D layout with a sharding plan (``plan=``, from
+  ``launch.shardings.make_plan``; the dense family): the port of JAX's
+  packed route under ``loss_param_constraints``. Each step moves the
+  rank's block out to its plan shard of every matrix (one counted
+  ``model_redistribute``; vectors and the leaves the plan replicates come
+  whole), runs ``loss(params, batch, shard=ctx)`` on them, where ``ctx``
+  is a :class:`PlanCtx` through which the model multiplies with its
+  shards (row-parallel products summed over the group in f32,
+  column-parallel products whose outputs stay split, a vocab-parallel
+  embedding and cross-entropy), and moves the shards' gradients back into
+  the rank's ``(1, rows / M, 128)`` gradient block (the reverse call).
+  Nothing is all-gathered: the group's collectives are the two
+  redistributions a step and the model's ``model_sum`` calls.
+
 A loss here is ``loss(params_stacked, batch_stacked) -> (K,)``: the
 worker dim is written out. Workers do not share params, so the gradient of
 the summed losses is each worker's own gradient. ``microbatch`` > 1
@@ -66,6 +80,8 @@ from repro_torch._tree import (keystr, tree_flatten, tree_map,
                                tree_map_with_path, tree_unflatten)
 from repro_torch.kernels import pack as packing
 from repro_torch.launch.mesh import WorkerGroup, model_all_gather, model_sum
+from repro_torch.launch.shardings import (LeafCut, Redistribution,
+                                          ShardingPlan, leaf_cuts)
 
 PyTree = Any
 
@@ -193,6 +209,298 @@ def row_parallel_dot(x: torch.Tensor, w_chunk: torch.Tensor, d_out: int,
     return ctx.psum(xl @ W.to(x.dtype))
 
 
+class _SumCotangent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: WorkerGroup):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return model_sum(ct.to(torch.float32), ctx.group).to(ct.dtype), None
+
+
+def sum_cotangent(x: torch.Tensor, group: WorkerGroup) -> torch.Tensor:
+    """``x`` itself, whose backward sums the cotangent over the worker's
+    model group (in f32, rounded once to its dtype): the mirror of
+    :func:`psum_replicated`, for an activation that is the same on every
+    rank and enters a matrix cut on its output dim. Each rank's product
+    then gives only its part of the activation's cotangent, and the sum
+    makes it whole again on every rank."""
+    return _SumCotangent.apply(x, group)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D) with an f32 result: a bf16 GEMM that keeps its f32
+    accumulator on the card, the products of the upcast operands on the
+    CPU (exact for bf16 inputs, as the GEMM's are)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+class _PartialProduct(torch.autograd.Function):
+    """``a @ b`` in f32 (:func:`_mm_f32`), whose backward runs in the
+    operands' dtype, as the product ``a @ b`` would: a row-parallel
+    product's partial, summed over the group before it is rounded."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, ct):
+        a, b = ctx.saved_tensors
+        g = ct.to(a.dtype)
+        return g @ b.T, a.T @ g
+
+
+class PlanCtx:
+    """What a loss under a sharding plan knows of its rank: the group and,
+    by leaf name, how the rank holds each leaf (``launch.shardings.
+    LeafCut``). The dense models multiply through it (``shard=``):
+
+    * :meth:`project`: products whose outputs the model needs whole. A
+      matrix cut on its input dim is a row-parallel product: the rank's
+      columns of the input (``_slice_replicated``, whose backward puts the
+      cotangent together over the group) times its rows, the partials
+      summed over the group in f32 and rounded once, so several products
+      of one input go out in one sum. A matrix cut on its output dim is a
+      column-parallel product (:func:`sum_cotangent` on the input) whose
+      output is assembled; a whole matrix is used whole.
+    * :meth:`up` / :meth:`down`: the MLP. Matrices cut on their output dim
+      (``w_gate``, ``w_up``, ``w_in`` and its ``b_in``) leave the hidden
+      activation split, and the matrix after them, cut on its input dim,
+      takes it as it is: one sum each way.
+    * :meth:`embed` and :meth:`vocab_loss`: a vocab-parallel lookup (zero
+      outside the rank's rows, then one sum) and cross-entropy (the
+      logits of the rank's vocab rows, their log-sum-exp and the gold
+      logit summed over the group), so the logits are never whole.
+
+    Activations are the same on every rank between these products, and so
+    are their cotangents; the attention itself runs whole on every rank,
+    as under JAX's layout."""
+
+    def __init__(self, group: WorkerGroup, cuts: "list[LeafCut]"):
+        self.group = group
+        self.cuts = {}
+        for lc in cuts:
+            if self.cuts.get(lc.name, lc).use_cut != lc.use_cut:
+                raise ValueError(f"two leaves named {lc.name!r} are cut "
+                                 "differently; the plan context keys leaves "
+                                 "by name")
+            self.cuts[lc.name] = lc
+
+    @property
+    def M(self) -> int:
+        return self.group.M
+
+    @property
+    def m(self) -> int:
+        return self.group.model_rank
+
+    def cut(self, name: str) -> Optional[int]:
+        """The dim of one use of leaf ``name`` that this rank holds 1/M of,
+        or ``None`` when it holds the leaf whole."""
+        return self.cuts[name].use_cut
+
+    def gather_cols(self, y: torch.Tensor, full: int) -> torch.Tensor:
+        """The whole of an activation split on its last dim (this rank's
+        ``y``, of ``full / M`` columns), by one sum of zero-padded parts;
+        the cotangent, the same on every rank, is cut back to the rank's
+        columns."""
+        w = y.shape[-1]
+        lo = self.m * w
+        return psum_replicated(
+            torch.nn.functional.pad(y, (lo, full - lo - w)), self.group)
+
+    def _project(self, x: torch.Tensor, items) -> list:
+        """``[(w, cut)] -> [x @ w]`` whole, ``cut`` the dim of ``w`` this
+        rank holds 1/M of (0: input, 1: output, ``None``: whole)."""
+        dt, lead = x.dtype, x.shape[:-1]
+        outs: list = [None] * len(items)
+        rows = [i for i, (_, c) in enumerate(items) if c == 0]
+        cols = [i for i, (_, c) in enumerate(items) if c == 1]
+        if rows:
+            width = items[rows[0]][0].shape[0]
+            x2 = _slice_replicated(x, width, self.group).reshape(-1, width)
+            parts = [_PartialProduct.apply(x2, items[i][0].to(dt))
+                     for i in rows]
+            total = psum_replicated(torch.cat(parts, -1) if len(parts) > 1
+                                    else parts[0], self.group).to(dt)
+            at = 0
+            for i, p in zip(rows, parts):
+                n = p.shape[-1]
+                outs[i] = total[:, at:at + n].reshape(lead + (n,))
+                at += n
+        if cols:
+            xs = sum_cotangent(x, self.group)
+            for i in cols:
+                w = items[i][0]
+                outs[i] = self.gather_cols(xs @ w.to(dt),
+                                           w.shape[1] * self.M)
+        for i, (w, c) in enumerate(items):
+            if c is None:
+                outs[i] = x @ w.to(dt)
+        return outs
+
+    def project(self, x: torch.Tensor, items) -> list:
+        """``[(w, name)] -> [x @ w]``, each output whole on every rank."""
+        return self._project(x, [(w, self.cut(n)) for w, n in items])
+
+    def up(self, x: torch.Tensor, items, biases=()) -> tuple:
+        """``([x @ w + b], split)`` for ``items`` ``[(w, name)]`` and their
+        ``biases`` ``[(b or None, name)]``: split (the rank's columns)
+        when every matrix is cut on its output dim and every bias with it,
+        else whole."""
+        dt = x.dtype
+        biases = list(biases) or [(None, None)] * len(items)
+        split = all(self.cut(n) == 1 for _, n in items) and all(
+            b is None or self.cut(bn) == 0 for b, bn in biases)
+        if split:
+            xs = sum_cotangent(x, self.group)
+            outs = [xs @ w.to(dt) for w, _ in items]
+        else:
+            outs = self.project(x, items)
+        for i, (b, bn) in enumerate(biases):
+            if b is None:
+                continue
+            if not split and self.cut(bn) == 0:
+                b = self.gather_cols(b.to(dt), b.shape[-1] * self.M)
+            outs[i] = outs[i] + b.to(dt)
+        return outs, split
+
+    def down(self, h: torch.Tensor, w: torch.Tensor, name: str,
+             split: bool) -> torch.Tensor:
+        """``h @ w`` whole, ``h`` the output of :meth:`up` (split or
+        whole): a split ``h`` meets a matrix cut on its input dim without
+        a slice, its partial summed once."""
+        dt = h.dtype
+        if split and self.cut(name) == 0:
+            part = _PartialProduct.apply(h.reshape(-1, h.shape[-1]),
+                                         w.to(dt))
+            out = psum_replicated(part, self.group).to(dt)
+            return out.reshape(h.shape[:-1] + (out.shape[-1],))
+        if split:
+            h = self.gather_cols(h, h.shape[-1] * self.M)
+        return self.project(h, [(w, name)])[0]
+
+    def embed(self, table: torch.Tensor, name: str, tokens: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+        """The rows of ``table`` (vocab x d) at ``tokens``, whole, in
+        ``dtype``: a table cut on the vocab looks up the rank's rows, zero
+        elsewhere, and sums once."""
+        cut = self.cut(name)
+        tok = tokens.long()
+        if cut == 0:
+            n = table.shape[0]
+            t = tok - self.m * n
+            ok = (t >= 0) & (t < n)
+            rows = table[t.clamp(0, n - 1)].to(dtype)
+            return psum_replicated(
+                torch.where(ok[..., None], rows, rows.new_zeros(())),
+                self.group)
+        rows = table[tok].to(dtype)
+        if cut == 1:
+            return self.gather_cols(rows, table.shape[1] * self.M)
+        return rows
+
+    def vocab_loss(self, h: torch.Tensor, w: torch.Tensor, name: str,
+                   labels: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None, *,
+                   transposed: bool = False) -> torch.Tensor:
+        """``common.cross_entropy_loss(h @ w, labels, mask)`` (``w.T`` for
+        a tied embedding, ``transposed``). Cut on the vocab, the rank's
+        logits give their f32 log-sum-exp and the gold logit where the
+        label is theirs, and one sum over the group of the M log-sum-exps
+        (each in its slot) and the gold logits gives the loss."""
+        dt = h.dtype
+        cut = self.cut(name)
+        if cut is not None and transposed:
+            cut = 1 - cut
+        W = w.to(dt)
+        W = W.T if transposed else W
+        if cut != 1:
+            logits = self._project(h, [(W, cut)])[0].to(torch.float32)
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        else:
+            lf = (sum_cotangent(h, self.group) @ W).to(torch.float32)
+            n = lf.shape[-1]
+            t = labels.long() - self.m * n
+            ok = (t >= 0) & (t < n)
+            mine = torch.gather(lf, -1, t.clamp(0, n - 1)[..., None])[..., 0]
+            lse = torch.logsumexp(lf, dim=-1)
+            zero = lse.new_zeros(lse.shape)
+            parts = [lse if j == self.m else zero for j in range(self.M)]
+            total = psum_replicated(torch.stack(
+                parts + [torch.where(ok, mine, zero)]), self.group)
+            logz = torch.logsumexp(total[:self.M], dim=0)
+            gold = total[self.M]
+        nll = logz - gold
+        if mask is not None:
+            nll = nll * mask
+            return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+        return torch.mean(nll)
+
+
+def plan_model_sums(plan: ShardingPlan, spec: packing.PackSpec,
+                    cfg: Any) -> int:
+    """The ``model_sum`` calls of one forward and backward of the dense
+    model ``cfg`` through :class:`PlanCtx` under ``plan``, counted as
+    its methods make them:
+
+    * the embedding: 1 (a table cut on either dim), else 0;
+    * a layer: q, k and v: 2 when one of them is cut on its input dim (the
+      summed partials, and the input's cotangent put together), 1 more
+      when one is cut on its output dim (the input's summed cotangent) and
+      1 more for each such output put together; ``wo``: 2 when cut;
+      the MLP: 2 when its first matrices (and ``b_in``) are cut on their
+      output dim and the last on its input dim, else as ``project``
+      counts each half (a split-off ``b_in`` assembled: 1);
+    * the loss: 2 with the head (or the tied table) cut (on the vocab: the
+      input's summed cotangent and the log-sum-exp and gold sum; on
+      d_model: a row-parallel product), else 0.
+
+    For llama3.2-1b and the other SwiGLU configs (all cut as above) that
+    is ``6 L + 3``."""
+    cuts = {lc.name: lc.use_cut for lc in leaf_cuts(plan, spec)}
+
+    def project(names) -> int:
+        cs = [cuts[n] for n in names]
+        rows, cols = cs.count(0), cs.count(1)
+        return 2 * bool(rows) + (1 + cols if cols else 0)
+
+    layer = project(("wq", "wk", "wv")) + project(("wo",))
+    gelu = cfg.mlp_kind == "gelu"
+    ups = ((("w_in",), tuple(b for b in ("b_in",) if b in cuts)) if gelu
+           else (("w_gate", "w_up"), ()))
+    if all(cuts[n] == 1 for n in ups[0]) and all(
+            cuts[b] == 0 for b in ups[1]):
+        down = "w_out" if gelu else "w_down"
+        layer += 1 + (1 if cuts[down] == 0 else 1 + project((down,)))
+    else:
+        layer += project(ups[0]) + sum(cuts[b] == 0 for b in ups[1])
+        layer += project(("w_out",) if gelu else ("w_down",))
+    loss = 0 if cuts["embed" if cfg.tie_embeddings else "lm_head"] is None \
+        else 2
+    return int(cuts["embed"] is not None) + cfg.n_layers * layer + loss
+
+
+def plan_sum_bytes(cfg: Any, tokens: int, M: int) -> int:
+    """An upper bound on one ``model_sum`` call's bytes under a plan, for
+    a chunk of ``tokens`` tokens of the dense model ``cfg``: an f32
+    activation of the widest of q, k and v together, d_model, d_ff and
+    the loss's M + 1 rows."""
+    hd = cfg.resolved_head_dim
+    width = max((cfg.n_heads + 2 * cfg.n_kv_heads) * hd, cfg.d_model,
+                cfg.d_ff, M + 1)
+    return 4 * tokens * width
+
+
 # ------------------------------- the pipeline -------------------------------
 
 
@@ -201,12 +509,12 @@ class GradPipeline:
     """``value_and_grad(state, batch) -> (losses (K,), grads)`` with
     ``grads`` in the optimizer's form: a stacked tree (reference), a
     packed ``(K, rows, 128)`` buffer (packed), or the rank's
-    ``(1, rows / M, 128)`` block (the 2D layout's packed and
-    sharded-packed). With ``damping_chunks`` > 0 it takes a third
+    ``(1, rows / M, 128)`` block (the 2D layout's packed, sharded-packed
+    and planned). With ``damping_chunks`` > 0 it takes a third
     argument, the ``(K,)`` live-chunk counts ``n`` (the rank's ``(1,)``
     under ``comm='axis'``)."""
 
-    mode: str                 # 'reference' | 'packed' | 'sharded-packed'
+    mode: str    # 'reference' | 'packed' | 'sharded-packed' | 'planned'
     value_and_grad: Callable[..., Any]
     microbatch: int = 1
     damping_chunks: int = 0   # 0 = undamped 2-arg pipeline
@@ -288,9 +596,10 @@ def make_grad_pipeline(loss: Callable[[PyTree, PyTree], torch.Tensor],
                        damping_chunks: int = 0) -> GradPipeline:
     """Build the gradient pipeline for ``opt`` (a DecentralizedOptimizer):
     ``backend='packed'`` takes the through-unpack path, or under the 2D
-    layout with a ``sharded_loss`` the sharded-packed path; everything
-    else the reference path. A ``sharded_loss`` without a 2D optimizer is
-    not used, as in the JAX package.
+    layout with a ``sharded_loss`` the sharded-packed path and with a
+    ``plan`` the planned path; everything else the reference path. A
+    ``sharded_loss`` without a 2D optimizer is not used, as in the JAX
+    package.
 
     Args:
       loss: ``(params_stacked, batch_stacked) -> (K,)`` per-worker losses.
@@ -299,18 +608,22 @@ def make_grad_pipeline(loss: Callable[[PyTree, PyTree], torch.Tensor],
       sharded_loss: ``(chunks, batch, ctx) -> scalar``, the worker's loss
         from this rank's block (see the module's docstring); selects the
         ``'sharded-packed'`` mode under the 2D layout.
-      plan: the JAX package's GSPMD sharding constraints for the 2D
-        packed mode; they place operands and change no number, and have
-        no torch meaning yet.
+      plan: a ``launch.shardings.ShardingPlan`` (``make_plan(arch,
+        group)``) over the optimizer's group: on the 2D layout's packed
+        mode (no ``sharded_loss``) it selects the ``'planned'`` mode, and
+        ``loss`` must take ``shard=``. Elsewhere (1D, the reference
+        backend, a sharded loss) it changes nothing, as in JAX.
       damping_chunks: > 0 builds the damped variant, a 3-arg
         ``value_and_grad(state, batch, n)`` over this many chunks, masking
         each worker's chunks past its count ``n[k]``. Exclusive with
         ``microbatch`` > 1.
 
     Raises:
-      ValueError: ``microbatch < 1``, ``damping_chunks < 0``, or both
-        ``damping_chunks`` and ``microbatch`` > 1.
-      NotImplementedError: ``plan``.
+      ValueError: ``microbatch < 1``, ``damping_chunks < 0``, both
+        ``damping_chunks`` and ``microbatch`` > 1, or a plan over another
+        model group size than the optimizer's.
+      NotImplementedError: a plan for a family other than the dense one
+        on the planned mode.
     """
     if microbatch < 1:
         raise ValueError(f"microbatch must be >= 1, got {microbatch}")
@@ -323,14 +636,23 @@ def make_grad_pipeline(loss: Callable[[PyTree, PyTree], torch.Tensor],
                 "damping owns the accumulation loop (its max_chunks IS "
                 "the chunk count); microbatch > 1 alongside "
                 "damping_chunks is ambiguous — set one, not both")
-    if plan is not None:
-        raise NotImplementedError(
-            "plan= threads the JAX package's GSPMD sharding constraints "
-            "into the loss; they place operands and change no number, and "
-            "have no torch meaning yet (ROADMAP queue 4: make_plan)")
     packed = getattr(opt.cfg, "backend", "reference") == "packed"
     two_d = packed and getattr(opt.cfg, "model_parallel", 1) > 1
     mb = 1 if damping_chunks else microbatch
+    if two_d and plan is not None and sharded_loss is None:
+        family = getattr(plan.model_cfg, "family", None)
+        if family != "dense":
+            raise NotImplementedError(
+                f"plan= for the {family!r} family: the port's sharding plan "
+                "runs the dense family; MoE expert placement, then the "
+                "vision-language family are ROADMAP queue 4.3's next "
+                "slices (the ssm, hybrid and audio families after them)")
+        if plan.M != opt.group.M:
+            raise ValueError(f"the plan cuts {plan.M} ways; the optimizer's "
+                             f"model group has {opt.group.M} ranks")
+        vag = _planned_vag(loss, plan, opt.group, microbatch,
+                           damping_chunks)
+        return GradPipeline("planned", vag, mb, damping_chunks)
     if two_d and sharded_loss is not None:
         if opt.sharded_value_and_grad is None:
             raise ValueError(
@@ -435,6 +757,71 @@ def _packed_vag(loss, microbatch: int, damping_chunks: int,
     def vag(state, batch):
         return _accumulate(one_of(state), batch, microbatch, torch.add,
                            lambda a, n: a / n)
+
+    return vag
+
+
+def _planned_vag(loss, plan: ShardingPlan, group: WorkerGroup,
+                 microbatch: int, damping_chunks: int):
+    """The planned route: the rank's block out to its plan shards (one
+    ``model_redistribute``), every chunk's loss and shard gradients
+    through ``loss(params, batch, shard=PlanCtx)``, accumulated leaf by
+    leaf as the packed route accumulates its buffer (the same adds, masks
+    and division), and the sum back into a ``(1, rows / M, 128)`` block
+    (the reverse call). The index maps are built at the first step of a
+    spec and kept."""
+    built: list = []
+
+    def maps(spec):
+        for sp, rd, ctx in built:
+            if sp == spec:
+                return rd, ctx
+        rd = Redistribution(spec, plan, group.model_rank)
+        ctx = PlanCtx(group, rd.cuts)
+        built[:] = [(spec, rd, ctx)]
+        return rd, ctx
+
+    def one_of(state):
+        spec = state.spec
+        rd, ctx = maps(spec)
+        shards = [x.to(dt) for x, dt in zip(
+            rd.to_shards(state.buf, group), spec.dtypes)]
+
+        def one(b):
+            with torch.enable_grad():
+                xs = [x.detach().requires_grad_(True) for x in shards]
+                losses = loss(tree_unflatten(spec.treedef, xs), b,
+                              shard=ctx)
+                grads = torch.autograd.grad(losses.sum(), xs,
+                                            allow_unused=True)
+            return losses.detach(), [torch.zeros_like(x) if g is None else g
+                                     for x, g in zip(xs, grads)]
+
+        def block(grads):
+            return rd.to_block(grads, group, state.buf.dtype)
+
+        return one, block
+
+    if damping_chunks:
+        def damped_vag(state, batch, n):
+            one, block = one_of(state)
+            losses, grads = _accumulate_damped(
+                one, batch, damping_chunks, n,
+                lambda gs, off: [g.masked_fill_(_worker_shaped(off, g), 0.0)
+                                 for g in gs],
+                lambda a, gs: [x.add_(g) for x, g in zip(a, gs)],
+                lambda a, nf: [x.div_(_worker_shaped(nf, x)) for x in a])
+            return losses, block(grads)
+
+        return damped_vag
+
+    def vag(state, batch):
+        one, block = one_of(state)
+        losses, grads = _accumulate(
+            one, batch, microbatch,
+            lambda a, gs: [torch.add(x, g) for x, g in zip(a, gs)],
+            lambda a, k: [x / k for x in a])
+        return losses, block(grads)
 
     return vag
 

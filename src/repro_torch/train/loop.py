@@ -76,9 +76,10 @@ def stacked_loss(loss: Callable[[PyTree, PyTree], torch.Tensor]
     stacked leaves. The slices are views (``unbind``), so no param is
     copied; in the backward each leaf's per-worker gradients are stacked
     once into one leaf-sized tensor (a per-worker ``x[k]`` would
-    zero-fill a leaf-sized tensor per worker)."""
+    zero-fill a leaf-sized tensor per worker). Keywords (a sharding
+    plan's ``shard=``) pass through to ``loss``."""
 
-    def fn(params: PyTree, batch: PyTree) -> torch.Tensor:
+    def fn(params: PyTree, batch: PyTree, **kw) -> torch.Tensor:
         leaves, td = tree_flatten(params)
         bleaves, btd = tree_flatten(batch)
         per_p = [x.unbind(0) for x in leaves]
@@ -86,7 +87,7 @@ def stacked_loss(loss: Callable[[PyTree, PyTree], torch.Tensor]
         K = len(per_p[0])
         return torch.stack([
             loss(tree_unflatten(td, [x[k] for x in per_p]),
-                 tree_unflatten(btd, [x[k] for x in per_b]))
+                 tree_unflatten(btd, [x[k] for x in per_b]), **kw)
             for k in range(K)])
 
     return fn
@@ -143,9 +144,12 @@ class DecentralizedTrainer:
     ``fit`` observes each step's ``(state, batch)``, or ``(state,
     damp_state, batch)`` when damped, and raises ``RecompileError`` past
     the limit: damping levels keep one signature, a batch-shape change
-    does not. ``plan`` (GSPMD sharding constraints) has no torch meaning
-    yet; the grad pipeline raises ``NotImplementedError`` when it is
-    given.
+    does not. ``plan``: a ``launch.shardings.make_plan`` plan; on the 2D
+    layout's packed mode it selects the grad pipeline's ``'planned'`` mode
+    (each rank of a worker's model group multiplies with its plan shard of
+    every matrix; the dense family, its loss taking ``shard=``), and
+    elsewhere it changes nothing. ``resize`` keeps it, over the new
+    group.
     """
 
     def __init__(self, loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
@@ -190,7 +194,14 @@ class DecentralizedTrainer:
 
     def init(self, params: PyTree) -> Any:
         """Stack one worker's ``params`` K times and build the optimizer
-        state on the optimizer's device."""
+        state on the optimizer's device. Under ``comm='axis'`` the K
+        copies are one expanded view (a rank keeps one worker's, and
+        under the 2D layout only its block), so no rank holds K copies."""
+        if self.opt.group is not None:
+            K = self.opt.K
+            return self.opt.init(tree_map(
+                lambda x: x.unsqueeze(0).expand((K,) + tuple(x.shape)),
+                params))
         return self.opt.init(stack_params(params, self.opt.K))
 
     def resize(self, state: Any, new_opt: DecentralizedOptimizer, *,
@@ -229,6 +240,8 @@ class DecentralizedTrainer:
                 damp = DampingState(*(broadcast_first(x, new)
                                       for x in damp))
             self.damp_state = damp
+        if self._plan is not None and new is not None:
+            self._plan = self._plan.for_group(new)
         self._build(new_opt)
         return new_state
 
@@ -274,9 +287,12 @@ class DecentralizedTrainer:
             batch = take_worker(batch, group.rank, group.K)
         return tree_map(lambda x: x.to(self.opt.device), batch)
 
-    def _local_x(self, state) -> torch.Tensor:
-        """This rank's params, flat in f64: its worker's, or under the 2D
-        layout its block's leaf chunks without their padding."""
+    def _local_x(self, state, head: int = 0,
+                 device: "torch.device | None" = None) -> torch.Tensor:
+        """This rank's params, flat in f64 after ``head`` free slots, on
+        ``device`` (the params' by default): its worker's, or under the 2D
+        layout its block's leaf chunks without their padding. Each leaf is
+        written into one buffer, so no other f64 copy is made."""
         spec = getattr(state, "spec", None)
         if getattr(self.opt.cfg, "model_parallel", 1) == 1 or spec is None:
             leaves = tree_leaves(self.opt.params_of(state))
@@ -285,7 +301,14 @@ class DecentralizedTrainer:
             chunks = tree_leaves(packing.unpack_local(state.buf, spec))
             leaves = [c[:, :max(0, min(c.shape[1], sz - m * c.shape[1]))]
                       for c, sz in zip(chunks, spec.sizes)]
-        return torch.cat([t.reshape(-1).to(torch.float64) for t in leaves])
+        out = torch.empty(head + sum(t.numel() for t in leaves),
+                          dtype=torch.float64,
+                          device=device or leaves[0].device)
+        at = head
+        for t in leaves:
+            out[at:at + t.numel()].copy_(t.reshape(-1))
+            at += t.numel()
+        return out
 
     def _log_values(self, loss: torch.Tensor, state) -> Tuple[float, float]:
         """The logged mean loss over the K workers and their consensus
@@ -297,15 +320,20 @@ class DecentralizedTrainer:
         0, where equal workers leave a rounding's worth below it). Under
         the 2D layout x is the block's part of each worker's params, and
         the M parts of the consensus are summed over the model group; the
-        loss, the same on every rank of a worker, enters once."""
+        loss, the same on every rank of a worker, enters once. A
+        host-staged group builds the f64 vector in host memory: the card
+        holds no f64 copy of the params (at full width one would not fit
+        beside the two states a ``fit`` call holds)."""
         group = self.opt.group
         if group is None:
             return float(loss), float(consensus_error(
                 self.opt.params_of(state)))
-        x = self._local_x(state)
-        head = torch.stack([loss.reshape(()).to(torch.float64),
-                            torch.dot(x, x)])
-        total = all_reduce_sum(torch.cat([head, x]), group)
+        vec = self._local_x(state, head=2, device=torch.device("cpu")
+                            if group.host_staged else None)
+        x = vec[2:]
+        vec[0] = loss.reshape(())
+        vec[1] = torch.dot(x, x)
+        total = all_reduce_sum(vec, group)
         K = group.K
         s2, sx = total[1], total[2:]
         part = (s2 - torch.dot(sx, sx) / K).reshape(1)

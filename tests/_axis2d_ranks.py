@@ -324,3 +324,30 @@ def cases_rank(rank: int, init_method: str, K: int, M: int, cases: dict,
     with np.load(path) as data:
         inputs = {k: data[k] for k in data.files}
     return {name: RUN[c["type"]](c, inputs, wg) for name, c in cases.items()}
+
+
+def cli_f32_rank(rank: int, init_method: str, argv) -> dict:
+    """One rank of the training CLI's run (``launch.train._run``, what
+    ``main`` spawns) with the reduced configs at f32 compute: the 2D
+    layout's planned products sum in another order than the 1D run's,
+    which stays within f32 rounding."""
+    import dataclasses
+
+    from repro_torch.launch import train as cli
+
+    reduced = cli.get_reduced
+
+    def f32(arch_id):
+        a = reduced(arch_id)
+        return dataclasses.replace(a, model=dataclasses.replace(
+            a.model, compute_dtype=torch.float32))
+
+    cli.get_reduced = f32
+    try:
+        run = cli._run(cli.parser().parse_args(argv),
+                       init_method=init_method)
+    finally:
+        cli.get_reduced = reduced
+    return dict(loss=list(run.log.loss), comm_mb=list(run.log.comm_mb),
+                grad_evals=list(run.log.grad_evals), n_params=run.n_params,
+                mode=run.trainer.pipeline.mode)

@@ -401,15 +401,31 @@ def test_damping_and_microbatch_are_not_both():
 def test_sharded_damped_path_waits_for_multi_gpu_comm():
     """The sharded damped path is the 2D layout's
     (tests/test_torch_grad_2d.py); without a 2D optimizer a sharded loss
-    is not used, as in JAX, and the packed damped path runs. ``plan``
-    has no torch meaning yet."""
+    is not used, as in JAX, and the packed damped path runs. So is a
+    sharding plan (tests/test_torch_plan.py): on the 2D packed mode it
+    selects the planned damped path for the dense family, and raises for
+    a family that is not dense."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import WorkerGroup
+    from repro_torch.launch.shardings import make_plan
+
     opt = make_optimizer("d-adam", K, backend="packed", device="cpu")
     pipe = make_grad_pipeline(deepfm.deepfm_loss, opt, damping_chunks=4,
                               sharded_loss=lambda *a: 0.0)
     assert (pipe.mode, pipe.damping_chunks) == ("packed", 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 4"):
-        DecentralizedTrainer(deepfm.deepfm_loss, opt, damping="adadamp:4",
-                             plan=object())
+    plan = make_plan(get_reduced("llama3.2-1b"), (K, 2))
+    assert DecentralizedTrainer(deepfm.deepfm_loss, opt, damping="adadamp:4",
+                                plan=plan).pipeline.mode == "packed"
+    wg = WorkerGroup(group=None, rank=0, K=K, device=torch.device("cpu"),
+                     backend="gloo", M=2)
+    opt2d = make_optimizer("d-adam", K, backend="packed", comm="axis",
+                           group=wg)
+    tr = DecentralizedTrainer(deepfm.deepfm_loss, opt2d, damping="adadamp:4",
+                              plan=plan)
+    assert (tr.pipeline.mode, tr.pipeline.damping_chunks) == ("planned", 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 4.3"):
+        DecentralizedTrainer(deepfm.deepfm_loss, opt2d, damping="adadamp:4",
+                             plan=make_plan(get_reduced("zamba2-7b"), wg))
 
 
 # --------------------------------- trainer ----------------------------------

@@ -20,8 +20,8 @@ in a subprocess with 8 host devices, on an Auto-typed mesh).
 * The collective counters (``WorkerGroup.collective_summary``): no
   model-group all-gather in the sharded-packed mode, one a step in the
   packed mode.
-* The training CLI at ``--model-parallel 2`` on CPU ranks against
-  ``--model-parallel 1``.
+* The training CLI's run at ``--model-parallel 2`` (its sharding plan) on
+  CPU ranks against ``--model-parallel 1``, at f32 compute.
 """
 import numpy as np
 import pytest
@@ -217,8 +217,25 @@ def test_sharded_loss_without_2d_optimizer_is_not_used():
     tr = DecentralizedTrainer(lambda p, b: p["x"].sum(1), opt,
                               sharded_loss=ranks.sharded_quad_loss)
     assert tr.pipeline.mode == "packed"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 4"):
-        make_grad_pipeline(lambda p, b: p["x"].sum(1), opt, plan=object())
+    # a plan (tests/test_torch_plan.py) without a 2D optimizer is not used
+    # either, as in JAX; on the 2D packed mode a family that is not dense
+    # raises (the MoE and vision-language slices come next)
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import WorkerGroup
+    from repro_torch.launch.shardings import make_plan
+
+    plan = make_plan(get_reduced("llama3.2-1b"), (4, 2))
+    assert make_grad_pipeline(lambda p, b: p["x"].sum(1), opt,
+                              plan=plan).mode == "packed"
+    wg = WorkerGroup(group=None, rank=0, K=4, device=torch.device("cpu"),
+                     backend="gloo", M=2)
+    opt2d = make_optimizer("d-adam", 4, backend="packed", comm="axis",
+                           group=wg)
+    assert make_grad_pipeline(lambda p, b: p["x"].sum(1), opt2d,
+                              plan=plan).mode == "planned"
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 4.3"):
+        make_grad_pipeline(lambda p, b: p["x"].sum(1), opt2d,
+                           plan=make_plan(get_reduced("rwkv6-3b"), wg))
 
 
 CLI = ["--device", "cpu", "--comm", "axis", "--workers", "2", "--backend",
@@ -228,13 +245,22 @@ CLI = ["--device", "cpu", "--comm", "axis", "--workers", "2", "--backend",
 
 @pytest.mark.parametrize("optimizer", ["d-adam", "cd-adam"])
 def test_cli_model_parallel_2_matches_model_parallel_1(optimizer):
-    one = train_cli.main(CLI + ["--optimizer", optimizer])
-    two = train_cli.main(CLI + ["--optimizer", optimizer,
-                                "--model-parallel", "2"])
-    assert two.n_params == one.n_params
-    np.testing.assert_allclose(two.log.loss, one.log.loss, rtol=1e-4)
-    np.testing.assert_allclose(two.log.comm_mb, one.log.comm_mb)
-    assert two.log.grad_evals == one.log.grad_evals
+    """The CLI's run on its ranks (``launch.train._run``) at
+    ``--model-parallel`` 2 (the sharding plan: each rank multiplies with
+    its shards, so the products sum in another order) against 1, at f32
+    compute: at the reduced configs' bf16 the two part by bf16 rounding,
+    as JAX's planned and unplanned runs do (2e-4 at step 1);
+    tests/test_torch_plan.py runs the CLI itself at bf16."""
+    argv = CLI + ["--optimizer", optimizer]
+    one = spawn(ranks.cli_f32_rank, 2, (argv,), timeout_s=SPAWN_TIMEOUT_S,
+                threads=1)[0]
+    two = spawn(ranks.cli_f32_rank, 4, (argv + ["--model-parallel", "2"],),
+                timeout_s=SPAWN_TIMEOUT_S, threads=1)[0]
+    assert two["mode"] == "planned"
+    assert two["n_params"] == one["n_params"]
+    np.testing.assert_allclose(two["loss"], one["loss"], rtol=1e-4)
+    np.testing.assert_allclose(two["comm_mb"], one["comm_mb"])
+    assert two["grad_evals"] == one["grad_evals"]
 
 
 @pytest.mark.parametrize("flags,match", [

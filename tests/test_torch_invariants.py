@@ -184,7 +184,8 @@ def test_check_invariants_counts_the_launches_of_its_run():
 
 def test_mesh_marks_its_counting_transport(monkeypatch):
     assert mesh.COUNTING == {"exchange", "all_reduce_sum", "_gather",
-                             "_broadcast", "send_world", "recv_world"}
+                             "_broadcast", "send_world", "recv_world",
+                             "model_redistribute"}
     # no process group here: the watched functions stand in as no-ops
     for name in ("all_reduce", "barrier"):
         monkeypatch.setattr(torch.distributed, name, lambda *a, **k: None)
