@@ -230,6 +230,28 @@ script exits non-zero without the final ``ok`` line:
    reduced (f32 compute, 2 steps; step 1's loss within LM_STEP1_TOL, the
    blocks by step3_check), the planned config's invariant gate, and
    ``fused_adam``'s record at a rank's block beside ``torch._fused_adam_``.
+   Since slice 23 the card-vs-CPU part also runs the reduced phi3.5-moe,
+   llama4-maverick and phi-3-vision, and the gate also
+   ``axis2d-plan-moe`` (the reduced phi3.5-moe).
+34c. axis2d_plan_moe and axis2d_plan_vlm (after axis2d_plan): the sharding
+   plan for the MoE and vision-language families (slice 23) at full
+   width, through the library path (the config's depth and param dtype
+   cut in the config), on the same 4 gloo ranks (K=2 x M=2, each held to
+   PLAN_RANK_SHARE), PLAN_BATCH x PLAN_SEQ text tokens a worker, packed
+   D-Adam at p=2, PLAN_FAMILY_STEPS (3) steps, so that step 3's loss
+   reads the comm step's mix (one spawn runs both):
+   phi3.5-moe at 1 of 32 layers with bf16 params and the config's bf16
+   moments (the f32 router makes the packed buffer f32, as in JAX),
+   phi-3-vision at PLAN_VLM_LAYERS of 32 layers with f32 params (576
+   patch positions before the text). Each rank in the planned mode
+   with its (1, rows / 2, 128) block, no model all-gather, 2
+   redistributions and the plan's sums a step, ``fused_adam`` on every
+   step; the losses within PLAN_LOSS_RTOL of the stacked twin's (the same
+   params and batches, K=2 on the card); the MoE twin's dropped pairs a
+   call; the peak, step times and collectives a rank; ``fused_adam``'s
+   record at each rank block (f32 p with bf16 moments, and f32) beside
+   its plain version and, where p and the moments share a dtype,
+   ``torch._fused_adam_``.
 35. invariants (after axis2d): ``repro_torch.analysis``'s gate on the
    card: the sweep's 20 stacked configs (reference and packed x D-Adam
    and CD-Adam x plain, schedule, stale, overlap, damping; one period
@@ -333,6 +355,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -977,7 +1000,8 @@ AXIS2D_ELASTIC_LAUNCHES = {"fused_adam": AXIS2D_ELASTIC["steps"]}
 # whole (f32 params, bf16 compute) through the training CLI at --comm
 # axis --workers 2 --model-parallel 2 --backend packed: 4 gloo ranks on the
 # one card, each holding one (1, 4827904, 128) block and, in a step, its
-# plan shard of every matrix; packed D-Adam at p=2, 4 steps, one fit call a
+# plan shard of every matrix; packed D-Adam at p=2, 4 steps (two comm
+# steps, each followed by a step whose loss reads its mix), one fit call a
 # step (--log-every 1). Each rank is held to a quarter of the card
 # (PLAN_RANK_SHARE of the caching allocator; four of them and the four
 # CUDA contexts fill the 79.18 GiB card), so a rank that outgrows its share
@@ -1017,14 +1041,56 @@ PLAN_SUMS_PER_STEP = 6 * 16 + 3 + 1
 # that distance: a wrong shard, a lost sum or a gradient scaled by M moves
 # a loss by far more after one Adam step
 PLAN_LOSS_RTOL = 2e-3
-# card against CPU (b): the four dense configs reduced, at f32 compute,
+# card against CPU (b): the four dense configs reduced, and (slice 23) the
+# reduced phi3.5-moe, llama4-maverick and phi-3-vision, at f32 compute,
 # the planned trainer for 2 steps at p=2 on the same 4 ranks' card group
 # and CPU group, from one init and one batch stream; the losses within
 # LM_STEP1_TOL, the blocks by step3_check
 PLAN_CARD_CPU_ARCHS = ("llama3.2-1b", "yi-6b", "starcoder2-15b",
-                       "qwen1.5-32b")
+                       "qwen1.5-32b", "phi3.5-moe-42b-a6.6b",
+                       "llama4-maverick-400b-a17b", "phi-3-vision-4.2b")
 PLAN_CARD_CPU_STEPS = 2
 PLAN_CARD_CPU_LAUNCHES = {"fused_adam": PLAN_CARD_CPU_STEPS}
+# the invariant gates of analysis.check's planned 2D configs, on the card
+PLAN_GATES = ("axis2d-plan", "axis2d-plan-moe")
+# the sharding plan for the MoE and vision-language families (slice 23),
+# at full width on the same 4 gloo ranks of the one card (K=2 x M=2, each
+# rank held to PLAN_RANK_SHARE), PLAN_BATCH x PLAN_SEQ text tokens a
+# worker, packed D-Adam at p=2 for PLAN_FAMILY_STEPS steps (local, comm,
+# local: step 3's loss reads the comm step's reverse redistribution, Adam
+# update and mix; one fit call a step), through the library path: the
+# config's depth and param dtype are cut in the config, for which neither
+# CLI has a flag. phi3.5-moe at 1 of 32 layers with bf16 params and the
+# config's bf16 moments: its router is an f32 leaf, so the packed buffer
+# is f32 (the widest leaf dtype, as in JAX), 18.89 GB a rank at the peak;
+# f32 params and moments would need ~25 GB (~32 B a block element, as the
+# dense plan measured).
+# phi-3-vision at PLAN_VLM_LAYERS of 32 layers with f32 params (576 patch
+# positions before the text): at 9 layers a rank reserves 19.74 GB at its
+# peak of the 20.4 GB share (NVIDIA H100 80GB HBM3, 700 W); a layer adds
+# 113.2 M params a worker, 56.6 M a rank's block, ~1.8 GB at ~32 B a
+# block element, so a tenth does not fit. Each family's plan sums a step:
+# plan_model_sums + the log point's one; block: one rank's (1, rows / 2,
+# 128); each held to its stacked twin (the same config, params and
+# batches, K=2 on the card) within PLAN_LOSS_RTOL
+PLAN_FAMILY_STEPS = 3
+PLAN_VLM_LAYERS = 9
+PLAN_FAMILIES = {
+    "moe": dict(arch="phi3.5-moe-42b-a6.6b", n_layers=1,
+                param_dtype=torch.bfloat16, block=[1, 6_106_112, 128],
+                dtypes=["torch.float32", "torch.bfloat16", "torch.bfloat16"],
+                sums=9 * 1 + 3 + 1),
+    "vlm": dict(arch="phi-3-vision-4.2b", n_layers=PLAN_VLM_LAYERS,
+                param_dtype=torch.float32, block=[1, 4_763_904, 128],
+                dtypes=["torch.float32"] * 3,
+                sums=6 * PLAN_VLM_LAYERS + 4 + 1),
+}
+PLAN_FAMILY_LAUNCHES = {"fused_adam": PLAN_FAMILY_STEPS}
+# the stacked twin's launches: fused_adam on the local steps,
+# gossip_adam_mix on the comm steps
+PLAN_TWIN_LAUNCHES = {
+    "fused_adam": PLAN_FAMILY_STEPS - PLAN_FAMILY_STEPS // PLAN_PERIOD,
+    "gossip_adam_mix": PLAN_FAMILY_STEPS // PLAN_PERIOD}
 
 
 def emit(obj) -> None:
@@ -4241,29 +4307,39 @@ def plan_card_cpu_rank(rank: int, init_method: str, archs) -> dict:
                 LM_STEP1_TOL, f"axis2d_plan card vs CPU {arch_id} step 1"),
             "blocks": step3_check(f"axis2d_plan card vs CPU {arch_id}",
                                   card[1], cpu[1])}
-    cfg = check.SweepConfig("axis2d-plan", "d-adam", "plain", K=PLAN_K,
-                            M=PLAN_M)
-    out["invariants"] = check.check_config(cfg, "cuda", groups["cuda"])
+    out["invariants"] = {
+        b: check.check_config(check.SweepConfig(b, "d-adam", "plain",
+                                                K=PLAN_K, M=PLAN_M),
+                              "cuda", groups["cuda"])
+        for b in PLAN_GATES}
     return out
 
 
-def plan_block_record() -> dict:
-    """``fused_adam`` at one rank's block of the planned full-width run,
-    ``(1, 4827904, 128)`` f32 (llama3.2-1b's packed rows at M=2), on
-    drawn buffers, alone on the card: held to the plain version to the
-    bit, the kernel's CUDA-event and device ms, the plain version's and
-    ``torch._fused_adam_``'s (in place on copies; held to the plain
-    version within KERNEL_TOL) beside the byte bound (28 B an element).
-    A record of the ``kernels`` line (its launches summed by path in
-    ``run_phases``)."""
+def plan_block_record(block=None, dtype=torch.float32, moments=None,
+                      what: str = "the planned run's block",
+                      variant: str = "") -> dict:
+    """``fused_adam`` at one rank's ``block`` of a planned full-width run
+    (by default ``PLAN_BLOCK``, ``(1, 4827904, 128)`` f32: llama3.2-1b's
+    packed rows at M=2), p and g of ``dtype``, m and v of ``moments`` (p's
+    by default), on drawn buffers, alone on the card: held to the plain
+    version to the bit, the kernel's CUDA-event and device ms, the plain
+    version's, and ``torch._fused_adam_``'s where p and the moments share
+    a dtype (one dtype for its lists; in place on copies, held to the
+    plain version within KERNEL_TOL at f32, BF16_LIBRARY_TOL at bf16),
+    beside the byte bound (p read and written, g read, m and v read and
+    written: 28 B an element at f32, 20 with bf16 moments). A record of
+    the ``kernels`` line (its launches summed by path in ``run_phases``)."""
     from repro_torch.kernels import fused_adam as fa
 
+    block = list(block or PLAN_BLOCK)
+    moments = moments or dtype
     gen = torch.Generator(device="cuda").manual_seed(7)
-    p = torch.randn(PLAN_BLOCK, generator=gen, device="cuda")
-    g = torch.randn(PLAN_BLOCK, generator=gen, device="cuda") * 0.1
-    m = torch.randn(PLAN_BLOCK, generator=gen, device="cuda") * 0.01
-    v = torch.rand(PLAN_BLOCK, generator=gen, device="cuda") * 0.01
+    p = torch.randn(block, generator=gen, device="cuda").to(dtype)
+    g = (torch.randn(block, generator=gen, device="cuda") * 0.1).to(dtype)
+    m = (torch.randn(block, generator=gen, device="cuda") * 0.01).to(moments)
+    v = (torch.rand(block, generator=gen, device="cuda") * 0.01).to(moments)
     n = p.numel()
+    per = 3 * p.element_size() + 4 * m.element_size()
 
     def kernel():
         return fa.fused_adam(p, g, m, v, **ADAM)
@@ -4272,37 +4348,48 @@ def plan_block_record() -> dict:
         return fa.fused_adam_plain(p, g, m, v, **ADAM)
 
     got, want = kernel(), plain()
-    max_abs, max_rel = compare(got, want, BIT_EQUAL, "fused_adam at the "
-                               "planned run's block")
-    lib = [p.clone()], [m.clone()], [v.clone()]
-    call = fused_adam_library_call(lib[0], [g], lib[1], lib[2], ADAM,
-                                   torch.tensor(1e7, device="cuda"))
-    call()
-    lib_err = compare((lib[0][0], lib[1][0], lib[2][0]), want, KERNEL_TOL,
-                      "torch._fused_adam_ against fused_adam_plain at the "
-                      "planned run's block")[0]
-    del got, want
-    ms = median_ms(kernel, reps=LM_REPS, warmup=1)
+    max_abs, max_rel = compare(got, want, BIT_EQUAL, f"fused_adam at {what}")
     rec = {"name": "fused_adam", "route": "cuda",
            "source": "src/repro_torch/csrc/fused_adam.cu",
            "replaces": "src/repro/kernels/fused_adam.py:66",
            "launches": None, "max_abs_err": max_abs, "max_rel_err": max_rel,
-           "tol": BIT_EQUAL, "ms": ms, "kernel_ms": ms,
-           "kernel_device_ms": device_kernel_ms(kernel, "fused_adam_kernel",
-                                                reps=LM_REPS),
-           "plain_ms": median_ms(plain, reps=LM_REPS, warmup=1),
-           "bound_ms": max(7 * 4 * n / MEM_RATE, 12 * n / F32_RATE) * 1e3,
-           "bound_by": "bytes", "bytes": 7 * 4 * n,
-           "library_ms": median_ms(call, reps=LM_REPS, warmup=1),
-           "library_device_ms": device_kernel_ms(call, "", reps=LM_REPS),
-           "library": "torch._fused_adam_ (state_steps 1e7; checked "
-                      "against the plain version within KERNEL_TOL)",
-           "library_max_abs_err": lib_err,
-           "variant": f"the planned run's block {PLAN_BLOCK}: one rank's "
-                      "1/M of llama3.2-1b's packed rows at M=2",
-           "params": "float32"}
+           "tol": BIT_EQUAL, "library_ms": None,
+           "library": "none: torch._fused_adam_ takes one dtype for its "
+                      "lists"}
+    if moments == dtype:
+        lib_tol = KERNEL_TOL if dtype == torch.float32 else BF16_LIBRARY_TOL
+        lib = [p.clone()], [m.clone()], [v.clone()]
+        call = fused_adam_library_call(lib[0], [g], lib[1], lib[2], ADAM,
+                                       torch.tensor(1e7, device="cuda"))
+        call()
+        rec["library_max_abs_err"] = compare(
+            (lib[0][0], lib[1][0], lib[2][0]), want, lib_tol,
+            f"torch._fused_adam_ against fused_adam_plain at {what}")[0]
+        rec.update(library_ms=median_ms(call, reps=LM_REPS, warmup=1),
+                   library_device_ms=device_kernel_ms(call, "",
+                                                      reps=LM_REPS),
+                   library="torch._fused_adam_ (state_steps 1e7; checked "
+                           "against the plain version within "
+                           + ("KERNEL_TOL)" if dtype == torch.float32
+                              else "BF16_LIBRARY_TOL)"))
+        del lib, call
+    del got, want
+    ms = median_ms(kernel, reps=LM_REPS, warmup=1)
+    rec.update({
+        "ms": ms, "kernel_ms": ms,
+        "kernel_device_ms": device_kernel_ms(kernel, "fused_adam_kernel",
+                                             reps=LM_REPS),
+        "plain_ms": median_ms(plain, reps=LM_REPS, warmup=1),
+        "bound_ms": max(per * n / MEM_RATE, 12 * n / F32_RATE) * 1e3,
+        "bound_by": "bytes", "bytes": per * n,
+        "variant": variant or (f"the planned run's block {PLAN_BLOCK}: one "
+                               "rank's 1/M of llama3.2-1b's packed rows at "
+                               "M=2"),
+        "params": "float32" if dtype == torch.float32 else "bfloat16"})
+    if moments != torch.float32:
+        rec["moments"] = str(moments).split(".")[-1]
     emit({"phase": "kernel", **rec})
-    del p, g, m, v, lib, call
+    del p, g, m, v
     torch.cuda.empty_cache()
     return rec
 
@@ -4384,8 +4471,9 @@ def phase_axis2d_plan():
                     "bytes": v["bytes"] / PLAN_STEPS,
                     "max_bytes": v["max_bytes"]}
                 for k, v in ranks[0]["collectives"].items() if v["count"]}
-    gate = gate_record("axis2d-plan/d-adam/plain (K=2, M=2)",
-                       [r["invariants"] for r in cc])
+    gates = [gate_record(f"{b}/d-adam/plain (K=2, M=2)",
+                         [r["invariants"][b] for r in cc])
+             for b in PLAN_GATES]
     card_cpu = {}
     for arch_id in PLAN_CARD_CPU_ARCHS:
         recs = [r[arch_id] for r in cc]
@@ -4429,7 +4517,271 @@ def phase_axis2d_plan():
                       "card_vs_cpu": t_cpu,
                       "total": time.perf_counter() - t0}})
     launches = {n: sum(r["launches"][n] for r in ranks) for n in want}
-    return launches, [gate], plan_block_record()
+    return launches, gates, plan_block_record()
+
+
+def plan_family_arch(fam: str):
+    """The full-width arch of PLAN_FAMILIES[fam], cut to its depth and
+    param dtype."""
+    from repro_torch.configs import get_arch
+
+    f = PLAN_FAMILIES[fam]
+    arch = get_arch(f["arch"])
+    return dataclasses.replace(arch, model=dataclasses.replace(
+        arch.model, n_layers=f["n_layers"], param_dtype=f["param_dtype"]))
+
+
+def plan_family_rank(rank: int, init_method: str, fams) -> dict:
+    """One rank of the planned runs of ``fams`` (PLAN_FAMILIES' keys), one
+    after the other on one K=2 x M=2 gloo group of the card, held to
+    PLAN_RANK_SHARE: for each, the library path of the CLI's rank body
+    (``make_optimizer`` packed D-Adam under comm='axis', the trainer with
+    ``make_plan(arch, group)``, the params from the CLI's seed, its batch
+    stream), the counters zeroed after init, PLAN_FAMILY_STEPS steps one
+    fit call each, the counters read. The rank's losses, step times,
+    peak, collectives, launches, block, the plan sums' formula; an
+    out-of-memory error comes back as the record's ``oom``."""
+    from repro_torch.core.api import make_optimizer
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+    from repro_torch.launch.mesh import make_worker_group
+    from repro_torch.launch.shardings import make_plan
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.grad import plan_model_sums
+    from repro_torch.train.loop import DecentralizedTrainer, stacked_loss
+
+    # four ranks each held to a quarter of the card leave the card itself
+    # no room for a rank's cached but unused blocks: expandable segments
+    # keep what a rank reserves near what it holds (the MoE's f32 buffer,
+    # bf16 moments and bf16 shards of many sizes fragment the cache). Set
+    # before the rank's first CUDA call, where the allocator reads it
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.cuda.set_per_process_memory_fraction(PLAN_RANK_SHARE)
+    group = make_worker_group(PLAN_K, model_parallel=PLAN_M,
+                              init_method=init_method, rank=rank,
+                              device=DEVICE, backend="gloo",
+                              timeout_s=AXIS_GROUP_TIMEOUT_S)
+    out = {}
+    for fam in fams:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        arch = plan_family_arch(fam)
+        cfg = arch.model
+        try:
+            api = build_model(cfg)
+            opt = make_optimizer("d-adam", K=PLAN_K, eta=LM_ETA,
+                                 period=PLAN_PERIOD, topology="ring",
+                                 backend="packed", comm="axis", group=group,
+                                 moment_dtype=arch.parallel.moment_dtype)
+            trainer = DecentralizedTrainer(stacked_loss(api.loss), opt,
+                                           plan=make_plan(arch, group))
+            state = trainer.init(api.init(torch.Generator(
+                device=DEVICE).manual_seed(cli.PARAM_SEED)))
+            it = cli.make_batch_iter(cfg, PLAN_K, PLAN_BATCH, PLAN_SEQ, 0.5,
+                                     torch.device(DEVICE))
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            group.reset_counts()
+            log = None
+            for _ in range(PLAN_FAMILY_STEPS):
+                state, log = trainer.fit(state, it, 1, log_every=1, log=log)
+            torch.cuda.synchronize()
+        except torch.OutOfMemoryError as e:
+            out[fam] = {"oom": str(e).splitlines()[0],
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            # the group's other ranks wait on this one: say why now
+            print(f"{fam} rank {rank}: {out[fam]}", file=sys.stderr,
+                  flush=True)
+            continue
+        walls = [0.0] + list(log.wall_s)
+        step_ms = [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
+        out[fam] = {
+            "mode": trainer.pipeline.mode, "loss": list(log.loss),
+            "step_ms": step_ms,
+            "local_step_ms": [d for c, d in zip(log.step, step_ms)
+                              if c % PLAN_PERIOD],
+            "comm_step_ms": [d for c, d in zip(log.step, step_ms)
+                             if c % PLAN_PERIOD == 0],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "reserved_peak_gb": torch.cuda.max_memory_reserved() / 1e9,
+            "collectives": group.collective_summary(),
+            "launches": ops.launch_counts(),
+            "block": list(state.buf.shape),
+            "dtypes": [str(t.dtype) for t in (state.buf, state.m, state.v)],
+            "finite": bool(torch.isfinite(state.buf).all()),
+            "formula": plan_model_sums(trainer._plan, state.spec, cfg),
+            "worker": group.rank, "model_rank": group.model_rank,
+            "transport": group.transport}
+        del trainer, state, it, opt, api
+    return out
+
+
+def plan_family_twin(fam: str) -> dict:
+    """The stacked twin of PLAN_FAMILIES[fam]'s planned run on the card:
+    the same config, params and batch stream at K=2 (``lm_library_trainer``
+    at p=2), PLAN_FAMILY_STEPS steps one fit call each, its launches
+    exact; for the MoE, the share of (token, choice) pairs the capacity
+    dropped in each call of the layer (``moe.dropped_share``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+    from repro_torch.models import moe
+
+    arch = plan_family_arch(fam)
+    cfg = arch.model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api, trainer = lm_library_trainer(cfg, "d-adam", period=PLAN_PERIOD,
+                                      moment_dtype=arch.parallel.moment_dtype)
+    state = trainer.init(api.init(torch.Generator(
+        device=DEVICE).manual_seed(cli.PARAM_SEED)))
+    it = cli.make_batch_iter(cfg, PLAN_K, PLAN_BATCH, PLAN_SEQ, 0.5,
+                             torch.device(DEVICE))
+    shares, forward = [], moe.moe_forward
+
+    def spy(params, x, shard=None, **routing):
+        shares.append(moe.dropped_share(params, x, **routing))
+        return forward(params, x, shard=shard, **routing)
+
+    ops.reset_launches()
+    moe.moe_forward = spy
+    try:
+        log = None
+        for _ in range(PLAN_FAMILY_STEPS):
+            state, log = trainer.fit(state, it, 1, log_every=1, log=log)
+    finally:
+        moe.moe_forward = forward
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches(f"axis2d_plan_{fam} stacked twin", launches,
+                   PLAN_TWIN_LAUNCHES)
+    rec = {"loss": list(log.loss), "launches": launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t0,
+           "params_per_worker": state.spec.n}
+    if shares:
+        g, C = moe.capacity(PLAN_BATCH * PLAN_SEQ, cfg.experts_per_token,
+                            cfg.n_experts, cfg.capacity_factor,
+                            cfg.moe_group_size)
+        rec.update(dropped_share_by_call=shares,
+                   dropped_share=sum(shares) / len(shares),
+                   route_group=[PLAN_BATCH, PLAN_SEQ, g, C])
+    del trainer, state, it, api
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_axis2d_plan_families():
+    """The sharding plan on the card for the MoE and vision-language
+    families (slice 23): phi3.5-moe at full width (1 of 32 layers, bf16
+    params, bf16 moments, an f32 buffer) and phi-3-vision at full width
+    (PLAN_VLM_LAYERS of 32 layers, f32 params), each at K=2 x M=2 on 4
+    gloo ranks of the one card held to PLAN_RANK_SHARE (one spawn runs
+    both), each rank in the planned mode with its block, no model
+    all-gather, 2 redistributions and the plan's sums a step, fused_adam
+    on every step; the losses of all PLAN_FAMILY_STEPS steps (the last
+    after a comm step) within PLAN_LOSS_RTOL of the stacked twin's, the
+    MoE's dropped pairs; then ``fused_adam``'s record at each rank block
+    (f32 p with bf16 moments, and f32). Returns ({path: launches summed
+    over the ranks}, the records)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import spawn
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    ranks = spawn(plan_family_rank, PLAN_K * PLAN_M, (list(PLAN_FAMILIES),),
+                  timeout_s=AXIS_SPAWN_TIMEOUT_S, threads=2)
+    t_ranks = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    by_path, records = {}, []
+    for fam, f in PLAN_FAMILIES.items():
+        phase = f"axis2d_plan_{fam}"
+        cfg = plan_family_arch(fam).model
+        recs = [r[fam] for r in ranks]
+        for rank, rec in enumerate(recs):
+            what = f"{phase} rank {rank}"
+            if "oom" in rec:
+                raise AssertionError(
+                    f"{what}: out of its share of the card at "
+                    f"{f['n_layers']} layers, {PLAN_BATCH} x {PLAN_SEQ}: "
+                    f"{rec['oom']} (peak {rec['peak_gb']:.2f} GB)")
+            coll = rec["collectives"]
+            if rec["mode"] != "planned" or rec["block"] != f["block"] \
+                    or not rec["finite"] or rec["dtypes"] != f["dtypes"]:
+                raise AssertionError(
+                    f"{what}: mode {rec['mode']}, block {rec['block']}, "
+                    f"finite {rec['finite']}, dtypes {rec['dtypes']}")
+            check_launches(what, rec["launches"], PLAN_FAMILY_LAUNCHES)
+            if coll["model_all_gather"]["count"] != 0 or \
+                    coll["model_redistribute"]["count"] != \
+                    2 * PLAN_FAMILY_STEPS or \
+                    rec["formula"] + 1 != f["sums"] or \
+                    coll["model_sum"]["count"] != \
+                    f["sums"] * PLAN_FAMILY_STEPS:
+                raise AssertionError(f"{what}: formula {rec['formula']}, "
+                                     f"collectives {coll}")
+            if rec["loss"] != recs[0]["loss"]:
+                raise AssertionError(f"{what}: losses {rec['loss']} "
+                                     f"against rank 0's {recs[0]['loss']}")
+        twin = plan_family_twin(fam)
+        losses = recs[0]["loss"]
+        if not all(math.isfinite(x) for x in losses) or abs(
+                losses[0] - math.log(cfg.vocab_size)) > LM_LOSS0_SLACK:
+            raise AssertionError(f"{phase}: losses {losses} (ln vocab "
+                                 f"{math.log(cfg.vocab_size):.3f})")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, twin["loss"])]
+        if max(rel) > PLAN_LOSS_RTOL:
+            raise AssertionError(f"{phase}: losses {losses} against the "
+                                 f"stacked twin's {twin['loss']}")
+        per_step = {k: {"count": v["count"] / PLAN_FAMILY_STEPS,
+                        "bytes": v["bytes"] / PLAN_FAMILY_STEPS,
+                        "max_bytes": v["max_bytes"]}
+                    for k, v in recs[0]["collectives"].items() if v["count"]}
+        full_layers = get_arch(f["arch"]).model.n_layers
+        emit({"phase": phase,
+              "config": {"arch": f["arch"], "full": True,
+                         "n_layers": [f["n_layers"], full_layers],
+                         "K": PLAN_K, "M": PLAN_M, "period": PLAN_PERIOD,
+                         "steps": PLAN_FAMILY_STEPS, "batch": PLAN_BATCH,
+                         "seq": PLAN_SEQ,
+                         "positions": PLAN_SEQ + cfg.n_patches,
+                         "param_dtype": str(f["param_dtype"]),
+                         "buffer_m_v_dtypes": recs[0]["dtypes"],
+                         "compute": "bfloat16",
+                         "rank_share_of_card": PLAN_RANK_SHARE},
+              "params_per_worker": twin["params_per_worker"],
+              "transport": recs[0]["transport"],
+              "block_per_rank": recs[0]["block"],
+              "losses": losses, "losses_stacked": twin["loss"],
+              "loss_rel_err": rel, "loss_rtol": PLAN_LOSS_RTOL,
+              "peak_mem_gb_per_rank": [r["peak_gb"] for r in recs],
+              "reserved_peak_gb_per_rank": [r["reserved_peak_gb"]
+                                            for r in recs],
+              "card_free_gb_before_spawn": free_gb,
+              "step_ms_per_rank": [r["step_ms"] for r in recs],
+              "local_step_ms_per_rank": [r["local_step_ms"] for r in recs],
+              "comm_step_ms_per_rank": [r["comm_step_ms"] for r in recs],
+              "collectives_per_step_rank0": per_step,
+              "model_all_gathers_per_step": 0,
+              "model_sums_per_step": f["sums"],
+              "launches_per_rank": recs[0]["launches"],
+              "stacked_twin": twin,
+              "seconds": {"ranks_both_families": t_ranks,
+                          "total": time.perf_counter() - t0}})
+        by_path[phase] = {n: sum(r["launches"].get(n, 0) for r in recs)
+                          for n in recs[0]["launches"]}
+        dts = {"torch.float32": torch.float32,
+               "torch.bfloat16": torch.bfloat16}
+        records.append(plan_block_record(
+            f["block"], dts[f["dtypes"][0]], dts[f["dtypes"][1]],
+            f"the planned {fam} run's block",
+            f"the planned {f['arch']} run's block {f['block']}: one "
+            f"rank's 1/M of its packed rows at M=2, "
+            f"{f['n_layers']} of {full_layers} layers"))
+    return by_path, records
 
 
 def phase_invariants(gates: list, corpus) -> None:
@@ -5045,9 +5397,9 @@ def phase_serve_moe(cfg=None, buckets=SERVE_BUCKETS, lengths=SERVE_LENGTHS,
     B, S = max(buckets)
     shares, forward = [], moe.moe_forward
 
-    def spy(params, x, **routing):
+    def spy(params, x, shard=None, **routing):
         shares.append(moe.dropped_share(params, x, **routing))
-        return forward(params, x, **routing)
+        return forward(params, x, shard=shard, **routing)
 
     moe.moe_forward = spy
     try:
@@ -6477,6 +6829,9 @@ def main() -> int:
     by_path.update(axis2d_paths)
     by_path["axis2d_plan"], gates_plan, plan_block = phase_axis2d_plan()
     records.append(plan_block)
+    family_paths, family_blocks = phase_axis2d_plan_families()
+    by_path.update(family_paths)
+    records.extend(family_blocks)
     phase_invariants(gates + gates2d + gates_plan, corpus)
     # after the axis phases, whose 8 ranks share the host's cores
     lm_cpu = LMCPUSides()

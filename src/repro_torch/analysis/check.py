@@ -3,7 +3,8 @@
 
 One entry point (:func:`run`, ``python -m repro_torch.analysis.check``)
 sweeps the execution configs (reference / packed / axis / axis2d and the
-port's own axis2d-packed and axis2d-plan × D-Adam / CD-Adam × plain /
+port's own axis2d-packed, axis2d-plan and axis2d-plan-moe × D-Adam /
+CD-Adam × plain /
 schedule / stale / overlap / damping) and gates one communication period of each (``period=2``:
 one local step and one comm step, through ``DecentralizedTrainer.fit``,
 which logs once) against :func:`spec_for`'s
@@ -83,7 +84,8 @@ def _batch(K: int) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class SweepConfig:
-    # 'reference' | 'packed' | 'axis' | 'axis2d' | 'axis2d-packed'
+    # 'reference' | 'packed' | 'axis' | 'axis2d' | 'axis2d-packed' |
+    # 'axis2d-plan' | 'axis2d-plan-moe'
     backend: str
     kind: str               # 'd-adam' | 'cd-adam'
     variant: str    # 'plain' | 'schedule' | 'stale' | 'overlap' | 'damping'
@@ -100,10 +102,13 @@ class SweepConfig:
 
 
 BACKENDS = ("reference", "packed", "axis", "axis2d", "axis2d-packed",
-            "axis2d-plan")
-# the planned 2D config's model and tokens: the reduced llama3.2-1b under
-# its sharding plan, 2 sequences of 16 tokens a worker
-PLAN_ARCH, PLAN_BATCH, PLAN_SEQ = "llama3.2-1b", 2, 16
+            "axis2d-plan", "axis2d-plan-moe")
+# the planned 2D configs' models and tokens: the reduced llama3.2-1b and
+# the reduced phi3.5-moe under their sharding plans, 2 sequences of 16
+# tokens a worker
+PLAN_ARCHS = {"axis2d-plan": "llama3.2-1b",
+              "axis2d-plan-moe": "phi3.5-moe-42b-a6.6b"}
+PLAN_BATCH, PLAN_SEQ = 2, 16
 KINDS = ("d-adam", "cd-adam")
 VARIANTS = ("plain", "schedule", "stale", "overlap", "damping")
 
@@ -111,15 +116,16 @@ VARIANTS = ("plain", "schedule", "stale", "overlap", "damping")
 def sweep_configs(backends: Sequence[str] = BACKENDS,
                   kinds: Sequence[str] = KINDS,
                   variants: Sequence[str] = VARIANTS) -> List[SweepConfig]:
-    """The JAX sweep's configs and exclusions, and the port's own two:
+    """The JAX sweep's configs and exclusions, and the port's own three:
     ``axis2d-packed``, the 2D layout without a sharded loss, and
-    ``axis2d-plan``, the 2D layout under a sharding plan (the reduced
-    llama3.2-1b, ``PLAN_ARCH``), D-Adam plain only."""
+    ``axis2d-plan`` / ``axis2d-plan-moe``, the 2D layout under a sharding
+    plan (the reduced llama3.2-1b / phi3.5-moe, ``PLAN_ARCHS``), D-Adam
+    plain only."""
     out = []
     for b in backends:
         for k in kinds:
             for v in variants:
-                if b in ("axis2d-packed", "axis2d-plan") and \
+                if (b == "axis2d-packed" or b in PLAN_ARCHS) and \
                         (k, v) != ("d-adam", "plain"):
                     continue
                 # config validation rejects these combinations: staleness
@@ -162,14 +168,14 @@ def _build(cfg: SweepConfig, device: "str | torch.device",
     if cfg.backend == "axis2d":
         extra["sharded_loss"] = _sharded_loss
     opt = make_optimizer(cfg.kind, cfg.K, **kw)
-    if cfg.backend == "axis2d-plan":
+    if cfg.backend in PLAN_ARCHS:
         return _build_planned(cfg, opt, device)
     trainer = DecentralizedTrainer(stacked_loss(_loss), opt, **extra)
     return trainer, trainer.init(_params()), _batch(cfg.K)
 
 
 def _build_planned(cfg: SweepConfig, opt, device):
-    """The planned 2D config: the reduced ``PLAN_ARCH`` under
+    """A planned 2D config: its reduced arch (``PLAN_ARCHS``) under
     ``make_plan(arch, group)``, its params from a seed on the group's
     device and ``PLAN_BATCH`` x ``PLAN_SEQ`` tokens a worker."""
     from repro_torch.configs import get_reduced
@@ -177,7 +183,7 @@ def _build_planned(cfg: SweepConfig, opt, device):
     from repro_torch.models.registry import build_model
     from repro_torch.train.loop import DecentralizedTrainer, stacked_loss
 
-    arch = get_reduced(PLAN_ARCH)
+    arch = get_reduced(PLAN_ARCHS[cfg.backend])
     api = build_model(arch.model)
     trainer = DecentralizedTrainer(stacked_loss(api.loss), opt,
                                    plan=make_plan(arch, opt.group))
@@ -264,7 +270,8 @@ def period_spec(name: str, trainer, state, *, steps: int,
     * ``model_sum`` (2D): at most ``max(activation_bytes, 4096)`` a call,
       the loss's activation sums, JAX's bound. With a plan the count is
       exact: ``grad.plan_model_sums`` a chunk (``6 L + 3`` for the SwiGLU
-      configs) times the chunks a step (microbatch, or damping's
+      configs, ``9 L + 3`` for the reduced phi3.5-moe) times the chunks
+      a step (microbatch, or damping's
       ``max_chunks``) times the steps, one for the log point's consensus,
       and one a round for CD-Adam's scales;
     * ``worker_broadcast`` and ``resize``: none;
@@ -318,10 +325,10 @@ def spec_for(cfg: SweepConfig, trainer, state) -> InvariantSpec:
     """The spec one period of a sweep config must satisfy
     (:func:`period_spec` with the config's launches)."""
     act = 4 * B * DOUT
-    if cfg.backend == "axis2d-plan":
+    if cfg.backend in PLAN_ARCHS:
         from repro_torch.train.grad import plan_sum_bytes
 
-        act = plan_sum_bytes(trainer._plan.model_cfg, PLAN_BATCH * PLAN_SEQ,
+        act = plan_sum_bytes(trainer._plan.model_cfg, PLAN_BATCH, PLAN_SEQ,
                              cfg.M)
     return period_spec(cfg.name, trainer, state, steps=PERIOD,
                        launches=expected_launches(cfg),

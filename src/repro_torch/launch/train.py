@@ -38,8 +38,11 @@ sharding plan (``launch.shardings.make_plan(arch, group, mode='axis')``):
 each step a rank moves its block out to its plan shard of every matrix,
 computes the worker's loss and gradient multiplying with its shards
 (``train.grad``'s planned mode), and moves the gradient back into its
-block; no rank holds the worker's whole buffer. The plan runs the dense
-family (other families raise ``NotImplementedError``). Without torchrun
+block; no rank holds the worker's whole buffer. The plan runs the dense,
+MoE (router and experts cut by the plan, the routing the same on every
+rank) and vision-language (the projector cut, the patches the same on
+every rank of a worker) families; the ssm, hybrid and audio families
+raise ``NotImplementedError``. Without torchrun
 ``--workers K`` spawns K x M ranks; under torchrun it takes K x M of
 them. Rank (w, 0) of each worker counts toward the log, and global rank
 0 prints it.

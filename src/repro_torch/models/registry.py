@@ -3,7 +3,7 @@ over the model families the port can build.
 
     api = build_model(cfg)
     params = api.init(gen)                        # a torch.Generator
-    loss   = api.loss(params, batch)      # dense: also shard= (a plan's)
+    loss   = api.loss(params, batch)      # dense, moe, vlm: also shard=
     logits, cache = api.prefill(params, batch, cache_len=..., <impl>=...)
     logits, cache = api.decode_step(params, cache, token[, <impl>=...])
 
@@ -109,8 +109,8 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         return ModelAPI(
             cfg=cfg,
             init=lambda gen: vlm.init_params(gen, cfg),
-            loss=lambda p, b, remat="none": vlm.loss_fn(
-                p, b, cfg, remat=remat),
+            loss=lambda p, b, remat="none", shard=None: vlm.loss_fn(
+                p, b, cfg, remat=remat, shard=shard),
             prefill=lambda p, b, cache_len=None, attn_impl="auto":
                 vlm.prefill(p, b["tokens"], b["patches"], cfg,
                             cache_len=cache_len, attn_impl=attn_impl),

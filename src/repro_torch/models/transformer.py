@@ -21,13 +21,17 @@ the layers and ``loss_fn`` adds ``router_aux_weight`` times it.
 or chunked path, never the flash kernel (it has no backward), with the
 ``remat`` policy around each layer.
 
-``loss_fn(..., shard=ctx)`` is the dense family's loss under a sharding
-plan (``train.grad``'s planned mode): ``params`` hold the rank's plan
-shards, and every product with a cut matrix goes through ``ctx`` (a
+``loss_fn(..., shard=ctx)`` is the loss under a sharding plan
+(``train.grad``'s planned mode) of the dense and MoE families, and of the
+vision-language backbone (``models.vlm``, its projected patches as
+``extra_embeds``): ``params`` hold the rank's plan shards, and every
+product with a cut matrix goes through ``ctx`` (a
 ``train.grad.PlanCtx``): the vocab-parallel embedding, the attention
-projections, the MLP, and a vocab-parallel cross-entropy in place of
-``unembed``, so the logits are never whole on a rank. Norms and biases
-are whole. Without a plan every function computes what it did.
+projections, the MLP or the MoE's router and experts
+(``moe.moe_forward``), and a vocab-parallel cross-entropy over the text
+positions in place of ``unembed``, so the logits are never whole on a
+rank. Norms and biases are whole. Without a plan every function computes
+what it did.
 """
 from __future__ import annotations
 
@@ -99,14 +103,10 @@ def _ffn(layer: PyTree, hn: torch.Tensor, cfg: ModelConfig,
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(the feed-forward output, the MoE aux loss or ``None``)."""
     if "moe" in layer:
-        if shard is not None:
-            raise NotImplementedError(
-                "a sharding plan's MoE expert placement is not ported "
-                "(ROADMAP queue 4.3)")
         return moe.moe_forward(layer["moe"], hn,
                                top_k=cfg.experts_per_token,
                                capacity_factor=cfg.capacity_factor,
-                               group_size=cfg.moe_group_size)
+                               group_size=cfg.moe_group_size, shard=shard)
     if cfg.mlp_kind == "gelu":
         return mlp.gelu_mlp_forward(layer["mlp"], hn, shard), None
     return mlp.swiglu_forward(layer["mlp"], hn, shard), None
@@ -205,15 +205,22 @@ def _planned_loss(params: PyTree, batch: PyTree, cfg: ModelConfig,
                   labels: torch.Tensor) -> torch.Tensor:
     """``loss_fn`` through a sharding plan's context: the forward of
     ``forward`` with the rank's shards, and the cross-entropy taken
-    vocab-parallel from the final norm's output."""
-    if remat != "none" or batch.get("extra_embeds") is not None:
+    vocab-parallel from the final norm's output at the text positions
+    (the ``extra_embeds`` positions before them are left out before the
+    head, where ``loss_fn`` slices the logits after it: the same
+    value)."""
+    if remat != "none":
         raise ValueError(
-            "a sharding plan's loss takes the dense family's tokens with "
-            "remat='none' (remat would run the layers' sums over the model "
-            "group again in the backward)")
+            "a sharding plan's loss takes remat='none' (remat would run the "
+            "layers' sums over the model group again in the backward)")
     h = embed_tokens(params, inputs, cfg, shard)
+    extra = batch.get("extra_embeds")
+    if extra is not None:
+        h = torch.cat([extra.to(h.dtype), h], dim=1)
     positions = torch.arange(h.shape[1], device=h.device)
     h, aux = backbone(params, h, cfg, positions, shard=shard)
+    if extra is not None:
+        h = h[:, extra.shape[1]:]
     h = _norm(h, params["final_norm"], params.get("final_norm_b"),
               cfg.norm_kind, cfg.norm_eps)
     tied = cfg.tie_embeddings

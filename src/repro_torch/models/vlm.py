@@ -12,6 +12,13 @@ tokens] under one causal mask.
 flash kernel, once per layer over the patches and the text together.
 The KV cache holds the patches' positions first, so a prompt of L tokens
 ends at cache index ``n_patches + L``.
+
+``loss_fn(..., shard=ctx)`` is the loss under a sharding plan
+(``train.grad``'s planned mode): the projector, cut on d_model (its
+output, assembled) or on the 1024 CLIP features (a row-parallel
+product), as the plan's greedy rule picks, then the backbone's planned
+loss (``transformer.loss_fn``) with the projected patches before the
+text. Every rank of a worker's model group must hold the same patches.
 """
 from __future__ import annotations
 
@@ -37,10 +44,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
 
 
 def project_patches(params: PyTree, patches: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
-    """(B, P, 1024) stub CLIP features -> (B, P, d_model)."""
-    return patches.to(cfg.compute_dtype) @ params["projector"].to(
-        cfg.compute_dtype)
+                    cfg: ModelConfig, shard: Any = None) -> torch.Tensor:
+    """(B, P, 1024) stub CLIP features -> (B, P, d_model), whole on every
+    rank under a plan (``shard``)."""
+    x = patches.to(cfg.compute_dtype)
+    if shard is not None:
+        return shard.project(x, [(params["projector"], "projector")])[0]
+    return x @ params["projector"].to(cfg.compute_dtype)
 
 
 def forward(params: PyTree, tokens: torch.Tensor, patches: torch.Tensor,
@@ -53,9 +63,16 @@ def forward(params: PyTree, tokens: torch.Tensor, patches: torch.Tensor,
 
 
 def loss_fn(params: PyTree, batch: PyTree, cfg: ModelConfig, *,
-            remat: str = "none") -> torch.Tensor:
-    """Next-token CE over the text positions; JAX's adds no aux loss."""
+            remat: str = "none", shard: Any = None) -> torch.Tensor:
+    """Next-token CE over the text positions; JAX's adds no aux loss.
+    ``shard``: a sharding plan's context (the module's docstring)."""
     tokens = batch["tokens"]
+    if shard is not None:
+        embeds = project_patches(params, batch["patches"], cfg, shard)
+        return transformer.loss_fn(
+            params, {"tokens": tokens, "extra_embeds": embeds,
+                     "mask": batch.get("mask")}, cfg, remat=remat,
+            shard=shard)
     logits, _ = forward(params, tokens[:, :-1], batch["patches"], cfg,
                         remat=remat)
     logits = logits[:, batch["patches"].shape[1]:]

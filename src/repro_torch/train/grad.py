@@ -33,7 +33,8 @@ a :class:`GradPipeline` in one of three modes:
   ``WorkerGroup`` as ``model_sum``).
 
 * **planned**: the 2D layout with a sharding plan (``plan=``, from
-  ``launch.shardings.make_plan``; the dense family): the port of JAX's
+  ``launch.shardings.make_plan``; the dense, MoE and vision-language
+  families): the port of JAX's
   packed route under ``loss_param_constraints``. Each step moves the
   rank's block out to its plan shard of every matrix (one counted
   ``model_redistribute``; vectors and the leaves the plan replicates come
@@ -41,7 +42,8 @@ a :class:`GradPipeline` in one of three modes:
   is a :class:`PlanCtx` through which the model multiplies with its
   shards (row-parallel products summed over the group in f32,
   column-parallel products whose outputs stay split, a vocab-parallel
-  embedding and cross-entropy), and moves the shards' gradients back into
+  embedding and cross-entropy; the MoE's expert weights as batched
+  products of the same kinds), and moves the shards' gradients back into
   the rank's ``(1, rows / M, 128)`` gradient block (the reverse call).
   Nothing is all-gathered: the group's collectives are the two
   redistributions a step and the model's ``model_sum`` calls.
@@ -84,6 +86,8 @@ from repro_torch.launch.shardings import (LeafCut, Redistribution,
                                           ShardingPlan, leaf_cuts)
 
 PyTree = Any
+# the model families whose losses take a sharding plan's ``shard=``
+PLAN_FAMILIES = ("dense", "moe", "vlm")
 
 
 # ------------------------------ shard context -------------------------------
@@ -231,13 +235,15 @@ def sum_cotangent(x: torch.Tensor, group: WorkerGroup) -> torch.Tensor:
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` (2-D) with an f32 result: a bf16 GEMM that keeps its f32
-    accumulator on the card, the products of the upcast operands on the
-    CPU (exact for bf16 inputs, as the GEMM's are)."""
+    """``a @ b`` (2-D, or 3-D batched: an expert weight's products) with an
+    f32 result: a bf16 GEMM that keeps its f32 accumulator on the card,
+    the products of the upcast operands on the CPU (exact for bf16 inputs,
+    as the GEMM's are). f32 operands (the router) multiply in f32."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return a @ b
     if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=torch.float32)
     return a.to(torch.float32) @ b.to(torch.float32)
 
 
@@ -255,7 +261,25 @@ class _PartialProduct(torch.autograd.Function):
     def backward(ctx, ct):
         a, b = ctx.saved_tensors
         g = ct.to(a.dtype)
-        return g @ b.T, a.T @ g
+        return g @ b.transpose(-1, -2), a.transpose(-1, -2) @ g
+
+
+def matrix_cut(lc: LeafCut) -> Optional[int]:
+    """The dim of one use of a leaf that a rank holds 1/M of, counted among
+    a matrix's two dims (0: input, 1: output) for a batched ``(E, d_in,
+    d_out)`` expert weight too; a vector's own dim; ``None`` when held
+    whole. A cut on an expert weight's expert dim is refused: the plan's
+    rule never takes it for the ported configs (``d_model`` and ``d_ff``
+    are larger than the expert count), and the products here cut only the
+    matrices."""
+    c = lc.use_cut
+    batch = len(lc.shape) - int(lc.layered) - 2
+    if c is None or batch <= 0:
+        return c
+    if c < batch:
+        raise ValueError(f"{lc.name!r} is cut on its expert dim; the plan "
+                         "context cuts an expert weight on d_model or d_ff")
+    return c - batch
 
 
 class PlanCtx:
@@ -274,7 +298,11 @@ class PlanCtx:
     * :meth:`up` / :meth:`down`: the MLP. Matrices cut on their output dim
       (``w_gate``, ``w_up``, ``w_in`` and its ``b_in``) leave the hidden
       activation split, and the matrix after them, cut on its input dim,
-      takes it as it is: one sum each way.
+      takes it as it is: one sum each way. The MoE's expert weights
+      ``(E, d_in, d_out)`` go through the same methods as batched products
+      on expert-major ``(E, slots, d)`` activations, each cut on one of its
+      matrix dims (:func:`matrix_cut`), and :meth:`down`'s ``combine``
+      combines a row-parallel partial before its one sum.
     * :meth:`embed` and :meth:`vocab_loss`: a vocab-parallel lookup (zero
       outside the rank's rows, then one sum) and cross-entropy (the
       logits of the rank's vocab rows, their log-sum-exp and the gold
@@ -282,17 +310,21 @@ class PlanCtx:
 
     Activations are the same on every rank between these products, and so
     are their cotangents; the attention itself runs whole on every rank,
-    as under JAX's layout."""
+    as under JAX's layout, and so do the MoE's routing, dispatch and
+    combine. The router, an f32 leaf, enters :meth:`project` with an f32
+    input: its row-parallel product multiplies and sums in f32, so the
+    routing is the same bits on every rank."""
 
     def __init__(self, group: WorkerGroup, cuts: "list[LeafCut]"):
         self.group = group
-        self.cuts = {}
+        self.cuts: dict = {}
         for lc in cuts:
-            if self.cuts.get(lc.name, lc).use_cut != lc.use_cut:
+            c = matrix_cut(lc)
+            if self.cuts.get(lc.name, c) != c:
                 raise ValueError(f"two leaves named {lc.name!r} are cut "
                                  "differently; the plan context keys leaves "
                                  "by name")
-            self.cuts[lc.name] = lc
+            self.cuts[lc.name] = c
 
     @property
     def M(self) -> int:
@@ -303,9 +335,9 @@ class PlanCtx:
         return self.group.model_rank
 
     def cut(self, name: str) -> Optional[int]:
-        """The dim of one use of leaf ``name`` that this rank holds 1/M of,
-        or ``None`` when it holds the leaf whole."""
-        return self.cuts[name].use_cut
+        """The dim of one use of leaf ``name`` that this rank holds 1/M of
+        (:func:`matrix_cut`), or ``None`` when it holds the leaf whole."""
+        return self.cuts[name]
 
     def gather_cols(self, y: torch.Tensor, full: int) -> torch.Tensor:
         """The whole of an activation split on its last dim (this rank's
@@ -317,6 +349,14 @@ class PlanCtx:
         return psum_replicated(
             torch.nn.functional.pad(y, (lo, full - lo - w)), self.group)
 
+    def _rows_in(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The rank's columns of ``x`` for a matrix ``w`` cut on its input
+        dim, flattened to 2-D for a 2-D ``w`` (a batched ``w`` takes the
+        expert-major ``(E, slots, d)`` as it is)."""
+        width = w.shape[-2]
+        xl = _slice_replicated(x, width, self.group)
+        return xl.reshape(-1, width) if w.dim() == 2 else xl
+
     def _project(self, x: torch.Tensor, items) -> list:
         """``[(w, cut)] -> [x @ w]`` whole, ``cut`` the dim of ``w`` this
         rank holds 1/M of (0: input, 1: output, ``None``: whole)."""
@@ -325,8 +365,7 @@ class PlanCtx:
         rows = [i for i, (_, c) in enumerate(items) if c == 0]
         cols = [i for i, (_, c) in enumerate(items) if c == 1]
         if rows:
-            width = items[rows[0]][0].shape[0]
-            x2 = _slice_replicated(x, width, self.group).reshape(-1, width)
+            x2 = self._rows_in(x, items[rows[0]][0])
             parts = [_PartialProduct.apply(x2, items[i][0].to(dt))
                      for i in rows]
             total = psum_replicated(torch.cat(parts, -1) if len(parts) > 1
@@ -334,14 +373,14 @@ class PlanCtx:
             at = 0
             for i, p in zip(rows, parts):
                 n = p.shape[-1]
-                outs[i] = total[:, at:at + n].reshape(lead + (n,))
+                outs[i] = total[..., at:at + n].reshape(lead + (n,))
                 at += n
         if cols:
             xs = sum_cotangent(x, self.group)
             for i in cols:
                 w = items[i][0]
                 outs[i] = self.gather_cols(xs @ w.to(dt),
-                                           w.shape[1] * self.M)
+                                           w.shape[-1] * self.M)
         for i, (w, c) in enumerate(items):
             if c is None:
                 outs[i] = x @ w.to(dt)
@@ -374,19 +413,32 @@ class PlanCtx:
         return outs, split
 
     def down(self, h: torch.Tensor, w: torch.Tensor, name: str,
-             split: bool) -> torch.Tensor:
+             split: bool, combine=None) -> torch.Tensor:
         """``h @ w`` whole, ``h`` the output of :meth:`up` (split or
-        whole): a split ``h`` meets a matrix cut on its input dim without
-        a slice, its partial summed once."""
+        whole): a matrix cut on its input dim takes a split ``h`` as it is
+        (a whole one sliced), its f32 partial summed once and rounded.
+
+        ``combine``: ``(fn, z)`` with ``fn(z, y)`` linear in ``y`` and
+        ``z`` an activation the same on every rank (the MoE's gates);
+        returns ``fn(z, h @ w)``. A partial is combined before its sum
+        (in f32, the combined output smaller than the product's), and
+        ``z``, which then meets only the rank's part, has its cotangent
+        summed (:func:`sum_cotangent`)."""
         dt = h.dtype
-        if split and self.cut(name) == 0:
-            part = _PartialProduct.apply(h.reshape(-1, h.shape[-1]),
-                                         w.to(dt))
-            out = psum_replicated(part, self.group).to(dt)
-            return out.reshape(h.shape[:-1] + (out.shape[-1],))
+        fn, z = combine if combine is not None else (None, None)
+        if self.cut(name) == 0:
+            lead = h.shape[:-1]
+            x = (h.reshape(-1, h.shape[-1]) if split and w.dim() == 2
+                 else h if split else self._rows_in(h, w))
+            part = _PartialProduct.apply(x, w.to(dt))
+            part = part.reshape(lead + (part.shape[-1],))
+            if fn is not None:
+                part = fn(sum_cotangent(z, self.group), part)
+            return psum_replicated(part, self.group).to(dt)
         if split:
             h = self.gather_cols(h, h.shape[-1] * self.M)
-        return self.project(h, [(w, name)])[0]
+        out = self.project(h, [(w, name)])[0]
+        return out if fn is None else fn(z, out)
 
     def embed(self, table: torch.Tensor, name: str, tokens: torch.Tensor,
               dtype: torch.dtype) -> torch.Tensor:
@@ -449,56 +501,84 @@ class PlanCtx:
 
 def plan_model_sums(plan: ShardingPlan, spec: packing.PackSpec,
                     cfg: Any) -> int:
-    """The ``model_sum`` calls of one forward and backward of the dense
-    model ``cfg`` through :class:`PlanCtx` under ``plan``, counted as
-    its methods make them:
+    """The ``model_sum`` calls of one forward and backward of the model
+    ``cfg`` (the dense, MoE or vision-language family) through
+    :class:`PlanCtx` under ``plan``, counted as its methods make them:
 
-    * the embedding: 1 (a table cut on either dim), else 0;
+    * the embedding: 1 (a table cut on either dim), else 0; the VLM's
+      projector: 1 when cut (its input, the patches, takes no gradient);
     * a layer: q, k and v: 2 when one of them is cut on its input dim (the
       summed partials, and the input's cotangent put together), 1 more
       when one is cut on its output dim (the input's summed cotangent) and
       1 more for each such output put together; ``wo``: 2 when cut;
-      the MLP: 2 when its first matrices (and ``b_in``) are cut on their
-      output dim and the last on its input dim, else as ``project``
-      counts each half (a split-off ``b_in`` assembled: 1);
+    * the feed-forward: 1 when its first matrices (and ``b_in``) are all
+      cut on their output dim (the input's summed cotangent), else as
+      ``project`` counts them (a split-off ``b_in`` assembled: 1); then
+      the last matrix: cut on its input dim, 1 (the partial's sum) and 1
+      more for a whole input's slice; else a split hidden put together
+      (1) and ``project``'s count;
+    * a MoE layer: the router as ``project`` counts it (its f32 sum and
+      its input's cotangent: 2), the experts as the feed-forward, and 1
+      more when ``w_down``'s partial is combined before its sum (the
+      gates' cotangent);
     * the loss: 2 with the head (or the tied table) cut (on the vocab: the
       input's summed cotangent and the log-sum-exp and gold sum; on
       d_model: a row-parallel product), else 0.
 
-    For llama3.2-1b and the other SwiGLU configs (all cut as above) that
-    is ``6 L + 3``."""
-    cuts = {lc.name: lc.use_cut for lc in leaf_cuts(plan, spec)}
+    For llama3.2-1b and the other SwiGLU configs that is ``6 L + 3``."""
+    cuts = {lc.name: matrix_cut(lc) for lc in leaf_cuts(plan, spec)}
 
     def project(names) -> int:
         cs = [cuts[n] for n in names]
         rows, cols = cs.count(0), cs.count(1)
         return 2 * bool(rows) + (1 + cols if cols else 0)
 
+    def ffn(ups, biases, down, combine=False) -> int:
+        split = all(cuts[n] == 1 for n in ups) and all(
+            cuts[b] == 0 for b in biases)
+        n = 1 if split else project(ups) + sum(cuts[b] == 0 for b in biases)
+        if cuts[down] == 0:
+            return n + 1 + (not split) + combine
+        return n + split + project((down,))
+
+    moe = "router" in cuts
     layer = project(("wq", "wk", "wv")) + project(("wo",))
-    gelu = cfg.mlp_kind == "gelu"
-    ups = ((("w_in",), tuple(b for b in ("b_in",) if b in cuts)) if gelu
-           else (("w_gate", "w_up"), ()))
-    if all(cuts[n] == 1 for n in ups[0]) and all(
-            cuts[b] == 0 for b in ups[1]):
-        down = "w_out" if gelu else "w_down"
-        layer += 1 + (1 if cuts[down] == 0 else 1 + project((down,)))
+    if moe:
+        layer += project(("router",)) + ffn(("w_gate", "w_up"), (), "w_down",
+                                            combine=True)
+    elif cfg.mlp_kind == "gelu":
+        layer += ffn(("w_in",), tuple(b for b in ("b_in",) if b in cuts),
+                     "w_out")
     else:
-        layer += project(ups[0]) + sum(cuts[b] == 0 for b in ups[1])
-        layer += project(("w_out",) if gelu else ("w_down",))
+        layer += ffn(("w_gate", "w_up"), (), "w_down")
     loss = 0 if cuts["embed" if cfg.tie_embeddings else "lm_head"] is None \
         else 2
-    return int(cuts["embed"] is not None) + cfg.n_layers * layer + loss
+    return (int(cuts["embed"] is not None)
+            + int(cuts.get("projector") is not None)
+            + cfg.n_layers * layer + loss)
 
 
-def plan_sum_bytes(cfg: Any, tokens: int, M: int) -> int:
+def plan_sum_bytes(cfg: Any, batch: int, seq: int, M: int) -> int:
     """An upper bound on one ``model_sum`` call's bytes under a plan, for
-    a chunk of ``tokens`` tokens of the dense model ``cfg``: an f32
-    activation of the widest of q, k and v together, d_model, d_ff and
-    the loss's M + 1 rows."""
+    a chunk of ``batch`` sequences of ``seq`` tokens of the model ``cfg``
+    (the VLM's ``n_patches`` positions before each): an f32 activation a
+    position of the widest of q, k and v together, d_model, d_ff, the
+    router's E logits and the loss's M + 1 rows; for a MoE, an f32
+    activation an expert slot (``E x C`` a token group) of d_model or of
+    the gate's and up's 2 d_ff together."""
+    from repro_torch.models import moe
+
     hd = cfg.resolved_head_dim
+    positions = batch * (seq + cfg.n_patches)
     width = max((cfg.n_heads + 2 * cfg.n_kv_heads) * hd, cfg.d_model,
-                cfg.d_ff, M + 1)
-    return 4 * tokens * width
+                cfg.d_ff, cfg.n_experts, M + 1)
+    out = 4 * positions * width
+    if cfg.n_experts:
+        g, C = moe.capacity(positions, cfg.experts_per_token, cfg.n_experts,
+                            cfg.capacity_factor, cfg.moe_group_size)
+        slots = cfg.n_experts * C * (positions // g)
+        out = max(out, 4 * slots * max(cfg.d_model, 2 * cfg.d_ff))
+    return out
 
 
 # ------------------------------- the pipeline -------------------------------
@@ -622,8 +702,8 @@ def make_grad_pipeline(loss: Callable[[PyTree, PyTree], torch.Tensor],
       ValueError: ``microbatch < 1``, ``damping_chunks < 0``, both
         ``damping_chunks`` and ``microbatch`` > 1, or a plan over another
         model group size than the optimizer's.
-      NotImplementedError: a plan for a family other than the dense one
-        on the planned mode.
+      NotImplementedError: a plan for a family other than the dense, MoE
+        and vision-language ones on the planned mode.
     """
     if microbatch < 1:
         raise ValueError(f"microbatch must be >= 1, got {microbatch}")
@@ -641,12 +721,12 @@ def make_grad_pipeline(loss: Callable[[PyTree, PyTree], torch.Tensor],
     mb = 1 if damping_chunks else microbatch
     if two_d and plan is not None and sharded_loss is None:
         family = getattr(plan.model_cfg, "family", None)
-        if family != "dense":
+        if family not in PLAN_FAMILIES:
             raise NotImplementedError(
                 f"plan= for the {family!r} family: the port's sharding plan "
-                "runs the dense family; MoE expert placement, then the "
-                "vision-language family are ROADMAP queue 4.3's next "
-                "slices (the ssm, hybrid and audio families after them)")
+                f"runs the {', '.join(PLAN_FAMILIES)} families; the ssm, "
+                "hybrid and audio families are ROADMAP queue 4.3's next "
+                "slices")
         if plan.M != opt.group.M:
             raise ValueError(f"the plan cuts {plan.M} ways; the optimizer's "
                              f"model group has {opt.group.M} ranks")

@@ -1,9 +1,12 @@
 """The JAX side of the sharding-plan parity test (tests/test_torch_plan.py),
 run as a script in a subprocess with 4 forced host devices:
 
-    python tests/_jax_plan.py TOKENS.npz OUT.npz STEPS
+    python tests/_jax_plan.py TOKENS.npz OUT.npz STEPS [ARCH [TAU [none]]]
 
-JAX's planned trainer: the reduced llama3.2-1b at f32 compute, packed
+JAX's planned trainer: the reduced ARCH (llama3.2-1b by default; the
+batches' ``patches<t>`` go with the tokens for the vision-language
+family) at f32 compute, with Adam's tau (1e-6 by default; a last
+argument ``none`` runs it without the plan), packed
 D-Adam (``backend='pallas'``, interpret mode on the CPU) at p=2 on a
 ``Mesh(devices.reshape(2, 2), ("worker", "model"))`` (Auto axes: the 2D
 path fails on ``jax.make_mesh``'s Explicit ones), with
@@ -35,20 +38,23 @@ ETA, PERIOD = 1e-3, 2
 
 def main():
     inputs, out, steps = sys.argv[1], sys.argv[2], int(sys.argv[3])
-    arch = get_reduced("llama3.2-1b")
+    arch = get_reduced(sys.argv[4] if len(sys.argv) > 4 else "llama3.2-1b")
     arch = dataclasses.replace(arch, model=dataclasses.replace(
         arch.model, compute_dtype=jnp.float32))
     api = build_model(arch.model)
     mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2),
                 ("worker", "model"))
+    tau = float(sys.argv[5]) if len(sys.argv) > 5 else 1e-6
     opt = make_optimizer("d-adam", K=2, backend="pallas", comm="axis",
-                         mesh=mesh, eta=ETA, period=PERIOD)
-    plan = make_plan(arch, mesh, multi_pod=False, mode="axis")
+                         mesh=mesh, eta=ETA, period=PERIOD, tau=tau)
+    plan = (None if sys.argv[6:7] == ["none"]
+            else make_plan(arch, mesh, multi_pod=False, mode="axis"))
     trainer = DecentralizedTrainer(lambda p, b: api.loss(p, b), opt,
                                    plan=plan)
     params = api.init(jax.random.PRNGKey(0))
     data = np.load(inputs)
-    batches = [{"tokens": jnp.asarray(data[f"tokens{t}"])}
+    batches = [{k: jnp.asarray(data[f"{k}{t}"])
+                for k in ("tokens", "patches") if f"{k}{t}" in data}
                for t in range(steps)]
     state = trainer.init(params)
     state, log = trainer.fit(state, iter(batches), steps, log_every=1)

@@ -915,6 +915,27 @@ def test_cuda_axis_two_ranks_match_stacked_host_staged(cuda, tmp_path):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "llama4-maverick-400b-a17b"])
+def test_cuda_planned_moe_layer_matches_its_cpu_forward(cuda, arch):
+    """The sharding plan's MoE layer on the card (a K=1 x M=2 gloo group
+    of two ranks sharing it; the router's f32 row-parallel product, the
+    experts' batched products cut on d_ff or d_model, the combine before
+    the sum) against the whole layer's plain forward on the CPU, at the
+    reduced config and f32 compute: the same kept pairs, the output and
+    the aux loss within 2e-5."""
+    import _plan_ranks as pr
+    from repro_torch.launch.mesh import spawn
+
+    for r in spawn(pr.cuda_moe_rank, 2, (arch,), timeout_s=300):
+        assert r["keep_equal"]
+        np.testing.assert_allclose(r["out"], r["out_cpu"], rtol=2e-5,
+                                   atol=2e-5)
+        np.testing.assert_allclose(r["aux"], r["aux_cpu"], rtol=2e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.gpu
 def test_cuda_invariant_gate_passes(cuda):
     """``python -m repro_torch.analysis.check`` on the card: every training
     layout's period (the stacked ones with their exact launches, the axis

@@ -194,12 +194,13 @@ def test_stack_params_with_an_injected_init():
 
 def test_trainer_options_not_ported_raise():
     opt = make_optimizer("d-adam", K, device="cpu")
-    # plan is ported for the dense family (tests/test_torch_plan.py): a
-    # real plan is accepted, and outside the 2D packed mode it changes
-    # nothing, as in JAX; on that mode a family that is not dense raises
-    # (the MoE and vision-language slices come next). sharded_loss is the
-    # 2D layout's (tests/test_torch_grad_2d.py) and, without a 2D
-    # optimizer, is not used, as in JAX
+    # plan is ported for the dense, MoE and vision-language families
+    # (tests/test_torch_plan.py, tests/test_torch_plan_moe.py): a real plan
+    # is accepted, and outside the 2D packed mode it changes nothing, as
+    # in JAX; on that mode the ssm, hybrid and audio families raise (their
+    # slices come next). sharded_loss is the 2D layout's
+    # (tests/test_torch_grad_2d.py) and, without a 2D optimizer, is not
+    # used, as in JAX
     from repro_torch.configs import get_reduced
     from repro_torch.launch.mesh import WorkerGroup
     from repro_torch.launch.shardings import make_plan
@@ -213,9 +214,11 @@ def test_trainer_options_not_ported_raise():
                            group=wg)
     assert DecentralizedTrainer(deepfm.deepfm_loss, opt2d,
                                 plan=plan).pipeline.mode == "planned"
+    assert DecentralizedTrainer(deepfm.deepfm_loss, opt2d, plan=make_plan(
+        get_reduced("phi3.5-moe-42b-a6.6b"), wg)).pipeline.mode == "planned"
     with pytest.raises(NotImplementedError, match="ROADMAP queue 4.3"):
         DecentralizedTrainer(deepfm.deepfm_loss, opt2d, plan=make_plan(
-            get_reduced("phi3.5-moe-42b-a6.6b"), wg))
+            get_reduced("rwkv6-3b"), wg))
     # recompile_limit is ported (tests/test_torch_recompile.py)
     watch = DecentralizedTrainer(deepfm.deepfm_loss, opt,
                                  recompile_limit=2).recompile_watch
